@@ -1,0 +1,398 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port of AerialDB on one GPU, end to end.
+
+    python3 chip_smoke.py                  # full run (needs one CUDA card)
+    python3 chip_smoke.py --rounds 24      # shallower ingest, same widths
+
+Phases, one line each:
+  1. environment: card name and power limit (nvidia-smi), torch / CUDA
+     versions, kernel build time (one nvcc per csrc/*.cu, all at once);
+  2. hash64 and voronoi_assign against their plain PyTorch versions on the
+     card (bitwise), and against the pure-Python / float64 oracles;
+  3. the main path at full width — the paper's D400 deployment (400 drones,
+     80 edges, 60-sample shards every 5 min, 4 channels, replication 3):
+     open, fused ingest of one day (288 rounds), then three 64-query AND
+     batches at the paper's §4.5.1 sizes, single- and 4-channel. Checks the
+     answers on retained windows against a numpy oracle over the generated
+     payloads and that every kernel's launch count grew;
+  4. st_scan against its plain version on the main path's own scan inputs,
+     then per-kernel timings (CUDA events) beside their bounds, printed as
+     one JSON line.
+The last line is {"ok": true, "device": {...}}; any failure exits non-zero
+before it. Imports only torch, numpy and the port (``src/repro_torch``).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
+FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
+QUERY_SIZES = ((0.2, 300.0), (1.0, 1800.0), (5.0, 7200.0))   # paper §4.5.1
+RECENT_S = 1800.0              # windows retained on every replica
+
+
+def cuda_ms(torch, fn, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` calls (CUDA events)."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def profile(torch, fn, top: int = 12) -> dict:
+    """Wall time of one ``fn()`` (synchronised) and its device time by
+    kernel name (torch.profiler), with the device's busy share."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        # Device-side activities only (CPU ops would count their kernels
+        # twice); CUPTI's own buffer markers are not work.
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or "Buffer" in ev.key:
+            continue
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key[:60]))
+    rows.sort(reverse=True)
+    busy_ms = sum(r[0] for r in rows)
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:top]]}
+
+
+def phase(name: str, **fields) -> None:
+    print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rounds", type=int, default=288,
+                    help="collection rounds to ingest (288 = one day)")
+    ap.add_argument("--chunk", type=int, default=24,
+                    help="rounds per ingest_rounds call")
+    ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--profile", action="store_true",
+                    help="after the main path, print the device-time "
+                         "breakdown (torch.profiler) of one ingest chunk "
+                         "and one 4-channel query batch")
+    args = ap.parse_args(argv)
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "runs only on a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core import hashing, voronoi
+    from repro_torch.core.datastore import (AggSpec, StoreConfig, make_pred,
+                                            plan_subqueries)
+    from repro_torch.data.synthetic import (CityConfig, DroneFleet,
+                                            make_query_workload, make_sites)
+    from repro_torch.kernels import build
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.hash64.ref import xxh64_mod_py
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.st_scan.ref import st_scan_ref
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    from repro_torch.kernels.voronoi_assign.ref import (top2_relative_gap,
+                                                        voronoi_assign_ref)
+
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    # -- 1. environment --------------------------------------------------
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    print(smi, flush=True)
+    build_s = build.build_all()
+    phase("environment", nvidia_smi=smi, torch=torch.__version__,
+          cuda=torch.version.cuda, device=torch.cuda.get_device_name(0),
+          build_s=build_s,
+          ptxas={k: build.ptxas_report(k) for k in build.KERNELS})
+
+    # -- 2. hash64 and voronoi against their plain versions ----------------
+    rng = np.random.default_rng(args.seed)
+    n_keys = 1 << 20
+    hi = torch.from_numpy(rng.integers(-2**31, 2**31, n_keys).astype(np.int32)).to(dev)
+    lo = torch.from_numpy(rng.integers(-2**31, 2**31, n_keys).astype(np.int32)).to(dev)
+    hash_bad = 0
+    for n in (1, 8, 80, 65535):
+        for h in (hi, None):
+            got = hash64_ops.xxh64_mod_cuda(h, lo, n)
+            want = hashing.xxh64_mod_plain(h, lo, n)
+            hash_bad += int((got != want).sum())
+    few = 1000
+    got = hash64_ops.xxh64_mod_cuda(hi[:few], lo[:few], 80).cpu().numpy()
+    oracle_bad = int((got != xxh64_mod_py(hi[:few].cpu().numpy(),
+                                          lo[:few].cpu().numpy(), 80)).sum())
+    if hash_bad or oracle_bad:
+        raise SystemExit(f"hash64 disagrees: {hash_bad} vs plain, "
+                         f"{oracle_bad} vs oracle")
+
+    city = CityConfig()
+    sites_np = make_sites(80, city, seed=3)
+    sites = torch.from_numpy(sites_np).to(dev)
+    cell = 0.01     # the slice grid: every cell centre of the city
+    ci = np.arange(int(city.lat_min / cell), int(city.lat_max / cell) + 1)
+    cj = np.arange(int(city.lon_min / cell), int(city.lon_max / cell) + 1)
+    glat = ((ci[:, None] + 0.5) * cell + 0 * cj[None, :]).astype(np.float32)
+    glon = ((cj[None, :] + 0.5) * cell + 0 * ci[:, None]).astype(np.float32)
+    la, lo_c = torch.from_numpy(glat).to(dev), torch.from_numpy(glon).to(dev)
+    got = vor_ops.voronoi_assign_cuda(la, lo_c, sites).reshape(-1)
+    pts = torch.stack([la.reshape(-1), lo_c.reshape(-1)], -1)
+    plain = voronoi.voronoi_assign(pts, sites)
+    pts_np = pts.cpu().numpy()
+    clear = top2_relative_gap(pts_np, sites_np) > 1e-6
+    vor_bad = int((got != plain)[torch.from_numpy(clear).to(dev)].sum())
+    vor_oracle_bad = int((got.cpu().numpy() != voronoi_assign_ref(
+        pts_np, sites_np))[clear].sum())
+    if vor_bad or vor_oracle_bad:
+        raise SystemExit(f"voronoi_assign disagrees: {vor_bad} vs plain, "
+                         f"{vor_oracle_bad} vs float64 oracle")
+    phase("kernels_vs_plain", hash64_keys=n_keys * 8, hash64_mismatch=0,
+          hash64_oracle_keys=few, voronoi_points=int(pts.shape[0]),
+          voronoi_clear=int(clear.sum()),
+          voronoi_mismatch_all=int((got != plain).sum()))
+
+    # -- 3. the main path at full width ----------------------------------
+    cfg = StoreConfig(n_edges=80, sites=tuple(map(tuple, sites_np.tolist())),
+                      tuple_capacity=1 << 18, index_capacity=1 << 15,
+                      max_shards_per_query=128, records_per_shard=60,
+                      n_values=4, replication=3, planner="min_shards")
+    fleet = DroneFleet(400, city, records_per_shard=60, n_values=4,
+                       seed=args.seed)
+    t0 = time.perf_counter()
+    payloads, metas = fleet.next_rounds(args.rounds)
+    gen_s = time.perf_counter() - t0
+
+    for mod in (hash64_ops, vor_ops, st_ops):
+        mod.launches = 0
+    db = AerialDB.open(cfg, device="cuda")
+    chunks = [slice(a, min(a + args.chunk, args.rounds))
+              for a in range(0, args.rounds, args.chunk)]
+
+    def ingest(sl):
+        db.ingest_rounds(payloads[sl], type(metas)(*(f[sl] for f in metas)))
+
+    ingest(chunks[0])                  # warm-up chunk, not timed
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    w0 = time.perf_counter()
+    ev0.record()
+    for sl in chunks[1:]:
+        ingest(sl)
+    ev1.record()
+    ev1.synchronize()
+    wall = time.perf_counter() - w0
+    timed_rounds = args.rounds - (chunks[0].stop - chunks[0].start)
+    ingest_s = ev0.elapsed_time(ev1) / 1e3
+    shards = timed_rounds * fleet.n_drones
+    tuples = shards * cfg.records_per_shard
+
+    t_end = float(payloads[..., 0].max())
+    qrng = np.random.default_rng(args.seed + 1)
+    batches = []
+    for km, win in QUERY_SIZES:
+        w = make_query_workload(qrng, 64, city, t_end, km, win)
+        recent = win <= RECENT_S
+        if recent:     # anchor the window inside the last 30 minutes
+            w["t0"] = qrng.uniform(t_end - RECENT_S, t_end - win, 64).astype(np.float32)
+            w["t1"] = (w["t0"] + np.float32(win)).astype(np.float32)
+        batches.append((km, win, recent, w))
+    specs = (AggSpec(channel=0), AggSpec(channels=(0, 1, 2, 3)))
+    results, times = {}, []
+    for rep in range(3):
+        for bi, (km, win, recent, w) in enumerate(batches):
+            pred = make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                             is_and=True, device=dev)
+            for si, spec in enumerate(specs):
+                torch.cuda.synchronize()
+                q0 = time.perf_counter()
+                res, info = db.query(pred, agg=spec)
+                torch.cuda.synchronize()
+                if rep > 0:            # repetition 0 is the warm-up
+                    times.append((time.perf_counter() - q0) * 1e3)
+                results[(bi, si)] = (res, info)
+    launches = {"hash64": hash64_ops.launches,
+                "voronoi_assign": vor_ops.launches,
+                "st_scan": st_ops.launches}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"a kernel never launched on the main path: {launches}")
+
+    # Correctness: shapes, finiteness, and exact answers on retained windows.
+    flat = payloads.reshape(-1, payloads.shape[-1]).astype(np.float64)
+    flat = flat[flat[:, 0] >= t_end - RECENT_S - 600]
+    checked = overflowed = 0
+    for (bi, si), (res, info) in results.items():
+        k = specs[si].n_channels
+        assert res.count.shape == (64,) and res.vsum.shape == ((64,) if k == 1 else (64, k))
+        cnt = res.count.cpu().numpy()
+        some = cnt > 0
+        for a in (res.vsum, res.vmin, res.vmax, res.vmean):
+            a = a.cpu().numpy().reshape(64, -1)
+            if not np.isfinite(a[some]).all():
+                raise SystemExit("non-finite aggregate on a matching query")
+        km, win, recent, w = batches[bi]
+        if not recent:
+            continue
+        ovf = res.overflow.cpu().numpy()
+        vs = res.vsum.cpu().numpy().reshape(64, -1)
+        for qi in range(64):
+            if ovf[qi]:
+                overflowed += 1
+                continue
+            m = ((w["lat0"][qi] <= flat[:, 1]) & (flat[:, 1] <= w["lat1"][qi])
+                 & (w["lon0"][qi] <= flat[:, 2]) & (flat[:, 2] <= w["lon1"][qi])
+                 & (w["t0"][qi] <= flat[:, 0]) & (flat[:, 0] <= w["t1"][qi]))
+            if int(m.sum()) != int(cnt[qi]):
+                raise SystemExit(f"batch {bi} query {qi}: count {cnt[qi]} != "
+                                 f"oracle {int(m.sum())}")
+            want = flat[m][:, 3:3 + k].sum(0)
+            np.testing.assert_allclose(vs[qi], want, rtol=1e-5)
+            checked += 1
+    st = db.state
+    phase("main_path", rounds=args.rounds, timed_rounds=timed_rounds,
+          gen_s=gen_s, ingest_device_s=ingest_s, ingest_wall_s=wall,
+          shards_per_s=shards / ingest_s, tuples_per_s=tuples / ingest_s,
+          query_batch_p50_ms=float(np.median(times)),
+          query_batch_ms=[float(t) for t in times],
+          queries_checked_exact=checked, queries_overflowed=overflowed,
+          matched_queries=int(sum(int((r.count > 0).sum()) for r, _ in results.values())),
+          index_dropped=int(st.index.dropped.sum()),
+          index_retired=int(st.index.retired.sum()),
+          tup_overwritten=int(st.tup_overwritten.sum()),
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          launches=launches)
+
+    if args.profile:
+        extra = fleet.next_rounds(args.chunk)
+        pred = make_pred(q=64, **batches[2][3], has_spatial=True,
+                         has_temporal=True, is_and=True, device=dev)
+        phase("profile_ingest", **profile(torch, lambda: db.ingest_rounds(*extra)))
+        phase("profile_query", **profile(torch, lambda: db.query(pred, agg=specs[1])))
+
+    # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------
+    alive = db.alive
+    km, win, recent, w = batches[2]
+    pred = make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                     is_and=True, device=dev)
+    rows = tuple(3 + c for c in specs[1].channels)
+    scan_err = 0.0
+    for bi in range(3):
+        p = make_pred(q=64, **batches[bi][3], has_spatial=True,
+                      has_temporal=True, is_and=True, device=dev)
+        subl, slen, _ = plan_subqueries(cfg, st, p, alive)
+        args_scan = (st.tup_f, st.tup_sid, st.tup_count, p, subl, slen)
+        got = st_ops.st_scan_cuda(*args_scan, rows, cfg.tuple_capacity)
+        want = st_scan_ref(*args_scan, channels=specs[1].channels,
+                           valid_c=cfg.tuple_capacity)
+        for name, g, x in zip(("count", "vsum", "vmin", "vmax"), got, want):
+            if name == "vsum":
+                torch.testing.assert_close(g, x, rtol=1e-5, atol=0)
+                scan_err = max(scan_err, float((g - x).abs().max()))
+            elif not torch.equal(g, x):
+                raise SystemExit(f"st_scan {name} differs from plain (batch {bi})")
+    subl, slen, _ = plan_subqueries(cfg, st, pred, alive)
+    scan_args = (st.tup_f, st.tup_sid, st.tup_count, pred, subl, slen)
+    n_valid = torch.clamp(st.tup_count, max=cfg.tuple_capacity).double()
+    selected = (slen != 0).any(dim=0)
+    scan_bytes = float((n_valid * selected).sum()) * (5 + len(rows)) * 4 \
+        + sum(t.numel() * 4 for t in (subl, slen)) + 64 * 80 * 4 * (1 + 3 * len(rows))
+    scan_ms = cuda_ms(torch, lambda: st_ops.st_scan_cuda(
+        *scan_args, rows, cfg.tuple_capacity), 20)
+    scan_plain_ms = cuda_ms(torch, lambda: st_scan_ref(
+        *scan_args, channels=specs[1].channels, valid_c=cfg.tuple_capacity), 1)
+    scan_k1_ms = cuda_ms(torch, lambda: st_ops.st_scan_cuda(
+        *scan_args, (3,), cfg.tuple_capacity), 20)
+
+    # hash64 at the insert's temporal-slice shape (B x max_t_slices H_t keys).
+    buckets = hashing.time_bucket(torch.from_numpy(metas.t0[-1]).to(dev),
+                                  cfg.tau)[:, None] + torch.arange(
+        16, dtype=torch.int32, device=dev)
+    h_ms = cuda_ms(torch, lambda: hash64_ops.xxh64_mod_cuda(None, buckets, 80), 200)
+    h_plain = cuda_ms(torch, lambda: hashing.xxh64_mod_plain(None, buckets, 80), 50)
+    h_bytes = buckets.numel() * 8
+    h_err = int((hash64_ops.xxh64_mod_cuda(None, buckets, 80)
+                 != hashing.xxh64_mod_plain(None, buckets, 80)).sum())
+
+    # voronoi at the insert's spatial-slice shape (B x 16 x 16 cell centres).
+    i0 = torch.floor(torch.from_numpy(metas.lat0[-1]).to(dev) / cell)
+    j0 = torch.floor(torch.from_numpy(metas.lon0[-1]).to(dev) / cell)
+    ks = torch.arange(16, device=dev, dtype=torch.float32)
+    vlat = ((i0[:, None] + ks + 0.5) * cell)[:, :, None].expand(-1, 16, 16).contiguous()
+    vlon = ((j0[:, None] + ks + 0.5) * cell)[:, None, :].expand(-1, 16, 16).contiguous()
+    v_ms = cuda_ms(torch, lambda: vor_ops.voronoi_assign_cuda(vlat, vlon, sites), 200)
+    vpts = torch.stack([vlat.reshape(-1), vlon.reshape(-1)], -1)
+    v_plain = cuda_ms(torch, lambda: voronoi.voronoi_assign(vpts, sites), 50)
+    c, sc, _ = voronoi.centred_sites(sites)
+    vpc = vpts - c
+    v_lib = cuda_ms(torch, lambda: torch.cdist(vpc, sc).argmin(1), 50)
+    v_err = int((vor_ops.voronoi_assign_cuda(vlat, vlon, sites).reshape(-1)
+                 != voronoi.voronoi_assign(vpts, sites)).sum())
+    n_pts, n_e = vpts.shape[0], sites.shape[0]
+    v_ops = n_pts * (6 * n_e + 2)
+
+    def bound(bytes_, ops=0.0):
+        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+
+    kernels = []
+    for name, route, src, replaces, ms, plain_ms, (b_ms, b_by), lib_ms, err in (
+            ("st_scan", "cuda", "src/repro_torch/csrc/st_scan.cu",
+             "src/repro/kernels/st_scan/st_scan.py:109", scan_ms, scan_plain_ms,
+             bound(scan_bytes), None, scan_err),
+            ("hash64", "cuda", "src/repro_torch/csrc/hash64.cu",
+             "src/repro/kernels/hash64/hash64.py:28", h_ms, h_plain,
+             bound(h_bytes), None, float(h_err)),
+            ("voronoi_assign", "cuda", "src/repro_torch/csrc/voronoi_assign.cu",
+             "src/repro/kernels/voronoi_assign/voronoi_assign.py:32", v_ms,
+             v_plain, bound(n_pts * 12, v_ops), v_lib, float(v_err))):
+        kernels.append({"name": name, "route": route, "source": src,
+                        "replaces": replaces, "launches": launches[name],
+                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms})
+    phase("kernel_timings", st_scan_k1_ms=scan_k1_ms,
+          st_scan_shape={"E": 80, "C": cfg.padded_capacity, "Q": 64,
+                         "L": cfg.max_shards_per_query, "K": len(rows),
+                         "selected_edges": int(selected.sum())},
+          hash64_keys=int(buckets.numel()), voronoi_points=int(n_pts))
+    if h_err or v_err:
+        raise SystemExit(f"kernel disagrees at timing shapes: hash64 {h_err}, "
+                         f"voronoi {v_err}")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

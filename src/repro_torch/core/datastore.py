@@ -1,0 +1,625 @@
+"""AerialDB datastore, single device: insert and decentralized query (§3).
+
+Port of ``repro.core.datastore`` for one device (``edge_ids = arange(E)``,
+identity collectives). Same state layout:
+
+  tup_f:   (E, 3+V, CAP_L) float32   COLUMN-MAJOR tuple log (tuple axis last)
+  tup_sid: (E, 2, CAP_L)   int32     owning shard id rows (hi, lo)
+  tup_count: (E,)          int32     total tuples ever written (monotonic)
+  tup_pos: (E,)            int32     ring write cursor in [0, capacity)
+  tup_overwritten, tup_dropped: (E,) retention / loss telemetry
+  steps: ()                int32     insert steps executed
+  latest_f, latest_seen              latest-per-drone cache (size 0 here)
+  index:   IndexState                sliced distributed index (index.py)
+
+``CAP_L`` is ``tuple_capacity`` rounded up to a multiple of 128; ring slots
+are taken modulo the LOGICAL capacity and the scan admits only
+``slot < min(tup_count, tuple_capacity)``. Every ``retention_every``-th
+insert derives per-edge watermarks and retires + compacts index entries.
+Exactness under retention holds for windows retained on every replica.
+
+Differences from the JAX package, none visible in results:
+
+* State is updated IN PLACE (``insert_local`` writes the log and the index
+  tensors it is given and returns them): the log is the bulk of device
+  memory, and a functional copy per insert would double it. Keep a clone of
+  a state you still need before inserting into it.
+* The retention sweep branches on ``host_step``, a host-side mirror of
+  ``state.steps`` that the caller advances by one per insert, so the ingest
+  loop never reads a device scalar.
+* Writes avoid scatter drop sentinels (torch has none, and masking rows out
+  would sync): each edge's new tuples land on a window of consecutive ring
+  slots, rewritten with their old contents where no tuple arrives.
+* ``max_drones > 0`` (the latest-per-drone cache) and the ``random`` planner
+  are not ported yet (ROADMAP Queue 1) and raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from functools import lru_cache
+from typing import NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core import hashing, planner as planner_lib
+from repro_torch.core.index import (IndexState, QueryPred, compact_index,
+                                    init_index, insert_entries, lookup,
+                                    retire_entries, selected_order)
+from repro_torch.core.placement import ShardMeta, place_replicas
+from repro_torch.core.slicing import (SliceConfig, spatial_slice_edges,
+                                      temporal_slice_edges)
+from repro_torch.data.synthetic import CityConfig
+from repro_torch.device import resolve_device
+from repro_torch.kernels.st_scan import ops as st_ops
+
+
+def _default_site_grid(n_edges: int) -> Tuple[Tuple[float, float], ...]:
+    """Deterministic lat/lon grid over the synthetic-city bbox, slightly
+    inset — used when ``sites`` is left empty."""
+    city = CityConfig()
+    pad_lat = 0.08 * (city.lat_max - city.lat_min)
+    pad_lon = 0.08 * (city.lon_max - city.lon_min)
+    rows = int(np.ceil(np.sqrt(n_edges)))
+    cols = int(np.ceil(n_edges / rows))
+    lat = np.linspace(city.lat_min + pad_lat, city.lat_max - pad_lat, rows)
+    lon = np.linspace(city.lon_min + pad_lon, city.lon_max - pad_lon, cols)
+    grid = [(float(la), float(lo)) for la in lat for lo in lon]
+    return tuple(grid[:n_edges])
+
+
+@dataclasses.dataclass(frozen=True)
+class StoreConfig:
+    """Static configuration of an AerialDB deployment."""
+    n_edges: int = 20
+    sites: Tuple[Tuple[float, float], ...] = ()   # (E, 2) edge locations
+    tau: float = 300.0
+    slice_cfg: SliceConfig = SliceConfig()
+    tuple_capacity: int = 1 << 14                 # ring-buffer slots per edge
+    index_capacity: int = 1 << 12                 # index entries per edge
+    max_shards_per_query: int = 128               # S
+    records_per_shard: int = 60                   # R (paper: 60 samples / 5 min)
+    n_values: int = 4                             # sensor channels per tuple
+    replication: int = 3                          # 1 => Feather-like baseline
+    use_index: bool = True                        # False => broadcast baseline
+    planner: str = "min_shards"
+    or_group: int = 150                           # paper: sub-queries split at 150 sids
+    retention_every: int = 4                      # insert steps between index sweeps
+    n_failure_domains: int = 1                    # contiguous device blocks to spread
+                                                  # each shard's replicas across
+    max_drones: int = 0                           # latest-per-drone hot-cache rows
+                                                  # (0 disables the cache)
+
+    def __post_init__(self):
+        if not (1 <= self.replication <= 3):
+            raise ValueError(
+                f"replication={self.replication} is unsupported: index entries "
+                "carry exactly 3 replica slots (paper §3.4.2); pass "
+                "1 <= replication <= 3.")
+        if not self.use_index and self.replication != 1:
+            raise ValueError(
+                f"use_index=False with replication={self.replication} would "
+                f"overcount results ~{self.replication}x: the broadcast "
+                "baseline has no shard scoping, so every replica edge scans "
+                "every tuple. Use replication=1 for the Feather-like "
+                "baseline, or keep the index enabled.")
+        if self.retention_every < 1:
+            raise ValueError(
+                f"retention_every={self.retention_every} must be >= 1 (index "
+                "retention sweeps run every retention_every insert steps).")
+        if self.max_drones < 0:
+            raise ValueError(
+                f"max_drones={self.max_drones} must be >= 0: it sizes the "
+                "latest-per-drone hot cache (0 disables it; drone ids >= "
+                "max_drones are not cached).")
+        if self.n_failure_domains < 1 or self.n_edges % self.n_failure_domains:
+            raise ValueError(
+                f"n_failure_domains={self.n_failure_domains} must be >= 1 and "
+                f"divide n_edges={self.n_edges}: failure domains are the "
+                "contiguous device blocks of the sharded layout contract "
+                "(one block of E / n_failure_domains edges each).")
+        if not self.sites:
+            object.__setattr__(self, "sites", _default_site_grid(self.n_edges))
+        elif len(self.sites) != self.n_edges:
+            raise ValueError(
+                f"sites has {len(self.sites)} entries but n_edges="
+                f"{self.n_edges}; pass one (lat, lon) per edge or leave "
+                "sites=() for a deterministic default grid.")
+
+    @property
+    def tuple_width(self) -> int:
+        return 3 + self.n_values
+
+    @property
+    def padded_capacity(self) -> int:
+        """Stored size of the tuple axis: ``tuple_capacity`` rounded up to a
+        multiple of 128. Slots >= ``tuple_capacity`` are never written."""
+        return -(-self.tuple_capacity // 128) * 128
+
+    def sites_array(self, device="cpu") -> torch.Tensor:
+        """(E, 2) float32 site tensor on ``device``, made once per
+        (config, device): the hot paths take it without a host copy."""
+        return _sites_on(self, torch.device(device))
+
+
+@lru_cache(maxsize=None)
+def _sites_on(cfg: StoreConfig, device: torch.device) -> torch.Tensor:
+    return torch.as_tensor(
+        np.asarray(cfg.sites, np.float32).reshape(cfg.n_edges, 2),
+        device=device)
+
+
+class StoreState(NamedTuple):
+    index: IndexState
+    tup_f: torch.Tensor
+    tup_sid: torch.Tensor
+    tup_count: torch.Tensor
+    tup_pos: torch.Tensor
+    tup_overwritten: torch.Tensor
+    tup_dropped: torch.Tensor
+    steps: torch.Tensor
+    latest_f: torch.Tensor
+    latest_seen: torch.Tensor
+
+
+# The monotonic counter saturates here instead of wrapping int32 negative.
+_COUNT_SAT = (1 << 31) - (1 << 26)
+
+AGG_OPS = ("count", "sum", "min", "max", "mean")
+
+
+@dataclasses.dataclass(frozen=True, init=False)
+class AggSpec:
+    """Static aggregation spec: which sensor channel(s) to aggregate (one
+    scan serves them all) and which aggregates the caller asked for. A
+    single-channel spec produces (Q,)-shaped aggregates, a multi-channel
+    spec (Q, K)."""
+    channels: Tuple[int, ...] = (0,)
+    ops: Tuple[str, ...] = AGG_OPS
+
+    def __init__(self, channel: Optional[int] = None,
+                 ops: Tuple[str, ...] = AGG_OPS,
+                 channels: Optional[Tuple[int, ...]] = None):
+        if channel is not None and channels is not None:
+            raise ValueError(
+                "pass channel= (single) OR channels= (batched), not both.")
+        if channels is None:
+            channels = (0 if channel is None else channel,)
+        if isinstance(channels, int):
+            channels = (channels,)
+        channels = tuple(int(c) for c in channels)
+        ops = (ops,) if isinstance(ops, str) else tuple(ops)
+        object.__setattr__(self, "channels", channels)
+        object.__setattr__(self, "ops", ops)
+        unknown = [op for op in self.ops if op not in AGG_OPS]
+        if unknown:
+            raise ValueError(
+                f"unknown aggregate op(s) {unknown}: pick from {AGG_OPS}.")
+        if not self.ops:
+            raise ValueError("AggSpec.ops is empty: request at least one of "
+                             f"{AGG_OPS}.")
+        if not self.channels:
+            raise ValueError("AggSpec.channels is empty: select at least one "
+                             "sensor channel.")
+        if len(set(self.channels)) != len(self.channels):
+            raise ValueError(
+                f"channels={self.channels} contains duplicates: each channel "
+                "is aggregated once per scan; deduplicate the request.")
+        for c in self.channels:
+            if c < 0:
+                raise ValueError(f"channel={c} must be >= 0.")
+
+    @property
+    def channel(self) -> int:
+        return self.channels[0]
+
+    @property
+    def n_channels(self) -> int:
+        return len(self.channels)
+
+    def validate_for(self, cfg: StoreConfig) -> "AggSpec":
+        for c in self.channels:
+            if c >= cfg.n_values:
+                raise ValueError(
+                    f"channel={c} out of range: this deployment stores "
+                    f"n_values={cfg.n_values} sensor channels per tuple "
+                    f"(valid channels 0..{cfg.n_values - 1}).")
+        return self
+
+
+class QueryResult(NamedTuple):
+    """Fixed-shape query answer; value aggregates are NaN for queries that
+    matched nothing."""
+    count: torch.Tensor    # (Q,) int32
+    vsum: torch.Tensor     # (Q[, K]) float32
+    vmin: torch.Tensor     # (Q[, K]) float32 (NaN when count==0)
+    vmax: torch.Tensor     # (Q[, K]) float32 (NaN when count==0)
+    overflow: torch.Tensor  # (Q,) bool — matched shards exceeded the budget
+    vmean: torch.Tensor = None
+    completeness_bound: torch.Tensor = None
+    replicas_lost: torch.Tensor = None
+
+    def view(self, agg: AggSpec) -> dict:
+        """The aggregates the spec asked for plus the degradation telemetry."""
+        full = {"count": self.count, "sum": self.vsum, "min": self.vmin,
+                "max": self.vmax, "mean": self.vmean}
+        out = {op: full[op] for op in agg.ops}
+        out["completeness_bound"] = self.completeness_bound
+        out["replicas_lost"] = self.replicas_lost
+        return out
+
+
+class QueryInfo(NamedTuple):
+    """Per-query telemetry (see ``repro.core.datastore.QueryInfo``)."""
+    lookup_edges: torch.Tensor
+    subquery_edges: torch.Tensor
+    shards_matched: torch.Tensor
+    max_shards_per_edge: torch.Tensor
+    broadcast: torch.Tensor
+    replicas_lost: torch.Tensor
+    completeness_bound: torch.Tensor
+
+
+def _host(x, q):
+    """Host numpy view of a make_pred input broadcast to (q,), or None for a
+    CUDA tensor (validating it would sync)."""
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            return None
+        x = x.numpy()
+    try:
+        return np.broadcast_to(np.asarray(x), (q,))
+    except ValueError:
+        return None
+
+
+def _check_ranges(q, pairs, enabled, is_and):
+    """Reject inverted ranges under an AND predicate (they would match
+    nothing, silently). OR predicates are exempt."""
+    en, am = _host(enabled, q), _host(is_and, q)
+    if en is None or am is None:
+        return
+    en = en.astype(bool) & am.astype(bool)
+    if not en.any():
+        return
+    for name, lo, hi in pairs:
+        lo, hi = _host(lo, q), _host(hi, q)
+        if lo is None or hi is None:
+            continue
+        bad = en & (lo > hi)
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise ValueError(
+                f"inverted {name} range for query {i}: "
+                f"{name}0={float(lo[i])} > {name}1={float(hi[i])}. Inverted "
+                "ranges match nothing under an AND predicate; swap the "
+                "bounds (ranges are inclusive [lo, hi]).")
+
+
+def make_pred(q: int = 1, lat0=0.0, lat1=0.0, lon0=0.0, lon1=0.0, t0=0.0,
+              t1=0.0, sid_hi=-1, sid_lo=-1, has_spatial=False,
+              has_temporal=False, has_sid=False, is_and=True,
+              device="cuda") -> QueryPred:
+    """Batched QueryPred on ``device``, broadcasting scalars to (q,).
+    Inverted ranges under an AND predicate raise; the host inputs are
+    checked before anything moves to the device."""
+    dev = resolve_device(device)
+    _check_ranges(q, [("lat", lat0, lat1), ("lon", lon0, lon1)],
+                  has_spatial, is_and)
+    _check_ranges(q, [("t", t0, t1)], has_temporal, is_and)
+
+    def arr(x, dt):
+        a = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
+                            else x).to(device=dev, dtype=dt)
+        return a.expand(q).clone() if a.dim() == 0 else a.contiguous()
+    return QueryPred(
+        lat0=arr(lat0, torch.float32), lat1=arr(lat1, torch.float32),
+        lon0=arr(lon0, torch.float32), lon1=arr(lon1, torch.float32),
+        t0=arr(t0, torch.float32), t1=arr(t1, torch.float32),
+        sid_hi=arr(sid_hi, torch.int32), sid_lo=arr(sid_lo, torch.int32),
+        has_spatial=arr(has_spatial, torch.bool),
+        has_temporal=arr(has_temporal, torch.bool),
+        has_sid=arr(has_sid, torch.bool), is_and=arr(is_and, torch.bool))
+
+
+def pred_to(pred: QueryPred, device) -> QueryPred:
+    """The predicate's fields on ``device`` (no copy where already there)."""
+    return QueryPred(*(f.to(device) for f in pred))
+
+
+def init_store(cfg: StoreConfig, device="cuda") -> StoreState:
+    dev = resolve_device(device)
+    e = cfg.n_edges
+
+    def z(shape, dt, fill=0):
+        return torch.full(shape, fill, dtype=dt, device=dev)
+    return StoreState(
+        index=init_index(e, cfg.index_capacity, dev),
+        tup_f=z((e, cfg.tuple_width, cfg.padded_capacity), torch.float32),
+        tup_sid=z((e, 2, cfg.padded_capacity), torch.int32, -1),
+        tup_count=z((e,), torch.int32),
+        tup_pos=z((e,), torch.int32),
+        tup_overwritten=z((e,), torch.int32),
+        tup_dropped=z((e,), torch.int32),
+        steps=z((), torch.int32),
+        latest_f=z((cfg.max_drones, cfg.tuple_width), torch.float32),
+        latest_seen=z((cfg.max_drones,), torch.int32, -1),
+    )
+
+
+# ---------------------------------------------------------------------------
+# Insertion (paper §3.4, Fig 2)
+# ---------------------------------------------------------------------------
+
+def _index_edge_mask(cfg: StoreConfig, meta: ShardMeta, replicas: torch.Tensor,
+                     sites: torch.Tensor, alive: torch.Tensor) -> torch.Tensor:
+    """(B, E) — edges that must hold each shard's index entry: every spatial
+    and temporal slice owner plus the replica edges (§3.4.3); ranges wider
+    than the slice budget broadcast their entry."""
+    e = cfg.n_edges
+    sm, s_ovf = spatial_slice_edges(meta.lat0, meta.lat1, meta.lon0, meta.lon1,
+                                    sites, cfg.slice_cfg)
+    tm, t_ovf = temporal_slice_edges(meta.t0, meta.t1, e, cfg.slice_cfg)
+    eye = torch.arange(e, dtype=torch.int32, device=sites.device)
+    rep_mask = (replicas[..., None] == eye).any(dim=1)
+    mask = (sm | tm | rep_mask) | (s_ovf | t_ovf)[:, None]
+    return mask & alive[None, :]
+
+
+def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
+                 meta: ShardMeta, alive: torch.Tensor, host_step: int):
+    """Insert B shards (R tuples each): placement, replication, indexing.
+
+    ``payload`` (B, R, 3+V) float32, ``meta`` ShardMeta of (B,) tensors and
+    ``alive`` (E,) bool, all on the state's device; ``host_step`` is the
+    value of ``state.steps`` before this insert, mirrored on the host (the
+    retention cadence branches on it). Updates ``state`` IN PLACE and
+    returns ``(state, info dict)``; nothing is read back to the host.
+    """
+    if cfg.max_drones:
+        raise NotImplementedError(
+            "max_drones > 0 (the latest-per-drone cache) is not ported yet: "
+            "ROADMAP Queue 1 'latest cache'. Open the store with "
+            "max_drones=0.")
+    cap = cfg.tuple_capacity
+    dev = state.tup_f.device
+    e = cfg.n_edges
+    b, r, w = payload.shape
+    sites = cfg.sites_array(dev)
+    alive = alive.to(device=dev, dtype=torch.bool)
+    edge_ids = torch.arange(e, dtype=torch.int32, device=dev)
+
+    replicas = place_replicas(meta, sites, alive, cfg.tau,
+                              n_domains=cfg.n_failure_domains)
+    replicas = replicas[:, : cfg.replication]
+
+    # --- tuple dispatch: shard -> replica edges, appended at each ring cursor.
+    dm = (replicas[..., None] == edge_ids).any(dim=1) & alive[None, :]  # (B, E)
+    n_sel = dm.sum(dim=0, dtype=torch.int32)
+    n_in = n_sel * r                                                     # (E,)
+    # Slot j of edge e's write window is tuple j % R of its (j // R)-th
+    # selected shard; the window spans B*R <= cap distinct ring slots.
+    j = torch.arange(b * r, dtype=torch.int32, device=dev)[None, :]       # (1, J)
+    k = (j // r).long()
+    src = torch.gather(selected_order(dm).T, 1, k.expand(e, -1))          # (E, J)
+    ok = (k < n_sel[:, None])[..., None]                                  # (E, J, 1)
+    slot = ((state.tup_pos[:, None] + j) % cap).long()                    # (E, J)
+    ee = torch.arange(e, device=dev)[:, None].expand(-1, b * r)
+    rec = (j % r).long().expand(e, -1)
+    new_f = payload[src, rec]                                             # (E, J, W)
+    sid = torch.stack([meta.sid_hi, meta.sid_lo], dim=-1).to(torch.int32)
+    new_sid = sid[src]                                                    # (E, J, 2)
+    # Column-major write: tuple j fills the whole field column of its slot.
+    state.tup_f[ee, :, slot] = torch.where(ok, new_f, state.tup_f[ee, :, slot])
+    state.tup_sid[ee, :, slot] = torch.where(ok, new_sid,
+                                             state.tup_sid[ee, :, slot])
+
+    valid_before = torch.clamp(state.tup_count, max=cap)
+    state.tup_pos.copy_((state.tup_pos + n_in) % cap)
+    state.tup_count.copy_(torch.clamp(state.tup_count + n_in, max=_COUNT_SAT))
+    valid_after = torch.clamp(state.tup_count, max=cap)
+    overwritten_now = valid_before + n_in - valid_after
+    state.tup_overwritten.copy_(torch.clamp(
+        state.tup_overwritten + overwritten_now, max=_COUNT_SAT))
+    state.steps.add_(1)
+    steps = host_step + 1
+
+    # --- index retention (cadenced), before this batch's index writes.
+    dropped_before = state.index.dropped.clone()
+    retired_before = state.index.retired.clone()
+    if steps % cfg.retention_every == 0:
+        slots = torch.arange(cfg.padded_capacity, dtype=torch.int32, device=dev)
+        retained = slots[None, :] < valid_after[:, None]
+        t_oldest = torch.where(retained, state.tup_f[:, 0, :],
+                               float("inf")).amin(dim=1)
+        lossy = (state.tup_count > cap) | (state.tup_overwritten > 0)
+        watermark = torch.where(lossy, t_oldest, float("-inf"))
+        compact_index(retire_entries(state.index, watermark))
+    else:
+        watermark = torch.full((e,), float("-inf"), device=dev)
+
+    # --- sliced index entries (§3.4.3).
+    idx_mask = _index_edge_mask(cfg, meta, replicas, sites, alive)
+    reps3 = torch.nn.functional.pad(replicas, (0, 3 - cfg.replication),
+                                    value=-1)
+    insert_entries(state.index, meta, reps3, idx_mask, step=steps)
+
+    info = {
+        "replicas": replicas,
+        "intake_per_edge": n_in,
+        "index_writes_per_edge": idx_mask.sum(dim=0, dtype=torch.int32),
+        "tuples_overwritten": overwritten_now,
+        "tuples_dropped": torch.zeros_like(n_in),
+        "index_entries_dropped": state.index.dropped - dropped_before,
+        "index_entries_retired": state.index.retired - retired_before,
+        "retention_watermark": watermark,
+    }
+    return state, info
+
+
+def check_batch_fits(cfg: StoreConfig, payload_shape) -> None:
+    """Reject batches that could wrap one edge's ring within a single insert."""
+    b, r = payload_shape[0], payload_shape[1]
+    if b * r > cfg.tuple_capacity:
+        raise ValueError(
+            f"batch writes {b}x{r}={b * r} tuples, exceeding tuple_capacity="
+            f"{cfg.tuple_capacity}: one edge could wrap its own ring within a "
+            "single insert (scatter order would be undefined). Split the "
+            "batch or raise tuple_capacity.")
+
+
+# ---------------------------------------------------------------------------
+# Query (paper §3.5, Fig 4)
+# ---------------------------------------------------------------------------
+
+def _lookup_sets(cfg: StoreConfig, pred: QueryPred, sites: torch.Tensor,
+                 alive: torch.Tensor):
+    """(lookup mask (Q, E), broadcast (Q,)): the candidate edge sets E_s,
+    E_t, E_i (§3.5.1); AND takes the smallest failure-free set, OR the
+    union; anything unusable broadcasts to the alive edges."""
+    e = cfg.n_edges
+    q = pred.lat0.shape[0]
+    es, s_ovf = spatial_slice_edges(pred.lat0, pred.lat1, pred.lon0, pred.lon1,
+                                    sites, cfg.slice_cfg)
+    et, t_ovf = temporal_slice_edges(pred.t0, pred.t1, e, cfg.slice_cfg)
+    eye = torch.arange(e, dtype=torch.int32, device=sites.device)
+    ei = hashing.hash_shard_id(pred.sid_hi, pred.sid_lo, e)[..., None] == eye
+
+    sets = torch.stack([es, et, ei], dim=1)                        # (Q, 3, E)
+    usable = torch.stack([pred.has_spatial & ~s_ovf,
+                          pred.has_temporal & ~t_ovf,
+                          pred.has_sid], dim=1)                    # (Q, 3)
+    has_failed = (sets & ~alive).any(dim=-1)
+    sizes = sets.sum(dim=-1, dtype=torch.int32)
+    big = 1 << 30
+    score = torch.where(usable & ~has_failed, sizes, big)
+    best = torch.argmin(score, dim=-1)                             # (Q,)
+    best_ok = torch.gather(score, 1, best[:, None])[:, 0] < big
+    chosen = torch.gather(sets, 1, best[:, None, None].expand(q, 1, e))[:, 0]
+    union = torch.where(usable[..., None], sets, False).any(dim=1)
+    union_ok = usable.any(dim=-1) & ~(union & ~alive).any(dim=-1)
+
+    mask = torch.where(pred.is_and[:, None], chosen, union)
+    ok = torch.where(pred.is_and, best_ok, union_ok)
+    if not cfg.use_index:
+        ok = torch.zeros_like(ok)
+    broadcast = ~ok
+    mask = torch.where(broadcast[:, None], alive.expand(q, e), mask & alive)
+    return mask, broadcast
+
+
+def scan_engine(tup_f, tup_sid, tup_count, pred: QueryPred, sublists,
+                sublist_len, channels: Tuple[int, ...] = (0,),
+                valid_c: Optional[int] = None):
+    """Per-edge predicate scan (the InfluxDB role): the ``st_scan`` kernel on
+    CUDA tensors, its plain version on CPU tensors. Returns count (Q, E)
+    int32 and vsum/vmin/vmax (Q, K, E) float32 partials."""
+    return st_ops.st_scan(tup_f, tup_sid, tup_count, pred, sublists,
+                          sublist_len, channels=channels, valid_c=valid_c)
+
+
+def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+                    alive: torch.Tensor):
+    """Index lookup -> planning -> per-edge shard OR-lists: everything of a
+    query but the scan. Returns (sublists (Q, E, S, 2), sublist_len (Q, E),
+    (lookup_mask, broadcast, overflow, shards_matched, replicas_lost,
+    completeness_bound))."""
+    q = pred.lat0.shape[0]
+    s = cfg.max_shards_per_query
+    e = cfg.n_edges
+    dev = state.tup_f.device
+    sites = cfg.sites_array(dev)
+    alive = alive.to(device=dev, dtype=torch.bool)
+    lookup_mask, broadcast = _lookup_sets(cfg, pred, sites, alive)
+
+    if not cfg.use_index:
+        # Broadcast baseline (Feather-like): every alive edge scans all.
+        sublists = torch.zeros((q, e, 1, 2), dtype=torch.int32, device=dev)
+        sublist_len = torch.where(alive.expand(q, e), -1, 0).to(torch.int32)
+        return sublists, sublist_len, (
+            lookup_mask, broadcast, torch.zeros((q,), dtype=torch.bool,
+                                                device=dev),
+            torch.full((q,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((q,), dtype=torch.int32, device=dev),
+            torch.full((q,), float("nan"), device=dev))
+
+    matched = lookup(state.index, pred, lookup_mask, s)
+    assignment = planner_lib.plan(cfg.planner, matched, alive)     # (Q, S)
+    # Per-edge OR-lists: entry k of (q, e) is the k-th shard (in matched
+    # order) assigned to e — a gather through the stable selection order.
+    edge_ids = torch.arange(e, dtype=torch.int32, device=dev)
+    am = assignment[..., None] == edge_ids                          # (Q, S, E)
+    sublist_len = am.sum(dim=1, dtype=torch.int32)                  # (Q, E)
+    src = selected_order(am, dim=1).transpose(1, 2)                 # (Q, E, S)
+    sidv = torch.stack([matched.sid_hi, matched.sid_lo], dim=-1)    # (Q, S, 2)
+    sidv = torch.gather(sidv[:, None].expand(q, e, s, 2), 2,
+                        src[..., None].expand(q, e, s, 2))
+    kk = torch.arange(s, dtype=torch.int32, device=dev)
+    sublists = torch.where((kk < sublist_len[..., None])[..., None], sidv, -1)
+
+    ovf = matched.overflow
+    shards_matched = matched.valid.sum(dim=-1, dtype=torch.int32)
+    reps = matched.replicas
+    dead_slot = (matched.valid[..., None] & (reps >= 0)
+                 & ~alive[reps.clamp(min=0).long()])
+    replicas_lost = dead_slot.sum(dim=(1, 2), dtype=torch.int32)
+    assigned_n = (matched.valid & (assignment >= 0)).sum(dim=-1,
+                                                        dtype=torch.int32)
+    bound = torch.where(shards_matched > 0,
+                        assigned_n / torch.clamp(shards_matched, min=1), 1.0)
+    bound = torch.where(ovf, float("nan"), bound).to(torch.float32)
+    return sublists, sublist_len, (lookup_mask, broadcast, ovf,
+                                   shards_matched, replicas_lost, bound)
+
+
+def query_local(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+                alive: torch.Tensor, agg: AggSpec = AggSpec()):
+    """Single-device query body: plan the sub-queries, then ONE scan of the
+    log for the whole batch and every channel of ``agg``. Returns (partials,
+    sublist_len, metadata) for ``finalize_query``."""
+    sublists, sublist_len, meta_info = plan_subqueries(cfg, state, pred, alive)
+    partials = scan_engine(state.tup_f, state.tup_sid, state.tup_count, pred,
+                           sublists, sublist_len, channels=agg.channels,
+                           valid_c=cfg.tuple_capacity)
+    return partials, sublist_len, meta_info
+
+
+def finalize_query(partials, sublist_len, lookup_mask, broadcast, overflow,
+                   shards_matched, replicas_lost, completeness_bound):
+    """Final (Q, K, E) -> (Q[, K]) combine. Zero-match queries get NaN
+    min/max/mean; single-channel specs squeeze to (Q,)."""
+    count, vsum, vmin, vmax = partials
+    total = count.sum(dim=-1, dtype=torch.int32)
+    vsum_total = vsum.sum(dim=-1)
+    some = (total > 0)[:, None]
+    nan = float("nan")
+    vmin_total = torch.where(some, vmin.amin(dim=-1), nan)
+    vmax_total = torch.where(some, vmax.amax(dim=-1), nan)
+    vmean = torch.where(some, vsum_total / torch.clamp(total, min=1)[:, None],
+                        nan)
+    if vsum_total.shape[-1] == 1:
+        vsum_total, vmin_total, vmax_total, vmean = (
+            a[:, 0] for a in (vsum_total, vmin_total, vmax_total, vmean))
+    result = QueryResult(count=total, vsum=vsum_total, vmin=vmin_total,
+                         vmax=vmax_total, overflow=overflow, vmean=vmean,
+                         completeness_bound=completeness_bound,
+                         replicas_lost=replicas_lost)
+    info = QueryInfo(
+        lookup_edges=lookup_mask.sum(dim=-1, dtype=torch.int32),
+        subquery_edges=(sublist_len != 0).sum(dim=-1, dtype=torch.int32),
+        shards_matched=shards_matched,
+        max_shards_per_edge=sublist_len.abs().amax(dim=-1),
+        broadcast=broadcast,
+        replicas_lost=replicas_lost,
+        completeness_bound=completeness_bound)
+    return result, info
+
+
+def run_query(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+              alive: torch.Tensor, agg: AggSpec = AggSpec()):
+    """Single-device query: ``query_local`` then ``finalize_query``.
+    Returns (QueryResult, QueryInfo)."""
+    agg.validate_for(cfg)
+    partials, sublist_len, meta_info = query_local(cfg, state, pred, alive, agg)
+    return finalize_query(partials, sublist_len, *meta_info)
