@@ -16,8 +16,19 @@ Phases, one line each:
      answers on retained windows against a numpy oracle over the generated
      payloads and that every kernel's launch count grew;
   4. st_scan against its plain version on the main path's own scan inputs,
-     then per-kernel timings (CUDA events) beside their bounds, printed as
-     one JSON line.
+     then per-kernel timings (CUDA events) beside their bounds;
+  5. flash_attention against its plain version (fp32 at the JAX package's
+     test shapes, decode rows and ragged sizes, to 2e-5; bf16 at the serve
+     shapes, to 1e-2);
+  6. the LM serving path at full width — internlm2-1.8b (24 layers,
+     d_model 2048, 16 query heads over 8 KV heads, vocab 92544), random
+     weights from a seeded generator on the card, bf16 compute:
+     ``prefill_step`` on 8 prompts of 2048 tokens, then ``Engine.generate``
+     for 8 requests (128-token prompts, 64 new tokens, max_seq 256), twice
+     (identical ids), with the engine's logits after the last prompt token
+     held against ``prefill_step``'s on the same prompts;
+  7. flash_attention timings at the prefill and decode shapes, and the
+     four kernels' timings printed as one JSON line.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -35,8 +46,19 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM data sheet
 FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
 QUERY_SIZES = ((0.2, 300.0), (1.0, 1800.0), (5.0, 7200.0))   # paper §4.5.1
 RECENT_S = 1800.0              # windows retained on every replica
+SERVE_ARCH = "internlm2-1.8b"
+SERVE_BATCH = 8
+PREFILL_LEN = 2048
+PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 256
+FLASH_BF16_TOL = 1e-2          # bf16 outputs of order 1: ulp 0.0078
+FLASH_F32_TOL = 2e-5           # as the JAX package's kernel tests
+# Engine logits after the last prompt token vs prefill_step's, bf16 through
+# 24 layers: the two round activations at different matmul shapes, so
+# they agree to a fraction of the logits' unit spread, not bitwise.
+PREFILL_DECODE_TOL = 0.5
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -87,6 +109,230 @@ def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
+def flash_vs_plain(torch, dev, seed: int) -> dict:
+    """flash_attention's kernel against its plain version on the card:
+    fp32 at the JAX package's kernel-test shapes, decode rows and a ragged
+    size (to FLASH_F32_TOL), bf16 at the serve shapes (to FLASH_BF16_TOL).
+    Exits non-zero on any mismatch; returns the largest errors."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(seed)
+    # (b, sq, skv, h, kv, dh, causal, q_offset)
+    f32_cases = [(1, 256, 256, 4, 4, 64, True, 0),
+                 (2, 256, 256, 8, 2, 32, True, 0),      # GQA group 4
+                 (1, 384, 384, 4, 1, 64, False, 0),     # MQA, bidirectional
+                 (1, 128, 128, 2, 2, 128, True, 0),
+                 (2, 77, 131, 4, 2, 64, True, 54),      # ragged Sq and Skv
+                 (2, 77, 131, 4, 2, 64, False, 0)]
+    f32_cases += [(SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, p)
+                  for p in (0, 63, 64, 191, 255)]
+    bf16_cases = [(SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 16, 8, 128, True, 0),
+                  (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 191)]
+    errs = {}
+    for dtype, cases, tol in ((torch.float32, f32_cases, FLASH_F32_TOL),
+                              (torch.bfloat16, bf16_cases, FLASH_BF16_TOL)):
+        worst = 0.0
+        for b, sq, skv, h, kv, dh, causal, off in cases:
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                       .to(dev, dtype) for shape in ((b, sq, h, dh), (b, skv, kv, dh),
+                                                     (b, skv, kv, dh)))
+            got = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+            want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+            err = (got.float() - want.float()).abs()
+            bad = int((err > tol + tol * want.float().abs()).sum())
+            if bad or not torch.isfinite(got).all():
+                raise SystemExit(f"flash_attention {dtype} {(b, sq, skv, h, kv, dh, causal, off)}: "
+                                 f"{bad} elements beyond {tol}, max err {float(err.max())}")
+            worst = max(worst, float(err.max()))
+        errs[str(dtype).removeprefix("torch.")] = worst
+    phase("flash_vs_plain", f32_cases=len(f32_cases), bf16_cases=len(bf16_cases),
+          max_abs_err=errs, f32_tol=FLASH_F32_TOL, bf16_tol=FLASH_BF16_TOL)
+    return errs
+
+
+def serve(torch, dev, seed: int, do_profile: bool) -> dict:
+    """The LM serving path at full width: prefill_step, then Engine.generate
+    twice. Returns the flash launch count of these runs."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.model import Model
+    from repro_torch.serve.engine import Engine, ServeConfig
+    from repro_torch.train.train_loop import make_serve_steps
+
+    class TimedEngine(Engine):
+        """Records CUDA events around every decode step and keeps the logits
+        after the last prompt token."""
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.events, self.prompt_logits = [], None
+
+        def _step(self, cache, tokens, pos):
+            e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            e0.record()
+            cache, logits = super()._step(cache, tokens, pos)
+            e1.record()
+            self.events.append((e0, e1))
+            if pos == PROMPT_LEN - 1:
+                self.prompt_logits = logits.clone()
+            return cache, logits
+
+    cfg = get_config(SERVE_ARCH)
+    model = Model(cfg, device=dev)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    n_params = sum(int(x.numel()) for x in _leaves(params))
+    engine = TimedEngine(model, params, ServeConfig(
+        max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ))
+    del params                      # the engine keeps the bf16 copy
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    eparams = engine.params
+    prefill_step, _ = make_serve_steps(model)
+    rng = np.random.default_rng(seed + 7)
+    long_prompts = torch.from_numpy(rng.integers(
+        0, cfg.vocab, (SERVE_BATCH, PREFILL_LEN)).astype(np.int32)).to(dev)
+    prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
+
+    # prefill_step on 8 x 2048 tokens: one warm-up, then timed runs.
+    fops.launches = 0
+    prefill_step(eparams, {"tokens": long_prompts})
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        lg = prefill_step(eparams, {"tokens": long_prompts})
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    prefill_launches = fops.launches
+    if prefill_launches != 4 * cfg.n_layers or not torch.isfinite(lg).all() \
+            or lg.shape != (SERVE_BATCH, cfg.vocab_padded):
+        raise SystemExit(f"prefill: {prefill_launches} flash launches, "
+                         f"logits {tuple(lg.shape)} finite={bool(torch.isfinite(lg).all())}")
+    ms = float(np.median(times))
+    phase("serve_prefill", arch=SERVE_ARCH, params=n_params,
+          batch=SERVE_BATCH, seq=PREFILL_LEN, init_s=init_s,
+          prefill_ms=times, prefill_p50_ms=ms,
+          prefill_tokens_per_s=SERVE_BATCH * PREFILL_LEN / (ms / 1e3),
+          peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          flash_launches=prefill_launches)
+
+    # Engine.generate: 8 requests, 128-token prompts, 64 new tokens.
+    ref_logits = prefill_step(eparams, {"tokens": torch.from_numpy(prompts).to(dev)})
+    torch.cuda.reset_peak_memory_stats()
+    fops.launches = 0
+    w0 = time.perf_counter()
+    ids = engine.generate(prompts)
+    wall = time.perf_counter() - w0
+    gen_launches = fops.launches
+    want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS)
+    if gen_launches != want_launches:
+        raise SystemExit(f"generate: {gen_launches} flash launches, expected "
+                         f"{want_launches}")
+    if ids.shape != (SERVE_BATCH, NEW_TOKENS) or ids.min() < 0 \
+            or ids.max() >= cfg.vocab:
+        raise SystemExit(f"generate: ids {ids.shape} in [{ids.min()}, {ids.max()}]")
+    step_ms = [e0.elapsed_time(e1) for e0, e1 in engine.events]
+    ev = engine.events
+    prompt_ms = ev[0][0].elapsed_time(ev[PROMPT_LEN - 1][1])
+    decode_ms = ev[PROMPT_LEN][0].elapsed_time(ev[-1][1])
+    diff = (engine.prompt_logits.float() - ref_logits.float()).abs()
+    max_diff = float(diff[:, :cfg.vocab].max())
+    agree = int((engine.prompt_logits.argmax(-1) == ref_logits.argmax(-1)).sum())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    again = engine.generate(prompts)
+    deterministic = bool(np.array_equal(ids, again))
+    phase("serve_generate", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+          new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, wall_s=wall,
+          prompt_phase_ms=prompt_ms,
+          decode_step_p50_ms=float(np.median(step_ms[PROMPT_LEN:])),
+          decode_step_ms_min_max=[float(min(step_ms[PROMPT_LEN:])),
+                                  float(max(step_ms[PROMPT_LEN:]))],
+          generated_tokens_per_s=SERVE_BATCH * NEW_TOKENS / (decode_ms / 1e3),
+          peak_mem_gb=peak, flash_launches=gen_launches,
+          deterministic=deterministic,
+          prefill_vs_decode_max_abs_diff=max_diff,
+          prefill_vs_decode_tol=PREFILL_DECODE_TOL,
+          first_tokens_agree=agree, first_ids=ids[:, 0].tolist())
+    if not deterministic:
+        raise SystemExit("generate: a second run gave other ids")
+    if not np.isfinite(max_diff) or max_diff > PREFILL_DECODE_TOL:
+        raise SystemExit(f"generate: logits after the prompt differ from "
+                         f"prefill_step's by {max_diff} > {PREFILL_DECODE_TOL}")
+
+    if do_profile:
+        batch = {"tokens": long_prompts}
+        phase("profile_prefill", **profile(torch, lambda: prefill_step(eparams, batch)))
+        cache = model.init_cache(SERVE_BATCH, MAX_SEQ)
+        tok = torch.from_numpy(prompts[:, :1]).to(dev)
+        phase("profile_decode_step", **profile(
+            torch, lambda: model.decode_step(eparams, cache, {"tokens": tok},
+                                             PROMPT_LEN + NEW_TOKENS // 2)))
+    return {"launches": prefill_launches + gen_launches}
+
+
+def flash_timings(torch, dev, seed: int) -> dict:
+    """flash_attention at the serve path's prefill and decode shapes: the
+    kernel, its plain version and SDPA (timed as the yardstick only), each
+    beside the bound of the same work."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    rng = np.random.default_rng(seed)
+    b, h, kv, d = SERVE_BATCH, 16, 8, 128
+
+    def rand(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev, torch.bfloat16)
+
+    out = {}
+    # prefill: S = 2048, causal
+    q, k, v = rand(b, PREFILL_LEN, h, d), rand(b, PREFILL_LEN, kv, d), rand(b, PREFILL_LEN, kv, d)
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    s = PREFILL_LEN
+    flops = 4 * b * h * d * s * (s + 1) / 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    out["prefill"] = {
+        "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(q, k, v, causal=True), 20),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+        "flops": flops, "bytes": nbytes,
+        **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+    # decode: Sq = 1 at position 191 of a 256-slot cache
+    pos = PROMPT_LEN + NEW_TOKENS - 1
+    q, k, v = rand(b, 1, h, d), rand(b, MAX_SEQ, kv, d), rand(b, MAX_SEQ, kv, d)
+    qt = q.transpose(1, 2).contiguous()
+    kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
+    flops = 4 * b * h * d * (pos + 1)
+    nbytes = 2 * (2 * q.numel() + 2 * b * (pos + 1) * kv * d)
+    out["decode"] = {
+        "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
+            q, k, v, causal=True, q_offset=pos), 200),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+            q, k, v, causal=True, q_offset=pos), 20),
+        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, enable_gqa=True), 200),
+        "flops": flops, "bytes": nbytes,
+        **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+    return out
+
+
+def _bound(ops_s: float, bytes_s: float) -> dict:
+    return {"bound_ms": max(ops_s, bytes_s) * 1e3,
+            "bound_by": "operations" if ops_s > bytes_s else "bytes"}
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rounds", type=int, default=288,
@@ -95,9 +341,10 @@ def main(argv=None) -> int:
                     help="rounds per ingest_rounds call")
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--profile", action="store_true",
-                    help="after the main path, print the device-time "
-                         "breakdown (torch.profiler) of one ingest chunk "
-                         "and one 4-channel query batch")
+                    help="after each main path, print the device-time "
+                         "breakdown (torch.profiler) of one ingest chunk, "
+                         "one 4-channel query batch, one prefill and one "
+                         "decode step")
     args = ap.parse_args(argv)
 
     import torch
@@ -387,6 +634,29 @@ def main(argv=None) -> int:
     if h_err or v_err:
         raise SystemExit(f"kernel disagrees at timing shapes: hash64 {h_err}, "
                          f"voronoi {v_err}")
+    del db, st, scan_args, args_scan    # free the store before serving
+    torch.cuda.empty_cache()
+
+    # -- 5-7. flash_attention and the LM serving path ----------------------
+    flash_err = flash_vs_plain(torch, dev, args.seed)
+    served = serve(torch, dev, args.seed, args.profile)
+    ft = flash_timings(torch, dev, args.seed)
+    pre, dec = ft["prefill"], ft["decode"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
+        "launches": served["launches"], "max_abs_err": flash_err["bfloat16"],
+        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+        "library_ms": pre["library_ms"],
+        "decode_ms": dec["ms"], "decode_plain_ms": dec["plain_ms"],
+        "decode_bound_ms": dec["bound_ms"], "decode_bound_by": dec["bound_by"],
+        "decode_library_ms": dec["library_ms"]})
+    phase("flash_timings", shapes={
+        "prefill": [SERVE_BATCH, PREFILL_LEN, 16, 8, 128, "causal", "bf16"],
+        "decode": [SERVE_BATCH, 1, 16, 8, 128, "q_offset",
+                   PROMPT_LEN + NEW_TOKENS - 1, "Skv", MAX_SEQ]}, **ft)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

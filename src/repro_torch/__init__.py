@@ -2,10 +2,18 @@
 
 Mirrors the module layout of the JAX package: ``repro_torch.core.index`` is
 the port of ``repro.core.index``, and so on. Plain tensor code is PyTorch;
-the three hot functions of the store round trip (the per-edge predicate scan,
-xxHash64 placement hashing and Voronoi point location) are hand-written CUDA
-kernels under ``csrc/``, built with nvcc for ``sm_90a`` at first use
-(``repro_torch.kernels.build``).
+every Pallas TPU kernel of the JAX package has a hand-written CUDA kernel
+under ``csrc/``, built with nvcc for ``sm_90a`` at first use
+(``repro_torch.kernels.build``):
+
+- the store round trip (``api``, ``core``): the per-edge predicate scan
+  (``st_scan.cu``), xxHash64 placement hashing (``hash64.cu``) and Voronoi
+  point location (``voronoi_assign.cu``);
+- the LM serving path (``configs``, ``models``, ``train.train_loop``
+  ``make_serve_steps``, ``serve.engine.Engine``) for dense GQA decoders
+  such as internlm2-1.8b: FlashAttention-2 forward
+  (``flash_attention.cu``) in every attention layer of prefill and decode.
+  ``convert.params_from_numpy`` takes the JAX package's weights.
 
 Device policy: entry points take ``device`` and default to ``"cuda"``; they
 raise when CUDA is missing unless the caller asks for ``device="cpu"``. Each

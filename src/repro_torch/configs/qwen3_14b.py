@@ -1,0 +1,9 @@
+"""qwen3-14b [dense]: 40L d_model=5120 40H (GQA kv=8) d_ff=17408
+vocab=151936 — qk_norm, GQA [hf:Qwen/Qwen3-8B; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="qwen3-14b", family="dense",
+    n_layers=40, d_model=5120, n_heads=40, n_kv=8, d_head=128,
+    d_ff=17408, vocab=151936, qk_norm=True, rope_theta=1e6,
+))

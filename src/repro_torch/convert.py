@@ -1,4 +1,4 @@
-"""Carry store state across the two packages as numpy.
+"""Carry store state and model weights across the two packages as numpy.
 
 ``state_from_numpy(tree, device)`` builds the port's ``StoreState`` from a
 state whose leaves read as numpy arrays — a nested dict
@@ -6,6 +6,14 @@ state whose leaves read as numpy arrays — a nested dict
 ``np.asarray`` reads without this module importing JAX. ``state_to_numpy``
 turns the port's state back into a nested dict of numpy arrays, so the two
 packages can be compared leaf by leaf.
+
+``params_from_numpy(tree, device)`` does the same for model weights: any
+nested dict whose leaves ``np.asarray`` reads (the JAX package's params
+tree, or ``params_to_numpy``'s output) becomes the port's params tree,
+leaf for leaf, so both packages compute with the same weights. bfloat16
+leaves (numpy's ``bfloat16`` extension dtype, as JAX hands them out) are
+read bit for bit; ``params_to_numpy`` widens bfloat16 to float32, which
+keeps every value.
 """
 
 from __future__ import annotations
@@ -47,3 +55,23 @@ def state_to_numpy(state: StoreState) -> Dict[str, Any]:
     out["index"] = {k: v.detach().cpu().numpy()
                     for k, v in state.index._asdict().items()}
     return out
+
+
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """The port's params tree on ``device`` from numpy-readable leaves."""
+    dev = resolve_device(device)
+    if isinstance(tree, dict):
+        return {k: params_from_numpy(v, dev) for k, v in tree.items()}
+    arr = np.asarray(tree).copy()       # writable, owned by torch
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16).to(dev)
+    return torch.from_numpy(arr).to(dev)
+
+
+def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Nested dict of numpy arrays, leaf for leaf."""
+    if isinstance(params, dict):
+        return {k: params_to_numpy(v) for k, v in params.items()}
+    if params.dtype == torch.bfloat16:
+        params = params.to(torch.float32)
+    return params.detach().cpu().numpy()

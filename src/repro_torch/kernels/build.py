@@ -26,7 +26,7 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("st_scan", "hash64", "voronoi_assign")
+KERNELS = ("st_scan", "hash64", "voronoi_assign", "flash_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

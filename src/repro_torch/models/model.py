@@ -1,0 +1,135 @@
+"""Top-level model API for serving a dense decoder (port of
+``repro.models.model``).
+
+``Model(cfg, device="cuda")`` wraps a ModelConfig with plain functions on
+tensors:
+  init(generator) -> params                 (nested dict, JAX tree layout)
+  forward(params, batch) -> (hidden, aux_loss)
+  logits(params, hidden) -> (B, S, V_padded), padded vocab masked
+  init_cache(batch_size, max_seq) -> {"k", "v"}: (L, B, max_seq, KV, dh)
+  decode_step(params, cache, inputs, pos) -> (cache, logits (B, V_padded))
+
+The params tree is the JAX package's, leaf for leaf (per-layer leaves
+stacked on a leading L axis), so weights move between the packages by
+copying leaves (``repro_torch.convert``). Unlike the JAX package,
+``decode_step`` writes the new K/V row into ``cache`` in place (where JAX
+uses ``dynamic_update_slice`` on a new array) and returns the same dict.
+Only the dense GQA family is ported; ``loss`` and the other families wait
+(ROADMAP Queue 1, LM scaffold).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig, check_supported
+from repro_torch.device import resolve_device
+from repro_torch.models import attention, layers
+from repro_torch.models.transformer import (apply_decoder_stack,
+                                            init_decoder_stack, tree_map)
+
+
+def _attn_decode_layer(lp, x, cfg, pos: int, pos_arr, cache_slices):
+    """One decoder layer at decode time: write this token's K/V into the
+    cache slices at ``pos`` (in place), attend over the populated prefix,
+    apply the MLP. Returns x."""
+    cd = cfg.compute_dtype
+    k_l, v_l = cache_slices
+    h = layers.rms_norm(x, lp["ln1"])
+    q, k, v = attention.gqa_project_qkv(lp["attn"], h, cfg, pos_arr)
+    k_l[:, pos:pos + 1] = k.to(k_l.dtype)
+    v_l[:, pos:pos + 1] = v.to(v_l.dtype)
+    o = attention.flash_attention(q, k_l, v_l, causal=True, q_offset=pos,
+                                  chunk_kv=cfg.attn_chunk_kv)
+    x = x + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(cd)
+    h = layers.rms_norm(x, lp["ln2"])
+    return x + layers.mlp_apply(lp["mlp"], h, cd)
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- params ------------------------------------------------------------
+    def init(self, generator: torch.Generator):
+        """Random weights drawn from ``generator``, which must live on the
+        model's device (seed it with ``manual_seed``)."""
+        cfg = self.cfg
+        if generator.device.type != self.device.type:
+            raise ValueError(f"generator on {generator.device}, model on "
+                             f"{self.device}")
+        p = {"stack": init_decoder_stack(generator, cfg),
+             "final_ln": layers.init_rms(generator, cfg.d_model,
+                                         cfg.param_dtype)}
+        p["embed"] = layers.init_embed(generator, cfg.vocab_padded,
+                                       cfg.d_model, cfg.param_dtype)
+        if not cfg.tie_embeddings:
+            p["out"] = layers.dense_init(generator,
+                                         (cfg.d_model, cfg.vocab_padded),
+                                         cfg.param_dtype)
+        return p
+
+    # -- forward -----------------------------------------------------------
+    def _positions(self, b: int, s: int):
+        pos = torch.arange(s, dtype=torch.int32, device=self.device)
+        return pos[None, :].expand(b, s)
+
+    def _embed_in(self, params, batch):
+        return layers.embed_apply(params["embed"], batch["tokens"],
+                                  self.cfg.compute_dtype)
+
+    def forward(self, params, batch):
+        """batch {"tokens": (B, S) int} -> (hidden (B, S, D), aux_loss)."""
+        x = self._embed_in(params, batch)
+        b, s = x.shape[:2]
+        h, aux = apply_decoder_stack(params["stack"], x, self.cfg,
+                                     self._positions(b, s))
+        return layers.rms_norm(h, params["final_ln"]), aux
+
+    def _unembed(self, params):
+        cfg = self.cfg
+        w = params["embed"]["tok"].T if cfg.tie_embeddings else params["out"]
+        return w.to(cfg.compute_dtype)              # (D, V_padded)
+
+    def _mask_pad_vocab(self, logits):
+        cfg = self.cfg
+        if cfg.vocab_padded == cfg.vocab:
+            return logits
+        pad = torch.arange(cfg.vocab_padded, device=logits.device) >= cfg.vocab
+        return logits - pad.to(logits.dtype) * 1e9
+
+    def logits(self, params, hidden):
+        return self._mask_pad_vocab(hidden @ self._unembed(params))
+
+    # -- serving -----------------------------------------------------------
+    def init_cache(self, b: int, max_seq: int):
+        cfg = self.cfg
+        shape = (cfg.n_layers, b, max_seq, cfg.n_kv, cfg.d_head)
+        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=self.device),
+                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
+                                 device=self.device)}
+
+    def decode_step(self, params, cache, inputs, pos: int):
+        """inputs {"tokens": (B, 1)}; ``pos``: the current absolute position
+        (a Python int). Writes the token's K/V into ``cache`` in place and
+        returns (cache, logits (B, V_padded))."""
+        if not 0 <= pos < cache["k"].shape[2]:
+            raise ValueError(f"pos {pos} outside the cache's "
+                             f"{cache['k'].shape[2]} positions")
+        x = self._embed_in(params, inputs)
+        pos_arr = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                             device=x.device)
+        x = self._decode_attn_stack(params, cache, x, pos, pos_arr)
+        h = layers.rms_norm(x, params["final_ln"])
+        return cache, self.logits(params, h)[:, 0]
+
+    def _decode_attn_stack(self, params, cache, x, pos: int, pos_arr):
+        stack = params["stack"]["layers"]
+        for i in range(self.cfg.n_layers):
+            lp = tree_map(lambda a: a[i], stack)
+            x = _attn_decode_layer(lp, x, self.cfg, pos, pos_arr,
+                                   (cache["k"][i], cache["v"][i]))
+        return x
