@@ -17,18 +17,23 @@ Phases, one line each:
      payloads and that every kernel's launch count grew;
   4. st_scan against its plain version on the main path's own scan inputs,
      then per-kernel timings (CUDA events) beside their bounds;
-  5. flash_attention against its plain version (fp32 at the JAX package's
-     test shapes, decode rows and ragged sizes, to 2e-5; bf16 at the serve
-     shapes, to 1e-2);
+  5. flash_attention's two kernels against their plain version (fp32 at
+     the JAX package's test shapes, decode rows and ragged sizes, to 2e-5,
+     through the mma_sync kernel; bf16 at the serve shapes and a ragged
+     d-128 case, to 1e-2, through the sm90 kernel and the mma_sync kernel,
+     each forced and as the wrapper chooses);
   6. the LM serving path at full width — internlm2-1.8b (24 layers,
      d_model 2048, 16 query heads over 8 KV heads, vocab 92544), random
      weights from a seeded generator on the card, bf16 compute:
      ``prefill_step`` on 8 prompts of 2048 tokens, then ``Engine.generate``
      for 8 requests (128-token prompts, 64 new tokens, max_seq 256), twice
      (identical ids), with the engine's logits after the last prompt token
-     held against ``prefill_step``'s on the same prompts;
-  7. flash_attention timings at the prefill and decode shapes, and the
-     four kernels' timings printed as one JSON line.
+     held against ``prefill_step``'s on the same prompts; every prefill
+     flash call must go to the sm90 kernel and every generate call (Sq 1)
+     to the mma_sync kernel;
+  7. flash_attention timings at the prefill shape (sm90 and mma_sync, both
+     forced) and the decode shape, and the five kernels' timings printed as
+     one JSON line.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -110,10 +115,13 @@ def phase(name: str, **fields) -> None:
 
 
 def flash_vs_plain(torch, dev, seed: int) -> dict:
-    """flash_attention's kernel against its plain version on the card:
+    """flash_attention's kernels against their plain version on the card:
     fp32 at the JAX package's kernel-test shapes, decode rows and a ragged
-    size (to FLASH_F32_TOL), bf16 at the serve shapes (to FLASH_BF16_TOL).
-    Exits non-zero on any mismatch; returns the largest errors."""
+    size (to FLASH_F32_TOL), bf16 at the serve shapes and a ragged d-128
+    case (to FLASH_BF16_TOL), each bf16 case through the kernel the wrapper
+    chooses and through every kernel that takes it, forced. Exits non-zero
+    on any mismatch or on a call that went to another kernel than
+    expected; returns the largest errors by dtype and by bf16 kernel."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(seed)
@@ -127,26 +135,44 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
     f32_cases += [(SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, p)
                   for p in (0, 63, 64, 191, 255)]
     bf16_cases = [(SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 16, 8, 128, True, 0),
+                  (2, 77, 131, 4, 2, 128, True, 54),    # ragged, d 128
                   (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 191)]
     errs = {}
+    n_calls = 0
     for dtype, cases, tol in ((torch.float32, f32_cases, FLASH_F32_TOL),
                               (torch.bfloat16, bf16_cases, FLASH_BF16_TOL)):
         worst = 0.0
-        for b, sq, skv, h, kv, dh, causal, off in cases:
+        for case in cases:
+            b, sq, skv, h, kv, dh, causal, off = case
             q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                        .to(dev, dtype) for shape in ((b, sq, h, dh), (b, skv, kv, dh),
                                                      (b, skv, kv, dh)))
-            got = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
             want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
-            err = (got.float() - want.float()).abs()
-            bad = int((err > tol + tol * want.float().abs()).sum())
-            if bad or not torch.isfinite(got).all():
-                raise SystemExit(f"flash_attention {dtype} {(b, sq, skv, h, kv, dh, causal, off)}: "
-                                 f"{bad} elements beyond {tol}, max err {float(err.max())}")
-            worst = max(worst, float(err.max()))
+            chosen = fops._variant(q, k, v)
+            forced = () if dtype != torch.bfloat16 else \
+                ("sm90", "mma_sync") if chosen == "sm90" else ("mma_sync",)
+            for variant in (None, *forced):
+                before = dict(fops.launches_by_variant)
+                got = fops.flash_attention_cuda(q, k, v, causal=causal,
+                                                q_offset=off, variant=variant)
+                ran = variant or chosen
+                if fops.launches_by_variant[ran] != before[ran] + 1:
+                    raise SystemExit(f"flash_attention {case}: variant {variant} "
+                                     f"did not launch {ran}")
+                err = (got.float() - want.float()).abs()
+                bad = int((err > tol + tol * want.float().abs()).sum())
+                if bad or not torch.isfinite(got).all():
+                    raise SystemExit(f"flash_attention {dtype} {ran} {case}: {bad} "
+                                     f"elements beyond {tol}, max err {float(err.max())}")
+                worst = max(worst, float(err.max()))
+                if dtype == torch.bfloat16:
+                    key = f"bfloat16_{ran}"
+                    errs[key] = max(errs.get(key, 0.0), float(err.max()))
+                n_calls += 1
         errs[str(dtype).removeprefix("torch.")] = worst
     phase("flash_vs_plain", f32_cases=len(f32_cases), bf16_cases=len(bf16_cases),
-          max_abs_err=errs, f32_tol=FLASH_F32_TOL, bf16_tol=FLASH_BF16_TOL)
+          kernel_calls=n_calls, max_abs_err=errs, f32_tol=FLASH_F32_TOL,
+          bf16_tol=FLASH_BF16_TOL)
     return errs
 
 
@@ -195,6 +221,7 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
 
     # prefill_step on 8 x 2048 tokens: one warm-up, then timed runs.
     fops.launches = 0
+    fops.launches_by_variant = dict.fromkeys(fops.VARIANTS, 0)
     prefill_step(eparams, {"tokens": long_prompts})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -207,30 +234,36 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
         b.synchronize()
         times.append(a.elapsed_time(b))
     prefill_launches = fops.launches
+    prefill_by_variant = dict(fops.launches_by_variant)
     if prefill_launches != 4 * cfg.n_layers or not torch.isfinite(lg).all() \
-            or lg.shape != (SERVE_BATCH, cfg.vocab_padded):
-        raise SystemExit(f"prefill: {prefill_launches} flash launches, "
-                         f"logits {tuple(lg.shape)} finite={bool(torch.isfinite(lg).all())}")
+            or lg.shape != (SERVE_BATCH, cfg.vocab_padded) \
+            or prefill_by_variant["sm90"] != prefill_launches:
+        raise SystemExit(f"prefill: {prefill_launches} flash launches "
+                         f"({prefill_by_variant}), logits {tuple(lg.shape)} "
+                         f"finite={bool(torch.isfinite(lg).all())}")
     ms = float(np.median(times))
     phase("serve_prefill", arch=SERVE_ARCH, params=n_params,
           batch=SERVE_BATCH, seq=PREFILL_LEN, init_s=init_s,
           prefill_ms=times, prefill_p50_ms=ms,
           prefill_tokens_per_s=SERVE_BATCH * PREFILL_LEN / (ms / 1e3),
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
-          flash_launches=prefill_launches)
+          flash_launches=prefill_launches, flash_by_variant=prefill_by_variant)
 
     # Engine.generate: 8 requests, 128-token prompts, 64 new tokens.
     ref_logits = prefill_step(eparams, {"tokens": torch.from_numpy(prompts).to(dev)})
     torch.cuda.reset_peak_memory_stats()
     fops.launches = 0
+    fops.launches_by_variant = dict.fromkeys(fops.VARIANTS, 0)
     w0 = time.perf_counter()
     ids = engine.generate(prompts)
     wall = time.perf_counter() - w0
     gen_launches = fops.launches
+    gen_by_variant = dict(fops.launches_by_variant)
     want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS)
-    if gen_launches != want_launches:
-        raise SystemExit(f"generate: {gen_launches} flash launches, expected "
-                         f"{want_launches}")
+    if gen_launches != want_launches or gen_by_variant["mma_sync"] != want_launches:
+        raise SystemExit(f"generate: {gen_launches} flash launches "
+                         f"({gen_by_variant}), expected {want_launches} "
+                         "through mma_sync")
     if ids.shape != (SERVE_BATCH, NEW_TOKENS) or ids.min() < 0 \
             or ids.max() >= cfg.vocab:
         raise SystemExit(f"generate: ids {ids.shape} in [{ids.min()}, {ids.max()}]")
@@ -252,6 +285,7 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
                                   float(max(step_ms[PROMPT_LEN:]))],
           generated_tokens_per_s=SERVE_BATCH * NEW_TOKENS / (decode_ms / 1e3),
           peak_mem_gb=peak, flash_launches=gen_launches,
+          flash_by_variant=gen_by_variant,
           deterministic=deterministic,
           prefill_vs_decode_max_abs_diff=max_diff,
           prefill_vs_decode_tol=PREFILL_DECODE_TOL,
@@ -270,13 +304,14 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
         phase("profile_decode_step", **profile(
             torch, lambda: model.decode_step(eparams, cache, {"tokens": tok},
                                              PROMPT_LEN + NEW_TOKENS // 2)))
-    return {"launches": prefill_launches + gen_launches}
+    return {v: prefill_by_variant[v] + gen_by_variant[v] for v in fops.VARIANTS}
 
 
 def flash_timings(torch, dev, seed: int) -> dict:
-    """flash_attention at the serve path's prefill and decode shapes: the
-    kernel, its plain version and SDPA (timed as the yardstick only), each
-    beside the bound of the same work."""
+    """flash_attention at the serve path's prefill shape (the sm90 kernel
+    and the mma_sync kernel, both forced) and decode shape (mma_sync), its
+    plain version and SDPA (timed as the yardstick only), each beside the
+    bound of the same work."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -295,7 +330,10 @@ def flash_timings(torch, dev, seed: int) -> dict:
     flops = 4 * b * h * d * s * (s + 1) / 2
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     out["prefill"] = {
-        "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(q, k, v, causal=True), 20),
+        "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
+            q, k, v, causal=True, variant="sm90"), 20),
+        "mma_sync_ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
+            q, k, v, causal=True, variant="mma_sync"), 20),
         "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
         "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=True, enable_gqa=True), 20),
@@ -642,17 +680,31 @@ def main(argv=None) -> int:
     served = serve(torch, dev, args.seed, args.profile)
     ft = flash_timings(torch, dev, args.seed)
     pre, dec = ft["prefill"], ft["decode"]
+    # The mma_sync kernel runs the main path's decode calls: its entry
+    # gives the decode shape's numbers, and its forced prefill time.
     kernels.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
-        "launches": served["launches"], "max_abs_err": flash_err["bfloat16"],
+        "launches": served["mma_sync"],
+        "max_abs_err": flash_err["bfloat16_mma_sync"],
+        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "decode_ms": dec["ms"], "decode_plain_ms": dec["plain_ms"],
+        "decode_bound_ms": dec["bound_ms"], "decode_bound_by": dec["bound_by"],
+        "decode_library_ms": dec["library_ms"],
+        "prefill_ms": pre["mma_sync_ms"]})
+    kernels.append({
+        "name": "flash_attention_sm90", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
+        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
+        "launches": served["sm90"],
+        "max_abs_err": flash_err["bfloat16_sm90"],
         "ms": pre["ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"],
-        "decode_ms": dec["ms"], "decode_plain_ms": dec["plain_ms"],
-        "decode_bound_ms": dec["bound_ms"], "decode_bound_by": dec["bound_by"],
-        "decode_library_ms": dec["library_ms"]})
+        "mma_sync_prefill_ms": pre["mma_sync_ms"]})
     phase("flash_timings", shapes={
         "prefill": [SERVE_BATCH, PREFILL_LEN, 16, 8, 128, "causal", "bf16"],
         "decode": [SERVE_BATCH, 1, 16, 8, 128, "q_offset",

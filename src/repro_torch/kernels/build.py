@@ -26,7 +26,8 @@ from pathlib import Path
 from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
-KERNELS = ("st_scan", "hash64", "voronoi_assign", "flash_attention")
+KERNELS = ("st_scan", "hash64", "voronoi_assign", "flash_attention",
+           "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,12 +1,24 @@
-"""Wrapper of the ``flash_attention`` CUDA kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the ``flash_attention`` CUDA kernels.
 
 ``flash_attention(q, k, v, *, causal, q_offset=0, chunk_kv=1024)``:
 FlashAttention-2 forward over the model's own layout, q (B, Sq, H, d) and
 k, v (B, Skv, KV, d). CPU tensors take the plain version (``ref.py``,
-chunked by ``chunk_kv``); CUDA tensors launch the kernel, which adds one to
-``launches`` per launch. The kernel reads its inputs through their strides,
-so a slice of the KV cache is passed as it lies; it takes bf16 and fp32 and
-d in ``HEAD_DIMS``, and the wrapper raises on anything else.
+chunked by ``chunk_kv``); CUDA tensors launch a kernel, which adds one to
+``launches`` and to ``launches_by_variant[variant]`` per launch. The
+kernels read their inputs through their strides, so a slice of the KV
+cache is passed as it lies; they take bf16 and fp32 and d in
+``HEAD_DIMS``, and the wrapper raises on anything else.
+
+Two kernels, chosen by shape and dtype alone (``_variant``), never on a
+failure:
+
+- ``"sm90"`` (``csrc/flash_attention_sm90.cu``): wgmma fed by a TMA K/V
+  ring, for bf16 with d == 128 and Sq >= 64 (the prefill);
+- ``"mma_sync"`` (``csrc/flash_attention.cu``): every other shape (decode,
+  fp32, d 32 and 64).
+
+``flash_attention_cuda(..., variant=...)`` forces one of them, for tests
+and timing only; forcing ``"sm90"`` on a shape it does not take raises.
 """
 
 from __future__ import annotations
@@ -18,10 +30,14 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
+VARIANTS = ("sm90", "mma_sync")
 launches = 0
+launches_by_variant = dict.fromkeys(VARIANTS, 0)
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q_TILES = 65535          # the grid's y extent
+SM90_HEAD_DIM = 128
+SM90_MIN_SQ = 64             # one warpgroup's rows
 
 
 def _lib():
@@ -36,6 +52,20 @@ def _lib():
     return fn
 
 
+def _sm90_lib():
+    lib = build.load("flash_attention_sm90")
+    lib.flash_attention_sm90_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    lib.flash_attention_sm90_probe.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.POINTER(ctypes.c_longlong), ctypes.c_void_p]
+    lib.flash_attention_sm90_launch.restype = ctypes.c_int
+    lib.flash_attention_sm90_probe.restype = ctypes.c_int
+    return lib
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     chunk_kv: int = 1024) -> torch.Tensor:
@@ -43,6 +73,49 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    chunk_kv=chunk_kv)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+
+
+def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel for these inputs, from their shapes and dtype only:
+    ``"sm90"`` for bf16 with d == 128 and Sq >= 64, else ``"mma_sync"``."""
+    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
+            and q.shape[-1] == SM90_HEAD_DIM and q.shape[1] >= SM90_MIN_SQ):
+        return "sm90"
+    return "mma_sync"
+
+
+def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    variant: str | None = None) -> str:
+    """``_variant(q, k, v)``, or the forced ``variant`` where that kernel
+    takes these inputs; raises ``ValueError`` otherwise."""
+    chosen = _variant(q, k, v)
+    if variant is None:
+        return chosen
+    if variant not in VARIANTS:
+        raise ValueError(f"variant {variant!r} not in {VARIANTS}")
+    if variant == "sm90" and chosen != "sm90":
+        raise ValueError(
+            f"the sm90 kernel takes bf16 with d == {SM90_HEAD_DIM} and Sq >= "
+            f"{SM90_MIN_SQ}; got {q.dtype}, q {tuple(q.shape)}")
+    return variant
+
+
+def tma_map_geometry(x: torch.Tensor) -> tuple[tuple[int, ...], tuple[int, ...]]:
+    """The TMA tensor map of a (B, S, heads, d) tensor: its dims innermost
+    first, (d, S, heads, B), and the byte strides of the outer three,
+    (seq, heads, batch). The head dim is contiguous (its stride is
+    implicit)."""
+    b, s, n, d = x.shape
+    es = x.element_size()
+    return (d, s, n, b), (x.stride(1) * es, x.stride(2) * es, x.stride(0) * es)
+
+
+def _geometry(*xs: torch.Tensor) -> list:
+    out = []
+    for x in xs:
+        dims, strides = tma_map_geometry(x)
+        out += [*dims, *strides]
+    return out
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,7 +140,7 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"Sq={sq}, Skv={k.shape[1]}, q_offset={q_offset}: "
                          "need Sq, Skv >= 1, q_offset >= 0 and Sq <= "
                          f"{MAX_Q_TILES * 8}")
-    vec = 16 // q.element_size()        # the bf16 kernel loads 16 bytes
+    vec = 16 // q.element_size()        # 16-byte loads and TMA strides
     for name, x in (("q", q), ("k", k), ("v", v)):
         if x.stride(3) != 1 or any(s % vec for s in x.stride()[:3]) \
                 or x.data_ptr() % 16:
@@ -77,19 +150,53 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                         causal: bool, q_offset: int = 0) -> torch.Tensor:
-    """Launch the kernel (CUDA tensors only)."""
+                         causal: bool, q_offset: int = 0,
+                         variant: str | None = None) -> torch.Tensor:
+    """Launch the kernel ``_variant`` names, or the forced ``variant``
+    (CUDA tensors only)."""
     global launches
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
+    variant = resolve_variant(q, k, v, variant)
     b, sq, h, dh = q.shape
     out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
-                                       *v.stride()[:3], *out.stride()[:3])
-    err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                 int(q.dtype == torch.bfloat16), dh, b, h, k.shape[2], sq,
-                 k.shape[1], strides, int(causal), q_offset, dh ** -0.5,
-                 torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention", err)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if variant == "sm90":
+        geo = (ctypes.c_longlong * 24)(*_geometry(q, k, v), *out.stride()[:3])
+        err = _sm90_lib().flash_attention_sm90_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo,
+            int(causal), q_offset, dh ** -0.5, stream)
+        build.check("flash_attention_sm90", err)
+    else:
+        strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
+                                           *v.stride()[:3], *out.stride()[:3])
+        err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                     int(q.dtype == torch.bfloat16), dh, b, h, k.shape[2], sq,
+                     k.shape[1], strides, int(causal), q_offset, dh ** -0.5,
+                     stream)
+        build.check("flash_attention", err)
     launches += 1
+    launches_by_variant[variant] += 1
     return out
+
+
+def sm90_probe(q: torch.Tensor, k: torch.Tensor,
+               v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One warpgroup of the sm90 kernel's products, alone: S = q k^T and
+    O = bf16(S) v in fp32, for bf16 CUDA q (64, 128) and k, v (128, 128),
+    through the same TMA maps and shared-memory descriptors. A check of the
+    layouts, not on any path; it counts no launch."""
+    if not q.is_cuda or q.shape != (64, 128) or k.shape != (128, 128) \
+            or v.shape != (128, 128) \
+            or {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
+        raise ValueError("sm90_probe takes bf16 CUDA q (64, 128), k and v "
+                         "(128, 128)")
+    q4, k4, v4 = (x.contiguous()[None, :, None, :] for x in (q, k, v))
+    s = torch.empty((64, 128), dtype=torch.float32, device=q.device)
+    o = torch.empty_like(s)
+    geo = (ctypes.c_longlong * 21)(*_geometry(q4, k4, v4))
+    err = _sm90_lib().flash_attention_sm90_probe(
+        q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), s.data_ptr(),
+        o.data_ptr(), geo, torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_sm90", err)
+    return s, o

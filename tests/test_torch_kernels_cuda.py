@@ -7,7 +7,10 @@ PERF.md: hash64 and voronoi_assign bitwise (the kernel repeats the plain
 version's rounding), st_scan count/min/max bitwise and sum to rtol 1e-5;
 flash_attention to 2e-5 in fp32 (the same online softmax, summed in another
 order) and 1e-2 in bf16 (one bf16 ulp of outputs of order 1 is 0.0078; the
-kernel's tensor-core sums and the plain version's differ in order).
+kernel's tensor-core sums and the plain version's differ in order), for
+both bf16 kernels (``-k "flash or sm90"`` runs these alone). The sm90
+kernel's layout probe is held to ``torch.matmul`` in fp32 at 1e-4 relative
+(the same bf16 products, summed in another order).
 """
 
 import numpy as np
@@ -26,6 +29,7 @@ from repro_torch.kernels.st_scan import ref as st_ref
 from repro_torch.kernels.voronoi_assign import ops as vops
 from repro_torch.models.model import Model
 from repro_torch.models.transformer import tree_map
+from repro_torch.train.train_loop import make_serve_steps
 
 
 @pytest.fixture
@@ -104,15 +108,22 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 1e-2}
 
 
 def _flash_case(cuda, dtype, b, sq, skv, h, kv, dh, causal, q_offset=0,
-                seed=0):
+                seed=0, variant=None):
     """Kernel and plain version on the same seeded inputs; checks both the
-    result and that exactly one launch was counted."""
+    result and that exactly one launch was counted (of ``variant`` when it
+    is forced)."""
     rng = np.random.default_rng(seed)
     q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
                .to(cuda, dtype) for shape in ((b, sq, h, dh), (b, skv, kv, dh),
                                               (b, skv, kv, dh)))
     before = fops.launches
-    got = fops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    by_variant = dict(fops.launches_by_variant)
+    if variant is None:
+        got = fops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    else:
+        got = fops.flash_attention_cuda(q, k, v, causal=causal,
+                                        q_offset=q_offset, variant=variant)
+        assert fops.launches_by_variant[variant] == by_variant[variant] + 1
     assert fops.launches == before + 1
     want = flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset)
     assert got.dtype == dtype and got.shape == (b, sq, h, dh)
@@ -191,3 +202,98 @@ def test_smoke_model_on_card_matches_cpu(cuda):
         cc, lc = cpu.decode_step(params, cc, {"tokens": toks[:, t:t + 1]}, t)
         cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(cuda)}, t)
     torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+
+
+def test_sm90_probe_matches_matmul(cuda):
+    """One warpgroup's S = Q K^T (K-major descriptors) and O = bf16(S) V
+    (register A, MN-major V) through the kernel's TMA maps, against
+    torch.matmul in fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(7)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(cuda, torch.bfloat16) for shape in ((64, 128), (128, 128),
+                                                       (128, 128)))
+    s, o = fops.sm90_probe(q, k, v)
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(o, s.to(torch.bfloat16).float() @ v.float(),
+                               rtol=1e-4, atol=1e-3)
+
+
+# (b, sq, skv, h, kv, causal, q_offset), all d 128
+SM90_CASES = [(1, 2048, 2048, 16, 8, True, 0),      # serve prefill, B 1
+              (1, 64, 64, 4, 2, True, 0),
+              (1, 128, 128, 4, 2, True, 0),
+              (2, 200, 200, 4, 2, True, 0),
+              (1, 2048, 2048, 4, 2, True, 0),
+              (2, 77, 131, 4, 2, True, 54),         # ragged Sq and Skv
+              (2, 77, 131, 4, 2, False, 0),
+              (1, 100, 228, 4, 2, True, 128),       # q_offset 128
+              (2, 200, 200, 4, 2, False, 0),        # bidirectional
+              (2, 200, 200, 4, 4, True, 0),         # GQA group 1
+              (2, 200, 200, 8, 4, True, 0),         # group 2
+              (2, 200, 200, 8, 2, True, 0),         # group 4
+              (2, 200, 200, 4, 1, True, 0)]         # MQA
+
+
+@pytest.mark.parametrize("case", SM90_CASES, ids=str)
+def test_flash_sm90_matches_plain(cuda, case):
+    b, sq, skv, h, kv, causal, off = case
+    _flash_case(cuda, torch.bfloat16, b, sq, skv, h, kv, 128, causal, off,
+                seed=sq + h, variant="sm90")
+
+
+def test_flash_sm90_cache_slice_in_place_and_repeatable(cuda):
+    """A layer's slice of the (L, B, S, KV, d) cache goes in through its
+    strides, and two calls give the same bits."""
+    rng = np.random.default_rng(4)
+    cache = torch.from_numpy(rng.standard_normal((3, 2, 256, 2, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((2, 100, 4, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    k_l, v_l = cache[1], cache[2]
+    got = fops.flash_attention_cuda(q, k_l, v_l, causal=True, q_offset=156,
+                                    variant="sm90")
+    again = fops.flash_attention_cuda(q, k_l, v_l, causal=True, q_offset=156,
+                                      variant="sm90")
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k_l, v_l, causal=True, q_offset=156)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_flash_sm90_matches_mma_sync(cuda):
+    """Both bf16 kernels, forced, on the same inputs."""
+    rng = np.random.default_rng(6)
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(cuda, torch.bfloat16) for shape in ((2, 333, 8, 128),
+                                                       (2, 333, 2, 128),
+                                                       (2, 333, 2, 128)))
+    for causal in (True, False):
+        a = fops.flash_attention_cuda(q, k, v, causal=causal, variant="sm90")
+        b = fops.flash_attention_cuda(q, k, v, causal=causal,
+                                      variant="mma_sync")
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_flash_sm90_refuses_shapes_it_lacks(cuda):
+    for dtype, sq, dh in ((torch.float32, 128, 128), (torch.bfloat16, 63, 128),
+                          (torch.bfloat16, 128, 64)):
+        x = torch.zeros((1, sq, 2, dh), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="sm90"):
+            fops.flash_attention_cuda(x, x, x, causal=True, variant="sm90")
+
+
+def test_prefill_step_sends_flash_to_sm90(cuda):
+    """prefill_step on the smoke model at d_head 128 in bf16: every flash
+    call goes to the sm90 kernel, and the logits are finite."""
+    cfg = reduce_for_smoke(get_config("internlm2-1.8b")).replace(d_head=128)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    prefill_step, _ = make_serve_steps(model)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 96)).astype(np.int32)).to(cuda)
+    before = dict(fops.launches_by_variant)
+    logits = prefill_step(params, {"tokens": toks})
+    assert fops.launches_by_variant["sm90"] == before["sm90"] + cfg.n_layers
+    assert fops.launches_by_variant["mma_sync"] == before["mma_sync"]
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert torch.isfinite(logits).all()

@@ -61,6 +61,7 @@ def _port_flash(q, k, v, dtype=torch.float32, **kw):
 @pytest.mark.parametrize("b,s,h,kv,dh,bq,bk,causal", [
     (2, 256, 8, 2, 32, 64, 128, True),     # GQA group 4
     (1, 384, 4, 1, 64, 128, 128, False),   # MQA, bidirectional
+    (1, 256, 16, 8, 128, 128, 128, True),  # serve heads: the sm90 kernel's oracle
 ])
 def test_plain_flash_matches_pallas_interpret(b, s, h, kv, dh, bq, bk, causal):
     q, k, v = _qkv(s + h, b, s, s, h, kv, dh)
