@@ -21,14 +21,18 @@
 //   S accumulator converted to bf16 pairs is already the A fragment) and V
 //   as an MN-major operand (transpose bit), so no thread transposes V;
 // - K and V arrive by TMA (cp.async.bulk.tensor, 128B swizzle, zero fill
-//   past Sq and Skv) into a two-stage ring: one thread issues tile j+1's
-//   loads on a "full" mbarrier before the block computes tile j, and an
-//   "empty" mbarrier (all 256 threads arrive) guards the reuse of a stage;
+//   past Sq and Skv) into a three-stage ring: one thread issues tile j+1's
+//   loads on a "full" mbarrier before its warpgroup computes tile j, and an
+//   "empty" mbarrier (all 256 threads arrive) guards the reuse of a stage.
+//   With two stages that thread waits, before tile j, for the other
+//   warpgroup to finish tile j-1, which holds the two in step (both in
+//   softmax while the tensor cores idle); the third stage lets them drift
+//   up to a tile apart, so one's softmax overlaps the other's products;
 // - a block is two warpgroups over 128 query rows of one (b, h), so each
 //   128-key tile in shared memory feeds 128 rows; the heaviest causal tiles
 //   are scheduled first and a causal block stops at the tile holding key
 //   q_offset + its last row (later tiles would add exactly 0).
-// Shared memory: Q 32 KB + 2 x (K 32 KB + V 32 KB) = 160 KB, one block an
+// Shared memory: Q 32 KB + 3 x (K 32 KB + V 32 KB) = 224 KB, one block an
 // SM. No atomics: two runs give the same bits. Not done yet: a producer
 // warp with setmaxnreg, overlap of softmax with the next product inside a
 // warpgroup, persistent blocks, a TMA-store epilogue.
@@ -56,7 +60,7 @@ constexpr int SLAB = 64;                  // bf16 columns in one 128-byte swizzl
 constexpr int BQ = 128;                   // query rows a block (two warpgroups x 64)
 constexpr int BK = 128;                   // keys a K/V tile
 constexpr int THREADS = 256;
-constexpr int STAGES = 2;
+constexpr int STAGES = 3;
 constexpr uint32_t ROW_BYTES = 128;       // one slab row
 constexpr uint32_t ATOM_BYTES = 8 * ROW_BYTES;   // 8 rows: one swizzle atom
 constexpr uint32_t SLAB_Q = BQ * ROW_BYTES;      // 16 KB
@@ -339,26 +343,25 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       float sc[64];
       qk_product(sc, q_wg, SLAB_Q, k_s);
 
-      // Scale into the log2 domain; mask only tiles that cross the diagonal
-      // or the Skv edge.
+      // Mask only tiles that cross the diagonal or the Skv edge. The row
+      // max is taken on the raw scores; m lives in the log2 domain
+      // (scores times scale * log2(e)), folded into one FMA before exp2f.
       const bool edge = kv0 + BK > g.Skv || (g.causal && kv0 + BK - 1 > wg_first);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
       for (int i = 0; i < 64; ++i) {
-        float x = sc[i] * g.scale_log2;
         if (edge) {
           const int col = kv0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
-          if (col >= g.Skv || (g.causal && pos0 + 8 * ((i >> 1) & 1) < col)) x = NEG_INF;
+          if (col >= g.Skv || (g.causal && pos0 + 8 * ((i >> 1) & 1) < col)) sc[i] = NEG_INF;
         }
-        sc[i] = x;
-        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], x);
+        mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sc[i]);
       }
       float corr[2], rs[2] = {0.f, 0.f};
 #pragma unroll
       for (int hr = 0; hr < 2; ++hr) {
         mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
         mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
-        const float m_new = fmaxf(m[hr], mx[hr]);
+        const float m_new = fmaxf(m[hr], mx[hr] * g.scale_log2);
         corr[hr] = exp2f(m[hr] - m_new);
         m[hr] = m_new;
       }
@@ -369,7 +372,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
       for (int i = 0; i < 64; i += 2) {
         const int hr = (i >> 1) & 1;
-        const float p0 = exp2f(sc[i] - m[hr]), p1 = exp2f(sc[i + 1] - m[hr]);
+        const float p0 = exp2f(fmaf(sc[i], g.scale_log2, -m[hr]));
+        const float p1 = exp2f(fmaf(sc[i + 1], g.scale_log2, -m[hr]));
         rs[hr] += p0 + p1;
         p[i >> 1] = pack_bf16(p0, p1);
       }
