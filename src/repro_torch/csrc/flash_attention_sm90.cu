@@ -329,8 +329,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   for (int j = 0; j < n_tiles; ++j) {
     const int s = j % STAGES;
     if (tid == 0 && j + 1 < n_tiles) {
-      // Tile j+1 goes into the stage tile j-1 used, once all threads are
-      // done with it.
+      // Tile j+1 goes into the stage tile j+1-STAGES used, once all
+      // threads are done with it.
       if (j + 1 >= STAGES) mbar_wait(empty0 + 8 * ((j + 1) % STAGES), ((j + 1) / STAGES - 1) & 1);
       load_kv(&kmap, &vmap, kv_s, full0, j + 1, kvh, b);
     }

@@ -55,10 +55,6 @@ def test_forced_variants():
         fops.resolve_variant(*qkv, variant="wgmma")
 
 
-def test_counters_start_per_variant():
-    assert set(fops.launches_by_variant) == set(fops.VARIANTS)
-
-
 def test_tma_geometry_of_a_contiguous_tensor():
     x = torch.zeros((2, 100, 16, 128), dtype=torch.bfloat16)
     dims, strides = fops.tma_map_geometry(x)
