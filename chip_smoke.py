@@ -16,12 +16,16 @@ Phases, one line each:
      answers on retained windows against a numpy oracle over the generated
      payloads and that every kernel's launch count grew;
   4. st_scan against its plain version on the main path's own scan inputs,
-     then per-kernel timings (CUDA events) beside their bounds;
-  5. flash_attention's two kernels against their plain version (fp32 at
+     then per-kernel timings beside their bounds: ``ms`` is the call time,
+     wrapper included (CUDA events around back-to-back calls, so a wrapper
+     slower than its kernel shows the host), ``device_ms`` the kernel's own
+     device time a launch (torch.profiler, summed by kernel name);
+  5. flash_attention's three kernels against their plain version (fp32 at
      the JAX package's test shapes, decode rows and ragged sizes, to 2e-5,
-     through the mma_sync kernel; bf16 at the serve shapes and a ragged
-     d-128 case, to 1e-2, through the sm90 kernel and the mma_sync kernel,
-     each forced and as the wrapper chooses);
+     through the mma_sync kernel; bf16 at the serve shapes, decode rows of
+     256 and 4096 slots, a GQA group of 5 and a ragged d-128 case, to 1e-2,
+     through the sm90, decode and mma_sync kernels, each forced and as the
+     wrapper chooses; the decode kernel also bitwise repeatable);
   6. the LM serving path at full width — internlm2-1.8b (24 layers,
      d_model 2048, 16 query heads over 8 KV heads, vocab 92544), random
      weights from a seeded generator on the card, bf16 compute:
@@ -30,10 +34,12 @@ Phases, one line each:
      (identical ids), with the engine's logits after the last prompt token
      held against ``prefill_step``'s on the same prompts; every prefill
      flash call must go to the sm90 kernel and every generate call (Sq 1)
-     to the mma_sync kernel;
+     to the decode kernel;
   7. flash_attention timings at the prefill shape (sm90 and mma_sync, both
-     forced) and the decode shape, and the five kernels' timings printed as
-     one JSON line.
+     forced) and at two decode shapes, 192 of 256 slots and 4096 of 4096
+     (decode and mma_sync, both forced), each beside SDPA and the bytes or
+     operations bound, and the six kernels' timings printed as one JSON
+     line.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -58,6 +64,7 @@ SERVE_ARCH = "internlm2-1.8b"
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 256
+LONG_SEQ = 4096                # the long-cache decode row
 FLASH_BF16_TOL = 1e-2          # bf16 outputs of order 1: ulp 0.0078
 FLASH_F32_TOL = 2e-5           # as the JAX package's kernel tests
 # Engine logits after the last prompt token vs prefill_step's, bf16 through
@@ -80,6 +87,54 @@ def cuda_ms(torch, fn, iters: int) -> float:
     return a.elapsed_time(b) / iters
 
 
+def host_us(torch, fns: dict, calls: int = 100, rounds: int = 7) -> dict:
+    """The host's time a call of each of ``fns`` (a name -> callable), in
+    µs: perf_counter around ``calls`` calls that nothing waits on, the
+    median of ``rounds`` rounds taken in turns. While the card keeps up
+    with the calls, this is the wrapper's own cost on the host."""
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(calls):
+                fn()
+            times[name].append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return {name: float(np.median(t)) for name, t in times.items()}
+
+
+def _device_rows(torch, prof):
+    """(device µs, calls, name) of each device activity of a profile;
+    CUPTI's own buffer markers are not work."""
+    for ev in prof.key_averages():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or "Buffer" in ev.key:
+            continue
+        yield (getattr(ev, "self_device_time_total",
+                       getattr(ev, "self_cuda_time_total", 0)), ev.count, ev.key)
+
+
+def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
+    """Device time a call of ``fn`` (torch.profiler): the time of the
+    device kernels whose name holds ``match`` (of every device activity
+    when None) over ``iters`` calls, divided by ``iters``. Exits non-zero
+    when no such kernel ran."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(t for t, _, key in _device_rows(torch, prof)
+             if match is None or match in key)
+    if us <= 0:
+        raise SystemExit(f"device_ms: no device time for kernel {match!r}")
+    return us / 1e3 / iters
+
+
 def profile(torch, fn, top: int = 12) -> dict:
     """Wall time of one ``fn()`` (synchronised) and its device time by
     kernel name (torch.profiler), with the device's busy share."""
@@ -92,18 +147,10 @@ def profile(torch, fn, top: int = 12) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = []
-    for ev in prof.key_averages():
-        # Device-side activities only (CPU ops would count their kernels
-        # twice); CUPTI's own buffer markers are not work.
-        if ev.device_type != torch.autograd.DeviceType.CUDA \
-                or "Buffer" in ev.key:
-            continue
-        dev_us = getattr(ev, "self_device_time_total",
-                         getattr(ev, "self_cuda_time_total", 0))
-        if dev_us > 0:
-            rows.append((dev_us / 1e3, ev.count, ev.key[:60]))
-    rows.sort(reverse=True)
+    # Device-side activities only (CPU ops would count their kernels twice).
+    rows = sorted(((us / 1e3, n, key[:60])
+                   for us, n, key in _device_rows(torch, prof) if us > 0),
+                  reverse=True)
     busy_ms = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
@@ -117,11 +164,12 @@ def phase(name: str, **fields) -> None:
 def flash_vs_plain(torch, dev, seed: int) -> dict:
     """flash_attention's kernels against their plain version on the card:
     fp32 at the JAX package's kernel-test shapes, decode rows and a ragged
-    size (to FLASH_F32_TOL), bf16 at the serve shapes and a ragged d-128
-    case (to FLASH_BF16_TOL), each bf16 case through the kernel the wrapper
-    chooses and through every kernel that takes it, forced. Exits non-zero
-    on any mismatch or on a call that went to another kernel than
-    expected; returns the largest errors by dtype and by bf16 kernel."""
+    size (to FLASH_F32_TOL), bf16 at the serve shapes, decode rows and a
+    ragged d-128 case (to FLASH_BF16_TOL), each bf16 case through the
+    kernel the wrapper chooses and through every kernel that takes it,
+    forced; the decode kernel twice, bitwise. Exits non-zero on any
+    mismatch or on a call that went to another kernel than expected;
+    returns the largest errors by dtype and by bf16 kernel."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(seed)
@@ -136,7 +184,10 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                   for p in (0, 63, 64, 191, 255)]
     bf16_cases = [(SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 16, 8, 128, True, 0),
                   (2, 77, 131, 4, 2, 128, True, 54),    # ragged, d 128
-                  (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 191)]
+                  (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 191),
+                  (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 0),
+                  (SERVE_BATCH, 1, LONG_SEQ, 16, 8, 128, True, LONG_SEQ - 1),
+                  (2, 1, MAX_SEQ, 40, 8, 128, True, 100)]   # qwen3-14b heads
     errs = {}
     n_calls = 0
     for dtype, cases, tol in ((torch.float32, f32_cases, FLASH_F32_TOL),
@@ -150,7 +201,7 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
             want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
             chosen = fops._variant(q, k, v)
             forced = () if dtype != torch.bfloat16 else \
-                ("sm90", "mma_sync") if chosen == "sm90" else ("mma_sync",)
+                (chosen, "mma_sync") if chosen != "mma_sync" else ("mma_sync",)
             for variant in (None, *forced):
                 before = dict(fops.launches_by_variant)
                 got = fops.flash_attention_cuda(q, k, v, causal=causal,
@@ -164,6 +215,10 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                 if bad or not torch.isfinite(got).all():
                     raise SystemExit(f"flash_attention {dtype} {ran} {case}: {bad} "
                                      f"elements beyond {tol}, max err {float(err.max())}")
+                if ran == "decode" and not torch.equal(got, fops.flash_attention_cuda(
+                        q, k, v, causal=causal, q_offset=off, variant="decode")):
+                    raise SystemExit(f"flash_attention decode {case}: a second "
+                                     "call gave other bits")
                 worst = max(worst, float(err.max()))
                 if dtype == torch.bfloat16:
                     key = f"bfloat16_{ran}"
@@ -260,10 +315,10 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
     gen_launches = fops.launches
     gen_by_variant = dict(fops.launches_by_variant)
     want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS)
-    if gen_launches != want_launches or gen_by_variant["mma_sync"] != want_launches:
+    if gen_launches != want_launches or gen_by_variant["decode"] != want_launches:
         raise SystemExit(f"generate: {gen_launches} flash launches "
                          f"({gen_by_variant}), expected {want_launches} "
-                         "through mma_sync")
+                         "through the decode kernel")
     if ids.shape != (SERVE_BATCH, NEW_TOKENS) or ids.min() < 0 \
             or ids.max() >= cfg.vocab:
         raise SystemExit(f"generate: ids {ids.shape} in [{ids.min()}, {ids.max()}]")
@@ -309,9 +364,12 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
 
 def flash_timings(torch, dev, seed: int) -> dict:
     """flash_attention at the serve path's prefill shape (the sm90 kernel
-    and the mma_sync kernel, both forced) and decode shape (mma_sync), its
-    plain version and SDPA (timed as the yardstick only), each beside the
-    bound of the same work."""
+    and the mma_sync kernel, both forced) and at two decode shapes, 192
+    keys of a 256-slot cache and 4096 of 4096 (the decode kernel and the
+    mma_sync kernel, both forced), its plain version and SDPA (timed as the
+    yardstick only), each beside the bound of the same work. ``*ms`` is
+    the call time, wrapper included; ``*device_ms`` the kernel's own device
+    time a launch."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -322,6 +380,10 @@ def flash_timings(torch, dev, seed: int) -> dict:
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
                                 ).to(dev, torch.bfloat16)
 
+    def kernel(variant, q, k, v, **kw):
+        return lambda: fops.flash_attention_cuda(q, k, v, causal=True,
+                                                 variant=variant, **kw)
+
     out = {}
     # prefill: S = 2048, causal
     q, k, v = rand(b, PREFILL_LEN, h, d), rand(b, PREFILL_LEN, kv, d), rand(b, PREFILL_LEN, kv, d)
@@ -329,32 +391,48 @@ def flash_timings(torch, dev, seed: int) -> dict:
     s = PREFILL_LEN
     flops = 4 * b * h * d * s * (s + 1) / 2
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=True)
     out["prefill"] = {
-        "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
-            q, k, v, causal=True, variant="sm90"), 20),
-        "mma_sync_ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
-            q, k, v, causal=True, variant="mma_sync"), 20),
+        "ms": cuda_ms(torch, kernel("sm90", q, k, v), 20),
+        "device_ms": device_ms(torch, kernel("sm90", q, k, v), 10, "flash_fwd_sm90"),
+        "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v), 20),
+        "mma_sync_device_ms": device_ms(torch, kernel("mma_sync", q, k, v), 10,
+                                        "flash_fwd_bf16"),
         "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
-        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True, enable_gqa=True), 20),
+        "library_ms": cuda_ms(torch, sdpa, 20),
+        "library_device_ms": device_ms(torch, sdpa, 10),
         "flops": flops, "bytes": nbytes,
         **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
-    # decode: Sq = 1 at position 191 of a 256-slot cache
-    pos = PROMPT_LEN + NEW_TOKENS - 1
-    q, k, v = rand(b, 1, h, d), rand(b, MAX_SEQ, kv, d), rand(b, MAX_SEQ, kv, d)
-    qt = q.transpose(1, 2).contiguous()
-    kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
-    flops = 4 * b * h * d * (pos + 1)
-    nbytes = 2 * (2 * q.numel() + 2 * b * (pos + 1) * kv * d)
-    out["decode"] = {
-        "ms": cuda_ms(torch, lambda: fops.flash_attention_cuda(
-            q, k, v, causal=True, q_offset=pos), 200),
-        "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
-            q, k, v, causal=True, q_offset=pos), 20),
-        "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, enable_gqa=True), 200),
-        "flops": flops, "bytes": nbytes,
-        **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+    # decode: Sq = 1 at the last position of the generate run (191 of a
+    # 256-slot cache), and at the last of a 4096-slot cache
+    for name, slots, pos in (("decode", MAX_SEQ, PROMPT_LEN + NEW_TOKENS - 1),
+                             ("decode_long", LONG_SEQ, LONG_SEQ - 1)):
+        q, k, v = rand(b, 1, h, d), rand(b, slots, kv, d), rand(b, slots, kv, d)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
+        flops = 4 * b * h * d * (pos + 1)
+        nbytes = 2 * (2 * q.numel() + 2 * b * (pos + 1) * kv * d)
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+        host = host_us(torch, {
+            "decode": kernel("decode", q, k, v, q_offset=pos),
+            "mma_sync": kernel("mma_sync", q, k, v, q_offset=pos)})
+        out[name] = {
+            "host_us": host["decode"], "mma_sync_host_us": host["mma_sync"],
+            "keys": pos + 1, "slots": slots,
+            "n_split": fops.decode_splits(b, kv, pos + 1),
+            "ms": cuda_ms(torch, kernel("decode", q, k, v, q_offset=pos), 200),
+            "device_ms": device_ms(torch, kernel("decode", q, k, v, q_offset=pos),
+                                   50, "flash_decode"),
+            "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v, q_offset=pos), 200),
+            "mma_sync_device_ms": device_ms(
+                torch, kernel("mma_sync", q, k, v, q_offset=pos), 50, "flash_fwd_bf16"),
+            "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+                q, k, v, causal=True, q_offset=pos), 20),
+            "library_ms": cuda_ms(torch, sdpa, 200),
+            "library_device_ms": device_ms(torch, sdpa, 50),
+            "flops": flops, "bytes": nbytes,
+            **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
     return out
 
 
@@ -616,6 +694,8 @@ def main(argv=None) -> int:
         *scan_args, channels=specs[1].channels, valid_c=cfg.tuple_capacity), 1)
     scan_k1_ms = cuda_ms(torch, lambda: st_ops.st_scan_cuda(
         *scan_args, (3,), cfg.tuple_capacity), 20)
+    scan_dev = device_ms(torch, lambda: st_ops.st_scan_cuda(
+        *scan_args, rows, cfg.tuple_capacity), 10, "st_scan_kernel")
 
     # hash64 at the insert's temporal-slice shape (B x max_t_slices H_t keys).
     buckets = hashing.time_bucket(torch.from_numpy(metas.t0[-1]).to(dev),
@@ -623,6 +703,8 @@ def main(argv=None) -> int:
         16, dtype=torch.int32, device=dev)
     h_ms = cuda_ms(torch, lambda: hash64_ops.xxh64_mod_cuda(None, buckets, 80), 200)
     h_plain = cuda_ms(torch, lambda: hashing.xxh64_mod_plain(None, buckets, 80), 50)
+    h_dev = device_ms(torch, lambda: hash64_ops.xxh64_mod_cuda(None, buckets, 80),
+                      50, "hash64_mod_kernel")
     h_bytes = buckets.numel() * 8
     h_err = int((hash64_ops.xxh64_mod_cuda(None, buckets, 80)
                  != hashing.xxh64_mod_plain(None, buckets, 80)).sum())
@@ -639,6 +721,13 @@ def main(argv=None) -> int:
     c, sc, _ = voronoi.centred_sites(sites)
     vpc = vpts - c
     v_lib = cuda_ms(torch, lambda: torch.cdist(vpc, sc).argmin(1), 50)
+    v_dev = device_ms(torch, lambda: vor_ops.voronoi_assign_cuda(vlat, vlon, sites),
+                      50, "voronoi_assign_kernel")
+    # the wrapper's own device work besides the kernel (centred_sites' ops)
+    v_wrap_dev = device_ms(torch, lambda: vor_ops.voronoi_assign_cuda(
+        vlat, vlon, sites), 50)
+    v_lib_dev = device_ms(torch, lambda: torch.cdist(vpc, sc).argmin(1), 50)
+    centred_ms = cuda_ms(torch, lambda: voronoi.centred_sites(sites), 200)
     v_err = int((vor_ops.voronoi_assign_cuda(vlat, vlon, sites).reshape(-1)
                  != voronoi.voronoi_assign(vpts, sites)).sum())
     n_pts, n_e = vpts.shape[0], sites.shape[0]
@@ -649,22 +738,27 @@ def main(argv=None) -> int:
         return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
     kernels = []
-    for name, route, src, replaces, ms, plain_ms, (b_ms, b_by), lib_ms, err in (
+    for name, route, src, replaces, ms, dev_ms, plain_ms, (b_ms, b_by), lib_ms, \
+            lib_dev, err in (
             ("st_scan", "cuda", "src/repro_torch/csrc/st_scan.cu",
-             "src/repro/kernels/st_scan/st_scan.py:109", scan_ms, scan_plain_ms,
-             bound(scan_bytes), None, scan_err),
+             "src/repro/kernels/st_scan/st_scan.py:109", scan_ms, scan_dev,
+             scan_plain_ms, bound(scan_bytes), None, None, scan_err),
             ("hash64", "cuda", "src/repro_torch/csrc/hash64.cu",
-             "src/repro/kernels/hash64/hash64.py:28", h_ms, h_plain,
-             bound(h_bytes), None, float(h_err)),
+             "src/repro/kernels/hash64/hash64.py:28", h_ms, h_dev, h_plain,
+             bound(h_bytes), None, None, float(h_err)),
             ("voronoi_assign", "cuda", "src/repro_torch/csrc/voronoi_assign.cu",
              "src/repro/kernels/voronoi_assign/voronoi_assign.py:32", v_ms,
-             v_plain, bound(n_pts * 12, v_ops), v_lib, float(v_err))):
+             v_dev, v_plain, bound(n_pts * 12, v_ops), v_lib, v_lib_dev,
+             float(v_err))):
         kernels.append({"name": name, "route": route, "source": src,
                         "replaces": replaces, "launches": launches[name],
                         "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                         "bound_ms": b_ms, "bound_by": b_by,
-                        "library_ms": lib_ms})
+                        "library_ms": lib_ms, "device_ms": dev_ms,
+                        "library_device_ms": lib_dev})
+    kernels[-1]["wrapper_device_ms"] = v_wrap_dev
     phase("kernel_timings", st_scan_k1_ms=scan_k1_ms,
+          voronoi_centred_sites_ms=centred_ms,
           st_scan_shape={"E": 80, "C": cfg.padded_capacity, "Q": 64,
                          "L": cfg.max_shards_per_query, "K": len(rows),
                          "selected_edges": int(selected.sum())},
@@ -679,36 +773,51 @@ def main(argv=None) -> int:
     flash_err = flash_vs_plain(torch, dev, args.seed)
     served = serve(torch, dev, args.seed, args.profile)
     ft = flash_timings(torch, dev, args.seed)
-    pre, dec = ft["prefill"], ft["decode"]
-    # The mma_sync kernel runs the main path's decode calls: its entry
-    # gives the decode shape's numbers, and its forced prefill time.
+    pre, dec, long = ft["prefill"], ft["decode"], ft["decode_long"]
+    flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
+    # The mma_sync kernel is on no main path any more (fp32, d 32/64, and
+    # bf16 with 1 < Sq < 64): its entry gives its forced decode-shape times.
     kernels.append({
         "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
+        "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": flash,
         "launches": served["mma_sync"],
         "max_abs_err": flash_err["bfloat16_mma_sync"],
-        "ms": dec["ms"], "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
-        "decode_ms": dec["ms"], "decode_plain_ms": dec["plain_ms"],
-        "decode_bound_ms": dec["bound_ms"], "decode_bound_by": dec["bound_by"],
-        "decode_library_ms": dec["library_ms"],
-        "prefill_ms": pre["mma_sync_ms"]})
+        "ms": dec["mma_sync_ms"], "device_ms": dec["mma_sync_device_ms"],
+        "host_us": dec["mma_sync_host_us"],
+        "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+        "library_device_ms": dec["library_device_ms"],
+        "long_device_ms": long["mma_sync_device_ms"],
+        "prefill_ms": pre["mma_sync_ms"],
+        "prefill_device_ms": pre["mma_sync_device_ms"]})
     kernels.append({
         "name": "flash_attention_sm90", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_sm90.cu",
-        "replaces": "src/repro/kernels/flash_attention/flash_attention.py:66",
+        "source": "src/repro_torch/csrc/flash_attention_sm90.cu", "replaces": flash,
         "launches": served["sm90"],
         "max_abs_err": flash_err["bfloat16_sm90"],
-        "ms": pre["ms"], "plain_ms": pre["plain_ms"],
+        "ms": pre["ms"], "device_ms": pre["device_ms"], "plain_ms": pre["plain_ms"],
         "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
         "library_ms": pre["library_ms"],
-        "mma_sync_prefill_ms": pre["mma_sync_ms"]})
+        "library_device_ms": pre["library_device_ms"]})
+    kernels.append({
+        "name": "flash_attention_decode", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_decode.cu", "replaces": flash,
+        "launches": served["decode"],
+        "max_abs_err": flash_err["bfloat16_decode"],
+        "ms": dec["ms"], "device_ms": dec["device_ms"], "host_us": dec["host_us"],
+        "plain_ms": dec["plain_ms"],
+        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+        "library_ms": dec["library_ms"],
+        "library_device_ms": dec["library_device_ms"],
+        "long_ms": long["ms"], "long_device_ms": long["device_ms"],
+        "long_plain_ms": long["plain_ms"], "long_bound_ms": long["bound_ms"],
+        "long_library_device_ms": long["library_device_ms"]})
     phase("flash_timings", shapes={
         "prefill": [SERVE_BATCH, PREFILL_LEN, 16, 8, 128, "causal", "bf16"],
         "decode": [SERVE_BATCH, 1, 16, 8, 128, "q_offset",
-                   PROMPT_LEN + NEW_TOKENS - 1, "Skv", MAX_SEQ]}, **ft)
+                   PROMPT_LEN + NEW_TOKENS - 1, "Skv", MAX_SEQ],
+        "decode_long": [SERVE_BATCH, 1, 16, 8, 128, "q_offset", LONG_SEQ - 1,
+                        "Skv", LONG_SEQ]}, **ft)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

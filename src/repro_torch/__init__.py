@@ -11,8 +11,10 @@ under ``csrc/``, built with nvcc for ``sm_90a`` at first use
   point location (``voronoi_assign.cu``);
 - the LM serving path (``configs``, ``models``, ``train.train_loop``
   ``make_serve_steps``, ``serve.engine.Engine``) for dense GQA decoders
-  such as internlm2-1.8b: FlashAttention-2 forward
-  (``flash_attention.cu``) in every attention layer of prefill and decode.
+  such as internlm2-1.8b: FlashAttention-2 forward in every attention
+  layer, through ``flash_attention_sm90.cu`` at prefill,
+  ``flash_attention_decode.cu`` (split-KV) at decode and
+  ``flash_attention.cu`` for the other shapes and fp32.
   ``convert.params_from_numpy`` takes the JAX package's weights.
 
 Device policy: entry points take ``device`` and default to ``"cuda"``; they

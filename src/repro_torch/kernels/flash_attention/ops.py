@@ -9,28 +9,35 @@ kernels read their inputs through their strides, so a slice of the KV
 cache is passed as it lies; they take bf16 and fp32 and d in
 ``HEAD_DIMS``, and the wrapper raises on anything else.
 
-Two kernels, chosen by shape and dtype alone (``_variant``), never on a
+Three kernels, chosen by shape and dtype alone (``_variant``), never on a
 failure:
 
 - ``"sm90"`` (``csrc/flash_attention_sm90.cu``): wgmma fed by a TMA K/V
   ring, for bf16 with d == 128 and Sq >= 64 (the prefill);
-- ``"mma_sync"`` (``csrc/flash_attention.cu``): every other shape (decode,
-  fp32, d 32 and 64).
+- ``"decode"`` (``csrc/flash_attention_decode.cu``): split-KV decoding for
+  bf16 with Sq == 1 and a GQA group H / KV of at most 16 (every decode
+  step); one one-warp block per (batch, kv head, key split) with the
+  group's query heads as its rows, the ``decode_splits`` splits of a kv
+  head merged in a fixed order inside a thread-block cluster;
+- ``"mma_sync"`` (``csrc/flash_attention.cu``): every other shape (fp32,
+  d 32 and 64 at Sq > 1, bf16 with 1 < Sq < 64).
 
 ``flash_attention_cuda(..., variant=...)`` forces one of them, for tests
-and timing only; forcing ``"sm90"`` on a shape it does not take raises.
+and timing only; forcing ``"sm90"`` or ``"decode"`` on a shape it does not
+take raises.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
-VARIANTS = ("sm90", "mma_sync")
+VARIANTS = ("sm90", "decode", "mma_sync")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
 HEAD_DIMS = (32, 64, 128)
@@ -38,6 +45,13 @@ DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q_TILES = 65535          # the grid's y extent
 SM90_HEAD_DIM = 128
 SM90_MIN_SQ = 64             # one warpgroup's rows
+DECODE_MAX_GROUP = 16        # query heads a block's rows
+DECODE_MAX_SPLITS = 8        # blocks of a cluster (the portable limit)
+# One-warp blocks a decode launch aims for, about two an SM of the H100's
+# 132. Over the serve shapes' 64 (batch, kv head) pairs, 4 splits timed
+# best on the card at 192 and at 4096 keys, 3 to 8 within 13 %, 2 and 1
+# far slower (PERF.md, H100 80GB HBM3 at 700 W).
+DECODE_TARGET_BLOCKS = 256
 
 
 def _lib():
@@ -66,6 +80,23 @@ def _sm90_lib():
     return lib
 
 
+@functools.cache
+def _decode_fn():
+    fn = build.load("flash_attention_decode").flash_attention_decode_launch
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+        + [ctypes.c_longlong] * 10 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def decode_splits(b: int, kv: int, n_keys: int) -> int:
+    """Key splits of a decode launch: enough that the ``b * kv * n_split``
+    blocks reach ``DECODE_TARGET_BLOCKS``, at most ``DECODE_MAX_SPLITS``
+    and no more than there are keys."""
+    want = -(-DECODE_TARGET_BLOCKS // (b * kv))
+    return max(1, min(DECODE_MAX_SPLITS, want, n_keys))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool, q_offset: int = 0,
                     chunk_kv: int = 1024) -> torch.Tensor:
@@ -77,10 +108,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel for these inputs, from their shapes and dtype only:
-    ``"sm90"`` for bf16 with d == 128 and Sq >= 64, else ``"mma_sync"``."""
-    if (q.dtype == k.dtype == v.dtype == torch.bfloat16
-            and q.shape[-1] == SM90_HEAD_DIM and q.shape[1] >= SM90_MIN_SQ):
-        return "sm90"
+    ``"decode"`` for bf16 with Sq == 1, d in ``HEAD_DIMS`` and H / KV <=
+    ``DECODE_MAX_GROUP``; ``"sm90"`` for bf16 with d == 128 and Sq >= 64;
+    else ``"mma_sync"``."""
+    if q.dtype == k.dtype == v.dtype == torch.bfloat16:
+        if (q.shape[1] == 1 and q.shape[-1] in HEAD_DIMS
+                and q.shape[2] // k.shape[2] <= DECODE_MAX_GROUP):
+            return "decode"
+        if q.shape[-1] == SM90_HEAD_DIM and q.shape[1] >= SM90_MIN_SQ:
+            return "sm90"
     return "mma_sync"
 
 
@@ -97,6 +133,11 @@ def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(
             f"the sm90 kernel takes bf16 with d == {SM90_HEAD_DIM} and Sq >= "
             f"{SM90_MIN_SQ}; got {q.dtype}, q {tuple(q.shape)}")
+    if variant == "decode" and chosen != "decode":
+        raise ValueError(
+            f"the decode kernel takes bf16 with Sq == 1, d in {HEAD_DIMS} and "
+            f"H / KV <= {DECODE_MAX_GROUP}; got {q.dtype}, q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}")
     return variant
 
 
@@ -167,6 +208,15 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), geo,
             int(causal), q_offset, dh ** -0.5, stream)
         build.check("flash_attention_sm90", err)
+    elif variant == "decode":
+        _, skv, kv, _ = k.shape
+        n_keys = min(skv, q_offset + 1) if causal else skv
+        qs, ks, vs = q.stride(), k.stride(), v.stride()
+        err = _decode_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dh, b, h,
+            kv, n_keys, decode_splits(b, kv, n_keys), qs[0], qs[2], *ks[:3],
+            *vs[:3], h * dh, dh, dh ** -0.5, stream)
+        build.check("flash_attention_decode", err)
     else:
         strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                            *v.stride()[:3], *out.stride()[:3])

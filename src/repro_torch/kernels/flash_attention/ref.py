@@ -1,7 +1,7 @@
 """Plain PyTorch version of the flash_attention kernel.
 
-The same chunked online softmax as the Pallas kernel and the CUDA kernel
-(``csrc/flash_attention.cu``): scores ``(q . k^T) * d^-0.5`` in fp32,
+The same chunked online softmax as the Pallas kernel and the CUDA kernels
+(``csrc/flash_attention*.cu``): scores ``(q . k^T) * d^-0.5`` in fp32,
 causal positions masked to ``NEG_INF = -1e30`` where
 ``q_offset + q_row < k_col``, running max / sum / accumulator in fp32,
 ``p`` cast to v's dtype before the PV product, output
@@ -12,7 +12,14 @@ chunk holding key ``q_offset + Sq - 1``, since later chunks add exactly 0.
 Layout (B, S, H, d) for q and (B, S, KV, d) for k and v, H % KV == 0: query
 head h reads kv head h // (H // KV). The CPU path of
 ``repro_torch.models.attention.flash_attention`` runs this; on the card it
-is only the yardstick the kernel is held against.
+is only the yardstick the kernels are held against.
+
+``flash_decode_split_ref`` is the plain version of the split-KV decode
+kernel (``csrc/flash_attention_decode.cu``) for Sq == 1: the populated
+prefix cut into ``n_split`` contiguous ranges (``decode_partition``), each
+range an online softmax over tiles of ``DECODE_TILE`` keys, and the
+ranges' partial (m, l, acc) merged in rank order. The CPU tests hold it to
+``flash_attention_ref`` and to the JAX package; it is not on any path.
 """
 
 from __future__ import annotations
@@ -54,3 +61,55 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype).reshape(b, sq, h, v.shape[-1])
+
+
+DECODE_TILE = 32        # keys a tile of the decode kernel (four mma n-tiles)
+
+
+def decode_partition(n_keys: int, n_split: int) -> list[tuple[int, int]]:
+    """The key ranges [k0, k1) of the ``n_split`` splits of a prefix of
+    ``n_keys`` keys: ceil(n_keys / n_split) keys each, the last ones short
+    or empty."""
+    per = -(-n_keys // n_split)
+    return [(min(r * per, n_keys), min(r * per + per, n_keys))
+            for r in range(n_split)]
+
+
+def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           *, causal: bool, q_offset: int,
+                           n_split: int) -> torch.Tensor:
+    b, sq, h, dh = q.shape
+    if sq != 1:
+        raise ValueError(f"flash_decode_split_ref takes Sq == 1, got {sq}")
+    skv, kv = k.shape[1], k.shape[2]
+    g, dv = h // kv, v.shape[-1]
+    f32 = torch.float32
+    qr = q.reshape(b, kv, g, dh).to(f32)
+    scale = dh ** -0.5
+    n_keys = min(skv, q_offset + 1) if causal else skv
+
+    def empty():
+        return (torch.full((b, kv, g), NEG_INF, dtype=f32, device=q.device),
+                torch.zeros((b, kv, g), dtype=f32, device=q.device),
+                torch.zeros((b, kv, g, dv), dtype=f32, device=q.device))
+
+    m, l, acc = empty()
+    for k0, k1 in decode_partition(n_keys, n_split):
+        ms, ls, accs = empty()
+        for c0 in range(k0, k1, DECODE_TILE):
+            c1 = min(c0 + DECODE_TILE, k1)
+            s = torch.einsum("bkgd,bckd->bkgc", qr, k[:, c0:c1].to(f32)) * scale
+            m_new = torch.maximum(ms, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(ms - m_new)
+            ls = ls * corr + p.sum(dim=-1)
+            accs = accs * corr[..., None] + torch.einsum(
+                "bkgc,bckd->bkgd", p.to(v.dtype).to(f32), v[:, c0:c1].to(f32))
+            ms = m_new
+        m_new = torch.maximum(m, ms)
+        c_old, c_new = torch.exp(m - m_new), torch.exp(ms - m_new)
+        l = l * c_old + ls * c_new
+        acc = acc * c_old[..., None] + accs * c_new[..., None]
+        m = m_new
+    out = acc / torch.clamp(l, min=1e-30)[..., None]
+    return out.to(q.dtype).reshape(b, 1, h, dv)

@@ -4,12 +4,12 @@ Port of ``repro.models.attention``. ``flash_attention(q, k, v, *, causal,
 q_offset=0, chunk_kv=1024)`` is the kernel wrapper
 (``kernels/flash_attention/ops.py``) under the JAX package's name,
 signature and (B, S, H, d) layout: CPU tensors run the plain chunked online
-softmax (``ref.py``, chunked by ``chunk_kv``), CUDA tensors the
-hand-written kernel (``csrc/flash_attention.cu``), or the call raises.
-``q_offset`` is the absolute position of q[0] (decode: the cache
-position). The JAX package computes decode (Sq == 1) with
-``naive_attention``; here it goes through the same kernel, which computes
-the same function. ``naive_attention`` is the oracle. MLA and the mesh-only K/V gather are not
+softmax (``ref.py``, chunked by ``chunk_kv``), CUDA tensors one of the
+hand-written kernels (``csrc/flash_attention*.cu``, chosen by shape and
+dtype), or the call raises. ``q_offset`` is the absolute position of q[0]
+(decode: the cache position). The JAX package computes decode (Sq == 1)
+with ``naive_attention``; here it goes through the split-KV decode kernel
+(``csrc/flash_attention_decode.cu``), which computes the same function. ``naive_attention`` is the oracle. MLA and the mesh-only K/V gather are not
 ported (ROADMAP Queue 1, LM scaffold item 2).
 """
 

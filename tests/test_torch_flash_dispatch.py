@@ -1,8 +1,10 @@
-"""How the flash_attention wrapper chooses and feeds its two CUDA kernels,
-checked on the CPU (no kernel runs here).
+"""How the flash_attention wrapper chooses and feeds its three CUDA
+kernels, checked on the CPU (no kernel runs here).
 
 ``_variant`` picks the kernel from shapes and dtype alone; a forced
-``variant`` is refused where that kernel does not take the inputs; the TMA
+``variant`` is refused where that kernel does not take the inputs;
+``decode_splits`` picks the decode kernel's key splits and
+``decode_partition`` the keys of each; the TMA
 maps' dims and byte strides are computed in Python (``tma_map_geometry``)
 and only encoded in C, so their numbers are checked here, for a contiguous
 tensor and for a layer's slice of the KV cache.
@@ -12,6 +14,7 @@ import pytest
 import torch
 
 from repro_torch.kernels.flash_attention import ops as fops
+from repro_torch.kernels.flash_attention.ref import decode_partition
 
 
 def _qkv(sq, dh, dtype=torch.bfloat16, skv=None):
@@ -23,7 +26,7 @@ def _qkv(sq, dh, dtype=torch.bfloat16, skv=None):
 @pytest.mark.parametrize("sq,dh,dtype,want", [
     (64, 128, torch.bfloat16, "sm90"),
     (63, 128, torch.bfloat16, "mma_sync"),     # fewer rows than a warpgroup
-    (1, 128, torch.bfloat16, "mma_sync"),      # decode
+    (1, 128, torch.bfloat16, "decode"),        # decode
     (2048, 128, torch.bfloat16, "sm90"),       # serve prefill
     (2048, 64, torch.bfloat16, "mma_sync"),
     (2048, 32, torch.bfloat16, "mma_sync"),
@@ -53,6 +56,95 @@ def test_forced_variants():
     assert fops.resolve_variant(*qkv, variant="mma_sync") == "mma_sync"
     with pytest.raises(ValueError, match="variant"):
         fops.resolve_variant(*qkv, variant="wgmma")
+
+
+def _decode_qkv(sq=1, dh=128, dtype=torch.bfloat16, h=16, kv=8, skv=256):
+    q = torch.zeros((2, sq, h, dh), dtype=dtype)
+    k = torch.zeros((2, skv, kv, dh), dtype=dtype)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("sq,dh,dtype,h,kv,want", [
+    (1, 128, torch.bfloat16, 16, 8, "decode"),    # internlm2-1.8b decode
+    (1, 64, torch.bfloat16, 16, 8, "decode"),
+    (1, 32, torch.bfloat16, 16, 8, "decode"),
+    (1, 128, torch.bfloat16, 40, 8, "decode"),    # qwen3-14b, G 5
+    (1, 128, torch.bfloat16, 16, 1, "decode"),    # G 16, the most a block takes
+    (1, 128, torch.bfloat16, 32, 1, "mma_sync"),  # G 32
+    (1, 128, torch.float32, 16, 8, "mma_sync"),
+    (1, 64, torch.float32, 16, 8, "mma_sync"),
+    (2, 128, torch.bfloat16, 16, 8, "mma_sync"),
+    (63, 128, torch.bfloat16, 16, 8, "mma_sync"),
+    (64, 128, torch.bfloat16, 16, 8, "sm90"),
+])
+def test_decode_variant_boundaries(sq, dh, dtype, h, kv, want):
+    qkv = _decode_qkv(sq, dh, dtype, h, kv)
+    assert fops._variant(*qkv) == want
+    assert fops.resolve_variant(*qkv) == want
+
+
+def test_decode_variant_ignores_skv():
+    for skv in (1, 256, 4096):
+        assert fops._variant(*_decode_qkv(skv=skv)) == "decode"
+
+
+@pytest.mark.parametrize("sq,dh,dtype,h", [(2, 128, torch.bfloat16, 16),
+                                           (64, 128, torch.bfloat16, 16),
+                                           (1, 128, torch.float32, 16),
+                                           (1, 64, torch.float32, 16),
+                                           (1, 128, torch.bfloat16, 136)])
+def test_forced_decode_on_a_shape_it_lacks_raises(sq, dh, dtype, h):
+    with pytest.raises(ValueError, match="decode"):
+        fops.resolve_variant(*_decode_qkv(sq, dh, dtype, h), variant="decode")
+
+
+def test_forced_variants_at_sq_1():
+    """A decode row may be forced onto the mma_sync kernel (tests, timings),
+    never onto the sm90 kernel."""
+    qkv = _decode_qkv()
+    assert fops.resolve_variant(*qkv, variant="decode") == "decode"
+    assert fops.resolve_variant(*qkv, variant="mma_sync") == "mma_sync"
+    with pytest.raises(ValueError, match="sm90"):
+        fops.resolve_variant(*qkv, variant="sm90")
+
+
+@pytest.mark.parametrize("b", [1, 2, 3, 8, 16, 64, 128])
+@pytest.mark.parametrize("kv", [1, 2, 8, 16])
+def test_decode_splits(b, kv):
+    for n_keys in (1, 2, 3, 7, 8, 9, 24, 192, 256, 4096, 131072):
+        n = fops.decode_splits(b, kv, n_keys)
+        assert 1 <= n <= fops.DECODE_MAX_SPLITS
+        assert n <= n_keys                      # no split is wholly empty
+        # the card's 132 SMs are all given a block wherever the splits
+        # allowed (at most 8 and no more than the keys) reach them
+        if b * kv * min(fops.DECODE_MAX_SPLITS, n_keys) >= 132:
+            assert b * kv * n >= 132
+        if b * kv >= fops.DECODE_TARGET_BLOCKS:
+            assert n == 1
+
+
+def test_decode_splits_at_the_serve_shapes():
+    assert fops.decode_splits(8, 8, 192) == 4        # internlm2-1.8b, 256 blocks
+    assert fops.decode_splits(8, 8, 4096) == 4
+    assert fops.decode_splits(1, 8, 4096) == 8       # one request: 64 blocks
+    assert fops.decode_splits(8, 8, 1) == 1          # the first prompt token
+    assert fops.decode_splits(8, 8, 3) == 3          # no split without a key
+
+
+@pytest.mark.parametrize("n_keys", [1, 2, 7, 8, 9, 24, 31, 32, 33, 192, 4096])
+@pytest.mark.parametrize("n_split", [1, 2, 3, 5, 8])
+def test_decode_partition(n_keys, n_split):
+    """Contiguous ranges in rank order that cover [0, n_keys) once; only
+    trailing ranges may be short or empty."""
+    parts = decode_partition(n_keys, n_split)
+    assert len(parts) == n_split
+    assert parts[0][0] == 0 and parts[-1][1] == n_keys
+    per = -(-n_keys // n_split)
+    for (a0, a1), (b0, _) in zip(parts, parts[1:]):
+        assert a1 == b0
+    sizes = [k1 - k0 for k0, k1 in parts]
+    assert all(0 <= s <= per for s in sizes) and sizes[0] == min(per, n_keys)
+    assert sizes == sorted(sizes, reverse=True)
 
 
 def test_tma_geometry_of_a_contiguous_tensor():

@@ -8,7 +8,9 @@ version's rounding), st_scan count/min/max bitwise and sum to rtol 1e-5;
 flash_attention to 2e-5 in fp32 (the same online softmax, summed in another
 order) and 1e-2 in bf16 (one bf16 ulp of outputs of order 1 is 0.0078; the
 kernel's tensor-core sums and the plain version's differ in order), for
-both bf16 kernels (``-k "flash or sm90"`` runs these alone). The sm90
+all three bf16 kernels (``-k "flash or sm90 or decode"`` runs these
+alone). The split-KV decode kernel is also held, at 1e-2, to its own plain
+version (``flash_decode_split_ref``) at the splits the wrapper chose. The sm90
 kernel's layout probe is held to ``torch.matmul`` in fp32 at 1e-4 relative
 (the same bf16 products, summed in another order).
 """
@@ -22,7 +24,8 @@ from repro_torch.core.datastore import make_pred
 from repro_torch.data.synthetic import CityConfig, make_sites
 from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.kernels.flash_attention import ops as fops
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     flash_decode_split_ref)
 from repro_torch.kernels.hash64 import ops as hops
 from repro_torch.kernels.st_scan import ops as st_ops
 from repro_torch.kernels.st_scan import ref as st_ref
@@ -142,8 +145,11 @@ def test_flash_kernel_matches_plain(cuda, dtype, causal, h, kv, dh):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("q_offset", [0, 1, 63, 64, 77, 191, 255])
 def test_flash_kernel_decode_row(cuda, dtype, q_offset):
-    """Sq == 1 over a 256-slot cache: attends to keys 0..q_offset."""
-    _flash_case(cuda, dtype, 3, 1, 256, 16, 8, 128, True, q_offset, seed=q_offset)
+    """Sq == 1 over a 256-slot cache: attends to keys 0..q_offset. Forced
+    onto the mma_sync kernel, which bf16 decode rows no longer reach by
+    default, so that it stays held at Sq == 1."""
+    _flash_case(cuda, dtype, 3, 1, 256, 16, 8, 128, True, q_offset, seed=q_offset,
+                variant="mma_sync")
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -297,3 +303,107 @@ def test_prefill_step_sends_flash_to_sm90(cuda):
     assert fops.launches_by_variant["mma_sync"] == before["mma_sync"]
     assert logits.shape == (2, cfg.vocab_padded)
     assert torch.isfinite(logits).all()
+
+
+# ---------------------------------------------------------------------------
+# the split-KV decode kernel
+# ---------------------------------------------------------------------------
+
+DECODE_ROWS = [(256, p) for p in (0, 1, 23, 24, 63, 64, 77, 191, 255)] \
+    + [(4096, 4095)]
+
+
+@pytest.mark.parametrize("skv,q_offset", DECODE_ROWS)
+@pytest.mark.parametrize("g", [1, 2, 5, 8])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_decode_matches_plain(cuda, skv, q_offset, g, dh):
+    """The decode kernel, as the wrapper chooses it, against the chunked
+    plain version over the populated prefix of the cache."""
+    before = fops.launches_by_variant["decode"]
+    _flash_case(cuda, torch.bfloat16, 3, 1, skv, 2 * g, 2, dh, True, q_offset,
+                seed=q_offset + g + dh)
+    assert fops.launches_by_variant["decode"] == before + 1
+
+
+@pytest.mark.parametrize("b,h,kv,dh,skv,q_offset", [
+    (8, 16, 8, 128, 256, 191),      # internlm2-1.8b decode step
+    (8, 16, 8, 128, 4096, 4095),    # long cache
+    (2, 40, 8, 128, 256, 100),      # qwen3-14b heads, G 5
+    (1, 16, 1, 32, 50, 7),          # G 16, d 32, 8 splits of one key
+    (3, 4, 2, 64, 33, 32),          # a prefix one key past a tile
+    (1, 2, 1, 128, 1, 0),           # one key
+])
+def test_flash_decode_matches_its_split_ref(cuda, b, h, kv, dh, skv, q_offset):
+    """Against the plain version of the same partition and merge, at the
+    splits the wrapper chose, and against the chunked plain version."""
+    rng = np.random.default_rng(skv + h)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((b, 1, h, dh), (b, skv, kv, dh), (b, skv, kv, dh)))
+    got = fops.flash_attention_cuda(q, k, v, causal=True, q_offset=q_offset,
+                                    variant="decode")
+    n_split = fops.decode_splits(b, kv, min(skv, q_offset + 1))
+    split = flash_decode_split_ref(q, k, v, causal=True, q_offset=q_offset,
+                                   n_split=n_split)
+    torch.testing.assert_close(got.float(), split.float(), rtol=1e-2, atol=1e-2)
+    want = flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_flash_decode_not_causal(cuda):
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((2, 1, 8, 64), (2, 77, 2, 64), (2, 77, 2, 64)))
+    got = fops.flash_attention_cuda(q, k, v, causal=False, variant="decode")
+    want = flash_attention_ref(q, k, v, causal=False)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_flash_decode_reads_a_cache_slice_in_place(cuda):
+    """A layer's k and v slices of the (L, 2, B, max_seq, KV, d) cache and
+    q of a (B, 1, 3, H, d) projection go in without a copy; two calls give
+    the same bits."""
+    rng = np.random.default_rng(5)
+    cache = torch.from_numpy(rng.standard_normal((2, 2, 8, 256, 8, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    qkv = torch.from_numpy(rng.standard_normal((8, 1, 3, 16, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k_l, v_l = qkv[:, :, 0], cache[1, 0], cache[1, 1]
+    before = fops.launches_by_variant["decode"]
+    got = fops.flash_attention_cuda(q, k_l, v_l, causal=True, q_offset=191)
+    again = fops.flash_attention_cuda(q, k_l, v_l, causal=True, q_offset=191)
+    assert fops.launches_by_variant["decode"] == before + 2
+    assert torch.equal(got, again)
+    want = flash_attention_ref(q, k_l, v_l, causal=True, q_offset=191)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+def test_flash_decode_refuses_shapes_it_lacks(cuda):
+    for sq, dtype in ((2, torch.bfloat16), (1, torch.float32)):
+        x = torch.zeros((1, sq, 2, 128), device=cuda, dtype=dtype)
+        with pytest.raises(ValueError, match="decode"):
+            fops.flash_attention_cuda(x, x, x, causal=True, variant="decode")
+
+
+def test_generate_sends_decode_to_the_decode_kernel(cuda):
+    """Engine.generate on the smoke model at d_head 128 in bf16: every flash
+    call (Sq == 1, prompt and new tokens) goes to the decode kernel; a
+    prefill_step on the same model goes to the sm90 kernel."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduce_for_smoke(get_config("internlm2-1.8b")).replace(d_head=128)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    engine = Engine(model, params, ServeConfig(max_new_tokens=6, max_seq=96))
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 70)).astype(np.int32)
+    before = dict(fops.launches_by_variant)
+    ids = engine.generate(prompts)
+    after = dict(fops.launches_by_variant)
+    assert after["decode"] - before["decode"] == cfg.n_layers * (70 + 6)
+    assert after["mma_sync"] == before["mma_sync"]
+    assert after["sm90"] == before["sm90"]
+    assert np.array_equal(ids, engine.generate(prompts))
+    prefill_step, _ = make_serve_steps(model)
+    prefill_step(engine.params, {"tokens": torch.from_numpy(prompts).to(cuda)})
+    assert fops.launches_by_variant["sm90"] == after["sm90"] + cfg.n_layers
+    assert fops.launches_by_variant["decode"] == after["decode"] + cfg.n_layers * (70 + 6)

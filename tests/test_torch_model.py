@@ -32,6 +32,8 @@ from repro.models import layers as jlayers
 from repro.models.model import Model as JModel
 from repro_torch.configs.base import get_config, reduce_for_smoke
 from repro_torch.convert import params_from_numpy, params_to_numpy
+from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
+                                                     flash_decode_split_ref)
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import Model
@@ -122,6 +124,53 @@ def test_plain_flash_bf16():
     for want in (pallas, chunked, exact):
         np.testing.assert_allclose(got, np.asarray(want, np.float32),
                                    rtol=3e-2, atol=3e-2)
+
+
+DECODE_OFFSETS = (0, 1, 23, 191, 255)     # over a 256-slot cache
+
+
+@pytest.mark.parametrize("n_split", [1, 2, 3, 8])
+@pytest.mark.parametrize("g", [1, 2, 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_split_ref_matches_flash_ref_and_jax_naive(n_split, g, dtype):
+    """The decode kernel's plain version (key splits, each an online
+    softmax over 32-key tiles, merged in rank order) against the chunked
+    plain version and the JAX package's naive_attention (its decode path),
+    at each position of a 256-slot cache. fp32 to 2e-5 against both; bf16
+    to 1e-2 against the chunked version (the kernels' tolerance) and 3e-2
+    against exact attention of the same bf16 values."""
+    kv, dh = 2, 64
+    q, k, v = _qkv(10 * g + n_split, 2, 1, 256, kv * g, kv, dh)
+    tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+    jq, jk, jv = (jnp.asarray(x.float().numpy()) for x in (tq, tk, tv))
+    tol_ref, tol_jax = (2e-5, 2e-5) if dtype == torch.float32 else (1e-2, 3e-2)
+    for off in DECODE_OFFSETS:
+        got = flash_decode_split_ref(tq, tk, tv, causal=True, q_offset=off,
+                                     n_split=n_split)
+        assert got.dtype == dtype and got.shape == (2, 1, kv * g, dh)
+        want = flash_attention_ref(tq, tk, tv, causal=True, q_offset=off)
+        np.testing.assert_allclose(got.float().numpy(), want.float().numpy(),
+                                   rtol=tol_ref, atol=tol_ref)
+        naive = jattn.naive_attention(jq, jk, jv, causal=True, q_offset=off)
+        np.testing.assert_allclose(got.float().numpy(), np.asarray(naive),
+                                   rtol=tol_jax, atol=tol_jax)
+
+
+@pytest.mark.parametrize("n_split", [1, 3, 8])
+def test_decode_split_ref_without_causal_mask(n_split):
+    """Non-causal decode reads every key, however q_offset is set."""
+    q, k, v = _qkv(3, 2, 1, 77, 8, 2, 32)
+    got = flash_decode_split_ref(*map(torch.from_numpy, (q, k, v)),
+                                 causal=False, q_offset=5, n_split=n_split)
+    want = jattn.naive_attention(*map(jnp.asarray, (q, k, v)), causal=False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5,
+                               atol=2e-5)
+
+
+def test_decode_split_ref_refuses_more_than_one_row():
+    q, k, v = map(torch.from_numpy, _qkv(4, 1, 2, 16, 2, 2, 32))
+    with pytest.raises(ValueError, match="Sq == 1"):
+        flash_decode_split_ref(q, k, v, causal=True, q_offset=3, n_split=2)
 
 
 # ---------------------------------------------------------------------------
