@@ -16,6 +16,8 @@
 // OR-list (len > 0: sid among the first len entries; 0: edge not selected;
 // < 0: scan all) — their count and, per requested channel (log rows
 // `rows[k]`), sum, min and max. Empty: count 0, sum 0, min +inf, max -inf.
+// A NaN channel word of a matched slot makes that channel's sum, min and
+// max NaN (NaN-propagating min/max, as the reference's jnp.min).
 //
 // Bound: bytes. Each live slot of a selected edge costs 5 words (t, lat,
 // lon, two sid words) plus K channel words when some query of the tile
@@ -50,6 +52,19 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxK = 4;
+
+// min and max that return NaN when either operand is NaN, as jnp.minimum /
+// torch.amin do (fminf and fmaxf return the other operand).
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float d;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float d;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(d) : "f"(a), "f"(b));
+  return d;
+}
 
 struct Rows {
   int r[kMaxK];
@@ -172,8 +187,8 @@ st_scan_kernel(const float* __restrict__ tup_f, const int32_t* __restrict__ tup_
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         vsum[qq][k] += v[k];
-        vmin[qq][k] = fminf(vmin[qq][k], v[k]);
-        vmax[qq][k] = fmaxf(vmax[qq][k], v[k]);
+        vmin[qq][k] = min_nan(vmin[qq][k], v[k]);
+        vmax[qq][k] = max_nan(vmax[qq][k], v[k]);
       }
     }
   }
@@ -189,9 +204,9 @@ st_scan_kernel(const float* __restrict__ tup_f, const int32_t* __restrict__ tup_
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         vsum[qq][k] += __shfl_xor_sync(0xffffffffu, vsum[qq][k], off);
-        vmin[qq][k] = fminf(vmin[qq][k],
+        vmin[qq][k] = min_nan(vmin[qq][k],
                             __shfl_xor_sync(0xffffffffu, vmin[qq][k], off));
-        vmax[qq][k] = fmaxf(vmax[qq][k],
+        vmax[qq][k] = max_nan(vmax[qq][k],
                             __shfl_xor_sync(0xffffffffu, vmax[qq][k], off));
       }
     }
@@ -216,8 +231,8 @@ st_scan_kernel(const float* __restrict__ tup_f, const int32_t* __restrict__ tup_
       float sm = 0.0f, mn = INFINITY, mx = -INFINITY;
       for (int w = 0; w < kWarps; ++w) {
         sm += s_sum[w][qq][k];
-        mn = fminf(mn, s_min[w][qq][k]);
-        mx = fmaxf(mx, s_max[w][qq][k]);
+        mn = min_nan(mn, s_min[w][qq][k]);
+        mx = max_nan(mx, s_max[w][qq][k]);
       }
       const size_t o = ((size_t)q * k_total + k_off + k) * E + e;
       out_sum[o] = sm;

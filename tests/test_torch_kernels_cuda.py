@@ -99,6 +99,131 @@ def test_st_scan_kernel_matches_plain(cuda, q, channels):
     assert torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
 
 
+SHARD = 60          # records of one shard, on consecutive slots of the log
+
+
+def _shard_log_problem(rng, dev, q, e=6, w=9, c=5000, l=16, roll=0,
+                       nan_share=0.0):
+    """A scan problem laid out as the store writes its log: each shard's 60
+    records on consecutive slots under one (drone, round) sid, so the log is
+    runs of 60 equal sids that every 1024-slot boundary cuts (60 divides no
+    multiple of 1024 below 15360), t rising round by round (15 shards a
+    round), positions near the shard's drone. ``roll`` rolls every edge's
+    slots, so t falls back mid-log, as in a wrapped ring. ``nan_share`` of
+    the channel words and half that share of the t/lat/lon words are NaN.
+    Queries mix AND and OR predicates; their OR-lists hold sids of the
+    edge's own shards and absent ones, with lengths -1, 0, 1, L and between.
+    Edge 0 holds no tuple and edge 1 a count above capacity."""
+    slot = np.arange(c)
+    run = (slot[None, :] + rng.integers(0, SHARD, (e, 1))) // SHARD  # (E, C)
+    rnd = run // 15
+    drone = rng.integers(0, 40, run.max() + 1)[run]
+    centre = rng.uniform(0, 100, (40, 2))
+    rec = (slot[None, :] + run) % SHARD
+    f = rng.uniform(0, 100, (e, w, c)).astype(np.float32)
+    f[:, 0] = rnd * 300.0 + rec * 5.0 + rng.uniform(0, 1, (e, c))
+    f[:, 1] = centre[drone, 0] + rng.normal(0, 2, (e, c))
+    f[:, 2] = centre[drone, 1] + rng.normal(0, 2, (e, c))
+    sid = np.stack([drone, rnd], 1).astype(np.int32)                 # (E, 2, C)
+    if nan_share:
+        f[:, 3:][rng.random((e, w - 3, c)) < nan_share] = np.nan
+        f[:, :3][rng.random((e, 3, c)) < nan_share / 2] = np.nan
+    f = np.roll(f, roll, axis=2)
+    sid = np.roll(sid, roll, axis=2)
+    count = rng.integers(c // 2, 2 * c, e).astype(np.int32)
+    count[0], count[1] = 0, 3 * c
+
+    t_max = float(np.nanmax(f[:, 0]))
+    t0 = rng.uniform(-300, t_max, q)
+    lat_c, lon_c = rng.uniform(0, 100, q), rng.uniform(0, 100, q)
+    half = rng.uniform(3, 30, q)
+    pick = rng.integers(0, e * c, q)
+    is_and = rng.random(q) < 0.75
+    pred = make_pred(q=q, lat0=lat_c - half, lat1=lat_c + half,
+                     lon0=lon_c - half, lon1=lon_c + half,
+                     t0=t0, t1=t0 + rng.choice([300.0, 900.0, 1800.0], q),
+                     sid_hi=sid[pick // c, 0, pick % c],
+                     sid_lo=sid[pick // c, 1, pick % c],
+                     has_spatial=rng.random(q) < 0.8,
+                     has_temporal=rng.random(q) < 0.8,
+                     has_sid=rng.random(q) < np.where(is_and, 0.1, 0.3),
+                     is_and=is_and, device=dev)
+    own = rng.integers(0, c, (q, e, l))
+    subl = sid[np.arange(e)[None, :, None], :, own]                  # (Q, E, L, 2)
+    absent = rng.random((q, e, l)) < 0.3
+    subl[absent] = rng.integers(1000, 2000, (int(absent.sum()), 2))
+    slen = rng.choice([-1, 0, 1, l, 0, 1, l // 2, l - 3], (q, e)).astype(np.int32)
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    return (t(f), t(sid), t(count), pred, t(subl.astype(np.int32)), t(slen))
+
+
+def _assert_scan_policy(got, want):
+    """count, vmin and vmax bitwise (NaN where the plain version has NaN),
+    vsum to rtol 1e-5 (another summation order)."""
+    assert torch.equal(got[0], want[0])
+    torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0, equal_nan=True)
+    for g, x in zip(got[2:], want[2:]):
+        torch.testing.assert_close(g, x, rtol=0, atol=0, equal_nan=True)
+
+
+def _bits(out):
+    return [x.view(torch.int32) for x in out]
+
+
+@pytest.mark.parametrize("n_ch", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("q", [1, 7, 65])
+def test_st_scan_shard_log_matches_plain(cuda, q, n_ch):
+    """The store's log layout with NaN channel words in matched and
+    unmatched slots; a second call gives the same bits."""
+    rng = np.random.default_rng(100 * q + n_ch)
+    args = _shard_log_problem(rng, cuda, q, nan_share=0.01)
+    channels = tuple(range(n_ch))
+    valid_c = 4963                      # C = 5000: lane padding above it
+    before = st_ops.launches
+    got = st_ops.st_scan(*args, channels=channels, valid_c=valid_c)
+    assert st_ops.launches == before + -(-n_ch // st_ops.MAX_K)
+    want = st_ref.st_scan_ref(*args, channels=channels, valid_c=valid_c)
+    assert int(want[0].sum()) > 0 and torch.isnan(want[2]).any()
+    _assert_scan_policy(got, want)
+    again = st_ops.st_scan(*args, channels=channels, valid_c=valid_c)
+    assert all(torch.equal(a, b) for a, b in zip(_bits(got), _bits(again)))
+
+
+@pytest.mark.parametrize("roll", [1, 2500, 4999])
+def test_st_scan_wrapped_ring_matches_plain(cuda, roll):
+    """A rolled log (t falls back mid-tile) whose counts exceed capacity."""
+    rng = np.random.default_rng(roll)
+    args = list(_shard_log_problem(rng, cuda, 20, c=6000, roll=roll,
+                                   nan_share=0.002))
+    args[2] = torch.full_like(args[2], 7 * 6000)
+    got = st_ops.st_scan(*args, channels=(0, 3), valid_c=6000)
+    want = st_ref.st_scan_ref(*args, channels=(0, 3), valid_c=6000)
+    assert int(want[0].sum()) > 0
+    _assert_scan_policy(got, want)
+
+
+def test_st_scan_nan_in_one_matched_slot(cuda):
+    """The smallest input of the NaN contract: one matched slot holds NaN,
+    so that query's min, max and sum are NaN; an empty query stays
+    (0, +inf, -inf)."""
+    c = 64
+    f = torch.ones((1, 4, c), device=cuda)
+    f[0, 3, 10] = float("nan")
+    sid = torch.zeros((1, 2, c), dtype=torch.int32, device=cuda)
+    count = torch.full((1,), c, dtype=torch.int32, device=cuda)
+    pred = make_pred(q=2, lat0=[0, 5], lat1=[2, 6], lon0=[0, 0], lon1=[2, 2],
+                     t0=[0, 0], t1=[2, 2], has_spatial=True, has_temporal=True,
+                     is_and=True, device=cuda)
+    subl = torch.zeros((2, 1, 4, 2), dtype=torch.int32, device=cuda)
+    slen = torch.full((2, 1), -1, dtype=torch.int32, device=cuda)
+    args = (f, sid, count, pred, subl, slen)
+    got = st_ops.st_scan(*args, channels=(0,))
+    _assert_scan_policy(got, st_ref.st_scan_ref(*args, channels=(0,)))
+    assert got[0].tolist() == [[c], [0]]
+    assert all(bool(torch.isnan(x[0, 0, 0])) for x in got[1:])
+    assert got[2][1, 0, 0] == float("inf") and got[3][1, 0, 0] == -float("inf")
+
+
 def test_wrappers_refuse_cpu_tensors_for_kernels(cuda):
     x = torch.zeros(4, dtype=torch.int32)
     with pytest.raises(ValueError, match="CUDA"):

@@ -187,3 +187,42 @@ def test_pack_pred_layout():
     assert pf.dtype == torch.float32 and pi.dtype == torch.int32
     np.testing.assert_array_equal(pf[:, 4].numpy(), p["t0"])
     np.testing.assert_array_equal(pi[:, 5].numpy(), p["is_and"].astype(np.int32))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_nan_values_match_jax_ref_and_pallas(seed):
+    """NaN channel words in matched and unmatched slots, and NaN t/lat/lon:
+    the port gives NaN sums, minima and maxima exactly where the JAX
+    reference and the Pallas kernel do, and the same bits elsewhere."""
+    rng = np.random.default_rng(300 + seed)
+    p = problem(rng, c=512, q=9)
+    f = p["tup_f"]
+    f[:, 3:][rng.random(f[:, 3:].shape) < 0.02] = np.nan
+    f[:, :3][rng.random(f[:, :3].shape) < 0.01] = np.nan
+    got = check(p, pallas=True, channels=(0, 1, 2, 3))
+    nan_min = torch.isnan(got[2])
+    assert nan_min.any() and not nan_min.all()
+    assert torch.equal(nan_min, torch.isnan(got[3]))
+    assert torch.equal(nan_min, torch.isnan(got[1]))
+
+
+def test_nan_in_one_matched_slot_matches_jax():
+    """One matched slot holds NaN: min, max and sum of that query are NaN in
+    the JAX reference, the Pallas kernel and the port; an empty query
+    stays (0, +inf, -inf)."""
+    p = problem(np.random.default_rng(9), e=1, c=128, q=2, l=4)
+    p["tup_f"][:] = 1.0
+    p["tup_f"][0, 3, 17] = np.nan
+    p["tup_count"][:] = 128
+    p["sublist_len"][:] = -1
+    p["pred"].update(lat0=np.float32([0, 5]), lat1=np.float32([2, 6]),
+                     lon0=np.float32([0, 0]), lon1=np.float32([2, 2]),
+                     has_spatial=np.array([True, True]),
+                     has_temporal=np.array([False, False]),
+                     has_sid=np.array([False, False]),
+                     is_and=np.array([True, True]))
+    count, vsum, vmin, vmax = check(p, pallas=True)
+    assert count.tolist() == [[128], [0]]
+    assert all(bool(torch.isnan(x[0, 0, 0])) for x in (vsum, vmin, vmax))
+    assert float(vmin[1, 0, 0]) == float("inf")
+    assert float(vmax[1, 0, 0]) == -float("inf")
