@@ -15,7 +15,12 @@ Phases, one line each:
      batches at the paper's §4.5.1 sizes, single- and 4-channel. Checks the
      answers on retained windows against a numpy oracle over the generated
      payloads and that every kernel's launch count grew;
-  4. st_scan against its plain version on the main path's own scan inputs,
+  4. st_scan against its plain version on the main path's own scan inputs
+     (the three batches, 1 and 4 channels), on a copy of the day's log with
+     NaN in a channel of matched slots and on a copy rolled by a third of
+     the ring with every count above capacity (count, min, max bitwise with
+     NaN equal, sum to rtol 1e-5, a second call bitwise equal); its device
+     time at each batch and channel count beside the bytes it must move;
      then per-kernel timings beside their bounds: ``ms`` is the call time,
      wrapper included (CUDA events around back-to-back calls, so a wrapper
      slower than its kernel shows the host), ``device_ms`` the kernel's own
@@ -159,6 +164,119 @@ def profile(torch, fn, top: int = 12) -> dict:
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def scan_vs_plain(torch, args_scan, channels, cap: int, what: str,
+                  want_nan: bool = False) -> float:
+    """st_scan's kernel against its plain version on ``args_scan``: count,
+    vmin and vmax bitwise (NaN where the plain version has NaN), vsum to
+    rtol 1e-5, and a second kernel call bitwise equal to the first. Exits
+    non-zero on a mismatch (or, with ``want_nan``, when no NaN reached the
+    plain version's minima); returns the largest vsum difference."""
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.st_scan.ref import st_scan_ref
+    rows = tuple(3 + c for c in channels)
+    got = st_ops.st_scan_cuda(*args_scan, rows, cap)
+    again = st_ops.st_scan_cuda(*args_scan, rows, cap)
+    want = st_scan_ref(*args_scan, channels=channels, valid_c=cap)
+    try:
+        if not torch.equal(got[0], want[0]):
+            raise AssertionError("count differs")
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=0,
+                                   equal_nan=True)
+        for g, x in zip(got[2:], want[2:]):
+            torch.testing.assert_close(g, x, rtol=0, atol=0, equal_nan=True)
+    except AssertionError as err:
+        raise SystemExit(f"st_scan differs from plain ({what}, K {len(rows)}): "
+                         f"{err}")
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+               for a, b in zip(got, again)):
+        raise SystemExit(f"st_scan ({what}): a second call gave other bits")
+    if want_nan and not torch.isnan(want[2]).any():
+        raise SystemExit(f"st_scan ({what}): no NaN reached the plain minima")
+    d = (got[1] - want[1]).abs()
+    d = d[~torch.isnan(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def st_scan_phase(torch, dev, cfg, st, alive, batches, specs) -> dict:
+    """st_scan's kernel against its plain version on the main path's scan
+    inputs (the three batches at 1 and 4 channels), on a copy of the day's
+    log with NaN in a channel of every 7th matched slot (and of some
+    unmatched ones), and on a copy rolled by a third of the ring with every
+    count above capacity; then its device time at each batch and channel
+    count beside the bytes it must move: five hot words a live slot of a
+    selected edge, K channel words a slot some query matched (the plain
+    version's masks), the listed entries, the lengths, the predicates and
+    the outputs. Exits non-zero on any mismatch."""
+    from repro_torch.core.datastore import make_pred, plan_subqueries
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.st_scan.ref import matched_slots, st_scan_ref
+    cap = cfg.tuple_capacity
+    q = 64
+    channel_sets = {1: specs[0].channels, 4: specs[1].channels}
+    scan_err, checks, scans = 0.0, 0, []
+    for bi in range(3):
+        p = make_pred(q=q, **batches[bi][3], has_spatial=True,
+                      has_temporal=True, is_and=True, device=dev)
+        subl, slen, _ = plan_subqueries(cfg, st, p, alive)
+        args_scan = (st.tup_f, st.tup_sid, st.tup_count, p, subl, slen)
+        for chans in channel_sets.values():
+            scan_err = max(scan_err, scan_vs_plain(torch, args_scan, chans, cap,
+                                                   f"batch {bi}"))
+            checks += 1
+        scans.append((args_scan, matched_slots(*args_scan, valid_c=cap)))
+    args_scan, matched = scans[2]
+    nan_f = st.tup_f.clone()
+    hit = matched.nonzero()[::7]
+    nan_f[hit[:, 0], 3, hit[:, 1]] = float("nan")
+    nan_f[:, 4, ::1009] = float("nan")
+    scan_vs_plain(torch, (nan_f, *args_scan[1:]), specs[1].channels, cap,
+                  "NaN copy", want_nan=True)
+    del nan_f
+    rolled = (torch.roll(st.tup_f[..., :cap], cap // 3, dims=2).contiguous(),
+              torch.roll(st.tup_sid[..., :cap], cap // 3, dims=2).contiguous(),
+              torch.full_like(st.tup_count, 3 * cap))
+    scan_vs_plain(torch, (*rolled, *args_scan[3:]), specs[1].channels, cap,
+                  "rolled copy")
+    checks += 2
+    del rolled
+
+    scan_rows = {k: tuple(3 + c for c in ch) for k, ch in channel_sets.items()}
+    n_valid = torch.clamp(st.tup_count, max=cap).double()
+    per_batch = []
+    for bi, (a, matched) in enumerate(scans):
+        subl, slen = a[4], a[5]
+        selected = (slen != 0).any(dim=0)
+        live = float((n_valid * selected).sum())
+        n_matched = int(matched.sum())
+        listed = int(slen.clamp(0, subl.shape[2]).sum())
+        row = {"batch": f"{batches[bi][0]} km x {batches[bi][1]:.0f} s",
+               "selected_edges": int(selected.sum()), "live_slots": live,
+               "matched_slots": n_matched, "listed_entries": listed}
+        for k, rows_k in scan_rows.items():
+            nbytes = (live * 5 + n_matched * k) * 4 + listed * 8 \
+                + slen.numel() * 4 + q * 16 * 4 + slen.numel() * 4 * (1 + 3 * k)
+            row[f"k{k}_bytes"] = nbytes
+            row[f"k{k}_bound_ms"] = nbytes / HBM_BYTES_PER_S * 1e3
+            row[f"k{k}_device_ms"] = device_ms(
+                torch, lambda: st_ops.st_scan_cuda(*a, rows_k, cap), 10,
+                "st_scan_kernel")
+        per_batch.append(row)
+    a = scans[2][0]
+    rows = scan_rows[4]
+    # PR 11-15's count: nine words for every live slot of a selected edge
+    old_bytes = per_batch[2]["live_slots"] * (5 + len(rows)) * 4 \
+        + (a[4].numel() + a[5].numel()) * 4 + a[5].numel() * 4 * (1 + 3 * len(rows))
+    return {
+        "rows": rows, "err": scan_err, "checks": checks, "batches": per_batch,
+        "bytes": per_batch[2]["k4_bytes"], "old_bytes": old_bytes,
+        "device_ms": per_batch[2]["k4_device_ms"],
+        "ms": cuda_ms(torch, lambda: st_ops.st_scan_cuda(*a, rows, cap), 20),
+        "k1_ms": cuda_ms(torch, lambda: st_ops.st_scan_cuda(
+            *a, scan_rows[1], cap), 20),
+        "plain_ms": cuda_ms(torch, lambda: st_scan_ref(
+            *a, channels=specs[1].channels, valid_c=cap), 1)}
 
 
 def flash_vs_plain(torch, dev, seed: int) -> dict:
@@ -471,15 +589,13 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch.api.session import AerialDB
     from repro_torch.core import hashing, voronoi
-    from repro_torch.core.datastore import (AggSpec, StoreConfig, make_pred,
-                                            plan_subqueries)
+    from repro_torch.core.datastore import AggSpec, StoreConfig, make_pred
     from repro_torch.data.synthetic import (CityConfig, DroneFleet,
                                             make_query_workload, make_sites)
     from repro_torch.kernels import build
     from repro_torch.kernels.hash64 import ops as hash64_ops
     from repro_torch.kernels.hash64.ref import xxh64_mod_py
     from repro_torch.kernels.st_scan import ops as st_ops
-    from repro_torch.kernels.st_scan.ref import st_scan_ref
     from repro_torch.kernels.voronoi_assign import ops as vor_ops
     from repro_torch.kernels.voronoi_assign.ref import (top2_relative_gap,
                                                         voronoi_assign_ref)
@@ -662,40 +778,8 @@ def main(argv=None) -> int:
         phase("profile_query", **profile(torch, lambda: db.query(pred, agg=specs[1])))
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------
-    alive = db.alive
-    km, win, recent, w = batches[2]
-    pred = make_pred(q=64, **w, has_spatial=True, has_temporal=True,
-                     is_and=True, device=dev)
-    rows = tuple(3 + c for c in specs[1].channels)
-    scan_err = 0.0
-    for bi in range(3):
-        p = make_pred(q=64, **batches[bi][3], has_spatial=True,
-                      has_temporal=True, is_and=True, device=dev)
-        subl, slen, _ = plan_subqueries(cfg, st, p, alive)
-        args_scan = (st.tup_f, st.tup_sid, st.tup_count, p, subl, slen)
-        got = st_ops.st_scan_cuda(*args_scan, rows, cfg.tuple_capacity)
-        want = st_scan_ref(*args_scan, channels=specs[1].channels,
-                           valid_c=cfg.tuple_capacity)
-        for name, g, x in zip(("count", "vsum", "vmin", "vmax"), got, want):
-            if name == "vsum":
-                torch.testing.assert_close(g, x, rtol=1e-5, atol=0)
-                scan_err = max(scan_err, float((g - x).abs().max()))
-            elif not torch.equal(g, x):
-                raise SystemExit(f"st_scan {name} differs from plain (batch {bi})")
-    subl, slen, _ = plan_subqueries(cfg, st, pred, alive)
-    scan_args = (st.tup_f, st.tup_sid, st.tup_count, pred, subl, slen)
-    n_valid = torch.clamp(st.tup_count, max=cfg.tuple_capacity).double()
-    selected = (slen != 0).any(dim=0)
-    scan_bytes = float((n_valid * selected).sum()) * (5 + len(rows)) * 4 \
-        + sum(t.numel() * 4 for t in (subl, slen)) + 64 * 80 * 4 * (1 + 3 * len(rows))
-    scan_ms = cuda_ms(torch, lambda: st_ops.st_scan_cuda(
-        *scan_args, rows, cfg.tuple_capacity), 20)
-    scan_plain_ms = cuda_ms(torch, lambda: st_scan_ref(
-        *scan_args, channels=specs[1].channels, valid_c=cfg.tuple_capacity), 1)
-    scan_k1_ms = cuda_ms(torch, lambda: st_ops.st_scan_cuda(
-        *scan_args, (3,), cfg.tuple_capacity), 20)
-    scan_dev = device_ms(torch, lambda: st_ops.st_scan_cuda(
-        *scan_args, rows, cfg.tuple_capacity), 10, "st_scan_kernel")
+    scan = st_scan_phase(torch, dev, cfg, st, db.alive, batches, specs)
+    rows = scan["rows"]
 
     # hash64 at the insert's temporal-slice shape (B x max_t_slices H_t keys).
     buckets = hashing.time_bucket(torch.from_numpy(metas.t0[-1]).to(dev),
@@ -741,8 +825,9 @@ def main(argv=None) -> int:
     for name, route, src, replaces, ms, dev_ms, plain_ms, (b_ms, b_by), lib_ms, \
             lib_dev, err in (
             ("st_scan", "cuda", "src/repro_torch/csrc/st_scan.cu",
-             "src/repro/kernels/st_scan/st_scan.py:109", scan_ms, scan_dev,
-             scan_plain_ms, bound(scan_bytes), None, None, scan_err),
+             "src/repro/kernels/st_scan/st_scan.py:109", scan["ms"],
+             scan["device_ms"], scan["plain_ms"], bound(scan["bytes"]), None,
+             None, scan["err"]),
             ("hash64", "cuda", "src/repro_torch/csrc/hash64.cu",
              "src/repro/kernels/hash64/hash64.py:28", h_ms, h_dev, h_plain,
              bound(h_bytes), None, None, float(h_err)),
@@ -757,16 +842,20 @@ def main(argv=None) -> int:
                         "library_ms": lib_ms, "device_ms": dev_ms,
                         "library_device_ms": lib_dev})
     kernels[-1]["wrapper_device_ms"] = v_wrap_dev
-    phase("kernel_timings", st_scan_k1_ms=scan_k1_ms,
+    kernels[0]["bound_ms_old"] = scan["old_bytes"] / HBM_BYTES_PER_S * 1e3
+    phase("kernel_timings", st_scan_k1_ms=scan["k1_ms"],
           voronoi_centred_sites_ms=centred_ms,
           st_scan_shape={"E": 80, "C": cfg.padded_capacity, "Q": 64,
                          "L": cfg.max_shards_per_query, "K": len(rows),
-                         "selected_edges": int(selected.sum())},
+                         "selected_edges": scan["batches"][2]["selected_edges"]},
+          st_scan_checks=scan["checks"], st_scan_batches=scan["batches"],
+          st_scan_bound_ms={"nine_words_every_live_slot": kernels[0]["bound_ms_old"],
+                            "hot_words_plus_matched_channels": kernels[0]["bound_ms"]},
           hash64_keys=int(buckets.numel()), voronoi_points=int(n_pts))
     if h_err or v_err:
         raise SystemExit(f"kernel disagrees at timing shapes: hash64 {h_err}, "
                          f"voronoi {v_err}")
-    del db, st, scan_args, args_scan    # free the store before serving
+    del db, st, scan    # free the store before serving
     torch.cuda.empty_cache()
 
     # -- 5-7. flash_attention and the LM serving path ----------------------

@@ -3,16 +3,11 @@
 //
 // Replaces the Pallas TPU kernel `st_scan_kernel`
 // (src/repro/kernels/st_scan/st_scan.py, body `_kernel`, wrapper
-// `ops.py::st_scan`). The TPU kernel walks a sequential (E, Q/BQ, C/BC) grid
-// and carries its accumulators across the C steps in revisited output
-// tiles. Here one thread block owns one (query tile of BQ queries, edge)
-// pair and loops over the edge's slots itself; nothing is carried between
-// blocks, so no atomics and no second pass.
+// `ops.py::st_scan`).
 //
-// What it computes, for every query q of the tile and edge e: over the live
-// slots `slot < n_valid = min(count[e], valid_c)` (slots beyond are dead by
-// the ring contract, so the loop simply ends there), the tuples passing the
-// AND/OR of the bbox / time-window / sid-equality tests AND the (q, e) shard
+// What it computes, for every query q and edge e: over the live slots
+// `slot < n_valid = min(count[e], valid_c)`, the tuples passing the AND/OR
+// of the bbox / time-window / sid-equality tests AND the (q, e) shard
 // OR-list (len > 0: sid among the first len entries; 0: edge not selected;
 // < 0: scan all) — their count and, per requested channel (log rows
 // `rows[k]`), sum, min and max. Empty: count 0, sum 0, min +inf, max -inf.
@@ -20,38 +15,59 @@
 // max NaN (NaN-propagating min/max, as the reference's jnp.min).
 //
 // Bound: bytes. Each live slot of a selected edge costs 5 words (t, lat,
-// lon, two sid words) plus K channel words when some query of the tile
-// matches it, against a few compares per (slot, query). Design:
-//  * the column-major log (E, 3+V, C) makes neighbouring threads read
-//    neighbouring slots of one field row: every load is coalesced;
-//  * a tile serves BQ queries per pass over the log, dividing log traffic by
-//    BQ; the channel words are loaded only for slots some query matched;
-//  * a block whose queries all have len == 0 on its edge writes the empty
-//    sentinels and exits without reading the log (most (q, e) pairs are
-//    unselected);
-//  * the tile's OR-lists live in shared memory (BQ * L * 2 int32, 4 KB at
-//    BQ = 4, L = 128). The membership test is a linear scan over up to L
-//    entries, run only for slots that already passed the predicate; sorting
-//    the lists for a binary search is later work.
-// Per-thread partials (BQ * (1 + 3K) registers; BQ = 8 for K <= 2 and 4 for
-// K = 3..4) are reduced in a fixed order — warp butterfly shuffles, then the
-// warps' results summed in warp order by one thread per query — with no float
-// atomics, so a rerun is bitwise identical.
+// lon, two sid words), plus K channel words where some query matches it.
+// The TPU kernel's grid (E, Q/BQ, C/BC) walked each edge's log once per
+// query tile; on this card that multiplies the bytes and the instructions
+// by Q/BQ. Here:
+//  * one pass over each edge's live slots serves the whole batch: the
+//    queries that select the edge (len != 0) are compacted once, in groups
+//    of QG = 64 (a batch above 64 queries takes one pass per group);
+//  * the edge's live tiles (TILE = 1024 slots, four a thread, neighbouring
+//    threads on neighbouring slots of one row) are split among the S blocks
+//    of a thread-block cluster;
+//  * each tile is summarised from its own data: the min and max of t, lat
+//    and lon over non-NaN values, and its runs of equal sid (the store
+//    writes a shard's records on consecutive slots). A query is skipped for
+//    the tile when no slot can match it: an AND query whose enabled test
+//    misses the tile's box, window or runs; an OR query all of whose enabled
+//    tests miss; a listed query none of whose listed sids is a run of the
+//    tile. NaN fields fail every comparison, so the summaries are exact on
+//    any data; an unsorted or wrapped log only prunes less;
+//  * list membership is tested once per (tile, run, query), by the lanes of
+//    a warp holding 32 list entries each and voting; a slot reads its run's
+//    bit. A tile of more than 32 runs (unsorted data) tests each slot
+//    against the list instead;
+//  * channel words are read only for slots some query matched; each match
+//    of a warp is reduced by butterfly shuffles into per-warp accumulators
+//    in shared memory;
+//  * the blocks' partials are merged in rank order through distributed
+//    shared memory between two cluster barriers.
+// Every sum is taken in a fixed order (slots of a thread, butterfly, tiles,
+// warps, ranks), with no float atomics: a rerun is bitwise identical.
 //
 // C entry: st_scan_launch(...) launches on `stream` and returns
 // cudaGetLastError(). Outputs: count (Q, E) int32 and sum/min/max
 // (Q, k_total, E) float32, of which this launch writes channel rows
-// [k_off, k_off + K). Q must be a multiple of 8 (the wrapper pads).
+// [k_off, k_off + K).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
+constexpr int kSlotsPerThread = 4;
+constexpr int kTile = kThreads * kSlotsPerThread;   // 1024 slots
+constexpr int kGroup = 64;                          // queries per pass
+constexpr int kMaxRuns = 32;                        // runs a tile summarises
 constexpr int kMaxK = 4;
+constexpr int kMaxSplits = 16;
+constexpr unsigned kFull = 0xffffffffu;
 
 // min and max that return NaN when either operand is NaN, as jnp.minimum /
 // torch.amin do (fminf and fmaxf return the other operand).
@@ -66,204 +82,488 @@ __device__ __forceinline__ float max_nan(float a, float b) {
   return d;
 }
 
-struct Rows {
-  int r[kMaxK];
+struct Params {
+  const float* tup_f;
+  const int32_t* tup_sid;
+  const int32_t* tup_count;
+  const float* pred_f;      // (Q, 8): lat0, lat1, lon0, lon1, t0, t1, -, -
+  const int32_t* pred_i;    // (Q, 8): sid_hi, sid_lo, has_s, has_t, has_i, is_and
+  const int32_t* sublists;  // (Q, E, L, 2)
+  const int32_t* sublist_len;
+  int E, W, C, Q, L, valid_c, k_total, k_off;
+  int rows[kMaxK];
+  int32_t* out_count;
+  float* out_sum;
+  float* out_min;
+  float* out_max;
 };
 
-template <int BQ, int K>
-__global__ void __launch_bounds__(kThreads)
-st_scan_kernel(const float* __restrict__ tup_f, const int32_t* __restrict__ tup_sid,
-               const int32_t* __restrict__ tup_count,
-               const float* __restrict__ pred_f, const int32_t* __restrict__ pred_i,
-               const int32_t* __restrict__ sublists,
-               const int32_t* __restrict__ sublist_len, int E, int W, int C,
-               int L, int valid_c, Rows rows, int32_t* __restrict__ out_count,
-               float* __restrict__ out_sum, float* __restrict__ out_min,
-               float* __restrict__ out_max, int k_total, int k_off) {
-  const int q0 = blockIdx.x * BQ;
+// Predicate flags packed per selected query.
+enum : int { kHasS = 1, kHasT = 2, kHasI = 4, kAnd = 8 };
+
+template <int K>
+struct Smem {
+  // the group's selected queries
+  int q[kGroup];
+  float pf[kGroup][6];
+  int sid[kGroup][2];
+  int flags[kGroup];
+  int len[kGroup];          // |len| clamped to L, or -1 for scan-all
+  int n_sel;
+  // the tile's summary
+  float box_part[kWarps][6];
+  float box[6];             // tmin, tmax, latmin, latmax, lonmin, lonmax
+  uint32_t starts[kSlotsPerThread * kWarps];
+  int run_base[kSlotsPerThread * kWarps];
+  int run_sid[kMaxRuns][2];
+  int n_runs;
+  // the tile's candidate and active queries
+  int cand[kGroup];
+  int n_cand;
+  uint32_t mask[kGroup];
+  int act[kGroup];
+  int n_act;
+  // accumulators: per warp, then the block's partial for the cluster merge
+  int acc_cnt[kWarps][kGroup];
+  float acc[kWarps][kGroup][3][K];
+  int part_cnt[kGroup];
+  float part[kGroup][3][K];
+};
+
+__device__ __forceinline__ bool range_miss(float lo, float hi, float mn,
+                                           float mx) {
+  // No finite value v of [mn, mx] satisfies lo <= v <= hi. NaN bounds make
+  // the comparisons false and so never prune (the evaluation rejects them).
+  return hi < mn || lo > mx;
+}
+
+template <int K>
+__global__ void __launch_bounds__(kThreads, 3)
+st_scan_kernel(const Params p) {
+  __shared__ Smem<K> sm;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int S = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
   const int e = blockIdx.y;
   const int tid = threadIdx.x;
-
-  __shared__ float s_pf[BQ][6];
-  __shared__ int32_t s_pi[BQ][6];
-  __shared__ int32_t s_len[BQ];
-  __shared__ int32_t s_cnt[kWarps][BQ];
-  __shared__ float s_sum[kWarps][BQ][K];
-  __shared__ float s_min[kWarps][BQ][K];
-  __shared__ float s_max[kWarps][BQ][K];
-  extern __shared__ int32_t s_list[];        // [BQ][L][2]
-
-  if (tid < BQ) {
-    const int q = q0 + tid;
-    s_len[tid] = sublist_len[(size_t)q * E + e];
-    for (int j = 0; j < 6; ++j) {
-      s_pf[tid][j] = pred_f[q * 8 + j];
-      s_pi[tid][j] = pred_i[q * 8 + j];
-    }
-  }
-  __syncthreads();
-
-  bool any_selected = false;
-#pragma unroll
-  for (int qq = 0; qq < BQ; ++qq) any_selected |= (s_len[qq] != 0);
-  if (!any_selected) {
-    if (tid < BQ) {
-      const int q = q0 + tid;
-      out_count[(size_t)q * E + e] = 0;
-      for (int k = 0; k < K; ++k) {
-        const size_t o = ((size_t)q * k_total + k_off + k) * E + e;
-        out_sum[o] = 0.0f;
-        out_min[o] = INFINITY;
-        out_max[o] = -INFINITY;
-      }
-    }
-    return;
-  }
-
-  for (int idx = tid; idx < BQ * L; idx += kThreads) {
-    const int qq = idx / L;
-    const int j = idx - qq * L;
-    const int len = abs(s_len[qq]);
-    if (j < len) {
-      const size_t src = (((size_t)(q0 + qq) * E + e) * L + j) * 2;
-      s_list[2 * idx] = sublists[src];
-      s_list[2 * idx + 1] = sublists[src + 1];
-    }
-  }
-  __syncthreads();
-
-  int cnt[BQ];
-  float vsum[BQ][K], vmin[BQ][K], vmax[BQ][K];
-#pragma unroll
-  for (int qq = 0; qq < BQ; ++qq) {
-    cnt[qq] = 0;
-#pragma unroll
-    for (int k = 0; k < K; ++k) {
-      vsum[qq][k] = 0.0f;
-      vmin[qq][k] = INFINITY;
-      vmax[qq][k] = -INFINITY;
-    }
-  }
-
-  const int n_valid = min(tup_count[e], valid_c);
-  const float* f_t = tup_f + (size_t)e * W * C;
-  const int32_t* s_hi = tup_sid + (size_t)e * 2 * C;
-  const int32_t* s_lo = s_hi + C;
-  for (int c = tid; c < n_valid; c += kThreads) {
-    const float t = f_t[c];
-    const float lat = f_t[(size_t)C + c];
-    const float lon = f_t[2 * (size_t)C + c];
-    const int32_t shi = s_hi[c];
-    const int32_t slo = s_lo[c];
-    bool loaded = false;
-    float v[K];
-#pragma unroll
-    for (int qq = 0; qq < BQ; ++qq) {
-      const int len = s_len[qq];
-      if (len == 0) continue;
-      const bool sp = (s_pf[qq][0] <= lat) & (lat <= s_pf[qq][1]) &
-                      (s_pf[qq][2] <= lon) & (lon <= s_pf[qq][3]);
-      const bool tp = (s_pf[qq][4] <= t) & (t <= s_pf[qq][5]);
-      const bool ip = (shi == s_pi[qq][0]) & (slo == s_pi[qq][1]);
-      const bool hs = s_pi[qq][2] != 0, ht = s_pi[qq][3] != 0,
-                 hi = s_pi[qq][4] != 0;
-      const bool pm = s_pi[qq][5] != 0
-                          ? ((sp | !hs) & (tp | !ht) & (ip | !hi))
-                          : ((sp & hs) | (tp & ht) | (ip & hi));
-      if (!pm) continue;
-      if (len > 0) {
-        const int32_t* lst = s_list + 2 * qq * L;
-        bool found = false;
-        for (int j = 0; j < len; ++j)
-          found |= (lst[2 * j] == shi) & (lst[2 * j + 1] == slo);
-        if (!found) continue;
-      }
-      if (!loaded) {
-#pragma unroll
-        for (int k = 0; k < K; ++k) v[k] = f_t[(size_t)rows.r[k] * C + c];
-        loaded = true;
-      }
-      cnt[qq] += 1;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        vsum[qq][k] += v[k];
-        vmin[qq][k] = min_nan(vmin[qq][k], v[k]);
-        vmax[qq][k] = max_nan(vmax[qq][k], v[k]);
-      }
-    }
-  }
-
-  // Fixed-order reduction: butterfly within each warp, then warps in order.
   const int lane = tid & 31;
   const int warp = tid >> 5;
+
+  const int n_valid = min(max(p.tup_count[e], 0), p.valid_c);
+  const int n_tiles = (n_valid + kTile - 1) / kTile;
+  const int per = (n_tiles + S - 1) / S;
+  const int tile_lo = min(rank * per, n_tiles);
+  const int tile_hi = min(tile_lo + per, n_tiles);
+  const float* f_t = p.tup_f + (size_t)e * p.W * p.C;
+  const float* f_lat = f_t + p.C;
+  const float* f_lon = f_t + 2 * (size_t)p.C;
+  const int32_t* s_hi = p.tup_sid + (size_t)e * 2 * p.C;
+  const int32_t* s_lo = s_hi + p.C;
+
+  for (int qbase = 0; qbase < p.Q; qbase += kGroup) {
+    __syncthreads();   // the last group's readers are done with the tables
+    // -- the group's queries that select this edge, compacted in order ----
+    if (warp == 0) {
+      int n_sel = 0;
 #pragma unroll
-  for (int qq = 0; qq < BQ; ++qq) {
+      for (int h = 0; h < 2; ++h) {
+        const int q = qbase + h * 32 + lane;
+        const int len = q < p.Q ? p.sublist_len[(size_t)q * p.E + e] : 0;
+        const uint32_t sel = __ballot_sync(kFull, len != 0);
+        if (len != 0) {
+          const int i = n_sel + __popc(sel & ((1u << lane) - 1));
+          const float* pf = p.pred_f + (size_t)q * 8;
+          const int32_t* pi = p.pred_i + (size_t)q * 8;
+          sm.q[i] = q;
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) {
-      cnt[qq] += __shfl_xor_sync(0xffffffffu, cnt[qq], off);
+          for (int j = 0; j < 6; ++j) sm.pf[i][j] = pf[j];
+          sm.sid[i][0] = pi[0];
+          sm.sid[i][1] = pi[1];
+          sm.flags[i] = (pi[2] ? kHasS : 0) | (pi[3] ? kHasT : 0) |
+                        (pi[4] ? kHasI : 0) | (pi[5] ? kAnd : 0);
+          sm.len[i] = len < 0 ? -1 : min(len, p.L);
+        } else if (q < p.Q && q % S == rank) {
+          // not selected: the empty sentinels, written by one rank
+          p.out_count[(size_t)q * p.E + e] = 0;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            const size_t o = ((size_t)q * p.k_total + p.k_off + k) * p.E + e;
+            p.out_sum[o] = 0.0f;
+            p.out_min[o] = INFINITY;
+            p.out_max[o] = -INFINITY;
+          }
+        }
+        n_sel += __popc(sel);
+      }
+      if (lane == 0) sm.n_sel = n_sel;
+    }
+    for (int idx = tid; idx < kWarps * kGroup; idx += kThreads) {
+      (&sm.acc_cnt[0][0])[idx] = 0;
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        vsum[qq][k] += __shfl_xor_sync(0xffffffffu, vsum[qq][k], off);
-        vmin[qq][k] = min_nan(vmin[qq][k],
-                            __shfl_xor_sync(0xffffffffu, vmin[qq][k], off));
-        vmax[qq][k] = max_nan(vmax[qq][k],
-                            __shfl_xor_sync(0xffffffffu, vmax[qq][k], off));
+        (&sm.acc[0][0][0][0])[idx * 3 * K + k] = 0.0f;
+        (&sm.acc[0][0][0][0])[idx * 3 * K + K + k] = INFINITY;
+        (&sm.acc[0][0][0][0])[idx * 3 * K + 2 * K + k] = -INFINITY;
       }
     }
-    if (lane == 0) {
-      s_cnt[warp][qq] = cnt[qq];
+    __syncthreads();
+    const int n_sel = sm.n_sel;   // the same in every block of the cluster
+    if (n_sel == 0) continue;
+
+    for (int tile = tile_lo; tile < tile_hi; ++tile) {
+      const int base = tile * kTile;
+      // -- the five hot rows of my four slots ------------------------------
+      float t[kSlotsPerThread], la[kSlotsPerThread], lo[kSlotsPerThread];
+      int hi[kSlotsPerThread], sl[kSlotsPerThread];
+      int prev_hi[kSlotsPerThread] = {}, prev_lo[kSlotsPerThread] = {};
+      uint32_t live = 0;
 #pragma unroll
-      for (int k = 0; k < K; ++k) {
-        s_sum[warp][qq][k] = vsum[qq][k];
-        s_min[warp][qq][k] = vmin[qq][k];
-        s_max[warp][qq][k] = vmax[qq][k];
+      for (int j = 0; j < kSlotsPerThread; ++j) {
+        const int s = base + j * kThreads + tid;
+        if (s < n_valid) {
+          live |= 1u << j;
+          t[j] = f_t[s];
+          la[j] = f_lat[s];
+          lo[j] = f_lon[s];
+          hi[j] = s_hi[s];
+          sl[j] = s_lo[s];
+          if (lane == 0 && s > base) {
+            prev_hi[j] = s_hi[s - 1];
+            prev_lo[j] = s_lo[s - 1];
+          }
+        } else {
+          t[j] = la[j] = lo[j] = NAN;
+          hi[j] = sl[j] = 0;
+        }
+      }
+#ifdef ST_SCAN_PROBE_LOADS_ONLY
+      {
+        float d = 0.0f;
+#pragma unroll
+        for (int j = 0; j < kSlotsPerThread; ++j)
+          d += t[j] + la[j] + lo[j] + (float)(hi[j] ^ sl[j]);
+        if (d == -1.2345e30f) sm.acc_cnt[warp][0] += 1;
+        continue;
+      }
+#endif
+      // -- summary: run starts and the box ---------------------------------
+      float bx[6] = {INFINITY, -INFINITY, INFINITY, -INFINITY, INFINITY,
+                     -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kSlotsPerThread; ++j) {
+        const int s = base + j * kThreads + tid;
+        const int ph = __shfl_up_sync(kFull, hi[j], 1);
+        const int pl = __shfl_up_sync(kFull, sl[j], 1);
+        const bool first = s == base;
+        const int h0 = lane == 0 ? prev_hi[j] : ph;
+        const int l0 = lane == 0 ? prev_lo[j] : pl;
+        const bool is_live = (live >> j) & 1;
+        const bool start = is_live && (first || hi[j] != h0 || sl[j] != l0);
+        const uint32_t b = __ballot_sync(kFull, start);
+        if (lane == 0) sm.starts[j * kWarps + warp] = b;
+        // fminf / fmaxf skip NaN: the box holds non-NaN values only
+        bx[0] = fminf(bx[0], t[j]);
+        bx[1] = fmaxf(bx[1], t[j]);
+        bx[2] = fminf(bx[2], la[j]);
+        bx[3] = fmaxf(bx[3], la[j]);
+        bx[4] = fminf(bx[4], lo[j]);
+        bx[5] = fmaxf(bx[5], lo[j]);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+#pragma unroll
+        for (int v = 0; v < 6; v += 2) {
+          bx[v] = fminf(bx[v], __shfl_xor_sync(kFull, bx[v], off));
+          bx[v + 1] = fmaxf(bx[v + 1], __shfl_xor_sync(kFull, bx[v + 1], off));
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int v = 0; v < 6; ++v) sm.box_part[warp][v] = bx[v];
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // runs: exclusive prefix of the start counts, in slot order
+        const int c = __popc(sm.starts[lane]);
+        int incl = c;
+#pragma unroll
+        for (int off = 1; off < 32; off <<= 1) {
+          const int y = __shfl_up_sync(kFull, incl, off);
+          if (lane >= off) incl += y;
+        }
+        sm.run_base[lane] = incl - c;
+        if (lane == 31) sm.n_runs = incl;
+      } else if (warp == 1 && lane < 6) {
+        float v = sm.box_part[0][lane];
+        for (int w = 1; w < kWarps; ++w)
+          v = (lane & 1) ? fmaxf(v, sm.box_part[w][lane])
+                         : fminf(v, sm.box_part[w][lane]);
+        sm.box[lane] = v;
+      }
+      __syncthreads();
+      const int n_runs = sm.n_runs;
+      const bool few_runs = n_runs <= kMaxRuns;
+      int run[kSlotsPerThread];
+#pragma unroll
+      for (int j = 0; j < kSlotsPerThread; ++j) {
+        const int w = j * kWarps + warp;
+        const uint32_t st = sm.starts[w];
+        run[j] = sm.run_base[w] + __popc(st & ((2u << lane) - 1)) - 1;
+        if (((st >> lane) & 1) && run[j] < kMaxRuns) {
+          sm.run_sid[run[j]][0] = hi[j];
+          sm.run_sid[run[j]][1] = sl[j];
+        }
+      }
+      __syncthreads();
+      // -- which queries can match in this tile ----------------------------
+      if (warp == 0) {
+        const float* bxs = sm.box;
+        int n_cand = 0, n_act = 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int i = h * 32 + lane;
+          bool possible = false, needs_list = false;
+          if (i < n_sel) {
+            const float* pf = sm.pf[i];
+            const int fl = sm.flags[i];
+            const bool s_miss = range_miss(pf[0], pf[1], bxs[2], bxs[3]) ||
+                                range_miss(pf[2], pf[3], bxs[4], bxs[5]);
+            const bool t_miss = range_miss(pf[4], pf[5], bxs[0], bxs[1]);
+            bool i_miss = false;
+            if ((fl & kHasI) && few_runs) {
+              i_miss = true;
+              for (int r = 0; r < n_runs; ++r)
+                i_miss &= !(sm.run_sid[r][0] == sm.sid[i][0] &&
+                            sm.run_sid[r][1] == sm.sid[i][1]);
+            }
+            const bool hs = fl & kHasS, ht = fl & kHasT, hsid = fl & kHasI;
+            possible = (fl & kAnd)
+                           ? !((hs && s_miss) || (ht && t_miss) || (hsid && i_miss))
+                           : ((hs && !s_miss) || (ht && !t_miss) || (hsid && !i_miss));
+#ifdef ST_SCAN_PROBE_NO_PRUNE
+            possible = true;
+#endif
+            needs_list = possible && sm.len[i] > 0 && few_runs;
+            sm.mask[i] = kFull;
+          }
+          const uint32_t bc = __ballot_sync(kFull, needs_list);
+          const uint32_t ba = __ballot_sync(kFull, possible && !needs_list);
+          if (needs_list) sm.cand[n_cand + __popc(bc & ((1u << lane) - 1))] = i;
+          if (possible && !needs_list)
+            sm.act[n_act + __popc(ba & ((1u << lane) - 1))] = i;
+          n_cand += __popc(bc);
+          n_act += __popc(ba);
+        }
+        if (lane == 0) {
+          sm.n_cand = n_cand;
+          sm.n_act = n_act;
+        }
+      }
+      __syncthreads();
+      // -- list membership of the tile's runs, one candidate a warp --------
+      const int n_cand = sm.n_cand;
+      for (int c = warp; c < n_cand; c += kWarps) {
+        const int i = sm.cand[c];
+        const int len = sm.len[i];
+        const int2* lst = reinterpret_cast<const int2*>(
+            p.sublists + ((size_t)sm.q[i] * p.E + e) * p.L * 2);
+        uint32_t mask = 0;
+        for (int j0 = 0; j0 < len; j0 += 32) {
+          const bool ok = j0 + lane < len;
+          const int2 ent = ok ? lst[j0 + lane] : make_int2(0, 0);
+          for (int r = 0; r < n_runs; ++r) {
+            const bool eq = ok && ent.x == sm.run_sid[r][0] &&
+                            ent.y == sm.run_sid[r][1];
+            if (__ballot_sync(kFull, eq)) mask |= 1u << r;
+          }
+        }
+        if (lane == 0) sm.mask[i] = mask;
+      }
+      __syncthreads();
+      if (warp == 0) {
+        // candidates with a listed run join the active queries
+        int n_act = sm.n_act;
+        for (int c0 = 0; c0 < n_cand; c0 += 32) {
+          const int c = c0 + lane;
+          const int i = c < n_cand ? sm.cand[c] : 0;
+          const bool hit = c < n_cand && sm.mask[i] != 0;
+          const uint32_t b = __ballot_sync(kFull, hit);
+          if (hit) sm.act[n_act + __popc(b & ((1u << lane) - 1))] = i;
+          n_act += __popc(b);
+        }
+        if (lane == 0) sm.n_act = n_act;
+      }
+      __syncthreads();
+#ifndef ST_SCAN_PROBE_NO_EVAL
+      // -- evaluate the active queries on my slots -------------------------
+      const int n_act = sm.n_act;
+      float v[kSlotsPerThread][K];
+      uint32_t loaded = 0;
+      for (int a = 0; a < n_act; ++a) {
+        const int i = sm.act[a];
+        const float* pf = sm.pf[i];
+        const float lat0 = pf[0], lat1 = pf[1], lon0 = pf[2], lon1 = pf[3],
+                    t0 = pf[4], t1 = pf[5];
+        const int fl = sm.flags[i];
+        const int qh = sm.sid[i][0], ql = sm.sid[i][1];
+        const int len = sm.len[i];
+        const uint32_t mask = sm.mask[i];
+        const bool slow = len > 0 && !few_runs;
+        const bool hs = fl & kHasS, ht = fl & kHasT, hsid = fl & kHasI;
+        uint32_t bits = 0;
+#pragma unroll
+        for (int j = 0; j < kSlotsPerThread; ++j) {
+          const bool sp = (lat0 <= la[j]) & (la[j] <= lat1) & (lon0 <= lo[j]) &
+                          (lo[j] <= lon1);
+          const bool tp = (t0 <= t[j]) & (t[j] <= t1);
+          const bool ip = (hi[j] == qh) & (sl[j] == ql);
+          const bool pm = (fl & kAnd) ? ((sp | !hs) & (tp | !ht) & (ip | !hsid))
+                                      : ((sp & hs) | (tp & ht) | (ip & hsid));
+          bool m = ((live >> j) & 1) && pm;
+          if (m && slow) {
+            const int2* lst = reinterpret_cast<const int2*>(
+                p.sublists + ((size_t)sm.q[i] * p.E + e) * p.L * 2);
+            bool found = false;
+            for (int jj = 0; jj < len && !found; ++jj) {
+              const int2 ent = lst[jj];
+              found = ent.x == hi[j] && ent.y == sl[j];
+            }
+            m = found;
+          } else if (m && len > 0) {
+            m = (mask >> run[j]) & 1;
+          }
+          bits |= (uint32_t)m << j;
+        }
+        if (!__any_sync(kFull, bits != 0)) continue;
+        const uint32_t need = bits & ~loaded;
+#pragma unroll
+        for (int j = 0; j < kSlotsPerThread; ++j) {
+          if ((need >> j) & 1) {
+            const size_t s = (size_t)base + j * kThreads + tid;
+#pragma unroll
+            for (int k = 0; k < K; ++k)
+              v[j][k] = p.tup_f[((size_t)e * p.W + p.rows[k]) * p.C + s];
+          }
+        }
+        loaded |= need;
+        int cnt = __popc(bits);
+        float vs[K], vn[K], vx[K];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          vs[k] = 0.0f;
+          vn[k] = INFINITY;
+          vx[k] = -INFINITY;
+        }
+#pragma unroll
+        for (int j = 0; j < kSlotsPerThread; ++j) {
+          if ((bits >> j) & 1) {
+#pragma unroll
+            for (int k = 0; k < K; ++k) {
+              vs[k] += v[j][k];
+              vn[k] = min_nan(vn[k], v[j][k]);
+              vx[k] = max_nan(vx[k], v[j][k]);
+            }
+          }
+        }
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) {
+          cnt += __shfl_xor_sync(kFull, cnt, off);
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            vs[k] += __shfl_xor_sync(kFull, vs[k], off);
+            vn[k] = min_nan(vn[k], __shfl_xor_sync(kFull, vn[k], off));
+            vx[k] = max_nan(vx[k], __shfl_xor_sync(kFull, vx[k], off));
+          }
+        }
+        if (lane == 0) {
+          sm.acc_cnt[warp][i] += cnt;
+#pragma unroll
+          for (int k = 0; k < K; ++k) {
+            sm.acc[warp][i][0][k] += vs[k];
+            sm.acc[warp][i][1][k] = min_nan(sm.acc[warp][i][1][k], vn[k]);
+            sm.acc[warp][i][2][k] = max_nan(sm.acc[warp][i][2][k], vx[k]);
+          }
+        }
+      }
+#endif
+    }
+    __syncthreads();
+    // -- the block's partial: warps in order ------------------------------
+    for (int idx = tid; idx < n_sel * (1 + K); idx += kThreads) {
+      const int i = idx / (1 + K), col = idx % (1 + K);
+      if (col == 0) {
+        int c = 0;
+        for (int w = 0; w < kWarps; ++w) c += sm.acc_cnt[w][i];
+        sm.part_cnt[i] = c;
+      } else {
+        const int k = col - 1;
+        float vs = 0.0f, vn = INFINITY, vx = -INFINITY;
+        for (int w = 0; w < kWarps; ++w) {
+          vs += sm.acc[w][i][0][k];
+          vn = min_nan(vn, sm.acc[w][i][1][k]);
+          vx = max_nan(vx, sm.acc[w][i][2][k]);
+        }
+        sm.part[i][0][k] = vs;
+        sm.part[i][1][k] = vn;
+        sm.part[i][2][k] = vx;
       }
     }
-  }
-  __syncthreads();
-  if (tid < BQ) {
-    const int qq = tid;
-    const int q = q0 + qq;
-    int total = 0;
-    for (int w = 0; w < kWarps; ++w) total += s_cnt[w][qq];
-    out_count[(size_t)q * E + e] = total;
-    for (int k = 0; k < K; ++k) {
-      float sm = 0.0f, mn = INFINITY, mx = -INFINITY;
-      for (int w = 0; w < kWarps; ++w) {
-        sm += s_sum[w][qq][k];
-        mn = min_nan(mn, s_min[w][qq][k]);
-        mx = max_nan(mx, s_max[w][qq][k]);
+#ifdef ST_SCAN_PROBE_NO_MERGE
+    __syncthreads();
+    for (int idx = tid; rank == 0 && idx < n_sel; idx += kThreads)
+      p.out_count[(size_t)sm.q[idx] * p.E + e] = sm.part_cnt[idx];
+    continue;
+#endif
+    cluster.sync();
+    // -- the cluster's merge: ranks in order, through distributed smem ----
+    for (int idx = rank * kThreads + tid; idx < n_sel * (1 + K);
+         idx += S * kThreads) {
+      const int i = idx / (1 + K), col = idx % (1 + K);
+      const int q = sm.q[i];
+      if (col == 0) {
+        int c = 0;
+        for (int r = 0; r < S; ++r) c += cluster.map_shared_rank(&sm, r)->part_cnt[i];
+        p.out_count[(size_t)q * p.E + e] = c;
+      } else {
+        const int k = col - 1;
+        float vs = 0.0f, vn = INFINITY, vx = -INFINITY;
+        for (int r = 0; r < S; ++r) {
+          const Smem<K>* peer = cluster.map_shared_rank(&sm, r);
+          vs += peer->part[i][0][k];
+          vn = min_nan(vn, peer->part[i][1][k]);
+          vx = max_nan(vx, peer->part[i][2][k]);
+        }
+        const size_t o = ((size_t)q * p.k_total + p.k_off + k) * p.E + e;
+        p.out_sum[o] = vs;
+        p.out_min[o] = vn;
+        p.out_max[o] = vx;
       }
-      const size_t o = ((size_t)q * k_total + k_off + k) * E + e;
-      out_sum[o] = sm;
-      out_min[o] = mn;
-      out_max[o] = mx;
     }
+    cluster.sync();   // no block reuses or leaves its partial while peers read it
   }
 }
 
-template <int BQ, int K>
-int launch(const void* tup_f, const void* tup_sid, const void* tup_count,
-           const void* pred_f, const void* pred_i, const void* sublists,
-           const void* sublist_len, int E, int W, int C, int Q, int L,
-           int valid_c, Rows rows, void* out_count, void* out_sum,
-           void* out_min, void* out_max, int k_total, int k_off,
-           cudaStream_t stream) {
-  if (Q % BQ != 0) return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)BQ * L * 2 * sizeof(int32_t);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        st_scan_kernel<BQ, K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+template <int K>
+int launch(const Params& p, int S, cudaStream_t stream) {
+  if (S > 8) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        st_scan_kernel<K>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
     if (err != cudaSuccess) return (int)err;
   }
-  dim3 grid(Q / BQ, E);
-  st_scan_kernel<BQ, K><<<grid, kThreads, smem, stream>>>(
-      (const float*)tup_f, (const int32_t*)tup_sid, (const int32_t*)tup_count,
-      (const float*)pred_f, (const int32_t*)pred_i, (const int32_t*)sublists,
-      (const int32_t*)sublist_len, E, W, C, L, valid_c, rows,
-      (int32_t*)out_count, (float*)out_sum, (float*)out_min, (float*)out_max,
-      k_total, k_off);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(S, p.E, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = S;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, st_scan_kernel<K>, p);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -276,23 +576,44 @@ extern "C" int st_scan_launch(const void* tup_f, const void* tup_sid,
                               int Q, int L, int valid_c, int K, int r0, int r1,
                               int r2, int r3, void* out_count, void* out_sum,
                               void* out_min, void* out_max, int k_total,
-                              int k_off, void* stream) {
-  Rows rows = {{r0, r1, r2, r3}};
+                              int k_off, int n_split, void* stream) {
+  Params p;
+  p.tup_f = static_cast<const float*>(tup_f);
+  p.tup_sid = static_cast<const int32_t*>(tup_sid);
+  p.tup_count = static_cast<const int32_t*>(tup_count);
+  p.pred_f = static_cast<const float*>(pred_f);
+  p.pred_i = static_cast<const int32_t*>(pred_i);
+  p.sublists = static_cast<const int32_t*>(sublists);
+  p.sublist_len = static_cast<const int32_t*>(sublist_len);
+  p.E = E;
+  p.W = W;
+  p.C = C;
+  p.Q = Q;
+  p.L = L;
+  p.valid_c = valid_c;
+  p.k_total = k_total;
+  p.k_off = k_off;
+  p.rows[0] = r0;
+  p.rows[1] = r1;
+  p.rows[2] = r2;
+  p.rows[3] = r3;
+  p.out_count = static_cast<int32_t*>(out_count);
+  p.out_sum = static_cast<float*>(out_sum);
+  p.out_min = static_cast<float*>(out_min);
+  p.out_max = static_cast<float*>(out_max);
   for (int k = 0; k < K; ++k)
-    if (rows.r[k] < 3 || rows.r[k] >= W) return (int)cudaErrorInvalidValue;
-  if (E < 1 || E > 65535 || Q < 0 || L < 0 || C < 0) return (int)cudaErrorInvalidValue;
+    if (p.rows[k] < 3 || p.rows[k] >= W) return (int)cudaErrorInvalidValue;
+  if (E < 1 || E > 65535 || Q < 0 || L < 0 || C < 0 || valid_c < 0 ||
+      valid_c > C || n_split < 1 || n_split > kMaxSplits ||
+      k_off < 0 || k_off + K > k_total)
+    return (int)cudaErrorInvalidValue;
   if (Q == 0) return (int)cudaSuccess;
   cudaStream_t s = (cudaStream_t)stream;
-#define ST_SCAN_ARGS                                                      \
-  tup_f, tup_sid, tup_count, pred_f, pred_i, sublists, sublist_len, E, W, \
-      C, Q, L, valid_c, rows, out_count, out_sum, out_min, out_max,       \
-      k_total, k_off, s
   switch (K) {
-    case 1: return launch<8, 1>(ST_SCAN_ARGS);
-    case 2: return launch<8, 2>(ST_SCAN_ARGS);
-    case 3: return launch<4, 3>(ST_SCAN_ARGS);
-    case 4: return launch<4, 4>(ST_SCAN_ARGS);
+    case 1: return launch<1>(p, n_split, s);
+    case 2: return launch<2>(p, n_split, s);
+    case 3: return launch<3>(p, n_split, s);
+    case 4: return launch<4>(p, n_split, s);
     default: return (int)cudaErrorInvalidValue;
   }
-#undef ST_SCAN_ARGS
 }

@@ -7,12 +7,13 @@
 the plain version (``ref.st_scan_ref``); CUDA tensors launch the kernel,
 which adds one to ``launches`` per launch.
 
-Wrapper contract (as in the JAX package): the query batch is padded to a
-multiple of the kernel's query tile with inert ``sublist_len == 0`` rows
-that are sliced off the outputs, and ``valid_c = min(valid_c, C)`` is
+Wrapper contract (as in the JAX package): ``valid_c = min(valid_c, C)`` is
 forwarded so lane-padding slots above the logical ring capacity are never
-admitted. The kernel aggregates at most ``MAX_K`` channels per launch; a
-larger channel set runs one launch per group of channels.
+admitted. The kernel takes any batch size (one pass over the log per 64
+queries) and aggregates at most ``MAX_K`` channels per launch; a larger
+channel set runs one launch per group of channels. Each edge's live slots
+are split among ``scan_splits(valid_c)`` blocks of one thread-block
+cluster, whose partials the cluster merges in rank order.
 """
 
 from __future__ import annotations
@@ -26,10 +27,8 @@ from repro_torch.kernels import build
 from repro_torch.kernels.st_scan.ref import check_channels, st_scan_ref
 
 MAX_K = 4
-# The kernel's query tile is 8 queries for K <= 2 channels and 4 for K = 3..4
-# (per-thread partials are BQ * (1 + 3K) registers); padding the batch to a
-# multiple of 8 fits both.
-Q_PAD = 8
+TILE = 1024          # slots a block summarises and evaluates at a time
+MAX_SPLITS = 8       # blocks of one edge's cluster (the portable cluster size)
 
 launches = 0
 
@@ -38,10 +37,16 @@ def _lib():
     lib = build.load("st_scan")
     fn = lib.st_scan_launch
     fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * (7 + MAX_K)
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def scan_splits(valid_c: int) -> int:
+    """Blocks that share one edge's live slots: one per tile of the ring's
+    capacity, at most ``MAX_SPLITS``."""
+    return max(1, min(MAX_SPLITS, -(-valid_c // TILE)))
 
 
 def pack_pred(pred) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -74,9 +79,11 @@ def st_scan(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
 
 
 def st_scan_cuda(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
-                 value_rows: Tuple[int, ...], valid_c: int):
+                 value_rows: Tuple[int, ...], valid_c: int,
+                 n_split: Optional[int] = None):
     """Launch the kernel (CUDA tensors only); ``value_rows`` are log rows
-    ``3 + channel``, ``valid_c`` is already clamped to C."""
+    ``3 + channel``, ``valid_c`` is already clamped to C. ``n_split``
+    overrides ``scan_splits(valid_c)`` (1..16), for timing only."""
     global launches
     dev = tup_f.device
     e, w, c = tup_f.shape
@@ -91,24 +98,19 @@ def st_scan_cuda(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
         raise ValueError(f"sublists {tuple(sublists.shape)} / sublist_len "
                          f"{tuple(sublist_len.shape)} do not match Q={q}, E={e}")
     k_total = len(value_rows)
-    # Pad the batch once to a multiple of every query tile (inert padding
-    # queries: sublist_len == 0 selects no edge); sliced off below.
-    qp = -(-q // Q_PAD) * Q_PAD
-    count = torch.empty((qp, e), dtype=torch.int32, device=dev)
-    vsum = torch.empty((qp, k_total, e), dtype=torch.float32, device=dev)
+    count = torch.empty((q, e), dtype=torch.int32, device=dev)
+    vsum = torch.empty((q, k_total, e), dtype=torch.float32, device=dev)
     vmin = torch.empty_like(vsum)
     vmax = torch.empty_like(vsum)
     if q == 0 or e == 0:
-        return count[:q], vsum[:q], vmin[:q], vmax[:q]
-    pad = qp - q
+        return count, vsum, vmin, vmax
     pred_f, pred_i = pack_pred(pred)
-    pred_f = torch.nn.functional.pad(pred_f.to(dev), (0, 0, 0, pad)).contiguous()
-    pred_i = torch.nn.functional.pad(pred_i.to(dev), (0, 0, 0, pad)).contiguous()
-    subl = torch.nn.functional.pad(sublists.to(device=dev, dtype=torch.int32),
-                                   (0, 0, 0, 0, 0, 0, 0, pad)).contiguous()
-    slen = torch.nn.functional.pad(sublist_len.to(device=dev, dtype=torch.int32),
-                                   (0, 0, 0, pad)).contiguous()
+    pred_f = pred_f.to(dev).contiguous()
+    pred_i = pred_i.to(dev).contiguous()
+    subl = sublists.to(device=dev, dtype=torch.int32).contiguous()
+    slen = sublist_len.to(device=dev, dtype=torch.int32).contiguous()
     cnt = tup_count.to(device=dev, dtype=torch.int32).contiguous()
+    splits = scan_splits(valid_c) if n_split is None else n_split
     fn = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for k_off in range(0, k_total, MAX_K):
@@ -116,10 +118,10 @@ def st_scan_cuda(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
         rows += [0] * (MAX_K - len(rows))
         err = fn(tup_f.data_ptr(), tup_sid.data_ptr(), cnt.data_ptr(),
                  pred_f.data_ptr(), pred_i.data_ptr(), subl.data_ptr(),
-                 slen.data_ptr(), e, w, c, qp, l, valid_c,
+                 slen.data_ptr(), e, w, c, q, l, valid_c,
                  min(MAX_K, k_total - k_off), *rows,
                  count.data_ptr(), vsum.data_ptr(), vmin.data_ptr(),
-                 vmax.data_ptr(), k_total, k_off, stream)
+                 vmax.data_ptr(), k_total, k_off, splits, stream)
         build.check("st_scan", err)
         launches += 1
-    return count[:q], vsum[:q], vmin[:q], vmax[:q]
+    return count, vsum, vmin, vmax

@@ -67,6 +67,36 @@ def tuple_pred_match(tup_f, tup_sid, pred, qi: Optional[int] = None):
     return torch.where(bc(pred.is_and), m_and, m_or)
 
 
+def _query_masks(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
+                 valid_c: Optional[int]):
+    """Yield (qi, m) for every query: m (E, C) bool, the slots query qi
+    aggregates (live, predicate AND shard OR-list)."""
+    e, w, c = tup_f.shape
+    q, _, l, _ = sublists.shape
+    if valid_c is None:
+        valid_c = c
+    dev = tup_f.device
+    n_valid = torch.clamp(tup_count.to(torch.int32), max=min(valid_c, c))
+    slot = torch.arange(c, dtype=torch.int32, device=dev)
+    alive_t = slot[None, :] < n_valid[:, None]                       # (E, C)
+    sid_hi, sid_lo = tup_sid[:, 0, :], tup_sid[:, 1, :]
+    entry = torch.arange(l, dtype=torch.int32, device=dev)
+    chunk = max(1, _CHUNK_ELEMS // max(1, e * l))
+    for qi in range(q):
+        slen = sublist_len[qi]                                       # (E,)
+        entry_ok = entry[None, :] < slen.abs()[:, None]              # (E, L)
+        lst = sublists[qi]                                           # (E, L, 2)
+        in_list = torch.empty((e, c), dtype=torch.bool, device=dev)
+        for a in range(0, c, chunk):
+            hit = ((sid_hi[:, a:a + chunk, None] == lst[:, None, :, 0])
+                   & (sid_lo[:, a:a + chunk, None] == lst[:, None, :, 1])
+                   & entry_ok[:, None, :])                           # (E, c, L)
+            in_list[:, a:a + chunk] = hit.any(dim=-1)
+        shard_ok = torch.where((slen < 0)[:, None], True, in_list) \
+            & (slen != 0)[:, None]
+        yield qi, tuple_pred_match(tup_f, tup_sid, pred, qi) & shard_ok & alive_t
+
+
 def st_scan_ref(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
                 channels: Tuple[int, ...] = (0,),
                 valid_c: Optional[int] = None):
@@ -85,40 +115,32 @@ def st_scan_ref(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
     Returns (count (Q, E) int32, vsum/vmin/vmax (Q, K, E) float32).
     """
     e, w, c = tup_f.shape
-    q, _, l, _ = sublists.shape
+    q = sublists.shape[0]
     value_rows = list(check_channels(channels, w))
-    if valid_c is None:
-        valid_c = c
     dev = tup_f.device
-    n_valid = torch.clamp(tup_count.to(torch.int32), max=min(valid_c, c))
-    slot = torch.arange(c, dtype=torch.int32, device=dev)
-    alive_t = slot[None, :] < n_valid[:, None]                       # (E, C)
-    sid_hi, sid_lo = tup_sid[:, 0, :], tup_sid[:, 1, :]
     vals = tup_f[:, value_rows, :]                                   # (E, K, C)
-    entry = torch.arange(l, dtype=torch.int32, device=dev)
-    chunk = max(1, _CHUNK_ELEMS // max(1, e * l))
-
     count = torch.empty((q, e), dtype=torch.int32, device=dev)
     k = len(value_rows)
     vsum = torch.empty((q, k, e), dtype=torch.float32, device=dev)
     vmin = torch.empty_like(vsum)
     vmax = torch.empty_like(vsum)
-    for qi in range(q):
-        slen = sublist_len[qi]                                       # (E,)
-        entry_ok = entry[None, :] < slen.abs()[:, None]              # (E, L)
-        lst = sublists[qi]                                           # (E, L, 2)
-        in_list = torch.empty((e, c), dtype=torch.bool, device=dev)
-        for a in range(0, c, chunk):
-            hit = ((sid_hi[:, a:a + chunk, None] == lst[:, None, :, 0])
-                   & (sid_lo[:, a:a + chunk, None] == lst[:, None, :, 1])
-                   & entry_ok[:, None, :])                           # (E, c, L)
-            in_list[:, a:a + chunk] = hit.any(dim=-1)
-        shard_ok = torch.where((slen < 0)[:, None], True, in_list) \
-            & (slen != 0)[:, None]
-        m = tuple_pred_match(tup_f, tup_sid, pred, qi) & shard_ok & alive_t
+    for qi, m in _query_masks(tup_f, tup_sid, tup_count, pred, sublists,
+                              sublist_len, valid_c):
         mk = m[:, None, :]                                           # (E, 1, C)
         count[qi] = m.sum(dim=-1, dtype=torch.int32)
         vsum[qi] = torch.where(mk, vals, 0.0).sum(dim=-1).T
         vmin[qi] = torch.where(mk, vals, float("inf")).amin(dim=-1).T
         vmax[qi] = torch.where(mk, vals, float("-inf")).amax(dim=-1).T
     return count, vsum, vmin, vmax
+
+
+def matched_slots(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
+                  valid_c: Optional[int] = None):
+    """(E, C) bool: the slots that some query of the batch aggregates (the
+    slots whose channel words a scan must read)."""
+    e, _, c = tup_f.shape
+    any_m = torch.zeros((e, c), dtype=torch.bool, device=tup_f.device)
+    for _, m in _query_masks(tup_f, tup_sid, tup_count, pred, sublists,
+                             sublist_len, valid_c):
+        any_m |= m
+    return any_m

@@ -133,19 +133,26 @@ def _shard_log_problem(rng, dev, q, e=6, w=9, c=5000, l=16, roll=0,
     count = rng.integers(c // 2, 2 * c, e).astype(np.int32)
     count[0], count[1] = 0, 3 * c
 
-    t_max = float(np.nanmax(f[:, 0]))
-    t0 = rng.uniform(-300, t_max, q)
-    lat_c, lon_c = rng.uniform(0, 100, q), rng.uniform(0, 100, q)
+    # Each query is centred on a live slot with finite fields, whose sid
+    # heads the query's list on that edge; query 0 is an AND of bbox and
+    # window, so every batch matches something.
+    finite = np.isfinite(f[:, :3]).all(axis=1)
+    finite[:2] = False
+    finite[:, c // 2:] = False
+    pe, ps = np.nonzero(finite)
+    pick = rng.integers(0, len(pe), q)
+    pe, ps = pe[pick], ps[pick]
+    win = rng.choice([300.0, 900.0, 1800.0], q)
+    t0 = f[pe, 0, ps] - rng.uniform(0, 1, q) * win
     half = rng.uniform(3, 30, q)
-    pick = rng.integers(0, e * c, q)
     is_and = rng.random(q) < 0.75
-    pred = make_pred(q=q, lat0=lat_c - half, lat1=lat_c + half,
-                     lon0=lon_c - half, lon1=lon_c + half,
-                     t0=t0, t1=t0 + rng.choice([300.0, 900.0, 1800.0], q),
-                     sid_hi=sid[pick // c, 0, pick % c],
-                     sid_lo=sid[pick // c, 1, pick % c],
-                     has_spatial=rng.random(q) < 0.8,
-                     has_temporal=rng.random(q) < 0.8,
+    has_s, has_t = rng.random(q) < 0.8, rng.random(q) < 0.8
+    is_and[0] = has_s[0] = has_t[0] = True
+    pred = make_pred(q=q, lat0=f[pe, 1, ps] - half, lat1=f[pe, 1, ps] + half,
+                     lon0=f[pe, 2, ps] - half, lon1=f[pe, 2, ps] + half,
+                     t0=t0, t1=t0 + win, sid_hi=sid[pe, 0, ps],
+                     sid_lo=sid[pe, 1, ps], has_spatial=has_s,
+                     has_temporal=has_t,
                      has_sid=rng.random(q) < np.where(is_and, 0.1, 0.3),
                      is_and=is_and, device=dev)
     own = rng.integers(0, c, (q, e, l))
@@ -153,8 +160,16 @@ def _shard_log_problem(rng, dev, q, e=6, w=9, c=5000, l=16, roll=0,
     absent = rng.random((q, e, l)) < 0.3
     subl[absent] = rng.integers(1000, 2000, (int(absent.sum()), 2))
     slen = rng.choice([-1, 0, 1, l, 0, 1, l // 2, l - 3], (q, e)).astype(np.int32)
+    subl[np.arange(q), pe, 0] = sid[pe, :, ps]
+    slen[np.arange(q), pe] = rng.choice([-1, 1, l], q)
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     return (t(f), t(sid), t(count), pred, t(subl.astype(np.int32)), t(slen))
+
+
+def _nan_in_matched(args, n_ch, valid_c):
+    """NaN into a requested channel of every 5th slot some query matches."""
+    hit = st_ref.matched_slots(*args, valid_c=valid_c).nonzero()[::5]
+    args[0][hit[:, 0], 3 + hit[:, 1] % n_ch, hit[:, 1]] = float("nan")
 
 
 def _assert_scan_policy(got, want):
@@ -179,6 +194,7 @@ def test_st_scan_shard_log_matches_plain(cuda, q, n_ch):
     args = _shard_log_problem(rng, cuda, q, nan_share=0.01)
     channels = tuple(range(n_ch))
     valid_c = 4963                      # C = 5000: lane padding above it
+    _nan_in_matched(args, n_ch, valid_c)
     before = st_ops.launches
     got = st_ops.st_scan(*args, channels=channels, valid_c=valid_c)
     assert st_ops.launches == before + -(-n_ch // st_ops.MAX_K)
@@ -196,9 +212,10 @@ def test_st_scan_wrapped_ring_matches_plain(cuda, roll):
     args = list(_shard_log_problem(rng, cuda, 20, c=6000, roll=roll,
                                    nan_share=0.002))
     args[2] = torch.full_like(args[2], 7 * 6000)
+    _nan_in_matched(args, 2, 6000)
     got = st_ops.st_scan(*args, channels=(0, 3), valid_c=6000)
     want = st_ref.st_scan_ref(*args, channels=(0, 3), valid_c=6000)
-    assert int(want[0].sum()) > 0
+    assert int(want[0].sum()) > 0 and torch.isnan(want[2]).any()
     _assert_scan_policy(got, want)
 
 

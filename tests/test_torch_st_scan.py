@@ -226,3 +226,28 @@ def test_nan_in_one_matched_slot_matches_jax():
     assert all(bool(torch.isnan(x[0, 0, 0])) for x in (vsum, vmin, vmax))
     assert float(vmin[1, 0, 0]) == float("inf")
     assert float(vmax[1, 0, 0]) == -float("inf")
+
+
+def test_matched_slots_is_the_union_of_the_query_masks():
+    """matched_slots marks exactly the slots some query aggregates: a scan
+    restricted to them gives the same counts, and so does none outside."""
+    p = problem(np.random.default_rng(71), c=640, q=5)
+    args = torch_args(p)
+    m = t_ref.matched_slots(*args)
+    count = t_ref.st_scan_ref(*args)[0]
+    assert m.shape == (4, 640) and m.dtype == torch.bool
+    assert 0 < int(m.sum()) <= int(count.sum())
+    f = torch.from_numpy(p["tup_f"]).clone()
+    f[:, 0][~m] = float("nan")          # a NaN time matches no query
+    got = t_ref.st_scan_ref(f, *args[1:])
+    masked_pred = p["pred"]["has_temporal"] & p["pred"]["is_and"]
+    assert torch.equal(got[0][torch.from_numpy(masked_pred)],
+                       count[torch.from_numpy(masked_pred)])
+
+
+@pytest.mark.parametrize("valid_c,splits", [(0, 1), (1, 1), (1024, 1), (1025, 2),
+                                            (4963, 5), (8192, 8), (262144, 8)])
+def test_scan_splits(valid_c, splits):
+    """One block an edge per 1024-slot tile of the ring, at most 8 (the
+    portable cluster size)."""
+    assert t_ops.scan_splits(valid_c) == splits
