@@ -22,24 +22,26 @@
 //  * one pass over each edge's live slots serves the whole batch: the
 //    queries that select the edge (len != 0) are compacted once, in groups
 //    of QG = 64 (a batch above 64 queries takes one pass per group);
-//  * the edge's live tiles (TILE = 1024 slots, four a thread, neighbouring
-//    threads on neighbouring slots of one row) are split among the S blocks
-//    of a thread-block cluster;
-//  * each tile is summarised from its own data: the min and max of t, lat
-//    and lon over non-NaN values, and its runs of equal sid (the store
-//    writes a shard's records on consecutive slots). A query is skipped for
-//    the tile when no slot can match it: an AND query whose enabled test
-//    misses the tile's box, window or runs; an OR query all of whose enabled
-//    tests miss; a listed query none of whose listed sids is a run of the
-//    tile. NaN fields fail every comparison, so the summaries are exact on
-//    any data; an unsorted or wrapped log only prunes less;
-//  * list membership is tested once per (tile, run, query), by the lanes of
-//    a warp holding 32 list entries each and voting; a slot reads its run's
-//    bit. A tile of more than 32 runs (unsorted data) tests each slot
+//  * the edge's live slots are split among the S blocks of a thread-block
+//    cluster, and each warp of a block walks its own tiles of 256 slots
+//    (eight a lane, neighbouring lanes on neighbouring slots of one row),
+//    with no block barrier between the group's start and its merge;
+//  * each tile is summarised from its own data, in registers and warp
+//    votes: the min and max of t, lat and lon over non-NaN values, and its
+//    runs of equal sid (the store writes a shard's records on consecutive
+//    slots). A query is skipped for the tile when no slot can match it: an
+//    AND query whose enabled test misses the tile's box, window or runs; an
+//    OR query all of whose enabled tests miss; a listed query none of whose
+//    listed sids is a run of the tile. NaN fields fail every comparison, so
+//    the summaries are exact on any data; an unsorted or wrapped log only
+//    prunes less;
+//  * list membership is tested once per (tile, query), by the lanes holding
+//    32 list entries each and voting over the tile's runs; a slot reads its
+//    run's bit. A tile of more than 32 runs (unsorted data) tests each slot
 //    against the list instead;
-//  * channel words are read only for slots some query matched; each match
-//    of a warp is reduced by butterfly shuffles into per-warp accumulators
-//    in shared memory;
+//  * channel words are read only for matched slots; a warp's matches are
+//    reduced by butterfly shuffles into its own accumulators in shared
+//    memory;
 //  * the blocks' partials are merged in rank order through distributed
 //    shared memory between two cluster barriers.
 // Every sum is taken in a fixed order (slots of a thread, butterfly, tiles,
@@ -61,8 +63,14 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kSlotsPerThread = 4;
-constexpr int kTile = kThreads * kSlotsPerThread;   // 1024 slots
+#ifndef ST_SCAN_SLOTS_PER_LANE
+#define ST_SCAN_SLOTS_PER_LANE 8
+#endif
+#ifndef ST_SCAN_MIN_BLOCKS
+#define ST_SCAN_MIN_BLOCKS 3
+#endif
+constexpr int kSlotsPerLane = ST_SCAN_SLOTS_PER_LANE;
+constexpr int kTile = 32 * kSlotsPerLane;           // 256 slots, one warp's
 constexpr int kGroup = 64;                          // queries per pass
 constexpr int kMaxRuns = 32;                        // runs a tile summarises
 constexpr int kMaxK = 4;
@@ -110,19 +118,8 @@ struct Smem {
   int flags[kGroup];
   int len[kGroup];          // |len| clamped to L, or -1 for scan-all
   int n_sel;
-  // the tile's summary
-  float box_part[kWarps][6];
-  float box[6];             // tmin, tmax, latmin, latmax, lonmin, lonmax
-  uint32_t starts[kSlotsPerThread * kWarps];
-  int run_base[kSlotsPerThread * kWarps];
-  int run_sid[kMaxRuns][2];
-  int n_runs;
-  // the tile's candidate and active queries
-  int cand[kGroup];
-  int n_cand;
-  uint32_t mask[kGroup];
-  int act[kGroup];
-  int n_act;
+  // each warp's tile: the sids of its runs
+  int run_sid[kWarps][kMaxRuns][2];
   // accumulators: per warp, then the block's partial for the cluster merge
   int acc_cnt[kWarps][kGroup];
   float acc[kWarps][kGroup][3][K];
@@ -138,7 +135,7 @@ __device__ __forceinline__ bool range_miss(float lo, float hi, float mn,
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, ST_SCAN_MIN_BLOCKS)
 st_scan_kernel(const Params p) {
   __shared__ Smem<K> sm;
   cg::cluster_group cluster = cg::this_cluster();
@@ -210,16 +207,16 @@ st_scan_kernel(const Params p) {
     const int n_sel = sm.n_sel;   // the same in every block of the cluster
     if (n_sel == 0) continue;
 
-    for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    // Each warp walks its own tiles: no block barrier until the merge.
+    for (int tile = tile_lo + warp; tile < tile_hi; tile += kWarps) {
       const int base = tile * kTile;
-      // -- the five hot rows of my four slots ------------------------------
-      float t[kSlotsPerThread], la[kSlotsPerThread], lo[kSlotsPerThread];
-      int hi[kSlotsPerThread], sl[kSlotsPerThread];
-      int prev_hi[kSlotsPerThread] = {}, prev_lo[kSlotsPerThread] = {};
+      // -- the five hot rows of my eight slots (slot base + 32 i + lane) ----
+      float t[kSlotsPerLane], la[kSlotsPerLane], lo[kSlotsPerLane];
+      int hi[kSlotsPerLane], sl[kSlotsPerLane];
       uint32_t live = 0;
 #pragma unroll
-      for (int j = 0; j < kSlotsPerThread; ++j) {
-        const int s = base + j * kThreads + tid;
+      for (int j = 0; j < kSlotsPerLane; ++j) {
+        const int s = base + j * 32 + lane;
         if (s < n_valid) {
           live |= 1u << j;
           t[j] = f_t[s];
@@ -227,10 +224,6 @@ st_scan_kernel(const Params p) {
           lo[j] = f_lon[s];
           hi[j] = s_hi[s];
           sl[j] = s_lo[s];
-          if (lane == 0 && s > base) {
-            prev_hi[j] = s_hi[s - 1];
-            prev_lo[j] = s_lo[s - 1];
-          }
         } else {
           t[j] = la[j] = lo[j] = NAN;
           hi[j] = sl[j] = 0;
@@ -240,27 +233,40 @@ st_scan_kernel(const Params p) {
       {
         float d = 0.0f;
 #pragma unroll
-        for (int j = 0; j < kSlotsPerThread; ++j)
+        for (int j = 0; j < kSlotsPerLane; ++j)
           d += t[j] + la[j] + lo[j] + (float)(hi[j] ^ sl[j]);
         if (d == -1.2345e30f) sm.acc_cnt[warp][0] += 1;
         continue;
       }
 #endif
-      // -- summary: run starts and the box ---------------------------------
+      // -- summary: runs of equal sid, and the box of non-NaN values -------
+      int run[kSlotsPerLane];
+      int n_runs = 0;
       float bx[6] = {INFINITY, -INFINITY, INFINITY, -INFINITY, INFINITY,
                      -INFINITY};
 #pragma unroll
-      for (int j = 0; j < kSlotsPerThread; ++j) {
-        const int s = base + j * kThreads + tid;
-        const int ph = __shfl_up_sync(kFull, hi[j], 1);
-        const int pl = __shfl_up_sync(kFull, sl[j], 1);
-        const bool first = s == base;
-        const int h0 = lane == 0 ? prev_hi[j] : ph;
-        const int l0 = lane == 0 ? prev_lo[j] : pl;
-        const bool is_live = (live >> j) & 1;
-        const bool start = is_live && (first || hi[j] != h0 || sl[j] != l0);
+      for (int j = 0; j < kSlotsPerLane; ++j) {
+        // the slot before mine: lane - 1 of this row, or lane 31 of the last
+        int ph = __shfl_up_sync(kFull, hi[j], 1);
+        int pl = __shfl_up_sync(kFull, sl[j], 1);
+        if (j > 0) {
+          const int h31 = __shfl_sync(kFull, hi[j - 1], 31);
+          const int l31 = __shfl_sync(kFull, sl[j - 1], 31);
+          if (lane == 0) {
+            ph = h31;
+            pl = l31;
+          }
+        }
+        const bool first = j == 0 && lane == 0;
+        const bool start = ((live >> j) & 1) &&
+                           (first || hi[j] != ph || sl[j] != pl);
         const uint32_t b = __ballot_sync(kFull, start);
-        if (lane == 0) sm.starts[j * kWarps + warp] = b;
+        run[j] = n_runs + __popc(b & ((2u << lane) - 1)) - 1;
+        if (start && run[j] < kMaxRuns) {
+          sm.run_sid[warp][run[j]][0] = hi[j];
+          sm.run_sid[warp][run[j]][1] = sl[j];
+        }
+        n_runs += __popc(b);
         // fminf / fmaxf skip NaN: the box holds non-NaN values only
         bx[0] = fminf(bx[0], t[j]);
         bx[1] = fmaxf(bx[1], t[j]);
@@ -277,215 +283,149 @@ st_scan_kernel(const Params p) {
           bx[v + 1] = fmaxf(bx[v + 1], __shfl_xor_sync(kFull, bx[v + 1], off));
         }
       }
-      if (lane == 0) {
-#pragma unroll
-        for (int v = 0; v < 6; ++v) sm.box_part[warp][v] = bx[v];
-      }
-      __syncthreads();
-      if (warp == 0) {
-        // runs: exclusive prefix of the start counts, in slot order
-        const int c = __popc(sm.starts[lane]);
-        int incl = c;
-#pragma unroll
-        for (int off = 1; off < 32; off <<= 1) {
-          const int y = __shfl_up_sync(kFull, incl, off);
-          if (lane >= off) incl += y;
-        }
-        sm.run_base[lane] = incl - c;
-        if (lane == 31) sm.n_runs = incl;
-      } else if (warp == 1 && lane < 6) {
-        float v = sm.box_part[0][lane];
-        for (int w = 1; w < kWarps; ++w)
-          v = (lane & 1) ? fmaxf(v, sm.box_part[w][lane])
-                         : fminf(v, sm.box_part[w][lane]);
-        sm.box[lane] = v;
-      }
-      __syncthreads();
-      const int n_runs = sm.n_runs;
+      __syncwarp();
       const bool few_runs = n_runs <= kMaxRuns;
-      int run[kSlotsPerThread];
+      const int (*runs)[2] = sm.run_sid[warp];
+      // -- which queries can match in this tile: lane i%32 tests query i ---
+      uint32_t cand[2], act[2], my_mask[2];
 #pragma unroll
-      for (int j = 0; j < kSlotsPerThread; ++j) {
-        const int w = j * kWarps + warp;
-        const uint32_t st = sm.starts[w];
-        run[j] = sm.run_base[w] + __popc(st & ((2u << lane) - 1)) - 1;
-        if (((st >> lane) & 1) && run[j] < kMaxRuns) {
-          sm.run_sid[run[j]][0] = hi[j];
-          sm.run_sid[run[j]][1] = sl[j];
-        }
-      }
-      __syncthreads();
-      // -- which queries can match in this tile ----------------------------
-      if (warp == 0) {
-        const float* bxs = sm.box;
-        int n_cand = 0, n_act = 0;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int i = h * 32 + lane;
-          bool possible = false, needs_list = false;
-          if (i < n_sel) {
-            const float* pf = sm.pf[i];
-            const int fl = sm.flags[i];
-            const bool s_miss = range_miss(pf[0], pf[1], bxs[2], bxs[3]) ||
-                                range_miss(pf[2], pf[3], bxs[4], bxs[5]);
-            const bool t_miss = range_miss(pf[4], pf[5], bxs[0], bxs[1]);
-            bool i_miss = false;
-            if ((fl & kHasI) && few_runs) {
-              i_miss = true;
-              for (int r = 0; r < n_runs; ++r)
-                i_miss &= !(sm.run_sid[r][0] == sm.sid[i][0] &&
-                            sm.run_sid[r][1] == sm.sid[i][1]);
-            }
-            const bool hs = fl & kHasS, ht = fl & kHasT, hsid = fl & kHasI;
-            possible = (fl & kAnd)
-                           ? !((hs && s_miss) || (ht && t_miss) || (hsid && i_miss))
-                           : ((hs && !s_miss) || (ht && !t_miss) || (hsid && !i_miss));
+      for (int h = 0; h < 2; ++h) {
+        const int i = h * 32 + lane;
+        bool possible = false;
+        if (i < n_sel) {
+          const float* pf = sm.pf[i];
+          const int fl = sm.flags[i];
+          const bool s_miss = range_miss(pf[0], pf[1], bx[2], bx[3]) ||
+                              range_miss(pf[2], pf[3], bx[4], bx[5]);
+          const bool t_miss = range_miss(pf[4], pf[5], bx[0], bx[1]);
+          bool i_miss = false;
+          if ((fl & kHasI) && few_runs) {
+            i_miss = true;
+            for (int r = 0; r < n_runs; ++r)
+              i_miss &= !(runs[r][0] == sm.sid[i][0] && runs[r][1] == sm.sid[i][1]);
+          }
+          const bool hs = fl & kHasS, ht = fl & kHasT, hsid = fl & kHasI;
+          possible = (fl & kAnd)
+                         ? !((hs && s_miss) || (ht && t_miss) || (hsid && i_miss))
+                         : ((hs && !s_miss) || (ht && !t_miss) || (hsid && !i_miss));
 #ifdef ST_SCAN_PROBE_NO_PRUNE
-            possible = true;
+          possible = true;
 #endif
-            needs_list = possible && sm.len[i] > 0 && few_runs;
-            sm.mask[i] = kFull;
+          possible &= sm.len[i] != 0;   // a list of length > 0 when L is 0
+        }
+        const bool listed = i < n_sel && sm.len[i] > 0 && few_runs;
+        cand[h] = __ballot_sync(kFull, possible && listed);
+        act[h] = __ballot_sync(kFull, possible && !listed);
+        my_mask[h] = kFull;
+      }
+      // -- list membership of the tile's runs, one candidate at a time -----
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        for (uint32_t bits = cand[h]; bits; bits &= bits - 1) {
+          const int b = __ffs(bits) - 1;
+          const int i = h * 32 + b;
+          const int len = sm.len[i];
+          const int2* lst = reinterpret_cast<const int2*>(
+              p.sublists + ((size_t)sm.q[i] * p.E + e) * p.L * 2);
+          uint32_t mask = 0;
+          for (int j0 = 0; j0 < len; j0 += 32) {
+            const bool ok = j0 + lane < len;
+            const int2 ent = ok ? lst[j0 + lane] : make_int2(0, 0);
+            for (int r = 0; r < n_runs; ++r) {
+              const bool eq = ok && ent.x == runs[r][0] && ent.y == runs[r][1];
+              if (__ballot_sync(kFull, eq)) mask |= 1u << r;
+            }
           }
-          const uint32_t bc = __ballot_sync(kFull, needs_list);
-          const uint32_t ba = __ballot_sync(kFull, possible && !needs_list);
-          if (needs_list) sm.cand[n_cand + __popc(bc & ((1u << lane) - 1))] = i;
-          if (possible && !needs_list)
-            sm.act[n_act + __popc(ba & ((1u << lane) - 1))] = i;
-          n_cand += __popc(bc);
-          n_act += __popc(ba);
-        }
-        if (lane == 0) {
-          sm.n_cand = n_cand;
-          sm.n_act = n_act;
+          if (lane == b) my_mask[h] = mask;
+          if (mask) act[h] |= 1u << b;
         }
       }
-      __syncthreads();
-      // -- list membership of the tile's runs, one candidate a warp --------
-      const int n_cand = sm.n_cand;
-      for (int c = warp; c < n_cand; c += kWarps) {
-        const int i = sm.cand[c];
-        const int len = sm.len[i];
-        const int2* lst = reinterpret_cast<const int2*>(
-            p.sublists + ((size_t)sm.q[i] * p.E + e) * p.L * 2);
-        uint32_t mask = 0;
-        for (int j0 = 0; j0 < len; j0 += 32) {
-          const bool ok = j0 + lane < len;
-          const int2 ent = ok ? lst[j0 + lane] : make_int2(0, 0);
-          for (int r = 0; r < n_runs; ++r) {
-            const bool eq = ok && ent.x == sm.run_sid[r][0] &&
-                            ent.y == sm.run_sid[r][1];
-            if (__ballot_sync(kFull, eq)) mask |= 1u << r;
-          }
-        }
-        if (lane == 0) sm.mask[i] = mask;
-      }
-      __syncthreads();
-      if (warp == 0) {
-        // candidates with a listed run join the active queries
-        int n_act = sm.n_act;
-        for (int c0 = 0; c0 < n_cand; c0 += 32) {
-          const int c = c0 + lane;
-          const int i = c < n_cand ? sm.cand[c] : 0;
-          const bool hit = c < n_cand && sm.mask[i] != 0;
-          const uint32_t b = __ballot_sync(kFull, hit);
-          if (hit) sm.act[n_act + __popc(b & ((1u << lane) - 1))] = i;
-          n_act += __popc(b);
-        }
-        if (lane == 0) sm.n_act = n_act;
-      }
-      __syncthreads();
 #ifndef ST_SCAN_PROBE_NO_EVAL
       // -- evaluate the active queries on my slots -------------------------
-      const int n_act = sm.n_act;
-      float v[kSlotsPerThread][K];
-      uint32_t loaded = 0;
-      for (int a = 0; a < n_act; ++a) {
-        const int i = sm.act[a];
-        const float* pf = sm.pf[i];
-        const float lat0 = pf[0], lat1 = pf[1], lon0 = pf[2], lon1 = pf[3],
-                    t0 = pf[4], t1 = pf[5];
-        const int fl = sm.flags[i];
-        const int qh = sm.sid[i][0], ql = sm.sid[i][1];
-        const int len = sm.len[i];
-        const uint32_t mask = sm.mask[i];
-        const bool slow = len > 0 && !few_runs;
-        const bool hs = fl & kHasS, ht = fl & kHasT, hsid = fl & kHasI;
-        uint32_t bits = 0;
 #pragma unroll
-        for (int j = 0; j < kSlotsPerThread; ++j) {
-          const bool sp = (lat0 <= la[j]) & (la[j] <= lat1) & (lon0 <= lo[j]) &
-                          (lo[j] <= lon1);
-          const bool tp = (t0 <= t[j]) & (t[j] <= t1);
-          const bool ip = (hi[j] == qh) & (sl[j] == ql);
-          const bool pm = (fl & kAnd) ? ((sp | !hs) & (tp | !ht) & (ip | !hsid))
-                                      : ((sp & hs) | (tp & ht) | (ip & hsid));
-          bool m = ((live >> j) & 1) && pm;
-          if (m && slow) {
-            const int2* lst = reinterpret_cast<const int2*>(
-                p.sublists + ((size_t)sm.q[i] * p.E + e) * p.L * 2);
-            bool found = false;
-            for (int jj = 0; jj < len && !found; ++jj) {
-              const int2 ent = lst[jj];
-              found = ent.x == hi[j] && ent.y == sl[j];
+      for (int h = 0; h < 2; ++h) {
+        for (uint32_t abits = act[h]; abits; abits &= abits - 1) {
+          const int b = __ffs(abits) - 1;
+          const int i = h * 32 + b;
+          const uint32_t mask = __shfl_sync(kFull, my_mask[h], b);
+          const float* pf = sm.pf[i];
+          const float lat0 = pf[0], lat1 = pf[1], lon0 = pf[2], lon1 = pf[3],
+                      t0 = pf[4], t1 = pf[5];
+          const int fl = sm.flags[i];
+          const int qh = sm.sid[i][0], ql = sm.sid[i][1];
+          const int len = sm.len[i];
+          const bool slow = len > 0 && !few_runs;
+          const bool hs = fl & kHasS, ht = fl & kHasT, hsid = fl & kHasI;
+          uint32_t bits = 0;
+#pragma unroll
+          for (int j = 0; j < kSlotsPerLane; ++j) {
+            const bool sp = (lat0 <= la[j]) & (la[j] <= lat1) &
+                            (lon0 <= lo[j]) & (lo[j] <= lon1);
+            const bool tp = (t0 <= t[j]) & (t[j] <= t1);
+            const bool ip = (hi[j] == qh) & (sl[j] == ql);
+            const bool pm = (fl & kAnd)
+                                ? ((sp | !hs) & (tp | !ht) & (ip | !hsid))
+                                : ((sp & hs) | (tp & ht) | (ip & hsid));
+            bool m = ((live >> j) & 1) && pm;
+            if (m && slow) {
+              const int2* lst = reinterpret_cast<const int2*>(
+                  p.sublists + ((size_t)sm.q[i] * p.E + e) * p.L * 2);
+              bool found = false;
+              for (int jj = 0; jj < len && !found; ++jj) {
+                const int2 ent = lst[jj];
+                found = ent.x == hi[j] && ent.y == sl[j];
+              }
+              m = found;
+            } else if (m && len > 0) {
+              m = (mask >> run[j]) & 1;
             }
-            m = found;
-          } else if (m && len > 0) {
-            m = (mask >> run[j]) & 1;
+            bits |= (uint32_t)m << j;
           }
-          bits |= (uint32_t)m << j;
-        }
-        if (!__any_sync(kFull, bits != 0)) continue;
-        const uint32_t need = bits & ~loaded;
+          if (!__any_sync(kFull, bits != 0)) continue;
+          int cnt = __popc(bits);
+          float vs[K], vn[K], vx[K];
 #pragma unroll
-        for (int j = 0; j < kSlotsPerThread; ++j) {
-          if ((need >> j) & 1) {
-            const size_t s = (size_t)base + j * kThreads + tid;
-#pragma unroll
-            for (int k = 0; k < K; ++k)
-              v[j][k] = p.tup_f[((size_t)e * p.W + p.rows[k]) * p.C + s];
+          for (int k = 0; k < K; ++k) {
+            vs[k] = 0.0f;
+            vn[k] = INFINITY;
+            vx[k] = -INFINITY;
           }
-        }
-        loaded |= need;
-        int cnt = __popc(bits);
-        float vs[K], vn[K], vx[K];
 #pragma unroll
-        for (int k = 0; k < K; ++k) {
-          vs[k] = 0.0f;
-          vn[k] = INFINITY;
-          vx[k] = -INFINITY;
-        }
+          for (int j = 0; j < kSlotsPerLane; ++j) {
+            if ((bits >> j) & 1) {
+              const size_t s = (size_t)base + j * 32 + lane;
 #pragma unroll
-        for (int j = 0; j < kSlotsPerThread; ++j) {
-          if ((bits >> j) & 1) {
+              for (int k = 0; k < K; ++k) {
+                const float v = p.tup_f[((size_t)e * p.W + p.rows[k]) * p.C + s];
+                vs[k] += v;
+                vn[k] = min_nan(vn[k], v);
+                vx[k] = max_nan(vx[k], v);
+              }
+            }
+          }
+#pragma unroll
+          for (int off = 16; off > 0; off >>= 1) {
+            cnt += __shfl_xor_sync(kFull, cnt, off);
 #pragma unroll
             for (int k = 0; k < K; ++k) {
-              vs[k] += v[j][k];
-              vn[k] = min_nan(vn[k], v[j][k]);
-              vx[k] = max_nan(vx[k], v[j][k]);
+              vs[k] += __shfl_xor_sync(kFull, vs[k], off);
+              vn[k] = min_nan(vn[k], __shfl_xor_sync(kFull, vn[k], off));
+              vx[k] = max_nan(vx[k], __shfl_xor_sync(kFull, vx[k], off));
             }
           }
-        }
+          if (lane == 0) {
+            sm.acc_cnt[warp][i] += cnt;
 #pragma unroll
-        for (int off = 16; off > 0; off >>= 1) {
-          cnt += __shfl_xor_sync(kFull, cnt, off);
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            vs[k] += __shfl_xor_sync(kFull, vs[k], off);
-            vn[k] = min_nan(vn[k], __shfl_xor_sync(kFull, vn[k], off));
-            vx[k] = max_nan(vx[k], __shfl_xor_sync(kFull, vx[k], off));
-          }
-        }
-        if (lane == 0) {
-          sm.acc_cnt[warp][i] += cnt;
-#pragma unroll
-          for (int k = 0; k < K; ++k) {
-            sm.acc[warp][i][0][k] += vs[k];
-            sm.acc[warp][i][1][k] = min_nan(sm.acc[warp][i][1][k], vn[k]);
-            sm.acc[warp][i][2][k] = max_nan(sm.acc[warp][i][2][k], vx[k]);
+            for (int k = 0; k < K; ++k) {
+              sm.acc[warp][i][0][k] += vs[k];
+              sm.acc[warp][i][1][k] = min_nan(sm.acc[warp][i][1][k], vn[k]);
+              sm.acc[warp][i][2][k] = max_nan(sm.acc[warp][i][2][k], vx[k]);
+            }
           }
         }
       }
 #endif
+      __syncwarp();   // the run table is rewritten by the next tile
     }
     __syncthreads();
     // -- the block's partial: warps in order ------------------------------

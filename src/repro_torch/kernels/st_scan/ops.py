@@ -27,7 +27,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.st_scan.ref import check_channels, st_scan_ref
 
 MAX_K = 4
-TILE = 1024          # slots a block summarises and evaluates at a time
+BLOCK_SLOTS = 2048   # slots a block's eight warps take at a time
 MAX_SPLITS = 8       # blocks of one edge's cluster (the portable cluster size)
 
 launches = 0
@@ -44,9 +44,9 @@ def _lib():
 
 
 def scan_splits(valid_c: int) -> int:
-    """Blocks that share one edge's live slots: one per tile of the ring's
-    capacity, at most ``MAX_SPLITS``."""
-    return max(1, min(MAX_SPLITS, -(-valid_c // TILE)))
+    """Blocks that share one edge's live slots: one per ``BLOCK_SLOTS`` of
+    the ring's capacity, at most ``MAX_SPLITS``."""
+    return max(1, min(MAX_SPLITS, -(-valid_c // BLOCK_SLOTS)))
 
 
 def pack_pred(pred) -> Tuple[torch.Tensor, torch.Tensor]:

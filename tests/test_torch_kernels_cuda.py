@@ -219,6 +219,21 @@ def test_st_scan_wrapped_ring_matches_plain(cuda, roll):
     _assert_scan_policy(got, want)
 
 
+def test_st_scan_lists_of_no_entries(cuda):
+    """L = 0: a list length above 0 admits no slot, a negative one scans
+    all, 0 selects nothing."""
+    rng = np.random.default_rng(5)
+    f, sid, count, pred, _, _ = _shard_log_problem(rng, cuda, 3)
+    subl = torch.zeros((3, 6, 0, 2), dtype=torch.int32, device=cuda)
+    slen = torch.tensor([[3] * 6, [-1] * 6, [0] * 6], dtype=torch.int32,
+                        device=cuda)
+    args = (f, sid, count, pred, subl, slen)
+    got = st_ops.st_scan(*args, channels=(0, 1))
+    want = st_ref.st_scan_ref(*args, channels=(0, 1))
+    assert int(want[0][0].sum()) == 0 and int(want[0][1].sum()) > 0
+    _assert_scan_policy(got, want)
+
+
 def test_st_scan_nan_in_one_matched_slot(cuda):
     """The smallest input of the NaN contract: one matched slot holds NaN,
     so that query's min, max and sum are NaN; an empty query stays

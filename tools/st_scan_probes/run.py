@@ -9,11 +9,14 @@ of ``src/repro_torch/csrc/st_scan.cu`` (device time a launch, torch.profiler,
 by kernel name) beside the kernel of another source with the previous C
 interface (``--parent``):
 
-  full       the kernel as committed, at 2, 4, 8 and 16 splits an edge
+  full       the kernel as committed, at 4, 6 and 8 splits an edge
+  baseline   another source with this interface (``--baseline``)
   loads      the five hot rows are loaded, nothing else
   no_prune   every selected query is evaluated on every tile
   no_eval    summaries and pruning, no evaluation
   no_merge   everything but the cluster merge
+  minb2      at most 128 registers a thread (two blocks an SM)
+  spl4       tiles of 128 slots (four a lane); spl4_minb4 also at 64 registers
 
 Every full variant is held to the plain version (count, min, max bitwise
 with NaN equal, sum to rtol 1e-5). Prints one JSON line a reading and
@@ -48,7 +51,11 @@ from repro_torch.kernels.st_scan.ref import matched_slots, st_scan_ref  # noqa: 
 VARIANTS = {"full": (), "loads": ("ST_SCAN_PROBE_LOADS_ONLY",),
             "no_prune": ("ST_SCAN_PROBE_NO_PRUNE",),
             "no_eval": ("ST_SCAN_PROBE_NO_EVAL",),
-            "no_merge": ("ST_SCAN_PROBE_NO_MERGE",)}
+            "no_merge": ("ST_SCAN_PROBE_NO_MERGE",),
+            "minb2": ("ST_SCAN_MIN_BLOCKS=2",),
+            "spl4": ("ST_SCAN_SLOTS_PER_LANE=4",),
+            "spl4_minb4": ("ST_SCAN_SLOTS_PER_LANE=4", "ST_SCAN_MIN_BLOCKS=4")}
+CHECKED = ("full", "parent", "baseline", "minb2", "spl4", "spl4_minb4")
 
 
 def compile_lib(src: Path, name: str, defines=()) -> ctypes.CDLL:
@@ -103,6 +110,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None,
                     help="st_scan.cu with the previous C interface, timed alongside")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="another st_scan.cu with this interface, timed alongside")
     ap.add_argument("--rounds", type=int, default=288)
     ap.add_argument("--seed", type=int, default=1)
     args = ap.parse_args()
@@ -164,6 +173,8 @@ def main() -> int:
             for name, defs in VARIANTS.items()}
     if args.parent is not None:
         libs["parent"] = caller(compile_lib(args.parent, "parent"), False)
+    if args.baseline is not None:
+        libs["baseline"] = caller(compile_lib(args.baseline, "baseline"), True)
     rows4, rows1 = (3, 4, 5, 6), (3,)
     cap = cfg.tuple_capacity
 
@@ -176,7 +187,7 @@ def main() -> int:
 
     def _reading(name, run, batch, scan, plain, rows, n_split):
         fn = lambda: run(scan, rows, cap, n_split)
-        ok = agrees(fn(), plain[len(rows)]) if name in ("full", "parent") else None
+        ok = agrees(fn(), plain[len(rows)]) if name in CHECKED else None
         again = None
         if name == "full":
             a, b = fn(), fn()
@@ -189,18 +200,22 @@ def main() -> int:
         print(json.dumps(rec), flush=True)
 
     big = scans[2]
-    for rep in range(2):                 # parent, variants, parent: in turns
+    for rep in range(2):                 # in turns
         if "parent" in libs:
             reading("parent", libs["parent"], big[0], big[1], big[2], rows4, 8)
-        for splits in (2, 4, 8, 16):
-            reading("full", libs["full"], big[0], big[1], big[2], rows4, splits)
-        for name in ("loads", "no_prune", "no_eval", "no_merge"):
-            reading(name, libs[name], big[0], big[1], big[2], rows4, 8)
+        if "baseline" in libs:
+            reading("baseline", libs["baseline"], big[0], big[1], big[2], rows4, 8)
+        for name in ("full", "minb2", "spl4", "spl4_minb4"):
+            for splits in (4, 6, 8):
+                reading(name, libs[name], big[0], big[1], big[2], rows4, splits)
+        if rep == 0:
+            for name in ("loads", "no_prune", "no_eval", "no_merge"):
+                reading(name, libs[name], big[0], big[1], big[2], rows4, 8)
     for batch, scan, plain in scans:
         for rows in (rows1, rows4):
-            reading("full", libs["full"], batch, scan, plain, rows, 8)
-            if "parent" in libs:
-                reading("parent", libs["parent"], batch, scan, plain, rows, 8)
+            for name in ("full", "minb2", "spl4"):
+                for splits in (4, 8):
+                    reading(name, libs[name], batch, scan, plain, rows, splits)
     out = ROOT / "chiprun_out" / "st_scan_probes.json"
     out.parent.mkdir(exist_ok=True)
     out.write_text(json.dumps(lines, indent=1))
