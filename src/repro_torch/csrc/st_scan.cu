@@ -23,8 +23,8 @@
 //    queries that select the edge (len != 0) are compacted once, in groups
 //    of QG = 64 (a batch above 64 queries takes one pass per group);
 //  * the edge's live slots are split among the S blocks of a thread-block
-//    cluster, and each warp of a block walks its own tiles of 256 slots
-//    (eight a lane, neighbouring lanes on neighbouring slots of one row),
+//    cluster, and each warp of a block walks its own tiles of 128 slots
+//    (four a lane, neighbouring lanes on neighbouring slots of one row),
 //    with no block barrier between the group's start and its merge;
 //  * each tile is summarised from its own data, in registers and warp
 //    votes: the min and max of t, lat and lon over non-NaN values, and its
@@ -63,18 +63,12 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-#ifndef ST_SCAN_SLOTS_PER_LANE
-#define ST_SCAN_SLOTS_PER_LANE 8
-#endif
-#ifndef ST_SCAN_MIN_BLOCKS
-#define ST_SCAN_MIN_BLOCKS 3
-#endif
-constexpr int kSlotsPerLane = ST_SCAN_SLOTS_PER_LANE;
-constexpr int kTile = 32 * kSlotsPerLane;           // 256 slots, one warp's
+constexpr int kSlotsPerLane = 4;
+constexpr int kTile = 32 * kSlotsPerLane;           // 128 slots, one warp's
 constexpr int kGroup = 64;                          // queries per pass
 constexpr int kMaxRuns = 32;                        // runs a tile summarises
 constexpr int kMaxK = 4;
-constexpr int kMaxSplits = 16;
+constexpr int kMaxSplits = 8;                       // the portable cluster size
 constexpr unsigned kFull = 0xffffffffu;
 
 // min and max that return NaN when either operand is NaN, as jnp.minimum /
@@ -135,7 +129,7 @@ __device__ __forceinline__ bool range_miss(float lo, float hi, float mn,
 }
 
 template <int K>
-__global__ void __launch_bounds__(kThreads, ST_SCAN_MIN_BLOCKS)
+__global__ void __launch_bounds__(kThreads, 3)
 st_scan_kernel(const Params p) {
   __shared__ Smem<K> sm;
   cg::cluster_group cluster = cg::this_cluster();
@@ -210,7 +204,7 @@ st_scan_kernel(const Params p) {
     // Each warp walks its own tiles: no block barrier until the merge.
     for (int tile = tile_lo + warp; tile < tile_hi; tile += kWarps) {
       const int base = tile * kTile;
-      // -- the five hot rows of my eight slots (slot base + 32 i + lane) ----
+      // -- the five hot rows of my four slots (slot base + 32 j + lane) -----
       float t[kSlotsPerLane], la[kSlotsPerLane], lo[kSlotsPerLane];
       int hi[kSlotsPerLane], sl[kSlotsPerLane];
       uint32_t live = 0;
@@ -229,16 +223,6 @@ st_scan_kernel(const Params p) {
           hi[j] = sl[j] = 0;
         }
       }
-#ifdef ST_SCAN_PROBE_LOADS_ONLY
-      {
-        float d = 0.0f;
-#pragma unroll
-        for (int j = 0; j < kSlotsPerLane; ++j)
-          d += t[j] + la[j] + lo[j] + (float)(hi[j] ^ sl[j]);
-        if (d == -1.2345e30f) sm.acc_cnt[warp][0] += 1;
-        continue;
-      }
-#endif
       // -- summary: runs of equal sid, and the box of non-NaN values -------
       int run[kSlotsPerLane];
       int n_runs = 0;
@@ -308,9 +292,6 @@ st_scan_kernel(const Params p) {
           possible = (fl & kAnd)
                          ? !((hs && s_miss) || (ht && t_miss) || (hsid && i_miss))
                          : ((hs && !s_miss) || (ht && !t_miss) || (hsid && !i_miss));
-#ifdef ST_SCAN_PROBE_NO_PRUNE
-          possible = true;
-#endif
           possible &= sm.len[i] != 0;   // a list of length > 0 when L is 0
         }
         const bool listed = i < n_sel && sm.len[i] > 0 && few_runs;
@@ -340,7 +321,6 @@ st_scan_kernel(const Params p) {
           if (mask) act[h] |= 1u << b;
         }
       }
-#ifndef ST_SCAN_PROBE_NO_EVAL
       // -- evaluate the active queries on my slots -------------------------
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -424,7 +404,6 @@ st_scan_kernel(const Params p) {
           }
         }
       }
-#endif
       __syncwarp();   // the run table is rewritten by the next tile
     }
     __syncthreads();
@@ -448,12 +427,6 @@ st_scan_kernel(const Params p) {
         sm.part[i][2][k] = vx;
       }
     }
-#ifdef ST_SCAN_PROBE_NO_MERGE
-    __syncthreads();
-    for (int idx = tid; rank == 0 && idx < n_sel; idx += kThreads)
-      p.out_count[(size_t)sm.q[idx] * p.E + e] = sm.part_cnt[idx];
-    continue;
-#endif
     cluster.sync();
     // -- the cluster's merge: ranks in order, through distributed smem ----
     for (int idx = rank * kThreads + tid; idx < n_sel * (1 + K);
@@ -485,11 +458,6 @@ st_scan_kernel(const Params p) {
 
 template <int K>
 int launch(const Params& p, int S, cudaStream_t stream) {
-  if (S > 8) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        st_scan_kernel<K>, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (err != cudaSuccess) return (int)err;
-  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(S, p.E, 1);
   cfg.blockDim = dim3(kThreads, 1, 1);

@@ -27,7 +27,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.st_scan.ref import check_channels, st_scan_ref
 
 MAX_K = 4
-BLOCK_SLOTS = 2048   # slots a block's eight warps take at a time
+BLOCK_SLOTS = 1024   # slots a block's eight warps take at a time
 MAX_SPLITS = 8       # blocks of one edge's cluster (the portable cluster size)
 
 launches = 0
@@ -79,11 +79,9 @@ def st_scan(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
 
 
 def st_scan_cuda(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
-                 value_rows: Tuple[int, ...], valid_c: int,
-                 n_split: Optional[int] = None):
+                 value_rows: Tuple[int, ...], valid_c: int):
     """Launch the kernel (CUDA tensors only); ``value_rows`` are log rows
-    ``3 + channel``, ``valid_c`` is already clamped to C. ``n_split``
-    overrides ``scan_splits(valid_c)`` (1..16), for timing only."""
+    ``3 + channel``, ``valid_c`` is already clamped to C."""
     global launches
     dev = tup_f.device
     e, w, c = tup_f.shape
@@ -110,7 +108,7 @@ def st_scan_cuda(tup_f, tup_sid, tup_count, pred, sublists, sublist_len,
     subl = sublists.to(device=dev, dtype=torch.int32).contiguous()
     slen = sublist_len.to(device=dev, dtype=torch.int32).contiguous()
     cnt = tup_count.to(device=dev, dtype=torch.int32).contiguous()
-    splits = scan_splits(valid_c) if n_split is None else n_split
+    splits = scan_splits(valid_c)
     fn = _lib()
     stream = torch.cuda.current_stream(dev).cuda_stream
     for k_off in range(0, k_total, MAX_K):

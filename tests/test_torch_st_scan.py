@@ -245,9 +245,9 @@ def test_matched_slots_is_the_union_of_the_query_masks():
                        count[torch.from_numpy(masked_pred)])
 
 
-@pytest.mark.parametrize("valid_c,splits", [(0, 1), (1, 1), (2048, 1), (2049, 2),
-                                            (4963, 3), (16384, 8), (262144, 8)])
+@pytest.mark.parametrize("valid_c,splits", [(0, 1), (1, 1), (1024, 1), (1025, 2),
+                                            (4963, 5), (8192, 8), (262144, 8)])
 def test_scan_splits(valid_c, splits):
-    """One block an edge per 2048 slots of the ring, at most 8 (the
+    """One block an edge per 1024 slots of the ring, at most 8 (the
     portable cluster size)."""
     assert t_ops.scan_splits(valid_c) == splits
