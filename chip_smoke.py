@@ -265,7 +265,8 @@ def st_scan_phase(torch, dev, cfg, st, alive, batches, specs) -> dict:
         per_batch.append(row)
     a = scans[2][0]
     rows = scan_rows[4]
-    # PR 11-15's count: nine words for every live slot of a selected edge
+    # the earlier count, for comparison: nine words every live slot of a
+    # selected edge, every list entry
     old_bytes = per_batch[2]["live_slots"] * (5 + len(rows)) * 4 \
         + (a[4].numel() + a[5].numel()) * 4 + a[5].numel() * 4 * (1 + 3 * len(rows))
     return {
