@@ -5,81 +5,267 @@
 // wrapper `ops.py::hash_spatial_kernel`). The TPU version forms a
 // (block, E) distance tile with one matrix-unit contraction over the 2
 // coordinates and takes a lane-wise argmin. A contraction of depth 2 gives a
-// tensor core nothing to do, so here each thread owns one point and walks
-// the sites in ascending order.
+// tensor core nothing to do, and TF32 or bf16 would break the bitwise
+// agreement below, so here the distances are scalar float32 work.
 //
-// Bound: operations for the edge counts the store runs (E = 80: ~6 float
-// operations per site, ~480 per point, against 12 bytes of traffic per
-// point: two float coordinates in, one int32 edge id out). The centred sites
-// and their squared norms (3 floats a site) sit in shared memory, loaded once
-// per block, so the inner loop reads shared memory broadcast to the warp and
-// never touches device memory.
+// What bounds it: instructions. A (point, site) pair costs 5 float
+// operations (two products, their sum, the doubling, the subtraction from
+// the squared norm) and a compare with two selects; the 12 bytes a point
+// moves (two coordinates in, one index out) are nothing beside that. The
+// main path's shape, 102,400 slice-grid cell centres against 80 sites, is
+// 8.2M pairs: about two microseconds of issue on 132 SMs.
 //
-// Exactness: the distance `snorm[e] - 2 * (px*sx + py*sy)` is evaluated with
-// round-to-nearest intrinsics and no fused multiply-add, in the same order as
-// the plain PyTorch version (repro_torch/core/voronoi.py), and the argmin
-// keeps the first minimum (strict <), so kernel and plain version agree bit
-// for bit; ties go to the lowest edge index.
+// Design, against that bound:
+//   * Sites packed once per site set by the wrapper (`ops.packed_sites`):
+//     one float4 {sx, sy, snorm, 0} a site, centred on the site centroid,
+//     and a last float4 {cx, cy, sites_ok, 0}. A block stages them in
+//     shared memory once; one 128-bit shared load serves a site.
+//   * Several points a thread (K): lane l of a warp takes points
+//     base + l + 32 i, i < K, so every load of a coordinate is one
+//     coalesced 128-byte line for the warp, at any 4-byte offset of
+//     `lat` and `lon` (no aligned head or tail to peel). Each point keeps
+//     its own best/arg chain, so a site's shared load serves K points and
+//     the K chains are independent work for the scheduler.
+//   * Exact pruning per warp: the warp's points lie in a box (a warp takes
+//     2 K rows of one shard's 16 x 16 slice grid; the 80 sites cover the
+//     city). A site e whose distance exceeds, everywhere on the box and by
+//     more than the rounding margin, that of a witness site c cannot be the
+//     argmin of any of the warp's points and is not visited. The
+//     difference of the two distances is linear in the point, so its least
+//     value on the box is exact at a corner: the test asks whether the box
+//     lies wholly on c's side of the bisector of c and e. The witness is
+//     the site nearest the box's centre; the sites that pass are visited
+//     in ascending order, one warp ballot per 32 sites.
+//   * A grid of at most one wave, walked by warp-sized chunks of 32 K
+//     points, so the staging and its barrier are paid once per block.
 //
-// C entry: voronoi_assign_launch(lat, lon, centroid, sites, snorm, out, n, e,
-// stream) launches on `stream` and returns cudaGetLastError().
+// Exactness: a visited pair evaluates `snorm - 2 * (px*sx + py*sy)` with
+// round-to-nearest intrinsics and no fused multiply-add, in the same order
+// as the plain PyTorch version (repro_torch/core/voronoi.py), which takes
+// the same centred sites (the wrapper packs `centred_sites`' own tensors).
+// The argmin keeps the first minimum (strict <); ties go to the lowest edge
+// index.
+//
+// Why pruning never drops the argmin. Write u = 2^-24 and, for a point p
+// and site e, d*(p, e) = sn_e - 2 (px sx_e + py sy_e): the exact value of
+// the pair's expression on the same float inputs. The float evaluation d_f
+// is within 4u mag_e(p) + 2^-146 of d*, where mag_e(p) = sn_e + 2 (|px||sx_e|
+// + |py||sy_e|) (four roundings, none fused; the absolute term covers
+// underflow). d*(p, e) - d*(p, c) = (sn_e - sn_c) - 2 (px a + py b), with
+// a = sx_e - sx_c and b = sy_e - sy_c, is linear in p, so on the box
+// [x0, x1] x [y0, y1] it is never below
+//   G = (sn_e - sn_c) - 2 (max(x0 a, x1 a) + max(y0 b, y1 b)).
+// The kernel computes G as g, within 9u (mag_e + mag_c) of it (single
+// roundings of sums and products whose magnitudes mag bounds), where mag
+// takes the box's largest |px|, |py| (mx, my). It skips e only when
+//   g > M_e + M_c,   M = 2^-12 mag + 2^-100,
+// and 2^-12 is 256 times the 13u that the evaluation and g's rounding need
+// together (2^-100 covers their absolute terms). Then for every point p of
+// the box, d_f(p, e) - d_f(p, c) >= g - 13u (mag_e + mag_c) - 2^-140 > 0:
+// a skipped site is beaten by c at every point of the warp, so every site
+// that attains the minimum, the first among them included, is visited, and
+// the first minimum among the visited sites is the plain version's argmin.
+// The witness's own g is 0, so it is always visited; a contracted multiply-
+// add in g or M only rounds less. Skipping fewer sites is always safe.
+//
+// Non-finite and huge inputs. The argument needs finite d_f. A warp takes
+// the pruned, finite path only when every one of its points has |px|, |py|
+// < 2^60 and the site set is flagged ok (all centred coordinates below 2^60
+// and every squared norm finite): then no product or sum overflows. Any
+// other warp visits every site in order with torch.argmin's rule (the first
+// NaN wins, else the first minimum), so a NaN point gives index 0 and the
+// kernel matches the plain version on every input.
+//
+// C entry: voronoi_assign_launch(lat, lon, packed, out, n, e, stream)
+// launches on `stream` and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-__global__ void voronoi_assign_kernel(const float* __restrict__ lat,
-                                      const float* __restrict__ lon,
-                                      const float* __restrict__ centroid,
-                                      const float* __restrict__ sites,
-                                      const float* __restrict__ snorm,
-                                      int32_t* __restrict__ out, int n,
-                                      int e) {
-  extern __shared__ float smem[];        // sx[e], sy[e], sn[e]
-  float* sx = smem;
-  float* sy = smem + e;
-  float* sn = smem + 2 * e;
-  for (int j = threadIdx.x; j < e; j += blockDim.x) {
-    sx[j] = sites[2 * j];
-    sy[j] = sites[2 * j + 1];
-    sn[j] = snorm[j];
-  }
-  __syncthreads();
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float px = __fsub_rn(lat[i], centroid[0]);
-  const float py = __fsub_rn(lon[i], centroid[1]);
-  float best = 0.0f;
-  int arg = 0;
-  for (int j = 0; j < e; ++j) {
-    const float cross = __fadd_rn(__fmul_rn(px, sx[j]), __fmul_rn(py, sy[j]));
-    const float d = __fsub_rn(sn[j], __fmul_rn(2.0f, cross));
-    if (j == 0 || d < best) {
-      best = d;
-      arg = j;
+constexpr int kThreads = 128;
+constexpr float kHuge = 1.152921504606846976e18f;   // 2^60
+constexpr float kSlack = 2.44140625e-4f;            // 2^-12
+constexpr float kTiny = 7.8886090522101181e-31f;    // 2^-100
+// Points a thread: 4 on the wide calls (the slice grid), 1 below this many
+// points, where K > 1 would leave most SMs without a warp.
+constexpr int kWideFrom = 32 * 4 * 132;
+
+// One site against a thread's K points. NANS: torch.argmin's rule for
+// inputs that may give NaN (a NaN distance wins, the first one stays);
+// otherwise the plain strict < on finite distances.
+template <int K, bool NANS>
+__device__ __forceinline__ void visit(const float4 s, const int j,
+                                      const float (&px)[K],
+                                      const float (&py)[K], float (&best)[K],
+                                      int (&arg)[K]) {
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const float cross =
+        __fadd_rn(__fmul_rn(px[i], s.x), __fmul_rn(py[i], s.y));
+    const float d = __fsub_rn(s.z, __fmul_rn(2.0f, cross));
+    const bool take =
+        NANS ? (!(d >= best[i]) && !isnan(best[i])) : d < best[i];
+    if (take) {
+      best[i] = d;
+      arg[i] = j;
     }
   }
-  out[i] = arg;
+}
+
+// M_e of the header comment: a bound on a pair's rounding error over the
+// warp's box, with margin.
+__device__ __forceinline__ float margin(const float4 s, const float mx,
+                                        const float my) {
+  return fmaf(kSlack, s.z + 2.0f * fmaf(mx, fabsf(s.x), my * fabsf(s.y)),
+              kTiny);
+}
+
+__device__ __forceinline__ float warp_min(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
+  return v;
+}
+
+template <int K, bool PRUNE>
+__global__ void voronoi_assign_kernel(const float* __restrict__ lat,
+                                      const float* __restrict__ lon,
+                                      const float4* __restrict__ packed,
+                                      int32_t* __restrict__ out, const int n,
+                                      const int e) {
+  extern __shared__ float4 site[];  // e sites, then {cx, cy, sites_ok, 0}
+  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
+  __syncthreads();
+  const float4 head = site[e];
+  const int lane = threadIdx.x & 31;
+  const int warps = blockDim.x >> 5;
+  const int chunks = (n - 1) / (32 * K) + 1;
+  for (int w = blockIdx.x * warps + (threadIdx.x >> 5); w < chunks;
+       w += gridDim.x * warps) {
+    const int base = w * (32 * K);
+    const int rem = n - base;
+    float px[K], py[K], best[K];
+    int arg[K];
+    bool finite = head.z != 0.0f;
+#pragma unroll
+    for (int i = 0; i < K; ++i) {
+      // Lanes past the end take the last point: a real point, so the box
+      // stays the warp's own; they store nothing.
+      const int p = 32 * i + lane < rem ? base + 32 * i + lane : n - 1;
+      px[i] = __fsub_rn(__ldg(lat + p), head.x);
+      py[i] = __fsub_rn(__ldg(lon + p), head.y);
+      finite = finite && fabsf(px[i]) < kHuge && fabsf(py[i]) < kHuge;
+      best[i] = __int_as_float(0x7f800000);  // +inf
+      arg[i] = 0;
+    }
+    if (!__all_sync(~0u, finite)) {
+      for (int j = 0; j < e; ++j) visit<K, true>(site[j], j, px, py, best, arg);
+    } else if (!PRUNE) {
+#pragma unroll 4
+      for (int j = 0; j < e; ++j) visit<K, false>(site[j], j, px, py, best, arg);
+    } else {
+      float x0 = px[0], x1 = px[0], y0 = py[0], y1 = py[0];
+#pragma unroll
+      for (int i = 1; i < K; ++i) {
+        x0 = fminf(x0, px[i]);
+        x1 = fmaxf(x1, px[i]);
+        y0 = fminf(y0, py[i]);
+        y1 = fmaxf(y1, py[i]);
+      }
+      x0 = warp_min(x0);
+      x1 = warp_max(x1);
+      y0 = warp_min(y0);
+      y1 = warp_max(y1);
+      const float mx = fmaxf(fabsf(x0), fabsf(x1));
+      const float my = fmaxf(fabsf(y0), fabsf(y1));
+      // The witness c: the site nearest the box's centre (any site would
+      // be sound; this one prunes most).
+      const float bx = 0.5f * (x0 + x1), by = 0.5f * (y0 + y1);
+      float dc = __int_as_float(0x7f800000);
+      int c = 0;
+      for (int j = lane; j < e; j += 32) {
+        const float4 s = site[j];
+        const float d = s.z - 2.0f * (bx * s.x + by * s.y);
+        if (d < dc) {
+          dc = d;
+          c = j;
+        }
+      }
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) {
+        const float od = __shfl_xor_sync(~0u, dc, o);
+        const int oc = __shfl_xor_sync(~0u, c, o);
+        if (od < dc || (od == dc && oc < c)) {
+          dc = od;
+          c = oc;
+        }
+      }
+      const float4 w = site[c];
+      const float mw = margin(w, mx, my);
+      for (int j0 = 0; j0 < e; j0 += 32) {
+        bool keep = false;
+        if (j0 + lane < e) {
+          const float4 s = site[j0 + lane];
+          const float a = s.x - w.x, b = s.y - w.y;
+          const float g = (s.z - w.z) -
+                          2.0f * (fmaxf(x0 * a, x1 * a) + fmaxf(y0 * b, y1 * b));
+          keep = !(g > margin(s, mx, my) + mw);
+        }
+        for (unsigned m = __ballot_sync(~0u, keep); m != 0; m &= m - 1) {
+          const int j = j0 + __ffs(m) - 1;
+          visit<K, false>(site[j], j, px, py, best, arg);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < K; ++i)
+      if (32 * i + lane < rem) out[base + 32 * i + lane] = arg[i];
+  }
+}
+
+template <int K, bool PRUNE>
+int launch(const float* lat, const float* lon, const float4* packed,
+           int32_t* out, const int n, const int e, const int threads,
+           cudaStream_t stream) {
+  const size_t smem = (size_t)(e + 1) * sizeof(float4);
+  cudaError_t err;
+  if (smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(voronoi_assign_kernel<K, PRUNE>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  int device = 0, sms = 0;
+  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  const int warps = threads / 32;
+  const int chunks = (n - 1) / (32 * K) + 1;
+  int blocks = (chunks + warps - 1) / warps;
+  const int wave = sms * (2048 / threads);
+  if (blocks > wave) blocks = wave;
+  voronoi_assign_kernel<K, PRUNE><<<blocks, threads, smem, stream>>>(lat, lon, packed,
+                                                              out, n, e);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int voronoi_assign_launch(const void* lat, const void* lon,
-                                     const void* centroid, const void* sites,
-                                     const void* snorm, void* out, int n, int e,
-                                     void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  const size_t smem = 3 * (size_t)e * sizeof(float);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        voronoi_assign_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  voronoi_assign_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
-      (const float*)lat, (const float*)lon, (const float*)centroid,
-      (const float*)sites, (const float*)snorm, (int32_t*)out, n, e);
-  return (int)cudaGetLastError();
+                                     const void* packed, void* out, int n,
+                                     int e, void* stream) {
+  const float* la = (const float*)lat;
+  const float* lo = (const float*)lon;
+  const float4* pk = (const float4*)packed;
+  int32_t* o = (int32_t*)out;
+  cudaStream_t st = (cudaStream_t)stream;
+  return n >= kWideFrom ? launch<4, true>(la, lo, pk, o, n, e, kThreads, st)
+                        : launch<1, true>(la, lo, pk, o, n, e, kThreads, st);
 }

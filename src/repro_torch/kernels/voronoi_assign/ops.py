@@ -3,14 +3,22 @@
 ``hash_spatial_kernel(lat, lon, sites)``: H_s, the nearest edge site of each
 (lat, lon) point, int32, shaped like ``lat``. CPU tensors take the plain
 version (``repro_torch.core.voronoi.voronoi_assign``); CUDA tensors launch
-the kernel, which adds one to ``launches`` per launch. The centroid, centred
-sites and squared norms come from the plain version's own
-``centred_sites``, so kernel and plain version share every input bit.
+the kernel, which adds one to ``launches`` per launch.
+
+The kernel reads its sites packed (``packed_sites``): the plain version's
+own ``centred_sites``, so kernel and plain version share every input bit,
+made once per site set. A call with the same ``sites`` tensor, unedited,
+reuses them; an in-place edit (the tensor's ``_version`` moves) or another
+tensor packs afresh. The cache holds the site tensor only weakly, so it
+keeps nothing alive that the caller dropped.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
+from typing import Dict, Tuple
 
 import torch
 
@@ -18,15 +26,56 @@ from repro_torch.kernels import build
 
 launches = 0
 
+# Centred coordinates at or above this bound may overflow a pair's float
+# arithmetic; the kernel then visits every site with torch.argmin's NaN rule.
+_HUGE = 2.0 ** 60
 
-def _lib():
-    lib = build.load("voronoi_assign")
-    fn = lib.voronoi_assign_launch
+# id(sites) -> (weak reference to sites, its _version when packed, packed).
+_PACKED: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
+
+
+@functools.cache
+def _launch():
+    fn = build.load("voronoi_assign").voronoi_assign_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _pack(sites: torch.Tensor) -> torch.Tensor:
+    from repro_torch.core import voronoi
+    with torch.no_grad():
+        c, s, snorm = voronoi.centred_sites(sites)
+        e = s.shape[0]
+        packed = torch.zeros(e + 1, 4, dtype=torch.float32, device=s.device)
+        packed[:e, :2] = s
+        packed[:e, 2] = snorm
+        packed[e, :2] = c
+        packed[e, 2] = ((s.abs() < _HUGE).all()
+                        & torch.isfinite(snorm).all()).to(torch.float32)
+    return packed
+
+
+def _forget(key: int, ref: weakref.ref) -> None:
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0] is ref:
+        del _PACKED[key]
+
+
+def packed_sites(sites: torch.Tensor) -> torch.Tensor:
+    """(E + 1, 4) float32 on ``sites``' device: row e < E is
+    ``(sx, sy, snorm, 0)`` of ``centred_sites(sites)``, the last row
+    ``(cx, cy, ok, 0)`` with the centroid and ok = 1.0 when every centred
+    coordinate is below 2^60 in magnitude and every squared norm finite."""
+    key = id(sites)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[0]() is sites and hit[1] == sites._version:
+        return hit[2]
+    packed = _pack(sites)
+    _PACKED[key] = (weakref.ref(sites, functools.partial(_forget, key)),
+                    sites._version, packed)
+    return packed
 
 
 def hash_spatial_kernel(lat: torch.Tensor, lon: torch.Tensor,
@@ -41,28 +90,34 @@ def hash_spatial_kernel(lat: torch.Tensor, lon: torch.Tensor,
     return voronoi_assign_cuda(lat, lon, sites)
 
 
+def _flat_f32(x: torch.Tensor) -> torch.Tensor:
+    if x.dtype != torch.float32:
+        x = x.to(torch.float32)
+    x = x.reshape(-1)
+    return x if x.is_contiguous() else x.contiguous()
+
+
 def voronoi_assign_cuda(lat: torch.Tensor, lon: torch.Tensor,
                         sites: torch.Tensor) -> torch.Tensor:
     """Launch the kernel (CUDA tensors only)."""
     global launches
-    from repro_torch.core import voronoi
     dev = lat.device
     if not lat.is_cuda or lon.device != dev or sites.device != dev:
         raise ValueError("voronoi_assign_cuda takes CUDA tensors on one device")
     if sites.dim() != 2 or sites.shape[1] != 2 or sites.shape[0] < 1:
         raise ValueError(f"sites must be (E, 2), got {tuple(sites.shape)}")
-    c, s, snorm = voronoi.centred_sites(sites)
-    la = lat.to(torch.float32).reshape(-1).contiguous()
-    lo = lon.to(torch.float32).reshape(-1).contiguous()
-    s = s.contiguous()
-    out = torch.empty(la.shape, dtype=torch.int32, device=dev)
+    if lat.shape != lon.shape:
+        raise ValueError(f"lat {tuple(lat.shape)} and lon {tuple(lon.shape)} "
+                         "must have one shape")
+    packed = packed_sites(sites)
+    la, lo = _flat_f32(lat), _flat_f32(lon)
+    out = torch.empty(lat.shape, dtype=torch.int32, device=dev)
     n = la.numel()
     if n == 0:
-        return out.reshape(lat.shape)
-    fn = _lib()
-    err = fn(la.data_ptr(), lo.data_ptr(), c.data_ptr(), s.data_ptr(),
-             snorm.data_ptr(), out.data_ptr(), n, s.shape[0],
-             torch.cuda.current_stream(dev).cuda_stream)
+        return out
+    err = _launch()(la.data_ptr(), lo.data_ptr(), packed.data_ptr(),
+                    out.data_ptr(), n, sites.shape[0],
+                    torch.cuda.current_stream(dev).cuda_stream)
     build.check("voronoi_assign", err)
     launches += 1
-    return out.reshape(lat.shape)
+    return out
