@@ -114,25 +114,44 @@ __device__ __forceinline__ void visit(const float4 s, const int j,
   }
 }
 
-// M_e of the header comment: a bound on a pair's rounding error over the
-// warp's box, with margin.
-__device__ __forceinline__ float margin(const float4 s, const float mx,
-                                        const float my) {
-  return fmaf(kSlack, s.z + 2.0f * fmaf(mx, fabsf(s.x), my * fabsf(s.y)),
-              kTiny);
+// A float's order as a signed int (finite values), for the warp's integer
+// min-reductions.
+__device__ __forceinline__ int order_key(const float x) {
+  const int i = __float_as_int(x);
+  return i ^ ((i >> 31) & 0x7fffffff);
 }
 
-__device__ __forceinline__ float warp_min(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fminf(v, __shfl_xor_sync(~0u, v, o));
-  return v;
+__device__ __forceinline__ float from_order_key(const int k) {
+  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(~0u, v, o));
-  return v;
+__device__ __forceinline__ float warp_min(const float v) {
+  return from_order_key(__reduce_min_sync(~0u, order_key(v)));
 }
+
+__device__ __forceinline__ float warp_max(const float v) {
+  return from_order_key(__reduce_max_sync(~0u, order_key(v)));
+}
+
+// The raw coordinates of a warp's chunk w (K a lane). Lanes past the end
+// take the last point: a real point, so the box stays the warp's own; they
+// store nothing.
+template <int K>
+__device__ __forceinline__ void load_chunk(const float* __restrict__ lat,
+                                           const float* __restrict__ lon,
+                                           const int n, const int w,
+                                           const int lane, float (&la)[K],
+                                           float (&lo)[K]) {
+  const int base = w * (32 * K);
+#pragma unroll
+  for (int i = 0; i < K; ++i) {
+    const int p = 32 * i + lane < n - base ? base + 32 * i + lane : n - 1;
+    la[i] = __ldg(lat + p);
+    lo[i] = __ldg(lon + p);
+  }
+}
+
+constexpr int kList = 128;  // sites tested per pass of a warp's visit list
 
 template <int K, bool PRUNE>
 __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
@@ -140,31 +159,36 @@ __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
                                       const float4* __restrict__ packed,
                                       int32_t* __restrict__ out, const int n,
                                       const int e) {
-  extern __shared__ float4 site[];  // e sites, then {cx, cy, sites_ok, 0}
-  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
-  __syncthreads();
-  const float4 head = site[e];
+  // e sites, then {cx, cy, largest snorm, largest |sx|, |sy|}; then one
+  // visit list of kList site indices a warp.
+  extern __shared__ float4 site[];
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
+  int* const list = reinterpret_cast<int*>(site + e + 1) +
+                    (threadIdx.x >> 5) * kList;
   const int chunks = (n - 1) / (32 * K) + 1;
-  for (int w = blockIdx.x * warps + (threadIdx.x >> 5); w < chunks;
-       w += gridDim.x * warps) {
+  int w = blockIdx.x * warps + (threadIdx.x >> 5);
+  float la[K], lo[K];
+  if (w < chunks) load_chunk<K>(lat, lon, n, w, lane, la, lo);  // in flight
+  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
+  __syncthreads();                                 // while staging the sites
+  const float4 head = site[e];
+  for (; w < chunks; w += gridDim.x * warps) {
     const int base = w * (32 * K);
     const int rem = n - base;
     float px[K], py[K], best[K];
     int arg[K];
-    bool finite = head.z != 0.0f;
+    bool finite = head.w < kHuge;  // false for a NaN or huge site
 #pragma unroll
     for (int i = 0; i < K; ++i) {
-      // Lanes past the end take the last point: a real point, so the box
-      // stays the warp's own; they store nothing.
-      const int p = 32 * i + lane < rem ? base + 32 * i + lane : n - 1;
-      px[i] = __fsub_rn(__ldg(lat + p), head.x);
-      py[i] = __fsub_rn(__ldg(lon + p), head.y);
+      px[i] = __fsub_rn(la[i], head.x);
+      py[i] = __fsub_rn(lo[i], head.y);
       finite = finite && fabsf(px[i]) < kHuge && fabsf(py[i]) < kHuge;
       best[i] = __int_as_float(0x7f800000);  // +inf
       arg[i] = 0;
     }
+    if (w + gridDim.x * warps < chunks)
+      load_chunk<K>(lat, lon, n, w + gridDim.x * warps, lane, la, lo);
     if (!__all_sync(~0u, finite)) {
       for (int j = 0; j < e; ++j) visit<K, true>(site[j], j, px, py, best, arg);
     } else if (!PRUNE) {
@@ -183,8 +207,14 @@ __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
       x1 = warp_max(x1);
       y0 = warp_min(y0);
       y1 = warp_max(y1);
-      const float mx = fmaxf(fabsf(x0), fabsf(x1));
-      const float my = fmaxf(fabsf(y0), fabsf(y1));
+      // M of the header comment, for every site at once: snorm <= head.z,
+      // |sx|, |sy| <= head.w.
+      const float m2 =
+          2.0f * fmaf(kSlack,
+                      head.z + 2.0f * head.w *
+                                   (fmaxf(fabsf(x0), fabsf(x1)) +
+                                    fmaxf(fabsf(y0), fabsf(y1))),
+                      kTiny);
       // The witness c: the site nearest the box's centre (any site would
       // be sound; this one prunes most).
       const float bx = 0.5f * (x0 + x1), by = 0.5f * (y0 + y1);
@@ -198,30 +228,34 @@ __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
           c = j;
         }
       }
+      const int kc = order_key(dc);
+      const unsigned at = __ballot_sync(~0u, kc == __reduce_min_sync(~0u, kc));
+      const float4 wc = site[__shfl_sync(~0u, c, __ffs(at) - 1)];
+      for (int j0 = 0; j0 < e; j0 += kList) {
+        int count = 0;
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const float od = __shfl_xor_sync(~0u, dc, o);
-        const int oc = __shfl_xor_sync(~0u, c, o);
-        if (od < dc || (od == dc && oc < c)) {
-          dc = od;
-          c = oc;
+        for (int q = 0; q < kList; q += 32) {
+          const int j = j0 + q + lane;
+          bool keep = false;
+          if (j < e) {
+            const float4 s = site[j];
+            const float a = s.x - wc.x, b = s.y - wc.y;
+            const float g =
+                (s.z - wc.z) -
+                2.0f * (fmaxf(x0 * a, x1 * a) + fmaxf(y0 * b, y1 * b));
+            keep = !(g > m2);
+          }
+          const unsigned m = __ballot_sync(~0u, keep);
+          if (keep) list[count + __popc(m & ((1u << lane) - 1u))] = j;
+          count += __popc(m);
         }
-      }
-      const float4 w = site[c];
-      const float mw = margin(w, mx, my);
-      for (int j0 = 0; j0 < e; j0 += 32) {
-        bool keep = false;
-        if (j0 + lane < e) {
-          const float4 s = site[j0 + lane];
-          const float a = s.x - w.x, b = s.y - w.y;
-          const float g = (s.z - w.z) -
-                          2.0f * (fmaxf(x0 * a, x1 * a) + fmaxf(y0 * b, y1 * b));
-          keep = !(g > margin(s, mx, my) + mw);
-        }
-        for (unsigned m = __ballot_sync(~0u, keep); m != 0; m &= m - 1) {
-          const int j = j0 + __ffs(m) - 1;
+        __syncwarp();
+#pragma unroll 4
+        for (int i = 0; i < count; ++i) {
+          const int j = list[i];
           visit<K, false>(site[j], j, px, py, best, arg);
         }
+        __syncwarp();
       }
     }
 #pragma unroll
@@ -234,7 +268,8 @@ template <int K, bool PRUNE>
 int launch(const float* lat, const float* lon, const float4* packed,
            int32_t* out, const int n, const int e, const int threads,
            cudaStream_t stream) {
-  const size_t smem = (size_t)(e + 1) * sizeof(float4);
+  const size_t smem =
+      (size_t)(e + 1) * sizeof(float4) + (size_t)(threads / 32) * kList * sizeof(int);
   cudaError_t err;
   if (smem > 48 * 1024) {
     err = cudaFuncSetAttribute(voronoi_assign_kernel<K, PRUNE>,
@@ -251,8 +286,8 @@ int launch(const float* lat, const float* lon, const float4* packed,
   int blocks = (chunks + warps - 1) / warps;
   const int wave = sms * (2048 / threads);
   if (blocks > wave) blocks = wave;
-  voronoi_assign_kernel<K, PRUNE><<<blocks, threads, smem, stream>>>(lat, lon, packed,
-                                                              out, n, e);
+  voronoi_assign_kernel<K, PRUNE>
+      <<<blocks, threads, smem, stream>>>(lat, lon, packed, out, n, e);
   return (int)cudaGetLastError();
 }
 
@@ -266,6 +301,6 @@ extern "C" int voronoi_assign_launch(const void* lat, const void* lon,
   const float4* pk = (const float4*)packed;
   int32_t* o = (int32_t*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  return n >= kWideFrom ? launch<4, true>(la, lo, pk, o, n, e, kThreads, st)
-                        : launch<1, true>(la, lo, pk, o, n, e, kThreads, st);
+  return n >= kWideFrom ? launch<2, true>(la, lo, pk, o, n, e, kThreads, st)
+                        : launch<1, false>(la, lo, pk, o, n, e, kThreads, st);
 }

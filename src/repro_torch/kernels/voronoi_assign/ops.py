@@ -26,10 +26,6 @@ from repro_torch.kernels import build
 
 launches = 0
 
-# Centred coordinates at or above this bound may overflow a pair's float
-# arithmetic; the kernel then visits every site with torch.argmin's NaN rule.
-_HUGE = 2.0 ** 60
-
 # id(sites) -> (weak reference to sites, its _version when packed, packed).
 _PACKED: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
 
@@ -52,8 +48,8 @@ def _pack(sites: torch.Tensor) -> torch.Tensor:
         packed[:e, :2] = s
         packed[:e, 2] = snorm
         packed[e, :2] = c
-        packed[e, 2] = ((s.abs() < _HUGE).all()
-                        & torch.isfinite(snorm).all()).to(torch.float32)
+        packed[e, 2] = snorm.max()
+        packed[e, 3] = s.abs().max()
     return packed
 
 
@@ -65,9 +61,9 @@ def _forget(key: int, ref: weakref.ref) -> None:
 
 def packed_sites(sites: torch.Tensor) -> torch.Tensor:
     """(E + 1, 4) float32 on ``sites``' device: row e < E is
-    ``(sx, sy, snorm, 0)`` of ``centred_sites(sites)``, the last row
-    ``(cx, cy, ok, 0)`` with the centroid and ok = 1.0 when every centred
-    coordinate is below 2^60 in magnitude and every squared norm finite."""
+    ``(sx, sy, snorm, 0)`` of ``centred_sites(sites)``, the last row the
+    centroid, the largest squared norm and the largest centred coordinate
+    in magnitude (NaN if any site is NaN)."""
     key = id(sites)
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is sites and hit[1] == sites._version:

@@ -56,6 +56,41 @@ __global__ void doubled_kernel(const float* __restrict__ lat,
 
 __global__ void empty_kernel() {}
 
+// The kernel's loads, staging and stores, with no site visited.
+template <int K>
+__global__ void loads_kernel(const float* __restrict__ lat,
+                             const float* __restrict__ lon,
+                             const float4* __restrict__ packed,
+                             int32_t* __restrict__ out, const int n,
+                             const int e) {
+  extern __shared__ float4 site[];
+  const int lane = threadIdx.x & 31;
+  const int chunks = (n - 1) / (32 * K) + 1;
+  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  float la[K], lo[K];
+  if (w < chunks) load_chunk<K>(lat, lon, n, w, lane, la, lo);
+  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
+  __syncthreads();
+  if (w >= chunks) return;
+  const float4 head = site[e];
+  const int base = w * (32 * K);
+#pragma unroll
+  for (int i = 0; i < K; ++i)
+    if (32 * i + lane < n - base)
+      out[base + 32 * i + lane] = la[i] - head.x > lo[i] - head.y;
+}
+
+template <int K>
+int launch_loads(const float* lat, const float* lon, const float4* packed,
+                 int32_t* out, int n, int e, int threads, cudaStream_t stream) {
+  const int warps = threads / 32;
+  const int chunks = (n - 1) / (32 * K) + 1;
+  const int blocks = (chunks + warps - 1) / warps;
+  loads_kernel<K><<<blocks, threads, (e + 1) * sizeof(float4), stream>>>(
+      lat, lon, packed, out, n, e);
+  return (int)cudaGetLastError();
+}
+
 template <int K>
 int launch_doubled(const float* lat, const float* lon, const float4* packed,
                    int32_t* out, int n, int e, int threads,
@@ -71,7 +106,7 @@ int launch_doubled(const float* lat, const float* lon, const float4* packed,
 }  // namespace
 
 // variant 0: the kernel without pruning; 1: with pruning; 2: doubled sites;
-// 3: the empty kernel.
+// 3: the empty kernel; 4: loads, staging and stores only.
 extern "C" int probe_launch(int variant, int k, int threads, const void* lat,
                             const void* lon, const void* packed, void* out,
                             int n, int e, void* stream) {
@@ -89,6 +124,7 @@ extern "C" int probe_launch(int variant, int k, int threads, const void* lat,
     if (variant == 0) return launch<KK, false>(la, lo, pk, o, n, e, threads, st); \
     if (variant == 1) return launch<KK, true>(la, lo, pk, o, n, e, threads, st);  \
     if (variant == 2) return launch_doubled<KK>(la, lo, pk, o, n, e, threads, st); \
+    if (variant == 4) return launch_loads<KK>(la, lo, pk, o, n, e, threads, st); \
   }
   PROBE_K(1)
   PROBE_K(2)

@@ -102,14 +102,13 @@ def visited_share(lat, lon, sites, k: int) -> float:
     mx = np.maximum(abs(x0), abs(x1))[:, None]
     my = np.maximum(abs(y0), abs(y1))[:, None]
     sx, sy = s[:, 0][None], s[:, 1][None]
-    m = SLACK * (sn[None] + 2 * (mx * abs(sx) + my * abs(sy))) + 2.0 ** -100
+    m2 = 2 * (SLACK * (sn.max() + 2 * abs(s).max() * (mx + my)) + 2.0 ** -100)
     bx, by = (0.5 * (x0 + x1))[:, None], (0.5 * (y0 + y1))[:, None]
     c = np.argmin(sn[None] - 2 * (bx * sx + by * sy), axis=1)
-    rows = np.arange(c.shape[0])
     a_, b_ = sx - sx[0, c][:, None], sy - sy[0, c][:, None]
     g = (sn[None] - sn[c][:, None]) - 2 * (np.maximum(x0[:, None] * a_, x1[:, None] * a_)
                                            + np.maximum(y0[:, None] * b_, y1[:, None] * b_))
-    keep = ~(g > m + m[rows, c][:, None])
+    keep = ~(g > m2)
     return float(keep.mean())
 
 
@@ -177,26 +176,27 @@ def main() -> int:
 
     configs = [("parent", None, 256)] if parent is not None else []
     configs += [("empty", None, 128)]
-    configs += [(v, k, 128) for v in ("full", "pruned") for k in (1, 2, 4, 8)]
-    configs += [("pruned", k, t) for k in (1, 2, 4) for t in (64, 256)]
-    configs += [("doubled", k, 128) for k in (2, 4)]
-    code = {"full": 0, "pruned": 1, "doubled": 2, "empty": 3}
+    configs += [(v, k, 128) for v in ("loads", "full", "pruned") for k in (1, 2, 4)]
+    configs += [("pruned", k, t) for k in (1, 2) for t in (64, 256)]
+    configs += [("doubled", 4, 128)]
+    code = {"full": 0, "pruned": 1, "doubled": 2, "empty": 3, "loads": 4}
     for _ in range(2):               # two passes: the spread of a reading
         for name in ("grid", "placement"):
             for variant, k, threads in configs:
                 go = (parent_runner(name) if variant == "parent"
                       else runner(code[variant], k or 1, threads, name))
                 match = {"parent": "voronoi_assign_kernel", "empty": "empty_kernel",
+                         "loads": "loads_kernel",
                          "full": "voronoi_assign_kernel", "pruned": "voronoi_assign_kernel",
                          "doubled": "doubled_kernel"}[variant]
                 row = {"shape": name, "variant": variant, "k": k, "threads": threads,
                        "device_us": device_ms(torch, go, 200, match) * 1e3,
                        "event_us": cuda_ms(torch, go, 1000) * 1e3}
-                if variant != "empty":
+                if variant not in ("empty", "loads"):
                     row["bitwise"] = bool(torch.equal(go(), plain[name]))
                 emit(**row)
     for variant, k, threads in configs:
-        if variant in ("empty", "doubled"):
+        if variant in ("empty", "doubled", "loads"):
             continue
         go = (parent_runner("stress") if variant == "parent"
               else runner(code[variant], k, threads, "stress"))
@@ -204,7 +204,7 @@ def main() -> int:
         emit(stress=variant, k=k, threads=threads,
              mismatches=int((got != plain["stress"]).sum()))
     for name in ("grid", "placement"):
-        for k in (1, 2, 4, 8):
+        for k in (1, 2, 4):
             emit(visited_share=name, k=k, share=visited_share(*data[name], k))
 
     # The wrapper's host steps (perf_counter over 2000 calls each).
@@ -215,6 +215,11 @@ def main() -> int:
         "flat_f32 x2": lambda: (ops._flat_f32(la), ops._flat_f32(lo)),
         "torch.empty": lambda: torch.empty(la.shape, dtype=torch.int32, device=dev),
         "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
+        "current_stream()": lambda: torch.cuda.current_stream().cuda_stream,
+        "_cuda_getCurrentRawStream": lambda: torch._C._cuda_getCurrentRawStream(dev.index or 0),
+        "is_contiguous x2": lambda: (la.is_contiguous(), lo.is_contiguous()),
+        "shape checks": lambda: (la.shape != lo.shape, s.dim() != 2, s.shape[1] != 2),
+        "empty(n)": lambda: torch.empty(la.numel(), dtype=torch.int32, device=dev),
         "data_ptr x4": lambda: (la.data_ptr(), lo.data_ptr(), s.data_ptr(), s.data_ptr()),
         "voronoi_assign_cuda": lambda: ops.voronoi_assign_cuda(la, lo, s),
     }
