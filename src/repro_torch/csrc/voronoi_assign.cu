@@ -88,9 +88,11 @@ constexpr int kThreads = 128;
 constexpr float kHuge = 1.152921504606846976e18f;   // 2^60
 constexpr float kSlack = 2.44140625e-4f;            // 2^-12
 constexpr float kTiny = 7.8886090522101181e-31f;    // 2^-100
-// Points a thread: 4 on the wide calls (the slice grid), 1 below this many
-// points, where K > 1 would leave most SMs without a warp.
-constexpr int kWideFrom = 32 * 4 * 132;
+constexpr int kList = 128;  // sites a warp tests per pass of its visit list
+// The wide form (K 2 points a lane, pruning) from this many points on; below
+// it, a point's sites are split among 4 lanes (G), which shortens the chain
+// of compares that sets a short call's time.
+constexpr int kWideFrom = 32 * 2 * 132;
 
 // One site against a thread's K points. NANS: torch.argmin's rule for
 // inputs that may give NaN (a NaN distance wins, the first one stays);
@@ -133,48 +135,48 @@ __device__ __forceinline__ float warp_max(const float v) {
   return from_order_key(__reduce_max_sync(~0u, order_key(v)));
 }
 
-// The raw coordinates of a warp's chunk w (K a lane). Lanes past the end
-// take the last point: a real point, so the box stays the warp's own; they
-// store nothing.
-template <int K>
+// The raw coordinates of a warp's chunk w: 32 / G points, K a lane group
+// of G lanes. Lanes past the end take the last point: a real point, so the
+// box stays the warp's own; they store nothing.
+template <int K, int G>
 __device__ __forceinline__ void load_chunk(const float* __restrict__ lat,
                                            const float* __restrict__ lon,
                                            const int n, const int w,
                                            const int lane, float (&la)[K],
                                            float (&lo)[K]) {
-  const int base = w * (32 * K);
+  const int base = w * (32 / G * K);
 #pragma unroll
   for (int i = 0; i < K; ++i) {
-    const int p = 32 * i + lane < n - base ? base + 32 * i + lane : n - 1;
+    const int q = 32 / G * i + lane / G;
+    const int p = q < n - base ? base + q : n - 1;
     la[i] = __ldg(lat + p);
     lo[i] = __ldg(lon + p);
   }
 }
 
-constexpr int kList = 128;  // sites tested per pass of a warp's visit list
-
-template <int K, bool PRUNE>
+template <int K, int G, bool PRUNE>
 __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
                                       const float* __restrict__ lon,
                                       const float4* __restrict__ packed,
                                       int32_t* __restrict__ out, const int n,
                                       const int e) {
-  // e sites, then {cx, cy, largest snorm, largest |sx|, |sy|}; then one
-  // visit list of kList site indices a warp.
+  static_assert(G == 1 || !PRUNE, "pruning takes one lane a point");
+  // e sites {sx, sy, snorm, index}, then {cx, cy, largest snorm, largest
+  // |sx|, |sy|}; then a visit list of kList sites a warp.
   extern __shared__ float4 site[];
   const int lane = threadIdx.x & 31;
   const int warps = blockDim.x >> 5;
-  int* const list = reinterpret_cast<int*>(site + e + 1) +
-                    (threadIdx.x >> 5) * kList;
-  const int chunks = (n - 1) / (32 * K) + 1;
+  float4* const list = site + e + 1 + (threadIdx.x >> 5) * kList;
+  const int per = 32 / G * K;  // points a warp
+  const int chunks = (n - 1) / per + 1;
   int w = blockIdx.x * warps + (threadIdx.x >> 5);
   float la[K], lo[K];
-  if (w < chunks) load_chunk<K>(lat, lon, n, w, lane, la, lo);  // in flight
+  if (w < chunks) load_chunk<K, G>(lat, lon, n, w, lane, la, lo);  // in flight
   for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
   __syncthreads();                                 // while staging the sites
   const float4 head = site[e];
   for (; w < chunks; w += gridDim.x * warps) {
-    const int base = w * (32 * K);
+    const int base = w * per;
     const int rem = n - base;
     float px[K], py[K], best[K];
     int arg[K];
@@ -188,12 +190,27 @@ __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
       arg[i] = 0;
     }
     if (w + gridDim.x * warps < chunks)
-      load_chunk<K>(lat, lon, n, w + gridDim.x * warps, lane, la, lo);
+      load_chunk<K, G>(lat, lon, n, w + gridDim.x * warps, lane, la, lo);
     if (!__all_sync(~0u, finite)) {
       for (int j = 0; j < e; ++j) visit<K, true>(site[j], j, px, py, best, arg);
     } else if (!PRUNE) {
+      // G lanes share a point, each a strided share of the sites; their
+      // partial argmins merge lowest index first on equal distances.
 #pragma unroll 4
-      for (int j = 0; j < e; ++j) visit<K, false>(site[j], j, px, py, best, arg);
+      for (int j = lane % G; j < e; j += G)
+        visit<K, false>(site[j], j, px, py, best, arg);
+#pragma unroll
+      for (int o = 1; o < G; o <<= 1) {
+#pragma unroll
+        for (int i = 0; i < K; ++i) {
+          const float ob = __shfl_xor_sync(~0u, best[i], o);
+          const int oa = __shfl_xor_sync(~0u, arg[i], o);
+          if (ob < best[i] || (ob == best[i] && oa < arg[i])) {
+            best[i] = ob;
+            arg[i] = oa;
+          }
+        }
+      }
     } else {
       float x0 = px[0], x1 = px[0], y0 = py[0], y1 = py[0];
 #pragma unroll
@@ -233,12 +250,12 @@ __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
       const float4 wc = site[__shfl_sync(~0u, c, __ffs(at) - 1)];
       for (int j0 = 0; j0 < e; j0 += kList) {
         int count = 0;
-#pragma unroll
-        for (int q = 0; q < kList; q += 32) {
-          const int j = j0 + q + lane;
+        for (int q = j0; q < e && q < j0 + kList; q += 32) {
+          const int j = q + lane;
           bool keep = false;
+          float4 s;
           if (j < e) {
-            const float4 s = site[j];
+            s = site[j];
             const float a = s.x - wc.x, b = s.y - wc.y;
             const float g =
                 (s.z - wc.z) -
@@ -246,33 +263,35 @@ __global__ void voronoi_assign_kernel(const float* __restrict__ lat,
             keep = !(g > m2);
           }
           const unsigned m = __ballot_sync(~0u, keep);
-          if (keep) list[count + __popc(m & ((1u << lane) - 1u))] = j;
+          if (keep) list[count + __popc(m & ((1u << lane) - 1u))] = s;
           count += __popc(m);
         }
         __syncwarp();
 #pragma unroll 4
         for (int i = 0; i < count; ++i) {
-          const int j = list[i];
-          visit<K, false>(site[j], j, px, py, best, arg);
+          const float4 s = list[i];
+          visit<K, false>(s, __float_as_int(s.w), px, py, best, arg);
         }
         __syncwarp();
       }
     }
 #pragma unroll
-    for (int i = 0; i < K; ++i)
-      if (32 * i + lane < rem) out[base + 32 * i + lane] = arg[i];
+    for (int i = 0; i < K; ++i) {
+      const int q = 32 / G * i + lane / G;
+      if (lane % G == 0 && q < rem) out[base + q] = arg[i];
+    }
   }
 }
 
-template <int K, bool PRUNE>
+template <int K, int G, bool PRUNE>
 int launch(const float* lat, const float* lon, const float4* packed,
            int32_t* out, const int n, const int e, const int threads,
            cudaStream_t stream) {
-  const size_t smem =
-      (size_t)(e + 1) * sizeof(float4) + (size_t)(threads / 32) * kList * sizeof(int);
+  const size_t smem = ((size_t)e + 1 + (size_t)(threads / 32) * kList) *
+                      sizeof(float4);
   cudaError_t err;
   if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(voronoi_assign_kernel<K, PRUNE>,
+    err = cudaFuncSetAttribute(voronoi_assign_kernel<K, G, PRUNE>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
@@ -282,11 +301,11 @@ int launch(const float* lat, const float* lon, const float4* packed,
   err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   if (err != cudaSuccess) return (int)err;
   const int warps = threads / 32;
-  const int chunks = (n - 1) / (32 * K) + 1;
+  const int chunks = (n - 1) / (32 / G * K) + 1;
   int blocks = (chunks + warps - 1) / warps;
   const int wave = sms * (2048 / threads);
   if (blocks > wave) blocks = wave;
-  voronoi_assign_kernel<K, PRUNE>
+  voronoi_assign_kernel<K, G, PRUNE>
       <<<blocks, threads, smem, stream>>>(lat, lon, packed, out, n, e);
   return (int)cudaGetLastError();
 }
@@ -301,6 +320,6 @@ extern "C" int voronoi_assign_launch(const void* lat, const void* lon,
   const float4* pk = (const float4*)packed;
   int32_t* o = (int32_t*)out;
   cudaStream_t st = (cudaStream_t)stream;
-  return n >= kWideFrom ? launch<2, true>(la, lo, pk, o, n, e, kThreads, st)
-                        : launch<1, false>(la, lo, pk, o, n, e, kThreads, st);
+  return n >= kWideFrom ? launch<2, 1, true>(la, lo, pk, o, n, e, kThreads, st)
+                        : launch<1, 4, false>(la, lo, pk, o, n, e, kThreads, st);
 }

@@ -47,6 +47,8 @@ def _pack(sites: torch.Tensor) -> torch.Tensor:
         packed = torch.zeros(e + 1, 4, dtype=torch.float32, device=s.device)
         packed[:e, :2] = s
         packed[:e, 2] = snorm
+        packed.view(torch.int32)[:e, 3] = torch.arange(e, dtype=torch.int32,
+                                                        device=s.device)
         packed[e, :2] = c
         packed[e, 2] = snorm.max()
         packed[e, 3] = s.abs().max()
@@ -61,7 +63,8 @@ def _forget(key: int, ref: weakref.ref) -> None:
 
 def packed_sites(sites: torch.Tensor) -> torch.Tensor:
     """(E + 1, 4) float32 on ``sites``' device: row e < E is
-    ``(sx, sy, snorm, 0)`` of ``centred_sites(sites)``, the last row the
+    ``(sx, sy, snorm)`` of ``centred_sites(sites)`` and e's bits as int32
+    (the kernel's visit list carries each site's index), the last row the
     centroid, the largest squared norm and the largest centred coordinate
     in magnitude (NaN if any site is NaN)."""
     key = id(sites)

@@ -68,7 +68,7 @@ __global__ void loads_kernel(const float* __restrict__ lat,
   const int chunks = (n - 1) / (32 * K) + 1;
   const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
   float la[K], lo[K];
-  if (w < chunks) load_chunk<K>(lat, lon, n, w, lane, la, lo);
+  if (w < chunks) load_chunk<K, 1>(lat, lon, n, w, lane, la, lo);
   for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
   __syncthreads();
   if (w >= chunks) return;
@@ -105,11 +105,12 @@ int launch_doubled(const float* lat, const float* lon, const float4* packed,
 
 }  // namespace
 
-// variant 0: the kernel without pruning; 1: with pruning; 2: doubled sites;
-// 3: the empty kernel; 4: loads, staging and stores only.
-extern "C" int probe_launch(int variant, int k, int threads, const void* lat,
-                            const void* lon, const void* packed, void* out,
-                            int n, int e, void* stream) {
+// variant 0: the kernel without pruning (G lanes a point); 1: with pruning;
+// 2: doubled sites; 3: the empty kernel; 4: loads, staging and stores only.
+extern "C" int probe_launch(int variant, int k, int g, int threads,
+                            const void* lat, const void* lon,
+                            const void* packed, void* out, int n, int e,
+                            void* stream) {
   const float* la = (const float*)lat;
   const float* lo = (const float*)lon;
   const float4* pk = (const float4*)packed;
@@ -119,17 +120,19 @@ extern "C" int probe_launch(int variant, int k, int threads, const void* lat,
     empty_kernel<<<1, threads, 0, st>>>();
     return (int)cudaGetLastError();
   }
-#define PROBE_K(KK)                                                        \
-  if (k == KK) {                                                           \
-    if (variant == 0) return launch<KK, false>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 1) return launch<KK, true>(la, lo, pk, o, n, e, threads, st);  \
+#define PROBE_K(KK)                                                          \
+  if (k == KK) {                                                             \
+    if (variant == 0 && g == 1) return launch<KK, 1, false>(la, lo, pk, o, n, e, threads, st); \
+    if (variant == 0 && g == 2) return launch<KK, 2, false>(la, lo, pk, o, n, e, threads, st); \
+    if (variant == 0 && g == 4) return launch<KK, 4, false>(la, lo, pk, o, n, e, threads, st); \
+    if (variant == 0 && g == 8) return launch<KK, 8, false>(la, lo, pk, o, n, e, threads, st); \
+    if (variant == 1) return launch<KK, 1, true>(la, lo, pk, o, n, e, threads, st); \
     if (variant == 2) return launch_doubled<KK>(la, lo, pk, o, n, e, threads, st); \
     if (variant == 4) return launch_loads<KK>(la, lo, pk, o, n, e, threads, st); \
   }
   PROBE_K(1)
   PROBE_K(2)
   PROBE_K(4)
-  PROBE_K(8)
 #undef PROBE_K
   return -1;
 }

@@ -130,7 +130,7 @@ def main() -> int:
     emit(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
     probe = compile_lib(HERE / "probe.cu", "voronoi_probe")
     fn = probe.probe_launch
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
+    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     parent = None
@@ -147,14 +147,14 @@ def main() -> int:
     plain = {name: voronoi.voronoi_assign(torch.stack([la, lo], -1), s)
              for name, (la, lo, s) in data.items()}
 
-    def runner(variant, k, threads, name):
+    def runner(variant, k, g, threads, name):
         la, lo, s = data[name]
         pk = doubled[name] if variant == 2 else packed[name]
         out = torch.empty(la.shape, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def go():
-            build.check("probe", fn(variant, k, threads, la.data_ptr(), lo.data_ptr(),
+            build.check("probe", fn(variant, k, g, threads, la.data_ptr(), lo.data_ptr(),
                                     pk.data_ptr(), out.data_ptr(), la.numel(),
                                     s.shape[0], stream))
             return out
@@ -174,34 +174,44 @@ def main() -> int:
             return out
         return go
 
-    configs = [("parent", None, 256)] if parent is not None else []
-    configs += [("empty", None, 128)]
-    configs += [(v, k, 128) for v in ("loads", "full", "pruned") for k in (1, 2, 4)]
-    configs += [("pruned", k, t) for k in (1, 2) for t in (64, 256)]
-    configs += [("doubled", 4, 128)]
+    configs = [("parent", None, 1, 256)] if parent is not None else []
+    configs += [("empty", None, 1, 128)]
+    configs += [("loads", k, 1, 128) for k in (1, 2)]
+    configs += [("full", 1, g, 128) for g in (1, 2, 4, 8)]
+    configs += [("full", k, 1, 128) for k in (2, 4)]
+    configs += [("pruned", k, 1, t) for k in (1, 2, 4) for t in (128,)]
+    configs += [("pruned", 2, 1, t) for t in (64, 256)]
+    configs += [("doubled", 4, 1, 128)]
     code = {"full": 0, "pruned": 1, "doubled": 2, "empty": 3, "loads": 4}
+    match = {"parent": "voronoi_assign_kernel", "empty": "empty_kernel",
+             "loads": "loads_kernel", "full": "voronoi_assign_kernel",
+             "pruned": "voronoi_assign_kernel", "doubled": "doubled_kernel"}
+
+    def timed(go, what):
+        for attempt in range(3):      # the profiler now and then records nothing
+            try:
+                return device_ms(torch, go, 200, what) * 1e3
+            except SystemExit:
+                if attempt == 2:
+                    raise
     for _ in range(2):               # two passes: the spread of a reading
         for name in ("grid", "placement"):
-            for variant, k, threads in configs:
+            for variant, k, g, threads in configs:
                 go = (parent_runner(name) if variant == "parent"
-                      else runner(code[variant], k or 1, threads, name))
-                match = {"parent": "voronoi_assign_kernel", "empty": "empty_kernel",
-                         "loads": "loads_kernel",
-                         "full": "voronoi_assign_kernel", "pruned": "voronoi_assign_kernel",
-                         "doubled": "doubled_kernel"}[variant]
-                row = {"shape": name, "variant": variant, "k": k, "threads": threads,
-                       "device_us": device_ms(torch, go, 200, match) * 1e3,
+                      else runner(code[variant], k or 1, g, threads, name))
+                row = {"shape": name, "variant": variant, "k": k, "g": g,
+                       "threads": threads, "device_us": timed(go, match[variant]),
                        "event_us": cuda_ms(torch, go, 1000) * 1e3}
                 if variant not in ("empty", "loads"):
                     row["bitwise"] = bool(torch.equal(go(), plain[name]))
                 emit(**row)
-    for variant, k, threads in configs:
+    for variant, k, g, threads in configs:
         if variant in ("empty", "doubled", "loads"):
             continue
         go = (parent_runner("stress") if variant == "parent"
-              else runner(code[variant], k, threads, "stress"))
+              else runner(code[variant], k, g, threads, "stress"))
         got = go()
-        emit(stress=variant, k=k, threads=threads,
+        emit(stress=variant, k=k, g=g, threads=threads,
              mismatches=int((got != plain["stress"]).sum()))
     for name in ("grid", "placement"):
         for k in (1, 2, 4):
