@@ -8,36 +8,24 @@
 // tensor core nothing to do, and TF32 or bf16 would break the bitwise
 // agreement below, so here the distances are scalar float32 work.
 //
-// What bounds it: instructions. A (point, site) pair costs 5 float
-// operations (two products, their sum, the doubling, the subtraction from
-// the squared norm) and a compare with two selects; the 12 bytes a point
-// moves (two coordinates in, one index out) are nothing beside that. The
-// main path's shape, 102,400 slice-grid cell centres against 80 sites, is
-// 8.2M pairs: about two microseconds of issue on 132 SMs.
+// What bounds it: instructions, not bytes. A (point, site) pair costs 5
+// float operations (two products, their sum, the doubling, the subtraction
+// from the squared norm) and a compare with two selects; a point moves 12
+// bytes (two coordinates in, one index out). Visiting all 80 sites for each
+// of the main path's 102,400 slice-grid cell centres is 8.2M pairs, some
+// 3 µs of issue on 132 SMs; most of those pairs cannot win.
 //
-// Design, against that bound:
-//   * Sites packed once per site set by the wrapper (`ops.packed_sites`):
-//     one float4 {sx, sy, snorm, 0} a site, centred on the site centroid,
-//     and a last float4 {cx, cy, sites_ok, 0}. A block stages them in
-//     shared memory once; one 128-bit shared load serves a site.
-//   * Several points a thread (K): lane l of a warp takes points
-//     base + l + 32 i, i < K, so every load of a coordinate is one
-//     coalesced 128-byte line for the warp, at any 4-byte offset of
-//     `lat` and `lon` (no aligned head or tail to peel). Each point keeps
-//     its own best/arg chain, so a site's shared load serves K points and
-//     the K chains are independent work for the scheduler.
-//   * Exact pruning per warp: the warp's points lie in a box (a warp takes
-//     2 K rows of one shard's 16 x 16 slice grid; the 80 sites cover the
-//     city). A site e whose distance exceeds, everywhere on the box and by
-//     more than the rounding margin, that of a witness site c cannot be the
-//     argmin of any of the warp's points and is not visited. The
-//     difference of the two distances is linear in the point, so its least
-//     value on the box is exact at a corner: the test asks whether the box
-//     lies wholly on c's side of the bisector of c and e. The witness is
-//     the site nearest the box's centre; the sites that pass are visited
-//     in ascending order, one warp ballot per 32 sites.
-//   * A grid of at most one wave, walked by warp-sized chunks of 32 K
-//     points, so the staging and its barrier are paid once per block.
+// Design: visit only the sites that can win. Once per site set the wrapper
+// (`ops.packed_sites`) lays a grid of cells over the sites' box, widened by
+// its own extent on each side, and lists for each cell the sites that may
+// be nearest to some point of the cell (below). A thread takes one point,
+// finds its cell with two products, and visits that cell's sites, about
+// two and a half on the D400 slice grid against 80. The lists hold the
+// sites themselves (a float4 {sx, sy, snorm, index}), so a visit is one
+// 16-byte load, from L1 after the first touch (the lists of 80 sites are
+// some 50 KB). A point outside the grid, or with a NaN or huge coordinate,
+// visits every site. There is no shared-memory staging and no block
+// barrier: the grid of blocks is at most one wave, walked point by point.
 //
 // Exactness: a visited pair evaluates `snorm - 2 * (px*sx + py*sy)` with
 // round-to-nearest intrinsics and no fused multiply-add, in the same order
@@ -46,37 +34,40 @@
 // The argmin keeps the first minimum (strict <); ties go to the lowest edge
 // index.
 //
-// Why pruning never drops the argmin. Write u = 2^-24 and, for a point p
-// and site e, d*(p, e) = sn_e - 2 (px sx_e + py sy_e): the exact value of
-// the pair's expression on the same float inputs. The float evaluation d_f
-// is within 4u mag_e(p) + 2^-146 of d*, where mag_e(p) = sn_e + 2 (|px||sx_e|
-// + |py||sy_e|) (four roundings, none fused; the absolute term covers
-// underflow). d*(p, e) - d*(p, c) = (sn_e - sn_c) - 2 (px a + py b), with
-// a = sx_e - sx_c and b = sy_e - sy_c, is linear in p, so on the box
-// [x0, x1] x [y0, y1] it is never below
-//   G = (sn_e - sn_c) - 2 (max(x0 a, x1 a) + max(y0 b, y1 b)).
-// The kernel computes G as g, within 9u (mag_e + mag_c) of it (single
-// roundings of sums and products whose magnitudes mag bounds), where mag
-// takes the box's largest |px|, |py| (mx, my). It skips e only when
-//   g > M_e + M_c,   M = 2^-12 mag + 2^-100,
-// and 2^-12 is 256 times the 13u that the evaluation and g's rounding need
-// together (2^-100 covers their absolute terms). Then for every point p of
-// the box, d_f(p, e) - d_f(p, c) >= g - 13u (mag_e + mag_c) - 2^-140 > 0:
-// a skipped site is beaten by c at every point of the warp, so every site
-// that attains the minimum, the first among them included, is visited, and
-// the first minimum among the visited sites is the plain version's argmin.
-// The witness's own g is 0, so it is always visited; a contracted multiply-
-// add in g or M only rounds less. Skipping fewer sites is always safe.
+// Why a cell's list never misses the argmin (the wrapper builds the lists
+// in float64 and states the same argument). Write u = 2^-24 and, for a
+// point p and site e, d*(p, e) = sn_e - 2 (px sx_e + py sy_e): the exact
+// value of the pair's expression on the same float inputs. The float
+// evaluation d_f is within 4u mag_e(p) + 2^-146 of d*, where mag_e(p) =
+// sn_e + 2 (|px||sx_e| + |py||sy_e|) (four roundings, none fused; the
+// absolute term covers underflow). For a witness site w (the site nearest
+// the cell's centre), d*(p, e) - d*(p, w) = (sn_e - sn_w) - 2 (px a + py b),
+// a = sx_e - sx_w, b = sy_e - sy_w, is linear in p, so on a box [x0, x1] x
+// [y0, y1] it is never below
+//   G = (sn_e - sn_w) - 2 (max(x0 a, x1 a) + max(y0 b, y1 b)).
+// A site is left out of the cell's list only when G > M_e + M_w, with
+// M = 2^-12 (sn + 2 (mx |sx| + my |sy|)) + 2^-100 and mx, my the box's
+// largest |px|, |py|: 2^-12 is 1024 times the 4u the evaluation needs, and
+// float64 rounds G far below that. Then d_f(p, e) > d_f(p, w) at every
+// point of the box: a site that attains the minimum, the first among them
+// included, is on the list, the list is in ascending index order, and the
+// first minimum among the listed sites is the plain version's argmin. The
+// box is the cell widened by a thousandth of its width on each side, which
+// covers every point that the kernel's rounded cell arithmetic below puts in
+// the cell (its relative error is a few u over at most 256 cells).
 //
-// Non-finite and huge inputs. The argument needs finite d_f. A warp takes
-// the pruned, finite path only when every one of its points has |px|, |py|
-// < 2^60 and the site set is flagged ok (all centred coordinates below 2^60
-// and every squared norm finite): then no product or sum overflows. Any
-// other warp visits every site in order with torch.argmin's rule (the first
-// NaN wins, else the first minimum), so a NaN point gives index 0 and the
-// kernel matches the plain version on every input.
+// Non-finite and huge inputs. A NaN or huge coordinate fails the cell's
+// bounds test and visits every site with torch.argmin's rule (the first NaN
+// wins, else the first minimum), so a NaN point gives index 0. A site set
+// with a NaN or a centred coordinate of 2^60 or more has an empty grid.
 //
-// C entry: voronoi_assign_launch(lat, lon, packed, out, n, e, stream)
+// Packed layout, float4 rows: e sites {sx, sy, snorm, index bits}; then
+// {cx, cy, cells across bits, cells down bits}; then {x0, y0, 1 / cell
+// width, 1 / cell height} (the grid's corner, in centred coordinates); then
+// the cells' lists, back to back. `cells` holds each cell's first row in
+// the lists and, last, their end.
+//
+// C entry: voronoi_assign_launch(lat, lon, packed, cells, out, n, e, stream)
 // launches on `stream` and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -85,241 +76,72 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr float kHuge = 1.152921504606846976e18f;   // 2^60
-constexpr float kSlack = 2.44140625e-4f;            // 2^-12
-constexpr float kTiny = 7.8886090522101181e-31f;    // 2^-100
-constexpr int kList = 128;  // sites a warp tests per pass of its visit list
-// The wide form (K 2 points a lane, pruning) from this many points on; below
-// it, a point's sites are split among 4 lanes (G), which shortens the chain
-// of compares that sets a short call's time.
-constexpr int kWideFrom = 32 * 2 * 132;
 
-// One site against a thread's K points. NANS: torch.argmin's rule for
-// inputs that may give NaN (a NaN distance wins, the first one stays);
-// otherwise the plain strict < on finite distances.
-template <int K, bool NANS>
+// One site against a point. NANS: torch.argmin's rule for inputs that may
+// give NaN (a NaN distance wins, the first one stays); otherwise the plain
+// strict < on finite distances.
+template <bool NANS>
 __device__ __forceinline__ void visit(const float4 s, const int j,
-                                      const float (&px)[K],
-                                      const float (&py)[K], float (&best)[K],
-                                      int (&arg)[K]) {
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const float cross =
-        __fadd_rn(__fmul_rn(px[i], s.x), __fmul_rn(py[i], s.y));
-    const float d = __fsub_rn(s.z, __fmul_rn(2.0f, cross));
-    const bool take =
-        NANS ? (!(d >= best[i]) && !isnan(best[i])) : d < best[i];
-    if (take) {
-      best[i] = d;
-      arg[i] = j;
-    }
+                                      const float px, const float py,
+                                      float& best, int& arg) {
+  const float cross = __fadd_rn(__fmul_rn(px, s.x), __fmul_rn(py, s.y));
+  const float d = __fsub_rn(s.z, __fmul_rn(2.0f, cross));
+  const bool take = NANS ? (!(d >= best) && !isnan(best)) : d < best;
+  if (take) {
+    best = d;
+    arg = j;
   }
 }
 
-// A float's order as a signed int (finite values), for the warp's integer
-// min-reductions.
-__device__ __forceinline__ int order_key(const float x) {
-  const int i = __float_as_int(x);
-  return i ^ ((i >> 31) & 0x7fffffff);
-}
-
-__device__ __forceinline__ float from_order_key(const int k) {
-  return __int_as_float(k ^ ((k >> 31) & 0x7fffffff));
-}
-
-__device__ __forceinline__ float warp_min(const float v) {
-  return from_order_key(__reduce_min_sync(~0u, order_key(v)));
-}
-
-__device__ __forceinline__ float warp_max(const float v) {
-  return from_order_key(__reduce_max_sync(~0u, order_key(v)));
-}
-
-// The raw coordinates of a warp's chunk w: 32 / G points, K a lane group
-// of G lanes. Lanes past the end take the last point: a real point, so the
-// box stays the warp's own; they store nothing.
-template <int K, int G>
-__device__ __forceinline__ void load_chunk(const float* __restrict__ lat,
-                                           const float* __restrict__ lon,
-                                           const int n, const int w,
-                                           const int lane, float (&la)[K],
-                                           float (&lo)[K]) {
-  const int base = w * (32 / G * K);
-#pragma unroll
-  for (int i = 0; i < K; ++i) {
-    const int q = 32 / G * i + lane / G;
-    const int p = q < n - base ? base + q : n - 1;
-    la[i] = __ldg(lat + p);
-    lo[i] = __ldg(lon + p);
-  }
-}
-
-template <int K, int G, bool PRUNE>
-__global__ void voronoi_assign_kernel(const float* __restrict__ lat,
-                                      const float* __restrict__ lon,
-                                      const float4* __restrict__ packed,
-                                      int32_t* __restrict__ out, const int n,
-                                      const int e) {
-  static_assert(G == 1 || !PRUNE, "pruning takes one lane a point");
-  // e sites {sx, sy, snorm, index}, then {cx, cy, largest snorm, largest
-  // |sx|, |sy|}; then a visit list of kList sites a warp.
-  extern __shared__ float4 site[];
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  float4* const list = site + e + 1 + (threadIdx.x >> 5) * kList;
-  const int per = 32 / G * K;  // points a warp
-  const int chunks = (n - 1) / per + 1;
-  int w = blockIdx.x * warps + (threadIdx.x >> 5);
-  float la[K], lo[K];
-  if (w < chunks) load_chunk<K, G>(lat, lon, n, w, lane, la, lo);  // in flight
-  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
-  __syncthreads();                                 // while staging the sites
-  const float4 head = site[e];
-  for (; w < chunks; w += gridDim.x * warps) {
-    const int base = w * per;
-    const int rem = n - base;
-    float px[K], py[K], best[K];
-    int arg[K];
-    bool finite = head.w < kHuge;  // false for a NaN or huge site
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      px[i] = __fsub_rn(la[i], head.x);
-      py[i] = __fsub_rn(lo[i], head.y);
-      finite = finite && fabsf(px[i]) < kHuge && fabsf(py[i]) < kHuge;
-      best[i] = __int_as_float(0x7f800000);  // +inf
-      arg[i] = 0;
-    }
-    if (w + gridDim.x * warps < chunks)
-      load_chunk<K, G>(lat, lon, n, w + gridDim.x * warps, lane, la, lo);
-    if (!__all_sync(~0u, finite)) {
-      for (int j = 0; j < e; ++j) visit<K, true>(site[j], j, px, py, best, arg);
-    } else if (!PRUNE) {
-      // G lanes share a point, each a strided share of the sites; their
-      // partial argmins merge lowest index first on equal distances.
-#pragma unroll 4
-      for (int j = lane % G; j < e; j += G)
-        visit<K, false>(site[j], j, px, py, best, arg);
-#pragma unroll
-      for (int o = 1; o < G; o <<= 1) {
-#pragma unroll
-        for (int i = 0; i < K; ++i) {
-          const float ob = __shfl_xor_sync(~0u, best[i], o);
-          const int oa = __shfl_xor_sync(~0u, arg[i], o);
-          if (ob < best[i] || (ob == best[i] && oa < arg[i])) {
-            best[i] = ob;
-            arg[i] = oa;
-          }
-        }
+__global__ void __launch_bounds__(kThreads)
+    voronoi_assign_kernel(const float* __restrict__ lat,
+                          const float* __restrict__ lon,
+                          const float4* __restrict__ packed,
+                          const int* __restrict__ cells,
+                          int32_t* __restrict__ out, const int n,
+                          const int e) {
+  const float4 head = __ldg(packed + e);
+  const float4 grid = __ldg(packed + e + 1);
+  const float4* const list = packed + e + 2;
+  const int across = __float_as_int(head.z), down = __float_as_int(head.w);
+  for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
+       p += gridDim.x * blockDim.x) {
+    const float px = __fsub_rn(__ldg(lat + p), head.x);
+    const float py = __fsub_rn(__ldg(lon + p), head.y);
+    const float tx = __fmul_rn(__fsub_rn(px, grid.x), grid.z);
+    const float ty = __fmul_rn(__fsub_rn(py, grid.y), grid.w);
+    float best = __int_as_float(0x7f800000);  // +inf
+    int arg = 0;
+    if (tx >= 0.0f && tx < (float)across && ty >= 0.0f && ty < (float)down) {
+      const int cell = (int)tx * down + (int)ty;
+      const int end = __ldg(cells + cell + 1);
+      for (int k = __ldg(cells + cell); k < end; ++k) {
+        const float4 s = __ldg(list + k);
+        visit<false>(s, __float_as_int(s.w), px, py, best, arg);
       }
     } else {
-      float x0 = px[0], x1 = px[0], y0 = py[0], y1 = py[0];
-#pragma unroll
-      for (int i = 1; i < K; ++i) {
-        x0 = fminf(x0, px[i]);
-        x1 = fmaxf(x1, px[i]);
-        y0 = fminf(y0, py[i]);
-        y1 = fmaxf(y1, py[i]);
-      }
-      x0 = warp_min(x0);
-      x1 = warp_max(x1);
-      y0 = warp_min(y0);
-      y1 = warp_max(y1);
-      // M of the header comment, for every site at once: snorm <= head.z,
-      // |sx|, |sy| <= head.w.
-      const float m2 =
-          2.0f * fmaf(kSlack,
-                      head.z + 2.0f * head.w *
-                                   (fmaxf(fabsf(x0), fabsf(x1)) +
-                                    fmaxf(fabsf(y0), fabsf(y1))),
-                      kTiny);
-      // The witness c: the site nearest the box's centre (any site would
-      // be sound; this one prunes most).
-      const float bx = 0.5f * (x0 + x1), by = 0.5f * (y0 + y1);
-      float dc = __int_as_float(0x7f800000);
-      int c = 0;
-      for (int j = lane; j < e; j += 32) {
-        const float4 s = site[j];
-        const float d = s.z - 2.0f * (bx * s.x + by * s.y);
-        if (d < dc) {
-          dc = d;
-          c = j;
-        }
-      }
-      const int kc = order_key(dc);
-      const unsigned at = __ballot_sync(~0u, kc == __reduce_min_sync(~0u, kc));
-      const float4 wc = site[__shfl_sync(~0u, c, __ffs(at) - 1)];
-      for (int j0 = 0; j0 < e; j0 += kList) {
-        int count = 0;
-        for (int q = j0; q < e && q < j0 + kList; q += 32) {
-          const int j = q + lane;
-          bool keep = false;
-          float4 s;
-          if (j < e) {
-            s = site[j];
-            const float a = s.x - wc.x, b = s.y - wc.y;
-            const float g =
-                (s.z - wc.z) -
-                2.0f * (fmaxf(x0 * a, x1 * a) + fmaxf(y0 * b, y1 * b));
-            keep = !(g > m2);
-          }
-          const unsigned m = __ballot_sync(~0u, keep);
-          if (keep) list[count + __popc(m & ((1u << lane) - 1u))] = s;
-          count += __popc(m);
-        }
-        __syncwarp();
-#pragma unroll 4
-        for (int i = 0; i < count; ++i) {
-          const float4 s = list[i];
-          visit<K, false>(s, __float_as_int(s.w), px, py, best, arg);
-        }
-        __syncwarp();
-      }
+      for (int j = 0; j < e; ++j)
+        visit<true>(__ldg(packed + j), j, px, py, best, arg);
     }
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const int q = 32 / G * i + lane / G;
-      if (lane % G == 0 && q < rem) out[base + q] = arg[i];
-    }
+    out[p] = arg;
   }
-}
-
-template <int K, int G, bool PRUNE>
-int launch(const float* lat, const float* lon, const float4* packed,
-           int32_t* out, const int n, const int e, const int threads,
-           cudaStream_t stream) {
-  const size_t smem = ((size_t)e + 1 + (size_t)(threads / 32) * kList) *
-                      sizeof(float4);
-  cudaError_t err;
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(voronoi_assign_kernel<K, G, PRUNE>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-  }
-  int device = 0, sms = 0;
-  if ((err = cudaGetDevice(&device)) != cudaSuccess) return (int)err;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err != cudaSuccess) return (int)err;
-  const int warps = threads / 32;
-  const int chunks = (n - 1) / (32 / G * K) + 1;
-  int blocks = (chunks + warps - 1) / warps;
-  const int wave = sms * (2048 / threads);
-  if (blocks > wave) blocks = wave;
-  voronoi_assign_kernel<K, G, PRUNE>
-      <<<blocks, threads, smem, stream>>>(lat, lon, packed, out, n, e);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" int voronoi_assign_launch(const void* lat, const void* lon,
-                                     const void* packed, void* out, int n,
-                                     int e, void* stream) {
-  const float* la = (const float*)lat;
-  const float* lo = (const float*)lon;
-  const float4* pk = (const float4*)packed;
-  int32_t* o = (int32_t*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  return n >= kWideFrom ? launch<2, 1, true>(la, lo, pk, o, n, e, kThreads, st)
-                        : launch<1, 4, false>(la, lo, pk, o, n, e, kThreads, st);
+                                     const void* packed, const void* cells,
+                                     void* out, int n, int e, void* stream) {
+  int device = 0, sms = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = (n + kThreads - 1) / kThreads;
+  const int wave = sms * (2048 / kThreads);
+  if (blocks > wave) blocks = wave;
+  voronoi_assign_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)lat, (const float*)lon, (const float4*)packed,
+      (const int*)cells, (int32_t*)out, n, e);
+  return (int)cudaGetLastError();
 }

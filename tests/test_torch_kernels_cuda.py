@@ -71,6 +71,111 @@ def test_voronoi_kernel_matches_plain(cuda):
     assert torch.equal(got, voronoi.voronoi_assign(pts, sites))
 
 
+def _vor_check(lat, lon, sites):
+    """One launch, bitwise equal to the plain version on every point."""
+    before = vops.launches
+    got = vops.voronoi_assign_cuda(lat, lon, sites)
+    assert vops.launches == before + 1
+    want = voronoi.voronoi_assign(torch.stack([lat.reshape(-1), lon.reshape(-1)], -1),
+                                  sites).reshape(lat.shape)
+    assert torch.equal(got, want), int((got != want).sum())
+    return got
+
+
+def _city_points(rng, n, dev, spill=0.2):
+    """Uniform over the city widened by ``spill`` of its extent each side,
+    so some points fall outside the kernel's cell grid."""
+    c = CityConfig()
+    lo = np.array([c.lat_min, c.lon_min])
+    span = np.array([c.lat_max, c.lon_max]) - lo
+    pts = rng.uniform(lo - spill * span, lo + (1 + spill) * span, (n, 2))
+    return torch.from_numpy(pts.astype(np.float32)).to(dev)
+
+
+@pytest.mark.parametrize("e", [1, 2, 80, 1000])
+@pytest.mark.parametrize("n", [1, 3, 257, 102401])
+def test_voronoi_redesign_matches_plain(cuda, n, e):
+    rng = np.random.default_rng(n + e)
+    sites = torch.from_numpy(make_sites(e, CityConfig(), seed=e)).to(cuda)
+    pts = _city_points(rng, n, cuda)
+    _vor_check(pts[:, 0].contiguous(), pts[:, 1].contiguous(), sites)
+
+
+def test_voronoi_redesign_reads_views_at_any_offset(cuda):
+    rng = np.random.default_rng(11)
+    sites = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    buf = _city_points(rng, 4099, cuda)
+    lat, lon = buf[:, 0].contiguous(), buf[:, 1].contiguous()
+    _vor_check(lat[1:], lon[1:], sites)                # 4-byte offset
+    _vor_check(lat[1:4097], lon[2:4098], sites)         # two offsets
+    _vor_check(lat[3:].reshape(16, 256), lon[3:].reshape(16, 256), sites)
+    grid = lat[:256].reshape(16, 16).t()                # not contiguous
+    _vor_check(grid, lon[:256].reshape(16, 16), sites)
+    _vor_check(lat[:1000].double(), lon[:1000].double(), sites)
+
+
+def test_voronoi_redesign_duplicate_sites_lowest_index(cuda):
+    rng = np.random.default_rng(12)
+    sites = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    sites[40] = sites[7]
+    sites[79] = sites[7]
+    sites[41] = sites[0]
+    pts = torch.cat([_city_points(rng, 20_000, cuda), sites[[7, 0, 40, 41, 79]]])
+    got = _vor_check(pts[:, 0].contiguous(), pts[:, 1].contiguous(), sites)
+    assert got[-5:].tolist() == [7, 0, 7, 0, 7]
+
+
+def test_voronoi_redesign_centroid_and_subnormal_products(cuda):
+    rng = np.random.default_rng(13)
+    # Sites near the origin at 1e-20: the centred coordinates and the points'
+    # offsets multiply to subnormal products.
+    tiny = torch.from_numpy(rng.normal(0, 1e-20, (80, 2)).astype(np.float32)).to(cuda)
+    city = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    for sites in (tiny, city):
+        c, _, _ = voronoi.centred_sites(sites)
+        off = torch.tensor([[0.0, 0.0], [1e-19, 0.0], [0.0, 1e-19], [-1e-19, 0.0],
+                            [0.0, -1e-19], [1e-38, 1e-38]], device=cuda)
+        near = c + torch.from_numpy(rng.normal(0, 3e-20, (5000, 2)).astype(np.float32)).to(cuda)
+        pts = torch.cat([c + off, c.expand(3, 2), near])
+        _vor_check(pts[:, 0].contiguous(), pts[:, 1].contiguous(), sites)
+
+
+def test_voronoi_redesign_nan_and_infinite_points(cuda):
+    rng = np.random.default_rng(14)
+    sites = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    pts = _city_points(rng, 300, cuda)
+    pts[0, 0] = float("nan")
+    pts[1, 1] = float("nan")
+    pts[2] = float("nan")
+    pts[3, 0], pts[4, 1], pts[5, 0] = float("inf"), -float("inf"), 3e38
+    got = _vor_check(pts[:, 0].contiguous(), pts[:, 1].contiguous(), sites)
+    assert got[:3].tolist() == [0, 0, 0]
+
+
+def test_voronoi_redesign_repeatable(cuda):
+    rng = np.random.default_rng(15)
+    sites = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    pts = _city_points(rng, 102_400, cuda)
+    lat, lon = pts[:, 0].contiguous(), pts[:, 1].contiguous()
+    assert torch.equal(vops.voronoi_assign_cuda(lat, lon, sites),
+                       vops.voronoi_assign_cuda(lat, lon, sites))
+
+
+def test_voronoi_redesign_follows_edited_and_new_sites(cuda):
+    """The packed sites are cached per site tensor: an in-place edit and a
+    new tensor must both be seen, or these answers go stale."""
+    rng = np.random.default_rng(16)
+    sites = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    pts = _city_points(rng, 50_000, cuda)
+    lat, lon = pts[:, 0].contiguous(), pts[:, 1].contiguous()
+    first = _vor_check(lat, lon, sites)
+    sites.copy_(sites.flip(0))                          # in place: _version moves
+    second = _vor_check(lat, lon, sites)
+    assert not torch.equal(first, second)
+    other = torch.from_numpy(make_sites(80, CityConfig(), seed=5)).to(cuda)
+    _vor_check(lat, lon, other)
+
+
 @pytest.mark.parametrize("q,channels", [(3, (0,)), (9, (0, 1, 2, 3)),
                                         (5, (2, 0, 3)), (8, (0, 1, 2, 3, 4, 5))])
 def test_st_scan_kernel_matches_plain(cuda, q, channels):

@@ -1,138 +1,13 @@
-// Design probes of src/repro_torch/csrc/voronoi_assign.cu (built and timed
-// by run.py beside it): the kernel at K = 1, 2, 4, 8 points a thread, with
-// and without pruning, at any block size; a variant that reads the sites
-// doubled at packing (2 sx, 2 sy: one multiply a pair fewer, timing only);
-// and an empty kernel, the launch floor.
+// An empty kernel: the launch floor that run.py times beside the
+// voronoi_assign kernel.
 
-#include "../../src/repro_torch/csrc/voronoi_assign.cu"
+#include <cuda_runtime.h>
 
 namespace {
-
-template <int K>
-__global__ void doubled_kernel(const float* __restrict__ lat,
-                               const float* __restrict__ lon,
-                               const float4* __restrict__ packed,
-                               int32_t* __restrict__ out, const int n,
-                               const int e) {
-  extern __shared__ float4 site[];
-  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
-  __syncthreads();
-  const float4 head = site[e];
-  const int lane = threadIdx.x & 31;
-  const int warps = blockDim.x >> 5;
-  const int chunks = (n - 1) / (32 * K) + 1;
-  for (int w = blockIdx.x * warps + (threadIdx.x >> 5); w < chunks;
-       w += gridDim.x * warps) {
-    const int base = w * (32 * K);
-    const int rem = n - base;
-    float px[K], py[K], best[K];
-    int arg[K];
-#pragma unroll
-    for (int i = 0; i < K; ++i) {
-      const int p = 32 * i + lane < rem ? base + 32 * i + lane : n - 1;
-      px[i] = __fsub_rn(__ldg(lat + p), head.x);
-      py[i] = __fsub_rn(__ldg(lon + p), head.y);
-      best[i] = __int_as_float(0x7f800000);
-      arg[i] = 0;
-    }
-#pragma unroll 4
-    for (int j = 0; j < e; ++j) {
-      const float4 s = site[j];
-#pragma unroll
-      for (int i = 0; i < K; ++i) {
-        const float d = __fsub_rn(
-            s.z, __fadd_rn(__fmul_rn(px[i], s.x), __fmul_rn(py[i], s.y)));
-        if (d < best[i]) {
-          best[i] = d;
-          arg[i] = j;
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < K; ++i)
-      if (32 * i + lane < rem) out[base + 32 * i + lane] = arg[i];
-  }
-}
-
 __global__ void empty_kernel() {}
-
-// The kernel's loads, staging and stores, with no site visited.
-template <int K>
-__global__ void loads_kernel(const float* __restrict__ lat,
-                             const float* __restrict__ lon,
-                             const float4* __restrict__ packed,
-                             int32_t* __restrict__ out, const int n,
-                             const int e) {
-  extern __shared__ float4 site[];
-  const int lane = threadIdx.x & 31;
-  const int chunks = (n - 1) / (32 * K) + 1;
-  const int w = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
-  float la[K], lo[K];
-  if (w < chunks) load_chunk<K, 1>(lat, lon, n, w, lane, la, lo);
-  for (int j = threadIdx.x; j <= e; j += blockDim.x) site[j] = packed[j];
-  __syncthreads();
-  if (w >= chunks) return;
-  const float4 head = site[e];
-  const int base = w * (32 * K);
-#pragma unroll
-  for (int i = 0; i < K; ++i)
-    if (32 * i + lane < n - base)
-      out[base + 32 * i + lane] = la[i] - head.x > lo[i] - head.y;
-}
-
-template <int K>
-int launch_loads(const float* lat, const float* lon, const float4* packed,
-                 int32_t* out, int n, int e, int threads, cudaStream_t stream) {
-  const int warps = threads / 32;
-  const int chunks = (n - 1) / (32 * K) + 1;
-  const int blocks = (chunks + warps - 1) / warps;
-  loads_kernel<K><<<blocks, threads, (e + 1) * sizeof(float4), stream>>>(
-      lat, lon, packed, out, n, e);
-  return (int)cudaGetLastError();
-}
-
-template <int K>
-int launch_doubled(const float* lat, const float* lon, const float4* packed,
-                   int32_t* out, int n, int e, int threads,
-                   cudaStream_t stream) {
-  const int warps = threads / 32;
-  const int chunks = (n - 1) / (32 * K) + 1;
-  const int blocks = (chunks + warps - 1) / warps;
-  doubled_kernel<K><<<blocks, threads, (e + 1) * sizeof(float4), stream>>>(
-      lat, lon, packed, out, n, e);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
-// variant 0: the kernel without pruning (G lanes a point); 1: with pruning;
-// 2: doubled sites; 3: the empty kernel; 4: loads, staging and stores only.
-extern "C" int probe_launch(int variant, int k, int g, int threads,
-                            const void* lat, const void* lon,
-                            const void* packed, void* out, int n, int e,
-                            void* stream) {
-  const float* la = (const float*)lat;
-  const float* lo = (const float*)lon;
-  const float4* pk = (const float4*)packed;
-  int32_t* o = (int32_t*)out;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (variant == 3) {
-    empty_kernel<<<1, threads, 0, st>>>();
-    return (int)cudaGetLastError();
-  }
-#define PROBE_K(KK)                                                          \
-  if (k == KK) {                                                             \
-    if (variant == 0 && g == 1) return launch<KK, 1, false>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 0 && g == 2) return launch<KK, 2, false>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 0 && g == 4) return launch<KK, 4, false>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 0 && g == 8) return launch<KK, 8, false>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 1) return launch<KK, 1, true>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 2) return launch_doubled<KK>(la, lo, pk, o, n, e, threads, st); \
-    if (variant == 4) return launch_loads<KK>(la, lo, pk, o, n, e, threads, st); \
-  }
-  PROBE_K(1)
-  PROBE_K(2)
-  PROBE_K(4)
-#undef PROBE_K
-  return -1;
+extern "C" int empty_launch(void* stream) {
+  empty_kernel<<<1, 128, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
 }

@@ -3,18 +3,18 @@
 
     python3 tools/voronoi_probes/run.py [--parent PATH/TO/voronoi_assign.cu]
 
-Builds ``probe.cu`` (the kernel of ``src/repro_torch/csrc/voronoi_assign.cu``
-at compile-time variants) and, with ``--parent``, another source with the
-previous C interface (lat, lon, centroid, sites, snorm, out, n, e, stream).
-Times each variant's device time a launch (torch.profiler, by kernel name)
-at the insert's two shapes: the slice grid of one round (400 shards x 16 x
-16 cell centres = 102,400 points) and the placement midpoints (400 points),
-both against the 80 sites of the D400 deployment. Every variant is held
-bitwise to the plain version on both shapes and on a stress set (1000 sites,
-duplicates, NaN, points on the centroid). Also counts, on the host, the
-(warp, site) pairs the pruning visits, and times the wrapper's host steps.
-Prints one JSON line a reading and writes them all to
-chiprun_out/voronoi_probes.json.
+Times the kernel of ``src/repro_torch/csrc/voronoi_assign.cu`` (device time
+a launch, torch.profiler, by kernel name) at the insert's two shapes: the
+slice grid of one round (400 shards x 16 x 16 = 102,400 cell centres) and
+the placement midpoints (400 points), both against the 80 sites of the D400
+deployment, with its cell grid at several sides and with no grid (every
+point visits every site); beside it an empty kernel (``probe.cu``, the
+launch floor) and, with ``--parent``, another source with the previous C
+interface (lat, lon, centroid, sites, snorm, out, n, e, stream). Every
+variant is held bitwise to the plain version on both shapes and on a stress
+set (1000 sites, a duplicate, NaN, points on the centroid). Also counts the
+sites a point visits, and times the wrapper's host steps. Prints one JSON
+line a reading and writes them all to chiprun_out/voronoi_probes.json.
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.voronoi_assign import ops  # noqa: E402
 
 HERE = Path(__file__).resolve().parent
-SLACK = 2.0 ** -12
 
 
 def compile_lib(src: Path, name: str) -> ctypes.CDLL:
@@ -87,31 +86,6 @@ def inputs(dev):
     }
 
 
-def visited_share(lat, lon, sites, k: int) -> float:
-    """Share of (warp, site) pairs the pruned kernel visits, on the host in
-    float64 (the kernel's test in float32 rounds differently by ~1e-7
-    relative: a count, not a check)."""
-    c, s, sn = (x.double().cpu().numpy() for x in voronoi.centred_sites(sites))
-    px = lat.double().cpu().numpy() - c[0]
-    py = lon.double().cpu().numpy() - c[1]
-    n, chunk = px.shape[0], 32 * k
-    pad = (-n) % chunk
-    px = np.concatenate([px, np.full(pad, px[-1])]).reshape(-1, chunk)
-    py = np.concatenate([py, np.full(pad, py[-1])]).reshape(-1, chunk)
-    x0, x1, y0, y1 = px.min(1), px.max(1), py.min(1), py.max(1)
-    mx = np.maximum(abs(x0), abs(x1))[:, None]
-    my = np.maximum(abs(y0), abs(y1))[:, None]
-    sx, sy = s[:, 0][None], s[:, 1][None]
-    m2 = 2 * (SLACK * (sn.max() + 2 * abs(s).max() * (mx + my)) + 2.0 ** -100)
-    bx, by = (0.5 * (x0 + x1))[:, None], (0.5 * (y0 + y1))[:, None]
-    c = np.argmin(sn[None] - 2 * (bx * sx + by * sy), axis=1)
-    a_, b_ = sx - sx[0, c][:, None], sy - sy[0, c][:, None]
-    g = (sn[None] - sn[c][:, None]) - 2 * (np.maximum(x0[:, None] * a_, x1[:, None] * a_)
-                                           + np.maximum(y0[:, None] * b_, y1[:, None] * b_))
-    keep = ~(g > m2)
-    return float(keep.mean())
-
-
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--parent", type=Path, default=None,
@@ -128,11 +102,13 @@ def main() -> int:
         readings.append(kw)
 
     emit(nvidia_smi=smi, torch=torch.__version__, cuda=torch.version.cuda)
-    probe = compile_lib(HERE / "probe.cu", "voronoi_probe")
-    fn = probe.probe_launch
-    fn.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    empty = compile_lib(HERE / "probe.cu", "voronoi_probe").empty_launch
+    empty.argtypes = [ctypes.c_void_p]
+    empty.restype = ctypes.c_int
+    build.build_all(("voronoi_assign",))
+    print(json.dumps({"built": "voronoi_assign",
+                      "ptxas": build.ptxas_report("voronoi_assign")}), flush=True)
+    kernel = ops._launch()
     parent = None
     if args.parent is not None:
         parent = compile_lib(args.parent, "voronoi_parent").voronoi_assign_launch
@@ -140,23 +116,27 @@ def main() -> int:
         parent.restype = ctypes.c_int
 
     data = inputs(dev)
-    packed = {name: ops.packed_sites(s) for name, (_, _, s) in data.items()}
-    doubled = {name: p.clone() for name, p in packed.items()}
-    for p in doubled.values():
-        p[:-1, :2] *= 2.0
     plain = {name: voronoi.voronoi_assign(torch.stack([la, lo], -1), s)
              for name, (la, lo, s) in data.items()}
+    sides = (None, 16, 32, 96, 128)
+    grids = {(name, side): ops._pack(s, side) for name, (_, _, s) in data.items()
+             for side in sides}
+    for name, (_, _, s) in data.items():      # no grid: every point, every site
+        packed, _ = ops._pack(s)
+        packed = packed[:s.shape[0] + 2].clone()
+        packed.view(torch.int32)[s.shape[0], 2:] = 0
+        grids[(name, 0)] = (packed, torch.zeros(1, dtype=torch.int32, device=dev))
 
-    def runner(variant, k, g, threads, name):
+    def runner(side, name):
         la, lo, s = data[name]
-        pk = doubled[name] if variant == 2 else packed[name]
+        packed, cells = grids[(name, side)]
         out = torch.empty(la.shape, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def go():
-            build.check("probe", fn(variant, k, g, threads, la.data_ptr(), lo.data_ptr(),
-                                    pk.data_ptr(), out.data_ptr(), la.numel(),
-                                    s.shape[0], stream))
+            build.check("voronoi_assign", kernel(
+                la.data_ptr(), lo.data_ptr(), packed.data_ptr(), cells.data_ptr(),
+                out.data_ptr(), la.numel(), s.shape[0], stream))
             return out
         return go
 
@@ -174,18 +154,16 @@ def main() -> int:
             return out
         return go
 
-    configs = [("parent", None, 1, 256)] if parent is not None else []
-    configs += [("empty", None, 1, 128)]
-    configs += [("loads", k, 1, 128) for k in (1, 2)]
-    configs += [("full", 1, g, 128) for g in (1, 2, 4, 8)]
-    configs += [("full", k, 1, 128) for k in (2, 4)]
-    configs += [("pruned", k, 1, t) for k in (1, 2, 4) for t in (128,)]
-    configs += [("pruned", 2, 1, t) for t in (64, 256)]
-    configs += [("doubled", 4, 1, 128)]
-    code = {"full": 0, "pruned": 1, "doubled": 2, "empty": 3, "loads": 4}
-    match = {"parent": "voronoi_assign_kernel", "empty": "empty_kernel",
-             "loads": "loads_kernel", "full": "voronoi_assign_kernel",
-             "pruned": "voronoi_assign_kernel", "doubled": "doubled_kernel"}
+    def empty_runner(name):
+        stream = torch.cuda.current_stream().cuda_stream
+        return lambda: build.check("empty", empty(stream))
+
+    configs = ([("parent", None)] if parent is not None else []) + [("empty", None)]
+    configs += [("kernel", side) for side in sides + (0,)]
+
+    def make(variant, side, name):
+        return {"parent": lambda: parent_runner(name), "empty": lambda: empty_runner(name),
+                "kernel": lambda: runner(side, name)}[variant]()
 
     def timed(go, what):
         for attempt in range(3):      # the profiler now and then records nothing
@@ -196,33 +174,45 @@ def main() -> int:
                     raise
     for _ in range(2):               # two passes: the spread of a reading
         for name in ("grid", "placement"):
-            for variant, k, g, threads in configs:
-                go = (parent_runner(name) if variant == "parent"
-                      else runner(code[variant], k or 1, g, threads, name))
-                row = {"shape": name, "variant": variant, "k": k, "g": g,
-                       "threads": threads, "device_us": timed(go, match[variant]),
+            for variant, side in configs:
+                go = make(variant, side, name)
+                row = {"shape": name, "variant": variant,
+                       "side": ops.grid_side(80) if side is None else side,
+                       "device_us": timed(go, "empty_kernel" if variant == "empty"
+                                          else "voronoi_assign_kernel"),
                        "event_us": cuda_ms(torch, go, 1000) * 1e3}
-                if variant not in ("empty", "loads"):
+                if variant != "empty":
                     row["bitwise"] = bool(torch.equal(go(), plain[name]))
                 emit(**row)
-    for variant, k, g, threads in configs:
-        if variant in ("empty", "doubled", "loads"):
-            continue
-        go = (parent_runner("stress") if variant == "parent"
-              else runner(code[variant], k, g, threads, "stress"))
-        got = go()
-        emit(stress=variant, k=k, g=g, threads=threads,
-             mismatches=int((got != plain["stress"]).sum()))
+    for variant, side in configs:
+        if variant != "empty":
+            got = make(variant, side, "stress")()
+            emit(stress=variant, side=side,
+                 mismatches=int((got != plain["stress"]).sum()))
     for name in ("grid", "placement"):
-        for k in (1, 2, 4):
-            emit(visited_share=name, k=k, share=visited_share(*data[name], k))
+        la, lo, s = data[name]
+        for side in sides:
+            packed, cells = grids[(name, side)]
+            e = s.shape[0]
+            t = lambda x, c, o, i: ((x - packed[e, c]) - packed[e + 1, o]) * packed[e + 1, i]
+            tx, ty = t(la, 0, 0, 2), t(lo, 1, 1, 3)
+            n_side = packed.view(torch.int32)[e, 2].item()
+            inside = (tx >= 0) & (tx < n_side) & (ty >= 0) & (ty < n_side)
+            cell = (tx.nan_to_num(0.0).clamp(0, n_side - 1).long() * n_side
+                    + ty.nan_to_num(0.0).clamp(0, n_side - 1).long())
+            visits = torch.where(inside, (cells[cell + 1] - cells[cell]).float(),
+                                 torch.tensor(float(e), device=dev))
+            warp_max = visits[:visits.numel() // 32 * 32].reshape(-1, 32).max(1).values
+            emit(visits=name, side=n_side, mean=float(visits.mean()),
+                 warp_max_mean=float(warp_max.mean()) if warp_max.numel() else None,
+                 inside=float(inside.float().mean()), lists_rows=int(cells[-1]))
 
     # The wrapper's host steps (perf_counter over 2000 calls each).
     la, lo, s = data["grid"]
     steps = {
         "packed_sites (cached)": lambda: ops.packed_sites(s),
         "centred_sites": lambda: voronoi.centred_sites(s),
-        "flat_f32 x2": lambda: (ops._flat_f32(la), ops._flat_f32(lo)),
+        "_f32 x2": lambda: (ops._f32(la), ops._f32(lo)),
         "torch.empty": lambda: torch.empty(la.shape, dtype=torch.int32, device=dev),
         "current_stream": lambda: torch.cuda.current_stream(dev).cuda_stream,
         "current_stream()": lambda: torch.cuda.current_stream().cuda_stream,
@@ -230,6 +220,7 @@ def main() -> int:
         "is_contiguous x2": lambda: (la.is_contiguous(), lo.is_contiguous()),
         "shape checks": lambda: (la.shape != lo.shape, s.dim() != 2, s.shape[1] != 2),
         "empty(n)": lambda: torch.empty(la.numel(), dtype=torch.int32, device=dev),
+        "launch only": runner(None, "grid"),
         "data_ptr x4": lambda: (la.data_ptr(), lo.data_ptr(), s.data_ptr(), s.data_ptr()),
         "voronoi_assign_cuda": lambda: ops.voronoi_assign_cuda(la, lo, s),
     }
