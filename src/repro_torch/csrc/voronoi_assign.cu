@@ -76,6 +76,10 @@
 namespace {
 
 constexpr int kThreads = 128;
+#ifndef VORONOI_AHEAD
+#define VORONOI_AHEAD 4
+#endif
+constexpr int kAhead = VORONOI_AHEAD;  // listed sites loaded at once
 
 // One site against a point. NANS: torch.argmin's rule for inputs that may
 // give NaN (a NaN distance wins, the first one stays); otherwise the plain
@@ -114,8 +118,18 @@ __global__ void __launch_bounds__(kThreads)
     int arg = 0;
     if (tx >= 0.0f && tx < (float)across && ty >= 0.0f && ty < (float)down) {
       const int cell = (int)tx * down + (int)ty;
-      const int end = __ldg(cells + cell + 1);
-      for (int k = __ldg(cells + cell); k < end; ++k) {
+      const int start = __ldg(cells + cell), end = __ldg(cells + cell + 1);
+      // The first kAhead listed sites are loaded together, so a point pays
+      // one memory latency for them, not one a site.
+      float4 ahead[kAhead];
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i)
+        if (start + i < end) ahead[i] = __ldg(list + start + i);
+#pragma unroll
+      for (int i = 0; i < kAhead; ++i)
+        if (start + i < end)
+          visit<false>(ahead[i], __float_as_int(ahead[i].w), px, py, best, arg);
+      for (int k = start + kAhead; k < end; ++k) {
         const float4 s = __ldg(list + k);
         visit<false>(s, __float_as_int(s.w), px, py, best, arg);
       }

@@ -43,10 +43,11 @@ from repro_torch.kernels.voronoi_assign import ops  # noqa: E402
 HERE = Path(__file__).resolve().parent
 
 
-def compile_lib(src: Path, name: str) -> ctypes.CDLL:
+def compile_lib(src: Path, name: str, defines=()) -> ctypes.CDLL:
     out = ROOT / "build" / "probes" / f"lib{name}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(out), str(src)]
+    cmd = [build.nvcc_path(), *build.NVCC_FLAGS, *(f"-D{d}" for d in defines),
+           "-o", str(out), str(src)]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode:
         raise SystemExit(f"nvcc {name}: {res.stdout}{res.stderr}")
@@ -109,6 +110,12 @@ def main() -> int:
     print(json.dumps({"built": "voronoi_assign",
                       "ptxas": build.ptxas_report("voronoi_assign")}), flush=True)
     kernel = ops._launch()
+    aheads = {}
+    for a in (1, 2, 8):     # listed sites loaded at once (the source's is 4)
+        fn = compile_lib(build.CSRC / "voronoi_assign.cu", f"voronoi_ahead{a}",
+                         (f"VORONOI_AHEAD={a}",)).voronoi_assign_launch
+        fn.argtypes, fn.restype = kernel.argtypes, kernel.restype
+        aheads[a] = fn
     parent = None
     if args.parent is not None:
         parent = compile_lib(args.parent, "voronoi_parent").voronoi_assign_launch
@@ -127,14 +134,15 @@ def main() -> int:
         packed.view(torch.int32)[s.shape[0], 2:] = 0
         grids[(name, 0)] = (packed, torch.zeros(1, dtype=torch.int32, device=dev))
 
-    def runner(side, name):
+    def runner(side, name, fn=None):
+        fn = fn or kernel
         la, lo, s = data[name]
         packed, cells = grids[(name, side)]
         out = torch.empty(la.shape, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def go():
-            build.check("voronoi_assign", kernel(
+            build.check("voronoi_assign", fn(
                 la.data_ptr(), lo.data_ptr(), packed.data_ptr(), cells.data_ptr(),
                 out.data_ptr(), la.numel(), s.shape[0], stream))
             return out
@@ -160,8 +168,11 @@ def main() -> int:
 
     configs = ([("parent", None)] if parent is not None else []) + [("empty", None)]
     configs += [("kernel", side) for side in sides + (0,)]
+    configs += [(f"ahead{a}", side) for a in aheads for side in (None, 96)]
 
     def make(variant, side, name):
+        if variant.startswith("ahead"):
+            return runner(side, name, aheads[int(variant[5:])])
         return {"parent": lambda: parent_runner(name), "empty": lambda: empty_runner(name),
                 "kernel": lambda: runner(side, name)}[variant]()
 
