@@ -21,7 +21,9 @@ Phases, one line each:
      the ring with every count above capacity (count, min, max bitwise with
      NaN equal, sum to rtol 1e-5, a second call bitwise equal); its device
      time at each batch and channel count beside the bytes it must move;
-     then per-kernel timings beside their bounds: ``ms`` is the call time,
+     then per-kernel timings beside their bounds (voronoi_assign at the
+     slice grid's and the placement's shapes, with the sites it visits a
+     point and the instructions that costs): ``ms`` is the call time,
      wrapper included (CUDA events around back-to-back calls, so a wrapper
      slower than its kernel shows the host), ``device_ms`` the kernel's own
      device time a launch (torch.profiler, summed by kernel name);
@@ -76,6 +78,10 @@ FLASH_F32_TOL = 2e-5           # as the JAX package's kernel tests
 # 24 layers: the two round activations at different matmul shapes, so
 # they agree to a fraction of the logits' unit spread, not bitwise.
 PREFILL_DECODE_TOL = 0.5
+# A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
+# `visit`, read in the kernel's SASS): FMUL, FMUL, FADD, FMUL by 2, FADD,
+# then FSETP, FSEL, SEL.
+VISIT_INSTRUCTIONS = 8
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -124,20 +130,21 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
     """Device time a call of ``fn`` (torch.profiler): the time of the
     device kernels whose name holds ``match`` (of every device activity
     when None) over ``iters`` calls, divided by ``iters``. Exits non-zero
-    when no such kernel ran."""
+    when no such kernel ran in three profiles."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(t for t, _, key in _device_rows(torch, prof)
-             if match is None or match in key)
-    if us <= 0:
-        raise SystemExit(f"device_ms: no device time for kernel {match!r}")
-    return us / 1e3 / iters
+    for _ in range(3):      # now and then a profile records no device activity
+        with tprofile(activities=[ProfilerActivity.CPU,
+                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(t for t, _, key in _device_rows(torch, prof)
+                 if match is None or match in key)
+        if us > 0:
+            return us / 1e3 / iters
+    raise SystemExit(f"device_ms: no device time for kernel {match!r}")
 
 
 def profile(torch, fn, top: int = 12) -> dict:
@@ -794,6 +801,10 @@ def main(argv=None) -> int:
     h_err = int((hash64_ops.xxh64_mod_cuda(None, buckets, 80)
                  != hashing.xxh64_mod_plain(None, buckets, 80)).sum())
 
+    def bound(bytes_, ops=0.0):
+        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+
     # voronoi at the insert's spatial-slice shape (B x 16 x 16 cell centres).
     i0 = torch.floor(torch.from_numpy(metas.lat0[-1]).to(dev) / cell)
     j0 = torch.floor(torch.from_numpy(metas.lon0[-1]).to(dev) / cell)
@@ -808,7 +819,8 @@ def main(argv=None) -> int:
     v_lib = cuda_ms(torch, lambda: torch.cdist(vpc, sc).argmin(1), 50)
     v_dev = device_ms(torch, lambda: vor_ops.voronoi_assign_cuda(vlat, vlon, sites),
                       50, "voronoi_assign_kernel")
-    # the wrapper's own device work besides the kernel (centred_sites' ops)
+    # every device activity of a call: the kernel alone, once the sites are
+    # packed
     v_wrap_dev = device_ms(torch, lambda: vor_ops.voronoi_assign_cuda(
         vlat, vlon, sites), 50)
     v_lib_dev = device_ms(torch, lambda: torch.cdist(vpc, sc).argmin(1), 50)
@@ -817,10 +829,34 @@ def main(argv=None) -> int:
                  != voronoi.voronoi_assign(vpts, sites)).sum())
     n_pts, n_e = vpts.shape[0], sites.shape[0]
     v_ops = n_pts * (6 * n_e + 2)
-
-    def bound(bytes_, ops=0.0):
-        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
-        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+    # voronoi at the insert's placement shape (the B shard midpoints).
+    mlat = 0.5 * (torch.from_numpy(metas.lat0[-1]) + torch.from_numpy(metas.lat1[-1])).to(dev)
+    mlon = 0.5 * (torch.from_numpy(metas.lon0[-1]) + torch.from_numpy(metas.lon1[-1])).to(dev)
+    mpts = torch.stack([mlat, mlon], -1)
+    mpc = mpts - c
+    place = {
+        "points": int(mpts.shape[0]),
+        "ms": cuda_ms(torch, lambda: vor_ops.voronoi_assign_cuda(mlat, mlon, sites), 200),
+        "device_ms": device_ms(torch, lambda: vor_ops.voronoi_assign_cuda(mlat, mlon, sites),
+                               50, "voronoi_assign_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: voronoi.voronoi_assign(mpts, sites), 50),
+        "library_ms": cuda_ms(torch, lambda: torch.cdist(mpc, sc).argmin(1), 50),
+        "library_device_ms": device_ms(torch, lambda: torch.cdist(mpc, sc).argmin(1), 50),
+        "err": int((vor_ops.voronoi_assign_cuda(mlat, mlon, sites)
+                    != voronoi.voronoi_assign(mpts, sites)).sum())}
+    place["bound_ms"], place["bound_by"] = bound(
+        mpts.shape[0] * 12, mpts.shape[0] * (6 * n_e + 2))
+    # The kernel's work per (point, site) of the plain version's E sites a
+    # point: a visit is VISIT_INSTRUCTIONS (5 float operations, a compare
+    # and two selects, csrc/voronoi_assign.cu `visit`), and a point visits
+    # only its cell's listed sites.
+    pairs = float(vor_ops.listed_sites(vlat, vlon, sites).float().mean())
+    place_pairs = float(vor_ops.listed_sites(mlat, mlon, sites).float().mean())
+    vor_work = {"instructions_per_visit": VISIT_INSTRUCTIONS,
+                "sites_visited_per_point": pairs,
+                "instructions_per_point_site": VISIT_INSTRUCTIONS * pairs / n_e,
+                "placement_sites_visited_per_point": place_pairs,
+                "bound_operations_per_point_site": (6 * n_e + 2) / n_e}
 
     kernels = []
     for name, route, src, replaces, ms, dev_ms, plain_ms, (b_ms, b_by), lib_ms, \
@@ -843,6 +879,8 @@ def main(argv=None) -> int:
                         "library_ms": lib_ms, "device_ms": dev_ms,
                         "library_device_ms": lib_dev})
     kernels[-1]["wrapper_device_ms"] = v_wrap_dev
+    kernels[-1].update({f"placement_{k}": v for k, v in place.items() if k != "err"})
+    kernels[-1].update(vor_work)
     kernels[0]["bound_ms_old"] = scan["old_bytes"] / HBM_BYTES_PER_S * 1e3
     phase("kernel_timings", st_scan_k1_ms=scan["k1_ms"],
           voronoi_centred_sites_ms=centred_ms,
@@ -852,10 +890,11 @@ def main(argv=None) -> int:
           st_scan_checks=scan["checks"], st_scan_batches=scan["batches"],
           st_scan_bound_ms={"nine_words_every_live_slot": kernels[0]["bound_ms_old"],
                             "hot_words_plus_matched_channels": kernels[0]["bound_ms"]},
-          hash64_keys=int(buckets.numel()), voronoi_points=int(n_pts))
-    if h_err or v_err:
+          hash64_keys=int(buckets.numel()), voronoi_points=int(n_pts),
+          voronoi_placement=place, voronoi_work=vor_work)
+    if h_err or v_err or place["err"]:
         raise SystemExit(f"kernel disagrees at timing shapes: hash64 {h_err}, "
-                         f"voronoi {v_err}")
+                         f"voronoi {v_err}, voronoi placement {place['err']}")
     del db, st, scan    # free the store before serving
     torch.cuda.empty_cache()
 

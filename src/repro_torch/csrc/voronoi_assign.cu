@@ -8,24 +8,25 @@
 // tensor core nothing to do, and TF32 or bf16 would break the bitwise
 // agreement below, so here the distances are scalar float32 work.
 //
-// What bounds it: instructions, not bytes. A (point, site) pair costs 5
-// float operations (two products, their sum, the doubling, the subtraction
-// from the squared norm) and a compare with two selects; a point moves 12
-// bytes (two coordinates in, one index out). Visiting all 80 sites for each
-// of the main path's 102,400 slice-grid cell centres is 8.2M pairs, some
-// 3 µs of issue on 132 SMs; most of those pairs cannot win.
+// What bounds it. Visiting all 80 sites for each of the main path's
+// 102,400 slice-grid cell centres is 8.2M (point, site) pairs of 5 float
+// operations and a compare with two selects each: some 3 µs of issue on 132
+// SMs, while a point moves only 12 bytes (two coordinates in, one index
+// out). Most of those pairs cannot win, so the design visits only the sites
+// that can; what is left is latency: the chain of dependent memory reads a
+// point waits on (its coordinates, its cell, the cell's sites).
 //
-// Design: visit only the sites that can win. Once per site set the wrapper
-// (`ops.packed_sites`) lays a grid of cells over the sites' box, widened by
-// its own extent on each side, and lists for each cell the sites that may
-// be nearest to some point of the cell (below). A thread takes one point,
-// finds its cell with two products, and visits that cell's sites, about
-// two and a half on the D400 slice grid against 80. The lists hold the
-// sites themselves (a float4 {sx, sy, snorm, index}), so a visit is one
-// 16-byte load, from L1 after the first touch (the lists of 80 sites are
-// some 50 KB). A point outside the grid, or with a NaN or huge coordinate,
-// visits every site. There is no shared-memory staging and no block
-// barrier: the grid of blocks is at most one wave, walked point by point.
+// Design. Once per site set the wrapper (`ops.packed_sites`) lays a grid of
+// cells over the sites' box, widened by its own extent on each side, and
+// lists for each cell the sites that may be nearest to some point of the
+// cell (below). A thread takes one point, finds its cell with two products,
+// and visits that cell's sites: 1.7 a point on the D400 slice grid, against
+// 80. The lists hold the sites themselves (a float4 {sx, sy, snorm, index};
+// some 150 KB for 80 sites), and a cell's first kAhead sites are loaded
+// together, so a point waits on three reads in a row. A point outside the
+// grid, or with a NaN or huge coordinate, visits every site. There is no
+// shared-memory staging and no block barrier; the grid of blocks is at most
+// one wave, walked point by point.
 //
 // Exactness: a visited pair evaluates `snorm - 2 * (px*sx + py*sy)` with
 // round-to-nearest intrinsics and no fused multiply-add, in the same order
@@ -35,7 +36,7 @@
 // index.
 //
 // Why a cell's list never misses the argmin (the wrapper builds the lists
-// in float64 and states the same argument). Write u = 2^-24 and, for a
+// in float64, `ops._cell_lists`). Write u = 2^-24 and, for a
 // point p and site e, d*(p, e) = sn_e - 2 (px sx_e + py sy_e): the exact
 // value of the pair's expression on the same float inputs. The float
 // evaluation d_f is within 4u mag_e(p) + 2^-146 of d*, where mag_e(p) =
@@ -76,10 +77,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-#ifndef VORONOI_AHEAD
-#define VORONOI_AHEAD 4
-#endif
-constexpr int kAhead = VORONOI_AHEAD;  // listed sites loaded at once
+constexpr int kAhead = 4;  // listed sites loaded at once
 
 // One site against a point. NANS: torch.argmin's rule for inputs that may
 // give NaN (a NaN distance wins, the first one stays); otherwise the plain

@@ -50,10 +50,10 @@ def _launch():
 
 
 def grid_side(e: int) -> int:
-    """Cells along each axis of the grid for ``e`` sites: about 36 cells a
-    site, which leaves some 2.5 listed sites a cell centre on the D400
-    deployment's 80 sites."""
-    return min(_MAX_SIDE, max(4, math.ceil(6 * math.sqrt(e))))
+    """Cells along each axis of the grid for ``e`` sites: about 100 cells a
+    site, which lists some 1.6 sites a point of the D400 deployment's slice
+    grid (80 sites)."""
+    return min(_MAX_SIDE, max(4, math.ceil(10 * math.sqrt(e))))
 
 
 def _cell_lists(s: torch.Tensor, sn: torch.Tensor, corner: torch.Tensor,
@@ -139,6 +139,25 @@ def packed_sites(sites: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     _PACKED[key] = (weakref.ref(sites, functools.partial(_forget, key)),
                     sites._version, packed)
     return packed
+
+
+def listed_sites(lat: torch.Tensor, lon: torch.Tensor,
+                 sites: torch.Tensor) -> torch.Tensor:
+    """The sites the kernel visits for each point, int32 shaped like
+    ``lat``: its cell's list length by the kernel's float32 cell
+    arithmetic, or E for a point outside the grid. A count for reports and
+    tests; it waits on the device."""
+    packed, cells = packed_sites(sites)
+    e = sites.shape[0]
+    across, down = packed.view(torch.int32)[e, 2:].tolist()
+    tx = ((lat.float() - packed[e, 0]) - packed[e + 1, 0]) * packed[e + 1, 2]
+    ty = ((lon.float() - packed[e, 1]) - packed[e + 1, 1]) * packed[e + 1, 3]
+    inside = (tx >= 0) & (tx < across) & (ty >= 0) & (ty < down)
+    cell = (tx.nan_to_num(0.0).clamp(0, max(across - 1, 0)).long() * down
+            + ty.nan_to_num(0.0).clamp(0, max(down - 1, 0)).long())
+    cell = torch.where(inside, cell, 0)
+    listed = cells[cell + inside.long()] - cells[cell]
+    return torch.where(inside, listed, e).to(torch.int32)
 
 
 def hash_spatial_kernel(lat: torch.Tensor, lon: torch.Tensor,

@@ -150,13 +150,10 @@ def test_cell_lists_are_short_on_the_d400_slice_grid():
     """The design's premise: the 80-site D400 deployment's slice grid visits
     a few sites a point, not 80."""
     sites = torch.from_numpy(make_sites(80, CITY, seed=3))
-    packed, cells = vops.packed_sites(sites)
     lat, lon = _slice_grid()
-    e = 80
-    tx = (lat - packed[e, 0] - packed[e + 1, 0]) * packed[e + 1, 2]
-    ty = (lon - packed[e, 1] - packed[e + 1, 1]) * packed[e + 1, 3]
-    side = vops.grid_side(e)
-    assert bool(((tx >= 0) & (tx < side) & (ty >= 0) & (ty < side)).all())
-    cell = tx.long() * side + ty.long()
-    visits = (cells[cell + 1] - cells[cell]).float()
-    assert visits.mean() < 4 and int(visits.max()) <= 12
+    visits = vops.listed_sites(lat.reshape(-1, 16), lon.reshape(-1, 16), sites)
+    assert visits.shape == (lat.numel() // 16, 16) and visits.dtype == torch.int32
+    assert visits.float().mean() < 3 and int(visits.max()) <= 12
+    nan = vops.listed_sites(torch.tensor([float("nan"), 1e30]),
+                            torch.tensor([77.6, 77.6]), sites)
+    assert nan.tolist() == [80, 80]

@@ -110,12 +110,6 @@ def main() -> int:
     print(json.dumps({"built": "voronoi_assign",
                       "ptxas": build.ptxas_report("voronoi_assign")}), flush=True)
     kernel = ops._launch()
-    aheads = {}
-    for a in (1, 2, 8):     # listed sites loaded at once (the source's is 4)
-        fn = compile_lib(build.CSRC / "voronoi_assign.cu", f"voronoi_ahead{a}",
-                         (f"VORONOI_AHEAD={a}",)).voronoi_assign_launch
-        fn.argtypes, fn.restype = kernel.argtypes, kernel.restype
-        aheads[a] = fn
     parent = None
     if args.parent is not None:
         parent = compile_lib(args.parent, "voronoi_parent").voronoi_assign_launch
@@ -125,7 +119,7 @@ def main() -> int:
     data = inputs(dev)
     plain = {name: voronoi.voronoi_assign(torch.stack([la, lo], -1), s)
              for name, (la, lo, s) in data.items()}
-    sides = (None, 16, 32, 96, 128)
+    sides = (None, 16, 32, 54, 128)
     grids = {(name, side): ops._pack(s, side) for name, (_, _, s) in data.items()
              for side in sides}
     for name, (_, _, s) in data.items():      # no grid: every point, every site
@@ -134,15 +128,14 @@ def main() -> int:
         packed.view(torch.int32)[s.shape[0], 2:] = 0
         grids[(name, 0)] = (packed, torch.zeros(1, dtype=torch.int32, device=dev))
 
-    def runner(side, name, fn=None):
-        fn = fn or kernel
+    def runner(side, name):
         la, lo, s = data[name]
         packed, cells = grids[(name, side)]
         out = torch.empty(la.shape, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def go():
-            build.check("voronoi_assign", fn(
+            build.check("voronoi_assign", kernel(
                 la.data_ptr(), lo.data_ptr(), packed.data_ptr(), cells.data_ptr(),
                 out.data_ptr(), la.numel(), s.shape[0], stream))
             return out
@@ -168,11 +161,8 @@ def main() -> int:
 
     configs = ([("parent", None)] if parent is not None else []) + [("empty", None)]
     configs += [("kernel", side) for side in sides + (0,)]
-    configs += [(f"ahead{a}", side) for a in aheads for side in (None, 96)]
 
     def make(variant, side, name):
-        if variant.startswith("ahead"):
-            return runner(side, name, aheads[int(variant[5:])])
         return {"parent": lambda: parent_runner(name), "empty": lambda: empty_runner(name),
                 "kernel": lambda: runner(side, name)}[variant]()
 
