@@ -849,15 +849,13 @@ def main(argv=None) -> int:
     # The kernel's work per (point, site) of the plain version's E sites a
     # point: a visit is VISIT_INSTRUCTIONS (5 float operations, a compare
     # and two selects, csrc/voronoi_assign.cu `visit`), and a point visits
-    # only its cell's slots (a short list's repeats included).
-    listed, visits = (float(t.float().mean()) for t in vor_ops.cell_visits(vlat, vlon, sites))
-    p_listed, p_visits = (float(t.float().mean())
-                          for t in vor_ops.cell_visits(mlat, mlon, sites))
+    # only its cell's listed sites.
+    pairs = float(vor_ops.listed_sites(vlat, vlon, sites).float().mean())
+    place_pairs = float(vor_ops.listed_sites(mlat, mlon, sites).float().mean())
     vor_work = {"instructions_per_visit": VISIT_INSTRUCTIONS,
-                "sites_listed_per_point": listed, "visits_per_point": visits,
-                "instructions_per_point_site": VISIT_INSTRUCTIONS * visits / n_e,
-                "placement_sites_listed_per_point": p_listed,
-                "placement_visits_per_point": p_visits,
+                "sites_visited_per_point": pairs,
+                "instructions_per_point_site": VISIT_INSTRUCTIONS * pairs / n_e,
+                "placement_sites_visited_per_point": place_pairs,
                 "bound_operations_per_point_site": (6 * n_e + 2) / n_e}
 
     kernels = []

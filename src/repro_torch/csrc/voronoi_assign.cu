@@ -13,24 +13,20 @@
 // operations and a compare with two selects each: some 3 µs of issue on 132
 // SMs, while a point moves only 12 bytes (two coordinates in, one index
 // out). Most of those pairs cannot win, so the design visits only the sites
-// that can; what is left is latency: the dependent memory reads a point
-// waits on (its coordinates, then its cell's sites).
+// that can; what is left is latency: the chain of dependent memory reads a
+// point waits on (its coordinates, its cell, the cell's sites).
 //
 // Design. Once per site set the wrapper (`ops.packed_sites`) lays a grid of
 // cells over the sites' box, widened by its own extent on each side, and
 // lists for each cell the sites that may be nearest to some point of the
-// cell (below): 1.7 a point on the D400 slice grid, against 80. A thread
-// takes one point and finds its cell with two products. The cell's list
-// sits in a table of kSlots rows a cell, the sites themselves (a float4
-// {sx, sy, snorm, index}), so the thread loads all of them at once from an
-// address the cell gives: a point waits on two reads in a row, its
-// coordinates and its cell's row. A shorter list repeats its last site,
-// which changes nothing (a repeat never beats the first visit); a longer
-// one fills kSlots - 1 slots and marks the last with where the rest lies
-// (spill rows, visited in a loop). A point outside the grid, or with a NaN
-// or huge coordinate, visits every site. There is no shared-memory staging
-// and no block barrier; the grid of blocks is at most one wave, walked
-// point by point.
+// cell (below). A thread takes one point, finds its cell with two products,
+// and visits that cell's sites: 1.7 a point on the D400 slice grid, against
+// 80. The lists hold the sites themselves (a float4 {sx, sy, snorm, index};
+// some 150 KB for 80 sites), and a cell's first kAhead sites are loaded
+// together, so a point waits on three reads in a row. A point outside the
+// grid, or with a NaN or huge coordinate, visits every site. There is no
+// shared-memory staging and no block barrier; the grid of blocks is at most
+// one wave, walked point by point.
 //
 // Exactness: a visited pair evaluates `snorm - 2 * (px*sx + py*sy)` with
 // round-to-nearest intrinsics and no fused multiply-add, in the same order
@@ -69,11 +65,10 @@
 // Packed layout, float4 rows: e sites {sx, sy, snorm, index bits}; then
 // {cx, cy, cells across bits, cells down bits}; then {x0, y0, 1 / cell
 // width, 1 / cell height} (the grid's corner, in centred coordinates); then
-// kSlots rows a cell, cell ix * down + iy, listed sites in ascending index
-// order (a long list's last slot {first spill row, end, 0, -1}, bits);
-// then the spill rows.
+// the cells' lists, back to back. `cells` holds each cell's first row in
+// the lists and, last, their end.
 //
-// C entry: voronoi_assign_launch(lat, lon, packed, out, n, e, stream)
+// C entry: voronoi_assign_launch(lat, lon, packed, cells, out, n, e, stream)
 // launches on `stream` and returns cudaGetLastError().
 
 #include <cuda_runtime.h>
@@ -82,7 +77,7 @@
 namespace {
 
 constexpr int kThreads = 128;
-constexpr int kSlots = 4;  // a cell's slots in the table
+constexpr int kAhead = 4;  // listed sites loaded at once
 
 // One site against a point. NANS: torch.argmin's rule for inputs that may
 // give NaN (a NaN distance wins, the first one stays); otherwise the plain
@@ -104,13 +99,13 @@ __global__ void __launch_bounds__(kThreads)
     voronoi_assign_kernel(const float* __restrict__ lat,
                           const float* __restrict__ lon,
                           const float4* __restrict__ packed,
+                          const int* __restrict__ cells,
                           int32_t* __restrict__ out, const int n,
                           const int e) {
   const float4 head = __ldg(packed + e);
   const float4 grid = __ldg(packed + e + 1);
+  const float4* const list = packed + e + 2;
   const int across = __float_as_int(head.z), down = __float_as_int(head.w);
-  const float4* const table = packed + e + 2;
-  const float4* const spill = table + kSlots * across * down;
   for (int p = blockIdx.x * blockDim.x + threadIdx.x; p < n;
        p += gridDim.x * blockDim.x) {
     const float px = __fsub_rn(__ldg(lat + p), head.x);
@@ -120,24 +115,21 @@ __global__ void __launch_bounds__(kThreads)
     float best = __int_as_float(0x7f800000);  // +inf
     int arg = 0;
     if (tx >= 0.0f && tx < (float)across && ty >= 0.0f && ty < (float)down) {
-      // The cell's slots are at a place the cell index gives, so they load
-      // together, right after the point.
-      const float4* const slot = table + kSlots * ((int)tx * down + (int)ty);
-      float4 s[kSlots];
+      const int cell = (int)tx * down + (int)ty;
+      const int start = __ldg(cells + cell), end = __ldg(cells + cell + 1);
+      // The first kAhead listed sites are loaded together, so a point pays
+      // one memory latency for them, not one a site.
+      float4 ahead[kAhead];
 #pragma unroll
-      for (int i = 0; i < kSlots; ++i) s[i] = __ldg(slot + i);
+      for (int i = 0; i < kAhead; ++i)
+        if (start + i < end) ahead[i] = __ldg(list + start + i);
 #pragma unroll
-      for (int i = 0; i + 1 < kSlots; ++i)
-        visit<false>(s[i], __float_as_int(s[i].w), px, py, best, arg);
-      const int last = __float_as_int(s[kSlots - 1].w);
-      if (last >= 0) {
-        visit<false>(s[kSlots - 1], last, px, py, best, arg);
-      } else {  // a long list: the rest of it is in the spill rows
-        const int end = __float_as_int(s[kSlots - 1].y);
-        for (int k = __float_as_int(s[kSlots - 1].x); k < end; ++k) {
-          const float4 t = __ldg(spill + k);
-          visit<false>(t, __float_as_int(t.w), px, py, best, arg);
-        }
+      for (int i = 0; i < kAhead; ++i)
+        if (start + i < end)
+          visit<false>(ahead[i], __float_as_int(ahead[i].w), px, py, best, arg);
+      for (int k = start + kAhead; k < end; ++k) {
+        const float4 s = __ldg(list + k);
+        visit<false>(s, __float_as_int(s.w), px, py, best, arg);
       }
     } else {
       for (int j = 0; j < e; ++j)
@@ -150,8 +142,8 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 extern "C" int voronoi_assign_launch(const void* lat, const void* lon,
-                                     const void* packed, void* out, int n,
-                                     int e, void* stream) {
+                                     const void* packed, const void* cells,
+                                     void* out, int n, int e, void* stream) {
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -162,6 +154,6 @@ extern "C" int voronoi_assign_launch(const void* lat, const void* lon,
   if (blocks > wave) blocks = wave;
   voronoi_assign_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       (const float*)lat, (const float*)lon, (const float4*)packed,
-      (int32_t*)out, n, e);
+      (const int*)cells, (int32_t*)out, n, e);
   return (int)cudaGetLastError();
 }

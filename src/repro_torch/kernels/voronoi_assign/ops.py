@@ -36,16 +36,15 @@ _TINY = 2.0 ** -100
 _WIDEN = 1e-3           # a cell's box is widened by this share of its width
 _HUGE = 2.0 ** 60       # sites at or beyond this (centred) get no grid
 _MAX_SIDE = 256
-SLOTS = 4               # a cell's rows in the table (kSlots of the kernel)
 
 # id(sites) -> (weak reference to sites, its _version when packed, packed).
-_PACKED: Dict[int, Tuple[weakref.ref, int, torch.Tensor]] = {}
+_PACKED: Dict[int, Tuple[weakref.ref, int, Tuple[torch.Tensor, torch.Tensor]]] = {}
 
 
 @functools.cache
 def _launch():
     fn = build.load("voronoi_assign").voronoi_assign_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,28 +84,8 @@ def _cell_lists(s: torch.Tensor, sn: torch.Tensor, corner: torch.Tensor,
     return torch.cat(keep)
 
 
-def _table(rows: torch.Tensor, keep: torch.Tensor) -> torch.Tensor:
-    """The cells' lists as SLOTS rows a cell, then the spill rows (the
-    layout of csrc/voronoi_assign.cu). A list shorter than SLOTS repeats
-    its last site; a longer one fills SLOTS - 1 slots and marks the last
-    with its spill rows' start and end and index -1 (int32 bits)."""
-    count = keep.sum(1)
-    cell, site = keep.nonzero(as_tuple=True)       # by cell, index ascending
-    first = count.cumsum(0) - count
-    r = torch.arange(SLOTS, device=rows.device)
-    table = rows[site[first[:, None] + torch.minimum(r, count[:, None] - 1)]]
-    long = count > SLOTS
-    rank = torch.arange(site.numel(), device=rows.device) - first[cell]
-    spill = site[long[cell] & (rank >= SLOTS - 1)]
-    n_spill = torch.where(long, count - (SLOTS - 1), 0)
-    end = n_spill.cumsum(0)
-    mark = torch.stack([end - n_spill, end, torch.zeros_like(end),
-                        torch.full_like(end, -1)], 1).to(torch.int32)
-    table.view(torch.int32)[long, SLOTS - 1] = mark[long]
-    return torch.cat([table.reshape(-1, 4), rows[spill]])
-
-
-def _pack(sites: torch.Tensor, side: Optional[int] = None) -> torch.Tensor:
+def _pack(sites: torch.Tensor, side: Optional[int] = None
+          ) -> Tuple[torch.Tensor, torch.Tensor]:
     from repro_torch.core import voronoi
     with torch.no_grad():
         c, s, snorm = voronoi.centred_sites(sites)
@@ -120,7 +99,8 @@ def _pack(sites: torch.Tensor, side: Optional[int] = None) -> torch.Tensor:
         head[0, :2] = c
         ok = bool(torch.isfinite(snorm).all() & (s.abs() < _HUGE).all())
         if not ok:      # no grid: every point visits every site
-            return torch.cat([rows, head])
+            return torch.cat([rows, head]), torch.zeros(1, dtype=torch.int32,
+                                                        device=dev)
         side = side or grid_side(e)
         lo, hi = s.double().min(0).values, s.double().max(0).values
         span = float((hi - lo).max()) or 1.0
@@ -129,8 +109,11 @@ def _pack(sites: torch.Tensor, side: Optional[int] = None) -> torch.Tensor:
         head.view(torch.int32)[0, 2:] = side
         head[1, :2] = corner
         head[1, 2:] = inv
-        table = _table(rows, _cell_lists(s, snorm, corner, inv, side))
-    return torch.cat([rows, head, table])
+        keep = _cell_lists(s, snorm, corner, inv, side)
+        cells = torch.zeros(side * side + 1, dtype=torch.int32, device=dev)
+        cells[1:] = keep.sum(1).cumsum(0)
+        lists = rows[keep.nonzero()[:, 1]]
+    return torch.cat([rows, head, lists]), cells
 
 
 def _forget(key: int, ref: weakref.ref) -> None:
@@ -139,14 +122,15 @@ def _forget(key: int, ref: weakref.ref) -> None:
         del _PACKED[key]
 
 
-def packed_sites(sites: torch.Tensor) -> torch.Tensor:
-    """The kernel's input for ``sites``, on its device, made once per site
-    set: float32 rows of 4. Row e < E is ``(sx, sy, snorm)`` of
+def packed_sites(sites: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernel's inputs for ``sites``, on its device, made once per site
+    set: ``packed``, float32 rows of 4: row e < E is ``(sx, sy, snorm)`` of
     ``centred_sites(sites)`` and e's bits as int32; row E the centroid and
     the grid's cells across and down (int32 bits); row E + 1 the grid's
-    corner and inverse cell width and height (centred coordinates); then
-    each cell's SLOTS rows and the spill rows (``_table``). A site set with
-    a NaN or a centred coordinate of 2^60 or more gets no grid (0 cells)."""
+    corner and inverse cell width and height (centred coordinates); then each
+    cell's sites, rows as above, in ascending index order. ``cells``, int32:
+    each cell's first row in those lists, then their end. A site set with a
+    NaN or a centred coordinate of 2^60 or more gets no grid (0 cells)."""
     key = id(sites)
     hit = _PACKED.get(key)
     if hit is not None and hit[0]() is sites and hit[1] == sites._version:
@@ -157,14 +141,13 @@ def packed_sites(sites: torch.Tensor) -> torch.Tensor:
     return packed
 
 
-def cell_slots(lat: torch.Tensor, lon: torch.Tensor, sites: torch.Tensor
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(slots (..., SLOTS, 4) int32, inside (...) bool) for points shaped
-    like ``lat``: each point's cell rows by the kernel's float32 cell
-    arithmetic (as int32 bits; row 0's for a point outside the grid) and
-    whether the point is inside the grid. For reports and tests; it waits
-    on the device."""
-    packed = packed_sites(sites)
+def listed_sites(lat: torch.Tensor, lon: torch.Tensor,
+                 sites: torch.Tensor) -> torch.Tensor:
+    """The sites the kernel visits for each point, int32 shaped like
+    ``lat``: its cell's list length by the kernel's float32 cell
+    arithmetic, or E for a point outside the grid. A count for reports and
+    tests; it waits on the device."""
+    packed, cells = packed_sites(sites)
     e = sites.shape[0]
     across, down = packed.view(torch.int32)[e, 2:].tolist()
     tx = ((lat.float() - packed[e, 0]) - packed[e + 1, 0]) * packed[e + 1, 2]
@@ -172,27 +155,9 @@ def cell_slots(lat: torch.Tensor, lon: torch.Tensor, sites: torch.Tensor
     inside = (tx >= 0) & (tx < across) & (ty >= 0) & (ty < down)
     cell = (tx.nan_to_num(0.0).clamp(0, max(across - 1, 0)).long() * down
             + ty.nan_to_num(0.0).clamp(0, max(down - 1, 0)).long())
-    table = packed.view(torch.int32)[e + 2:].reshape(-1, 4)
-    if table.shape[0] < SLOTS:          # no grid
-        table = torch.zeros(SLOTS, 4, dtype=torch.int32, device=lat.device)
-    rows = table[:SLOTS * max(across * down, 1)].reshape(-1, SLOTS, 4)
-    return rows[torch.where(inside, cell, 0)], inside
-
-
-def cell_visits(lat: torch.Tensor, lon: torch.Tensor, sites: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(listed, visits), int32 shaped like ``lat``: the sites on each
-    point's cell list and the visits the kernel makes for the point (a
-    short list's repeats included); E and E for a point outside the grid."""
-    slots, inside = cell_slots(lat, lon, sites)
-    e = sites.shape[0]
-    last = slots[..., SLOTS - 1, :]
-    spilled = last[..., 3] < 0
-    distinct = 1 + (slots[..., 1:, 3] != slots[..., :-1, 3]).sum(-1)
-    listed = torch.where(spilled, SLOTS - 1 + last[..., 1] - last[..., 0], distinct)
-    visits = torch.where(spilled, listed, SLOTS)
-    return (torch.where(inside, listed, e).to(torch.int32),
-            torch.where(inside, visits, e).to(torch.int32))
+    cell = torch.where(inside, cell, 0)
+    listed = cells[cell + inside.long()] - cells[cell]
+    return torch.where(inside, listed, e).to(torch.int32)
 
 
 def hash_spatial_kernel(lat: torch.Tensor, lon: torch.Tensor,
@@ -226,14 +191,14 @@ def voronoi_assign_cuda(lat: torch.Tensor, lon: torch.Tensor,
     if lat.shape != lon.shape:
         raise ValueError(f"lat {tuple(lat.shape)} and lon {tuple(lon.shape)} "
                          "must have one shape")
-    packed = packed_sites(sites)
+    packed, cells = packed_sites(sites)
     la, lo = _f32(lat), _f32(lon)
     out = torch.empty(lat.shape, dtype=torch.int32, device=dev)
     n = la.numel()
     if n == 0:
         return out
     err = _launch()(la.data_ptr(), lo.data_ptr(), packed.data_ptr(),
-                    out.data_ptr(), n, sites.shape[0],
+                    cells.data_ptr(), out.data_ptr(), n, sites.shape[0],
                     torch.cuda.current_stream(dev).cuda_stream)
     build.check("voronoi_assign", err)
     launches += 1

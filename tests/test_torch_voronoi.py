@@ -22,7 +22,7 @@ CITY = CityConfig()
 
 
 def _rows_match_centred_sites(sites):
-    packed = vops.packed_sites(sites)
+    packed, _ = vops.packed_sites(sites)
     c, s, snorm = voronoi.centred_sites(sites)
     e = sites.shape[0]
     assert packed.dtype == torch.float32
@@ -35,19 +35,21 @@ def _rows_match_centred_sites(sites):
 def test_packed_sites_hold_centred_sites_bitwise(e):
     sites = torch.from_numpy(make_sites(e, CITY, seed=3))
     _rows_match_centred_sites(sites)
-    assert vops.packed_sites(sites) is vops.packed_sites(sites)   # made once
+    packed, cells = vops.packed_sites(sites)
+    assert vops.packed_sites(sites)[0] is packed           # made once
+    assert vops.packed_sites(sites)[1] is cells
 
 
 def test_packed_sites_follow_an_in_place_edit_and_a_new_tensor():
     sites = torch.from_numpy(make_sites(80, CITY, seed=3))
-    first = vops.packed_sites(sites)
+    first = vops.packed_sites(sites)[0]
     sites[5] += 0.01                                        # _version moves
-    assert vops.packed_sites(sites) is not first
+    assert vops.packed_sites(sites)[0] is not first
     _rows_match_centred_sites(sites)
     sites[:, 1].mul_(1.0001)                                # an edit through a view
     _rows_match_centred_sites(sites)
     other = sites.clone()
-    assert vops.packed_sites(other) is not vops.packed_sites(sites)
+    assert vops.packed_sites(other)[0] is not vops.packed_sites(sites)[0]
     _rows_match_centred_sites(other)
 
 
@@ -65,36 +67,35 @@ def test_packed_sites_keep_no_dropped_tensor_alive():
 def test_sites_that_may_overflow_get_no_grid(bad):
     sites = torch.from_numpy(make_sites(8, CITY, seed=3))
     sites[3, 0] = bad
-    packed = vops.packed_sites(sites)
-    assert packed.shape == (8 + 2, 4)
+    packed, cells = vops.packed_sites(sites)
+    assert packed.shape == (8 + 2, 4) and cells.shape == (1,)
     assert packed.view(torch.int32)[8, 2:].tolist() == [0, 0]
 
 
 def _kernel_rule(lat, lon, sites):
-    """The kernel's answer for each point, from the packed input, in the
+    """The kernel's answer for each point, from the packed inputs, in the
     kernel's float32 arithmetic: a point whose cell indices fall inside the
-    grid takes the first minimum over its cell's slots (and spill rows);
-    any other point visits every site (the plain rule). Also returns the
-    plain answer and which points were inside."""
-    packed = vops.packed_sites(sites)
-    e, n = sites.shape[0], lat.shape[0]
+    grid takes the first minimum over its cell's list; any other point
+    visits every site (the plain rule). Also returns which points were
+    inside."""
+    packed, cells = vops.packed_sites(sites)
+    e = sites.shape[0]
     across, down = packed.view(torch.int32)[e, 2:].tolist()
-    slots, inside = vops.cell_slots(lat, lon, sites)
-    spill = packed[e + 2 + vops.SLOTS * across * down:]
-    last = slots[:, -1]
-    spilled = last[:, 3] < 0
-    start, end = last[:, 0].long(), last[:, 1].long()
-    width = int((end - start)[spilled].max()) if bool(spilled.any()) else 0
-    k = start[:, None] + torch.arange(width)
-    extra = spill[k.clamp(0, max(spill.shape[0] - 1, 0))] if width else torch.zeros(n, 0, 4)
-    rows = torch.cat([slots.view(torch.float32), extra], 1)
-    valid = torch.cat([torch.ones(n, vops.SLOTS - 1, dtype=torch.bool),
-                       ~spilled[:, None], spilled[:, None] & (k < end[:, None])], 1)
     px, py = lat - packed[e, 0], lon - packed[e, 1]
+    tx = (px - packed[e + 1, 0]) * packed[e + 1, 2]
+    ty = (py - packed[e + 1, 1]) * packed[e + 1, 3]
+    inside = (tx >= 0) & (tx < across) & (ty >= 0) & (ty < down)
+    cell = (tx.clamp(0, max(across - 1, 0)).long() * down
+            + ty.clamp(0, max(down - 1, 0)).long()) * inside
+    start, end = cells[cell].long(), cells[cell + inside.long()].long()
+    width = int((cells[1:] - cells[:-1]).max()) if cells.numel() > 1 else 1
+    slot = start[:, None] + torch.arange(width)
+    rows = packed[(e + 2 + slot).clamp(max=packed.shape[0] - 1)]
     cross = px[:, None] * rows[..., 0] + py[:, None] * rows[..., 1]
-    d = torch.where(valid, rows[..., 2] - 2.0 * cross, torch.tensor(float("inf")))
+    d = torch.where(slot < end[:, None], rows[..., 2] - 2.0 * cross,
+                    torch.tensor(float("inf")))
     pick = torch.argmin(d, 1)
-    got = rows.view(torch.int32)[torch.arange(n), pick, 3]
+    got = rows.view(torch.int32)[torch.arange(len(pick)), pick, 3]
     plain = voronoi.voronoi_assign(torch.stack([lat, lon], -1), sites)
     return torch.where(inside, got, plain), plain, inside
 
@@ -114,7 +115,7 @@ def _hard_points(sites, rng, n=20_000):
     """Points on cell boundaries (as the kernel computes them), at the
     midpoints of site pairs (on Voronoi edges), on the sites, and uniform
     over the grid and beyond it."""
-    packed = vops.packed_sites(sites)
+    packed, _ = vops.packed_sites(sites)
     e = sites.shape[0]
     c, corner, inv = packed[e, :2], packed[e + 1, :2], packed[e + 1, 2:]
     side = max(int(packed.view(torch.int32)[e, 2]), 1)
@@ -146,16 +147,13 @@ def test_cell_lists_hold_the_argmin(e, dup):
 
 
 def test_cell_lists_are_short_on_the_d400_slice_grid():
-    """The design's premise: the 80-site D400 deployment's slice grid lists
-    a few sites a point, not 80, and the kernel visits SLOTS of them unless
-    a list spills."""
+    """The design's premise: the 80-site D400 deployment's slice grid visits
+    a few sites a point, not 80."""
     sites = torch.from_numpy(make_sites(80, CITY, seed=3))
     lat, lon = _slice_grid()
-    listed, visits = vops.cell_visits(lat.reshape(-1, 16), lon.reshape(-1, 16), sites)
-    assert listed.shape == visits.shape == (lat.numel() // 16, 16)
-    assert listed.dtype == visits.dtype == torch.int32
-    assert listed.float().mean() < 3 and int(listed.max()) <= 12
-    assert bool((visits == torch.clamp(listed, min=vops.SLOTS)).all())
-    out = vops.cell_visits(torch.tensor([float("nan"), 1e30]),
-                           torch.tensor([77.6, 77.6]), sites)
-    assert [t.tolist() for t in out] == [[80, 80], [80, 80]]
+    visits = vops.listed_sites(lat.reshape(-1, 16), lon.reshape(-1, 16), sites)
+    assert visits.shape == (lat.numel() // 16, 16) and visits.dtype == torch.int32
+    assert visits.float().mean() < 3 and int(visits.max()) <= 12
+    nan = vops.listed_sites(torch.tensor([float("nan"), 1e30]),
+                            torch.tensor([77.6, 77.6]), sites)
+    assert nan.tolist() == [80, 80]

@@ -13,7 +13,7 @@ launch floor) and, with ``--parent``, another source with the previous C
 interface (lat, lon, centroid, sites, snorm, out, n, e, stream). Every
 variant is held bitwise to the plain version on both shapes and on a stress
 set (1000 sites, a duplicate, NaN, points on the centroid). Also counts the
-sites listed and visited a point, and times the wrapper's host steps. Prints one JSON
+sites a point visits, and times the wrapper's host steps. Prints one JSON
 line a reading and writes them all to chiprun_out/voronoi_probes.json.
 """
 
@@ -123,19 +123,20 @@ def main() -> int:
     grids = {(name, side): ops._pack(s, side) for name, (_, _, s) in data.items()
              for side in sides}
     for name, (_, _, s) in data.items():      # no grid: every point, every site
-        packed = ops._pack(s)[:s.shape[0] + 2].clone()
+        packed, _ = ops._pack(s)
+        packed = packed[:s.shape[0] + 2].clone()
         packed.view(torch.int32)[s.shape[0], 2:] = 0
-        grids[(name, 0)] = packed
+        grids[(name, 0)] = (packed, torch.zeros(1, dtype=torch.int32, device=dev))
 
     def runner(side, name):
         la, lo, s = data[name]
-        packed = grids[(name, side)]
+        packed, cells = grids[(name, side)]
         out = torch.empty(la.shape, dtype=torch.int32, device=dev)
         stream = torch.cuda.current_stream().cuda_stream
 
         def go():
             build.check("voronoi_assign", kernel(
-                la.data_ptr(), lo.data_ptr(), packed.data_ptr(),
+                la.data_ptr(), lo.data_ptr(), packed.data_ptr(), cells.data_ptr(),
                 out.data_ptr(), la.numel(), s.shape[0], stream))
             return out
         return go
@@ -190,16 +191,27 @@ def main() -> int:
             emit(stress=variant, side=side,
                  mismatches=int((got != plain["stress"]).sum()))
     for name in ("grid", "placement"):
-        listed, visits = ops.cell_visits(*data[name])
-        emit(visits=name, side=ops.grid_side(80), listed_mean=float(listed.float().mean()),
-             visits_mean=float(visits.float().mean()), visits_max=int(visits.max()),
-             packed_rows=int(ops.packed_sites(data[name][2]).shape[0]))
+        la, lo, s = data[name]
+        for side in sides:
+            packed, cells = grids[(name, side)]
+            e = s.shape[0]
+            t = lambda x, c, o, i: ((x - packed[e, c]) - packed[e + 1, o]) * packed[e + 1, i]
+            tx, ty = t(la, 0, 0, 2), t(lo, 1, 1, 3)
+            n_side = packed.view(torch.int32)[e, 2].item()
+            inside = (tx >= 0) & (tx < n_side) & (ty >= 0) & (ty < n_side)
+            cell = (tx.nan_to_num(0.0).clamp(0, n_side - 1).long() * n_side
+                    + ty.nan_to_num(0.0).clamp(0, n_side - 1).long())
+            visits = torch.where(inside, (cells[cell + 1] - cells[cell]).float(),
+                                 torch.tensor(float(e), device=dev))
+            warp_max = visits[:visits.numel() // 32 * 32].reshape(-1, 32).max(1).values
+            emit(visits=name, side=n_side, mean=float(visits.mean()),
+                 warp_max_mean=float(warp_max.mean()) if warp_max.numel() else None,
+                 inside=float(inside.float().mean()), lists_rows=int(cells[-1]))
 
     # The wrapper's host steps (perf_counter over 2000 calls each).
     la, lo, s = data["grid"]
     steps = {
         "packed_sites (cached)": lambda: ops.packed_sites(s),
-        "_pack (once per site set)": lambda: ops._pack(s),
         "centred_sites": lambda: voronoi.centred_sites(s),
         "_f32 x2": lambda: (ops._f32(la), ops._f32(lo)),
         "torch.empty": lambda: torch.empty(la.shape, dtype=torch.int32, device=dev),
