@@ -21,7 +21,7 @@ import ctypes
 import functools
 import math
 import weakref
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -49,9 +49,9 @@ def _launch():
     return fn
 
 
-def grid_side(e: int) -> int:
+def _grid_side(e: int) -> int:
     """Cells along each axis of the grid for ``e`` sites: about 100 cells a
-    site, which lists some 1.6 sites a point of the D400 deployment's slice
+    site, which lists some 1.7 sites a point of the D400 deployment's slice
     grid (80 sites)."""
     return min(_MAX_SIDE, max(4, math.ceil(10 * math.sqrt(e))))
 
@@ -84,8 +84,7 @@ def _cell_lists(s: torch.Tensor, sn: torch.Tensor, corner: torch.Tensor,
     return torch.cat(keep)
 
 
-def _pack(sites: torch.Tensor, side: Optional[int] = None
-          ) -> Tuple[torch.Tensor, torch.Tensor]:
+def _pack(sites: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     from repro_torch.core import voronoi
     with torch.no_grad():
         c, s, snorm = voronoi.centred_sites(sites)
@@ -101,7 +100,7 @@ def _pack(sites: torch.Tensor, side: Optional[int] = None
         if not ok:      # no grid: every point visits every site
             return torch.cat([rows, head]), torch.zeros(1, dtype=torch.int32,
                                                         device=dev)
-        side = side or grid_side(e)
+        side = _grid_side(e)
         lo, hi = s.double().min(0).values, s.double().max(0).values
         span = float((hi - lo).max()) or 1.0
         corner = (lo - span).float()
