@@ -10,11 +10,11 @@
 //
 // What bounds it. Visiting all 80 sites for each of the main path's
 // 102,400 slice-grid cell centres is 8.2M (point, site) pairs of 5 float
-// operations and a compare with two selects each: some 3 µs of issue on 132
-// SMs, while a point moves only 12 bytes (two coordinates in, one index
-// out). Most of those pairs cannot win, so the design visits only the sites
-// that can; what is left is latency: the chain of dependent memory reads a
-// point waits on (its coordinates, its cell, the cell's sites).
+// operations and a compare with two selects each: some 3 µs of instruction
+// throughput on 132 SMs, while a point moves only 12 bytes (two coordinates
+// in, one index out). Most of those pairs cannot win, so the design visits
+// only the sites that can; what is left is latency: the chain of dependent
+// memory reads a point waits on (its coordinates, its cell, its sites).
 //
 // Design. Once per site set the wrapper (`ops.packed_sites`) lays a grid of
 // cells over the sites' box, widened by its own extent on each side, and
