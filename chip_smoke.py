@@ -23,7 +23,8 @@ Phases, one line each:
      time at each batch and channel count beside the bytes it must move;
      then per-kernel timings beside their bounds (voronoi_assign at the
      slice grid's and the placement's shapes, with the sites it visits a
-     point and the instructions that costs): ``ms`` is the call time,
+     point, the instructions that costs by a static count from its SASS,
+     and its bound recounted for the sites visited): ``ms`` is the call time,
      wrapper included (CUDA events around back-to-back calls, so a wrapper
      slower than its kernel shows the host), ``device_ms`` the kernel's own
      device time a launch (torch.profiler, summed by kernel name);
@@ -45,8 +46,8 @@ Phases, one line each:
   7. flash_attention timings at the prefill shape (sm90 and mma_sync, both
      forced) and at two decode shapes, 192 of 256 slots and 4096 of 4096
      (decode and mma_sync, both forced), each beside SDPA and the bytes or
-     operations bound, and the six kernels' timings printed as one JSON
-     line.
+     operations bound, the profiles each device time took, and the six
+     kernels' timings printed as one JSON line.
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -55,6 +56,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
@@ -79,9 +81,13 @@ FLASH_F32_TOL = 2e-5           # as the JAX package's kernel tests
 # they agree to a fraction of the logits' unit spread, not bitwise.
 PREFILL_DECODE_TOL = 0.5
 # A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
-# `visit`, read in the kernel's SASS): FMUL, FMUL, FADD, FMUL by 2, FADD,
-# then FSETP, FSEL, SEL.
+# `visit`): FMUL, FMUL, FADD, FMUL by 2, FADD, then FSETP, FSEL, SEL. A
+# static count, read by hand in the kernel's SASS, not measured in a run.
 VISIT_INSTRUCTIONS = 8
+VORONOI_SOURCE = Path(__file__).resolve().parent / "src/repro_torch/csrc/voronoi_assign.cu"
+# Profiles taken by each device_ms call, in call order (more than one: a
+# profile recorded no device time for the kernel and was taken again).
+DEVICE_MS_PROFILES: list[int] = []
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -130,11 +136,12 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
     """Device time a call of ``fn`` (torch.profiler): the time of the
     device kernels whose name holds ``match`` (of every device activity
     when None) over ``iters`` calls, divided by ``iters``. Exits non-zero
-    when no such kernel ran in three profiles."""
+    when no such kernel ran in three profiles; appends the profiles it took
+    to DEVICE_MS_PROFILES."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):      # now and then a profile records no device activity
+    for taken in range(1, 4):   # now and then a profile records no device activity
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -143,6 +150,7 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
         us = sum(t for t, _, key in _device_rows(torch, prof)
                  if match is None or match in key)
         if us > 0:
+            DEVICE_MS_PROFILES.append(taken)
             return us / 1e3 / iters
     raise SystemExit(f"device_ms: no device time for kernel {match!r}")
 
@@ -167,6 +175,31 @@ def profile(torch, fn, top: int = 12) -> dict:
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
             "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:top]]}
+
+
+def voronoi_visits(torch, vor_ops, lat, lon, sites) -> dict:
+    """The sites ``voronoi_assign``'s kernel visits a point, from the packed
+    site set and the kernel's source: ``listed``, the mean length of the
+    points' cell lists (E outside the grid), what the data needs; and
+    ``issued``, the visits a point's warp issues, 32 consecutive points a
+    warp as the kernel's grid-stride loop takes them: kAhead predicated
+    visits and then the rest of the warp's longest list when a lane is in
+    the grid, plus all E sites when a lane is outside it."""
+    ahead = int(re.search(r"constexpr int kAhead = (\d+);",
+                          VORONOI_SOURCE.read_text()).group(1))
+    e = sites.shape[0]
+    listed = vor_ops.listed_sites(lat, lon, sites).reshape(-1).long()
+    inside = vor_ops.locate(lat, lon, sites)[2].reshape(-1)
+    n = listed.numel()
+    pad = -n % 32
+    real = torch.nn.functional.pad(torch.ones_like(inside), (0, pad)).view(-1, 32)
+    inside = torch.nn.functional.pad(inside, (0, pad)).view(-1, 32) & real
+    longest = torch.where(inside, torch.nn.functional.pad(listed, (0, pad)).view(-1, 32),
+                          0).amax(1)
+    warp = (inside.any(1) * longest.clamp(min=ahead)
+            + (real & ~inside).any(1) * e)
+    return {"listed": float(listed.float().mean()),
+            "issued": float((warp * real.sum(1)).sum() / n), "ahead": ahead}
 
 
 def phase(name: str, **fields) -> None:
@@ -847,16 +880,26 @@ def main(argv=None) -> int:
     place["bound_ms"], place["bound_by"] = bound(
         mpts.shape[0] * 12, mpts.shape[0] * (6 * n_e + 2))
     # The kernel's work per (point, site) of the plain version's E sites a
-    # point: a visit is VISIT_INSTRUCTIONS (5 float operations, a compare
-    # and two selects, csrc/voronoi_assign.cu `visit`), and a point visits
-    # only its cell's listed sites.
-    pairs = float(vor_ops.listed_sites(vlat, vlon, sites).float().mean())
-    place_pairs = float(vor_ops.listed_sites(mlat, mlon, sites).float().mean())
-    vor_work = {"instructions_per_visit": VISIT_INSTRUCTIONS,
-                "sites_visited_per_point": pairs,
-                "instructions_per_point_site": VISIT_INSTRUCTIONS * pairs / n_e,
-                "placement_sites_visited_per_point": place_pairs,
+    # point: VISIT_INSTRUCTIONS a visit (static, from SASS) times the visits
+    # a point's warp issues, beside the operations the bound counts.
+    visits = voronoi_visits(torch, vor_ops, vlat, vlon, sites)
+    p_visits = voronoi_visits(torch, vor_ops, mlat, mlon, sites)
+    vor_work = {"instructions_per_visit_static_sass": VISIT_INSTRUCTIONS,
+                "ahead": visits["ahead"],
+                "sites_listed_per_point": visits["listed"],
+                "visits_issued_per_point": visits["issued"],
+                "instructions_per_point_site": VISIT_INSTRUCTIONS * visits["issued"] / n_e,
+                "placement_sites_listed_per_point": p_visits["listed"],
+                "placement_visits_issued_per_point": p_visits["issued"],
                 "bound_operations_per_point_site": (6 * n_e + 2) / n_e}
+
+    def recount(points, listed):
+        """The bound recounted for the sites the data needs: 12 bytes a point
+        and the 8 E bytes of the sites, against 2 + 6 operations a listed
+        site (unfused, so at half the FMA-counted rate)."""
+        b_ms = (points * 12 + n_e * 8) / HBM_BYTES_PER_S * 1e3
+        o_ms = points * (2 + 6 * listed) / (FP32_FLOP_PER_S / 2) * 1e3
+        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
 
     kernels = []
     for name, route, src, replaces, ms, dev_ms, plain_ms, (b_ms, b_by), lib_ms, \
@@ -880,7 +923,12 @@ def main(argv=None) -> int:
                         "library_device_ms": lib_dev})
     kernels[-1]["wrapper_device_ms"] = v_wrap_dev
     kernels[-1].update({f"placement_{k}": v for k, v in place.items() if k != "err"})
-    kernels[-1].update(vor_work)
+    # The ranking's bound_ms counts all E sites a point; beside it, recounted
+    # for the listed sites this run's points need.
+    kernels[-1]["bound_ms_recount"], kernels[-1]["bound_by_recount"] = recount(
+        n_pts, visits["listed"])
+    kernels[-1]["placement_bound_ms_recount"], kernels[-1]["placement_bound_by_recount"] = \
+        recount(int(mpts.shape[0]), p_visits["listed"])
     kernels[0]["bound_ms_old"] = scan["old_bytes"] / HBM_BYTES_PER_S * 1e3
     phase("kernel_timings", st_scan_k1_ms=scan["k1_ms"],
           voronoi_centred_sites_ms=centred_ms,
@@ -947,6 +995,9 @@ def main(argv=None) -> int:
                    PROMPT_LEN + NEW_TOKENS - 1, "Skv", MAX_SEQ],
         "decode_long": [SERVE_BATCH, 1, 16, 8, 128, "q_offset", LONG_SEQ - 1,
                         "Skv", LONG_SEQ]}, **ft)
+    phase("device_ms_profiles", calls=len(DEVICE_MS_PROFILES),
+          profiles=sum(DEVICE_MS_PROFILES),
+          retried=[i for i, k in enumerate(DEVICE_MS_PROFILES) if k > 1])
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

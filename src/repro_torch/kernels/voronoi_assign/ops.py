@@ -21,7 +21,7 @@ import ctypes
 import functools
 import math
 import weakref
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -140,23 +140,51 @@ def packed_sites(sites: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return packed
 
 
-def listed_sites(lat: torch.Tensor, lon: torch.Tensor,
-                 sites: torch.Tensor) -> torch.Tensor:
-    """The sites the kernel visits for each point, int32 shaped like
-    ``lat``: its cell's list length by the kernel's float32 cell
-    arithmetic, or E for a point outside the grid. A count for reports and
-    tests; it waits on the device."""
+class Grid(NamedTuple):
+    """The cell grid of a packed site set (``packed_sites``), decoded."""
+    centre: torch.Tensor    # (2,) the sites' centroid
+    corner: torch.Tensor    # (2,) the grid's corner, centred coordinates
+    inv: torch.Tensor       # (2,) 1 / cell width, 1 / cell height
+    across: int             # cells along x (0: no grid)
+    down: int               # cells along y
+    lists: torch.Tensor     # (R, 4) float32: the cells' list rows
+    cells: torch.Tensor     # int32: each cell's first list row, then the end
+
+
+def grid(sites: torch.Tensor) -> Grid:
+    """The grid of ``packed_sites(sites)``: its header rows E and E + 1
+    decoded, its list rows and its cell offsets."""
     packed, cells = packed_sites(sites)
     e = sites.shape[0]
     across, down = packed.view(torch.int32)[e, 2:].tolist()
-    tx = ((lat.float() - packed[e, 0]) - packed[e + 1, 0]) * packed[e + 1, 2]
-    ty = ((lon.float() - packed[e, 1]) - packed[e + 1, 1]) * packed[e + 1, 3]
-    inside = (tx >= 0) & (tx < across) & (ty >= 0) & (ty < down)
-    cell = (tx.nan_to_num(0.0).clamp(0, max(across - 1, 0)).long() * down
-            + ty.nan_to_num(0.0).clamp(0, max(down - 1, 0)).long())
-    cell = torch.where(inside, cell, 0)
+    return Grid(packed[e, :2], packed[e + 1, :2], packed[e + 1, 2:], across,
+                down, packed[e + 2:], cells)
+
+
+def locate(lat: torch.Tensor, lon: torch.Tensor, sites: torch.Tensor
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The kernel's float32 cell arithmetic for points shaped like ``lat``:
+    (px, py) the centred point, ``inside`` whether its cell indices fall in
+    the grid, and ``cell`` (int64, 0 for a point outside)."""
+    g = grid(sites)
+    px, py = lat.float() - g.centre[0], lon.float() - g.centre[1]
+    tx = (px - g.corner[0]) * g.inv[0]
+    ty = (py - g.corner[1]) * g.inv[1]
+    inside = (tx >= 0) & (tx < g.across) & (ty >= 0) & (ty < g.down)
+    cell = (tx.nan_to_num(0.0).clamp(0, max(g.across - 1, 0)).long() * g.down
+            + ty.nan_to_num(0.0).clamp(0, max(g.down - 1, 0)).long())
+    return px, py, inside, torch.where(inside, cell, 0)
+
+
+def listed_sites(lat: torch.Tensor, lon: torch.Tensor,
+                 sites: torch.Tensor) -> torch.Tensor:
+    """The sites on each point's cell list, int32 shaped like ``lat``, or E
+    for a point outside the grid (it visits every site). A count for reports
+    and tests; it waits on the device."""
+    _, _, inside, cell = locate(lat, lon, sites)
+    cells = packed_sites(sites)[1]
     listed = cells[cell + inside.long()] - cells[cell]
-    return torch.where(inside, listed, e).to(torch.int32)
+    return torch.where(inside, listed, sites.shape[0]).to(torch.int32)
 
 
 def hash_spatial_kernel(lat: torch.Tensor, lon: torch.Tensor,

@@ -28,7 +28,7 @@ def _rows_match_centred_sites(sites):
     assert packed.dtype == torch.float32
     assert torch.equal(packed[:e, :2], s) and torch.equal(packed[:e, 2], snorm)
     assert torch.equal(packed.view(torch.int32)[:e, 3], torch.arange(e, dtype=torch.int32))
-    assert torch.equal(packed[e, :2], c)
+    assert torch.equal(vops.grid(sites).centre, c)
 
 
 @pytest.mark.parametrize("e", [1, 2, 80])
@@ -69,7 +69,8 @@ def test_sites_that_may_overflow_get_no_grid(bad):
     sites[3, 0] = bad
     packed, cells = vops.packed_sites(sites)
     assert packed.shape == (8 + 2, 4) and cells.shape == (1,)
-    assert packed.view(torch.int32)[8, 2:].tolist() == [0, 0]
+    g = vops.grid(sites)
+    assert (g.across, g.down, g.lists.shape[0]) == (0, 0, 0)
 
 
 def _kernel_rule(lat, lon, sites):
@@ -78,19 +79,12 @@ def _kernel_rule(lat, lon, sites):
     grid takes the first minimum over its cell's list; any other point
     visits every site (the plain rule). Also returns which points were
     inside."""
-    packed, cells = vops.packed_sites(sites)
-    e = sites.shape[0]
-    across, down = packed.view(torch.int32)[e, 2:].tolist()
-    px, py = lat - packed[e, 0], lon - packed[e, 1]
-    tx = (px - packed[e + 1, 0]) * packed[e + 1, 2]
-    ty = (py - packed[e + 1, 1]) * packed[e + 1, 3]
-    inside = (tx >= 0) & (tx < across) & (ty >= 0) & (ty < down)
-    cell = (tx.clamp(0, max(across - 1, 0)).long() * down
-            + ty.clamp(0, max(down - 1, 0)).long()) * inside
-    start, end = cells[cell].long(), cells[cell + inside.long()].long()
-    width = int((cells[1:] - cells[:-1]).max()) if cells.numel() > 1 else 1
+    g = vops.grid(sites)
+    px, py, inside, cell = vops.locate(lat, lon, sites)
+    start, end = g.cells[cell].long(), g.cells[cell + inside.long()].long()
+    width = int((g.cells[1:] - g.cells[:-1]).max()) if g.cells.numel() > 1 else 1
     slot = start[:, None] + torch.arange(width)
-    rows = packed[(e + 2 + slot).clamp(max=packed.shape[0] - 1)]
+    rows = g.lists[slot.clamp(max=g.lists.shape[0] - 1)]
     cross = px[:, None] * rows[..., 0] + py[:, None] * rows[..., 1]
     d = torch.where(slot < end[:, None], rows[..., 2] - 2.0 * cross,
                     torch.tensor(float("inf")))
@@ -115,10 +109,9 @@ def _hard_points(sites, rng, n=20_000):
     """Points on cell boundaries (as the kernel computes them), at the
     midpoints of site pairs (on Voronoi edges), on the sites, and uniform
     over the grid and beyond it."""
-    packed, _ = vops.packed_sites(sites)
+    g = vops.grid(sites)
+    c, corner, inv, side = g.centre, g.corner, g.inv, max(g.across, 1)
     e = sites.shape[0]
-    c, corner, inv = packed[e, :2], packed[e + 1, :2], packed[e + 1, 2:]
-    side = max(int(packed.view(torch.int32)[e, 2]), 1)
     f32 = lambda a: torch.from_numpy(np.asarray(a, np.float32))
     k = f32(rng.integers(0, side + 1, (n, 2)))
     edge = corner + k / inv + c                               # cell boundaries
