@@ -4,21 +4,28 @@
 // body `_kernel`, wrapper `ops.py::xxh64_mod`). The TPU version splits every
 // 64-bit value into uint32 limbs and every 32x32 product into 16-bit digits,
 // because the TPU's vector lanes are 32-bit. Hopper has native 64-bit integer
-// multiply, shift and rotate, so each thread hashes one key in a handful of
-// instructions and reduces it mod n_edges in the same thread: h % n on the
-// 64-bit value equals the reference's limb reduction `mod_u64` exactly.
+// multiply, shift and rotate, so each thread hashes its keys in a handful of
+// instructions and reduces them mod n_edges in the same thread.
 //
-// Bound: bytes. A key reads 8 bytes (4 for the H_t form, whose high word is
-// zero) and writes a 4-byte edge id; the ~20 integer operations a key costs
-// are far below what the card issues in the time those bytes take. One thread
-// per key with neighbouring threads on neighbouring keys keeps every load and
-// store coalesced; there is nothing to share, so no shared memory.
+// PROBE BUILD: HASH64_MODE, HASH64_KEYS and HASH64_THREADS select compile-time
+// variants for timing; they go once the probes are read.
 //
-// C entry: hash64_mod_launch(hi or NULL, lo, out, n, n_edges, stream) launches
-// on `stream` and returns cudaGetLastError().
+// C entries: hash64_mod_launch(hi or NULL, lo, out, n, n_edges, m, r, stream)
+// launches on `stream` and returns cudaGetLastError(); hash64_empty_launch(n,
+// stream) launches an empty kernel on the same grid, a yardstick of the launch.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#ifndef HASH64_MODE
+#define HASH64_MODE 0      // 0 fastmod, 1 '%', 2 hash only, 3 loads and store
+#endif
+#ifndef HASH64_KEYS
+#define HASH64_KEYS 1
+#endif
+#ifndef HASH64_THREADS
+#define HASH64_THREADS 256
+#endif
 
 namespace {
 
@@ -27,6 +34,8 @@ constexpr uint64_t P2 = 0xC2B2AE3D27D4EB4Full;
 constexpr uint64_t P3 = 0x165667B19E3779F9ull;
 constexpr uint64_t P4 = 0x85EBCA77C2B2AE63ull;
 constexpr uint64_t P5 = 0x27D4EB2F165667C5ull;
+constexpr int kThreads = HASH64_THREADS;
+constexpr int kKeys = HASH64_KEYS;
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
@@ -45,25 +54,122 @@ __device__ __forceinline__ uint64_t xxh64_word(uint64_t key) {
   return h;
 }
 
-__global__ void hash64_mod_kernel(const int32_t* __restrict__ hi,
-                                  const int32_t* __restrict__ lo,
-                                  int32_t* __restrict__ out, int n,
-                                  unsigned n_edges) {
-  int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  uint64_t h32 = hi == nullptr ? 0ull : (uint64_t)(uint32_t)hi[i];
-  uint64_t key = (h32 << 32) | (uint64_t)(uint32_t)lo[i];
-  out[i] = (int32_t)(xxh64_word(key) % (uint64_t)n_edges);
+// a mod n for a 32-bit a, with m = ceil(2^64 / n) mod 2^64 (Lemire's fastmod).
+__device__ __forceinline__ uint32_t fastmod(uint32_t a, uint64_t m, uint32_t n) {
+  return (uint32_t)__umul64hi(m * a, n);
+}
+
+__device__ __forceinline__ int32_t hash_mod(uint32_t hi, uint32_t lo,
+                                            uint64_t m, uint32_t n,
+                                            uint32_t r) {
+#if HASH64_MODE == 3
+  return (int32_t)(hi ^ lo);
+#else
+  uint64_t h = xxh64_word(((uint64_t)hi << 32) | lo);
+#if HASH64_MODE == 2
+  return (int32_t)h;
+#elif HASH64_MODE == 1
+  return (int32_t)(h % (uint64_t)n);
+#else
+  uint32_t a = fastmod((uint32_t)(h >> 32), m, n);
+  uint32_t b = fastmod((uint32_t)h, m, n);
+  return (int32_t)fastmod(a * r + b, m, n);
+#endif
+#endif
+}
+
+template <int K> struct Vec;
+template <> struct Vec<1> { using T = int32_t; };
+template <> struct Vec<2> { using T = int2; };
+template <> struct Vec<4> { using T = int4; };
+
+template <int K>
+__device__ __forceinline__ void load_group(const int32_t* __restrict__ p,
+                                           int base, int n, bool vec,
+                                           uint32_t (&v)[K]) {
+  if constexpr (K == 1) {
+    v[0] = (uint32_t)p[base];
+  } else {
+    if (vec && base >= 0 && base + K <= n) {
+      typename Vec<K>::T x =
+          *reinterpret_cast<const typename Vec<K>::T*>(p + base);
+      const int32_t* e = reinterpret_cast<const int32_t*>(&x);
+#pragma unroll
+      for (int j = 0; j < K; ++j) v[j] = (uint32_t)e[j];
+    } else {
+#pragma unroll
+      for (int j = 0; j < K; ++j) {
+        int i = base + j;
+        v[j] = (i >= 0 && i < n) ? (uint32_t)p[i] : 0u;
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) hash64_mod_kernel(
+    const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
+    int32_t* __restrict__ out, int n, uint32_t n_edges, uint64_t m,
+    uint32_t r) {
+  int g = blockIdx.x * kThreads + threadIdx.x;
+  if constexpr (kKeys == 1) {
+    if (g >= n) return;
+    uint32_t h32 = hi == nullptr ? 0u : (uint32_t)hi[g];
+    out[g] = hash_mod(h32, (uint32_t)lo[g], m, n_edges, r);
+  } else {
+    // Groups of kKeys keys aligned to lo's 4*kKeys-byte boundaries: group g
+    // starts at key g*kKeys - head; the partial head and tail groups take
+    // scalar loads.
+    const int head = (int)(((uintptr_t)lo >> 2) & (kKeys - 1));
+    int base = g * kKeys - head;
+    if (base >= n) return;
+    uint32_t vl[kKeys], vh[kKeys];
+    load_group<kKeys>(lo, base, n, true, vl);
+    if (hi == nullptr) {
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) vh[j] = 0u;
+    } else {
+      bool same = (int)(((uintptr_t)hi >> 2) & (kKeys - 1)) == head;
+      load_group<kKeys>(hi, base, n, same, vh);
+    }
+    int32_t res[kKeys];
+#pragma unroll
+    for (int j = 0; j < kKeys; ++j) res[j] = hash_mod(vh[j], vl[j], m, n_edges, r);
+    bool out_same = (int)(((uintptr_t)out >> 2) & (kKeys - 1)) == head;
+    if (out_same && base >= 0 && base + kKeys <= n) {
+      typename Vec<kKeys>::T x;
+      int32_t* e = reinterpret_cast<int32_t*>(&x);
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) e[j] = res[j];
+      *reinterpret_cast<typename Vec<kKeys>::T*>(out + base) = x;
+    } else {
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        int i = base + j;
+        if (i >= 0 && i < n) out[i] = res[j];
+      }
+    }
+  }
+}
+
+__global__ void hash64_empty_kernel() {}
+
+int blocks_for(int n) {
+  int groups = (n + kKeys - 1) / kKeys + (kKeys > 1 ? 1 : 0);
+  return (groups + kThreads - 1) / kThreads;
 }
 
 }  // namespace
 
 extern "C" int hash64_mod_launch(const void* hi, const void* lo, void* out,
-                                 int n, int n_edges, void* stream) {
-  const int threads = 256;
-  const int blocks = (n + threads - 1) / threads;
-  hash64_mod_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)hi, (const int32_t*)lo, (int32_t*)out, n,
-      (unsigned)n_edges);
+                                 int n, unsigned n_edges,
+                                 unsigned long long m, unsigned r,
+                                 void* stream) {
+  hash64_mod_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)hi, (const int32_t*)lo, (int32_t*)out, n, n_edges, m, r);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hash64_empty_launch(int n, void* stream) {
+  hash64_empty_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>();
   return (int)cudaGetLastError();
 }

@@ -58,6 +58,76 @@ def test_hash64_kernel_matches_plain(cuda):
     assert hops.launches == before + 8
 
 
+HASH_MODS = (1, 8, 80, 65521, 65535)
+
+
+def _hash_check(hi, lo, n_edges):
+    """One launch (none for no keys), bitwise equal to the plain version."""
+    before = hops.launches
+    got = hops.xxh64_mod_cuda(hi, lo, n_edges)
+    assert hops.launches == before + (lo.numel() > 0)
+    want = hashing.xxh64_mod_plain(hi, lo, n_edges)
+    assert got.dtype == torch.int32 and got.shape == lo.shape
+    assert torch.equal(got, want), int((got != want).sum())
+    return got
+
+
+@pytest.mark.parametrize("n", [0, 1, 3, 400, 6400, (1 << 20) + 3])
+def test_hash64_redesign_sizes(cuda, n):
+    rng = np.random.default_rng(20 + n % 1000)
+    hi = torch.from_numpy(_i32(rng, n)).to(cuda)
+    lo = torch.from_numpy(_i32(rng, n)).to(cuda)
+    for n_edges in HASH_MODS:
+        _hash_check(hi, lo, n_edges)
+        _hash_check(None, lo, n_edges)
+
+
+def test_hash64_redesign_views_at_every_offset(cuda):
+    rng = np.random.default_rng(21)
+    hi = torch.from_numpy(_i32(rng, 7000)).to(cuda)
+    lo = torch.from_numpy(_i32(rng, 7000)).to(cuda)
+    for n_edges in HASH_MODS:
+        for a in range(4):
+            _hash_check(None, lo[a:a + 6401], n_edges)
+            for b in range(4):          # hi and lo at their own offsets
+                _hash_check(hi[b:b + 6401], lo[a:a + 6401], n_edges)
+                _hash_check(hi[b:b + 3], lo[a:a + 3], n_edges)
+        _hash_check(hi[1::2], lo[1::2], n_edges)       # not contiguous
+        _hash_check(None, lo[:6400].reshape(400, 16).t(), n_edges)
+        _hash_check(hi[:400].reshape(20, 20), lo[:400].reshape(20, 20), n_edges)
+
+
+def test_hash64_redesign_converts_other_dtypes(cuda):
+    rng = np.random.default_rng(22)
+    wide = torch.from_numpy(rng.integers(-2**40, 2**40, 6400)).to(cuda)
+    _hash_check(wide[:400], wide[400:800], 80)      # int64: the low 32 bits
+    _hash_check(None, wide, 80)
+
+
+def test_hash64_redesign_follows_the_current_stream(cuda):
+    rng = np.random.default_rng(23)
+    lo = torch.from_numpy(_i32(rng, 6400)).to(cuda)
+    want = hashing.xxh64_mod_plain(None, lo, 80)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    before = hops.launches
+    with torch.cuda.stream(side):
+        got = hops.xxh64_mod_cuda(None, lo, 80)
+        lo.record_stream(side)
+    side.synchronize()
+    assert hops.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_hash64_redesign_repeatable(cuda):
+    rng = np.random.default_rng(24)
+    hi = torch.from_numpy(_i32(rng, 6400)).to(cuda)
+    lo = torch.from_numpy(_i32(rng, 6400)).to(cuda)
+    first = hops.xxh64_mod_cuda(hi, lo, 80)
+    for _ in range(3):
+        assert torch.equal(hops.xxh64_mod_cuda(hi, lo, 80), first)
+
+
 def test_voronoi_kernel_matches_plain(cuda):
     rng = np.random.default_rng(10)
     city = CityConfig()
