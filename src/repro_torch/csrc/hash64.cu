@@ -7,7 +7,7 @@
 // multiply, shift and rotate, so each thread hashes its keys in a handful of
 // instructions and reduces them mod n_edges in the same thread.
 //
-// PROBE BUILD: HASH64_MODE, HASH64_KEYS and HASH64_THREADS select compile-time
+// PROBE BUILD: HASH64_MODE, HASH64_SPLIT and HASH64_THREADS select compile-time
 // variants for timing; they go once the probes are read.
 //
 // C entries: hash64_mod_launch(hi or NULL, lo, out, n, n_edges, m, r, stream)
@@ -18,10 +18,10 @@
 #include <stdint.h>
 
 #ifndef HASH64_MODE
-#define HASH64_MODE 0      // 0 fastmod, 1 '%', 2 hash only, 3 loads and store
+#define HASH64_MODE 4   // 0 three fastmods, 1 '%', 2 hash only, 3 loads, 4 one fastmod
 #endif
-#ifndef HASH64_KEYS
-#define HASH64_KEYS 1
+#ifndef HASH64_SPLIT
+#define HASH64_SPLIT 1  // a kernel for each form (with and without hi)
 #endif
 #ifndef HASH64_THREADS
 #define HASH64_THREADS 256
@@ -35,7 +35,6 @@ constexpr uint64_t P3 = 0x165667B19E3779F9ull;
 constexpr uint64_t P4 = 0x85EBCA77C2B2AE63ull;
 constexpr uint64_t P5 = 0x27D4EB2F165667C5ull;
 constexpr int kThreads = HASH64_THREADS;
-constexpr int kKeys = HASH64_KEYS;
 
 __device__ __forceinline__ uint64_t rotl64(uint64_t x, int r) {
   return (x << r) | (x >> (64 - r));
@@ -70,6 +69,9 @@ __device__ __forceinline__ int32_t hash_mod(uint32_t hi, uint32_t lo,
   return (int32_t)h;
 #elif HASH64_MODE == 1
   return (int32_t)(h % (uint64_t)n);
+#elif HASH64_MODE == 4
+  uint64_t x = (uint64_t)(uint32_t)(h >> 32) * r + (uint32_t)h;
+  return (int32_t)__umul64hi(m * x, n);
 #else
   uint32_t a = fastmod((uint32_t)(h >> 32), m, n);
   uint32_t b = fastmod((uint32_t)h, m, n);
@@ -78,85 +80,24 @@ __device__ __forceinline__ int32_t hash_mod(uint32_t hi, uint32_t lo,
 #endif
 }
 
-template <int K> struct Vec;
-template <> struct Vec<1> { using T = int32_t; };
-template <> struct Vec<2> { using T = int2; };
-template <> struct Vec<4> { using T = int4; };
-
-template <int K>
-__device__ __forceinline__ void load_group(const int32_t* __restrict__ p,
-                                           int base, int n, bool vec,
-                                           uint32_t (&v)[K]) {
-  if constexpr (K == 1) {
-    v[0] = (uint32_t)p[base];
-  } else {
-    if (vec && base >= 0 && base + K <= n) {
-      typename Vec<K>::T x =
-          *reinterpret_cast<const typename Vec<K>::T*>(p + base);
-      const int32_t* e = reinterpret_cast<const int32_t*>(&x);
-#pragma unroll
-      for (int j = 0; j < K; ++j) v[j] = (uint32_t)e[j];
-    } else {
-#pragma unroll
-      for (int j = 0; j < K; ++j) {
-        int i = base + j;
-        v[j] = (i >= 0 && i < n) ? (uint32_t)p[i] : 0u;
-      }
-    }
-  }
-}
-
+template <bool kHi>
 __global__ void __launch_bounds__(kThreads) hash64_mod_kernel(
     const int32_t* __restrict__ hi, const int32_t* __restrict__ lo,
     int32_t* __restrict__ out, int n, uint32_t n_edges, uint64_t m,
     uint32_t r) {
-  int g = blockIdx.x * kThreads + threadIdx.x;
-  if constexpr (kKeys == 1) {
-    if (g >= n) return;
-    uint32_t h32 = hi == nullptr ? 0u : (uint32_t)hi[g];
-    out[g] = hash_mod(h32, (uint32_t)lo[g], m, n_edges, r);
-  } else {
-    // Groups of kKeys keys aligned to lo's 4*kKeys-byte boundaries: group g
-    // starts at key g*kKeys - head; the partial head and tail groups take
-    // scalar loads.
-    const int head = (int)(((uintptr_t)lo >> 2) & (kKeys - 1));
-    int base = g * kKeys - head;
-    if (base >= n) return;
-    uint32_t vl[kKeys], vh[kKeys];
-    load_group<kKeys>(lo, base, n, true, vl);
-    if (hi == nullptr) {
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) vh[j] = 0u;
-    } else {
-      bool same = (int)(((uintptr_t)hi >> 2) & (kKeys - 1)) == head;
-      load_group<kKeys>(hi, base, n, same, vh);
-    }
-    int32_t res[kKeys];
-#pragma unroll
-    for (int j = 0; j < kKeys; ++j) res[j] = hash_mod(vh[j], vl[j], m, n_edges, r);
-    bool out_same = (int)(((uintptr_t)out >> 2) & (kKeys - 1)) == head;
-    if (out_same && base >= 0 && base + kKeys <= n) {
-      typename Vec<kKeys>::T x;
-      int32_t* e = reinterpret_cast<int32_t*>(&x);
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) e[j] = res[j];
-      *reinterpret_cast<typename Vec<kKeys>::T*>(out + base) = x;
-    } else {
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        int i = base + j;
-        if (i >= 0 && i < n) out[i] = res[j];
-      }
-    }
-  }
+  int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+#if HASH64_SPLIT
+  uint32_t h32 = kHi ? (uint32_t)hi[i] : 0u;
+#else
+  uint32_t h32 = hi == nullptr ? 0u : (uint32_t)hi[i];
+#endif
+  out[i] = hash_mod(h32, (uint32_t)lo[i], m, n_edges, r);
 }
 
 __global__ void hash64_empty_kernel() {}
 
-int blocks_for(int n) {
-  int groups = (n + kKeys - 1) / kKeys + (kKeys > 1 ? 1 : 0);
-  return (groups + kThreads - 1) / kThreads;
-}
+int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
 
 }  // namespace
 
@@ -164,7 +105,9 @@ extern "C" int hash64_mod_launch(const void* hi, const void* lo, void* out,
                                  int n, unsigned n_edges,
                                  unsigned long long m, unsigned r,
                                  void* stream) {
-  hash64_mod_kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
+  auto kernel = hi == nullptr || !HASH64_SPLIT ? hash64_mod_kernel<false>
+                                                : hash64_mod_kernel<true>;
+  kernel<<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
       (const int32_t*)hi, (const int32_t*)lo, (int32_t*)out, n, n_edges, m, r);
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,7 @@
 
 Builds compile-time variants of ``src/repro_torch/csrc/hash64.cu``
 (HASH64_MODE: 0 fastmod, 1 '%', 2 hash without the modulo, 3 loads and
-store; HASH64_KEYS keys a thread; HASH64_THREADS a block) and the parent's
+store; HASH64_SPLIT a kernel for each form; HASH64_THREADS a block) and the parent's
 kernel (``parent_hash64.cu``), holds every variant that computes the full
 function bitwise against the plain version, and times each at the main
 path's three shapes (6,400 and 400 H_t keys, 400 H_i keys) by torch.profiler
@@ -31,18 +31,19 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
-VARIANTS = {            # name -> (MODE, KEYS, THREADS)
-    "fast_k1_t256": (0, 1, 256),
-    "pct_k1_t256": (1, 1, 256),
-    "nomod_k1_t256": (2, 1, 256),
-    "loads_k1_t256": (3, 1, 256),
-    "fast_k2_t256": (0, 2, 256),
-    "fast_k4_t256": (0, 4, 256),
-    "fast_k1_t128": (0, 1, 128),
-    "fast_k4_t128": (0, 4, 128),
-    "pct_k4_t256": (1, 4, 256),
+VARIANTS = {            # name -> (MODE, SPLIT, THREADS)
+    "fast1_split_t256": (4, 1, 256),
+    "fast1_split_t128": (4, 1, 128),
+    "fast1_split_t64": (4, 1, 64),
+    "fast1_t256": (4, 0, 256),
+    "fast1_t128": (4, 0, 128),
+    "fast3_t256": (0, 0, 256),
+    "fast3_t128": (0, 0, 128),
+    "pct_t256": (1, 0, 256),
+    "nomod_split_t256": (2, 1, 256),
+    "loads_split_t256": (3, 1, 256),
 }
-FULL = {"fast", "pct"}
+FULL = {"fast1", "fast3", "pct"}
 
 
 def build(out_dir: Path) -> dict:
@@ -51,10 +52,10 @@ def build(out_dir: Path) -> dict:
     flags = [f for f in kb.NVCC_FLAGS]
     procs, libs = {}, {}
     src = ROOT / "src/repro_torch/csrc/hash64.cu"
-    for name, (mode, keys, threads) in VARIANTS.items():
+    for name, (mode, split, threads) in VARIANTS.items():
         lib = out_dir / f"lib{name}.so"
         procs[name] = subprocess.Popen(
-            [nvcc, *flags, f"-DHASH64_MODE={mode}", f"-DHASH64_KEYS={keys}",
+            [nvcc, *flags, f"-DHASH64_MODE={mode}", f"-DHASH64_SPLIT={split}",
              f"-DHASH64_THREADS={threads}", "-o", str(lib), str(src)],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         libs[name] = lib
@@ -206,7 +207,7 @@ def main() -> int:
                 t = cs.device_ms(torch, launcher(name, hi, lo, out, 80), 200,
                                  "hash64_mod_kernel")
                 res.setdefault(shape, {}).setdefault(name, []).append(t * 1e3)
-            for k in ("fast_k1_t256", "fast_k4_t256", "fast_k1_t128"):
+            for k in ("fast1_split_t256", "fast1_split_t128", "fast1_split_t64"):
                 if k in libs:
                     lib = libs[k]
                     t = cs.device_ms(torch, lambda: lib.hash64_empty_launch(n, stream),
