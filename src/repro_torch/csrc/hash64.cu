@@ -18,7 +18,8 @@
 #include <stdint.h>
 
 #ifndef HASH64_MODE
-#define HASH64_MODE 4   // 0 three fastmods, 1 '%', 2 hash only, 3 loads, 4 one fastmod
+#define HASH64_MODE 4   // 0 three fastmods, 1 '%', 2 hash only, 3 loads, 4 one fastmod,
+                        // 5 one fastmod, its high product written out
 #endif
 #ifndef HASH64_SPLIT
 #define HASH64_SPLIT 1  // a kernel for each form (with and without hi)
@@ -72,6 +73,11 @@ __device__ __forceinline__ int32_t hash_mod(uint32_t hi, uint32_t lo,
 #elif HASH64_MODE == 4
   uint64_t x = (uint64_t)(uint32_t)(h >> 32) * r + (uint32_t)h;
   return (int32_t)__umul64hi(m * x, n);
+#elif HASH64_MODE == 5
+  uint64_t x = (uint64_t)(uint32_t)(h >> 32) * r + (uint32_t)h;
+  uint64_t y = m * x;
+  uint64_t u = (uint64_t)(uint32_t)(y >> 32) * n + __umulhi((uint32_t)y, n);
+  return (int32_t)(u >> 32);
 #else
   uint32_t a = fastmod((uint32_t)(h >> 32), m, n);
   uint32_t b = fastmod((uint32_t)h, m, n);

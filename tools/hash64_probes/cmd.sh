@@ -1,6 +1,6 @@
 set -x
 mkdir -p chiprun_out/hash64_probes
-python3 tools/hash64_probes/run.py > chiprun_out/hash64_probes/probe3.log 2>&1; echo probe rc=$?
-tail -c 9000 chiprun_out/hash64_probes/probe3.log
-python3 -m pytest -q -p no:cacheprovider tests/test_torch_kernels_cuda.py -k hash64 > chiprun_out/hash64_probes/cardtests3.log 2>&1; echo tests rc=$?
-tail -30 chiprun_out/hash64_probes/cardtests3.log
+python3 tools/hash64_probes/run.py > chiprun_out/hash64_probes/probe4.log 2>&1; echo probe rc=$?
+tail -c 9000 chiprun_out/hash64_probes/probe4.log
+python3 -m pytest -q -p no:cacheprovider tests/test_torch_kernels_cuda.py -k hash64 > chiprun_out/hash64_probes/cardtests4.log 2>&1; echo tests rc=$?
+tail -30 chiprun_out/hash64_probes/cardtests4.log

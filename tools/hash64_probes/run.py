@@ -32,18 +32,16 @@ sys.path.insert(0, str(ROOT))
 sys.path.insert(0, str(ROOT / "src"))
 
 VARIANTS = {            # name -> (MODE, SPLIT, THREADS)
-    "fast1_split_t256": (4, 1, 256),
-    "fast1_split_t128": (4, 1, 128),
-    "fast1_split_t64": (4, 1, 64),
-    "fast1_t256": (4, 0, 256),
     "fast1_t128": (4, 0, 128),
-    "fast3_t256": (0, 0, 256),
+    "fast1hi_t128": (5, 0, 128),
+    "fast1hi_split_t128": (5, 1, 128),
+    "fast1hi_t256": (5, 0, 256),
     "fast3_t128": (0, 0, 128),
-    "pct_t256": (1, 0, 256),
-    "nomod_split_t256": (2, 1, 256),
-    "loads_split_t256": (3, 1, 256),
+    "pct_t128": (1, 0, 128),
+    "nomod_t128": (2, 0, 128),
+    "loads_t128": (3, 0, 128),
 }
-FULL = {"fast1", "fast3", "pct"}
+FULL = {"fast1", "fast1hi", "fast3", "pct"}
 
 
 def build(out_dir: Path) -> dict:
@@ -207,7 +205,7 @@ def main() -> int:
                 t = cs.device_ms(torch, launcher(name, hi, lo, out, 80), 200,
                                  "hash64_mod_kernel")
                 res.setdefault(shape, {}).setdefault(name, []).append(t * 1e3)
-            for k in ("fast1_split_t256", "fast1_split_t128", "fast1_split_t64"):
+            for k in ("fast1hi_t128", "fast1hi_t256"):
                 if k in libs:
                     lib = libs[k]
                     t = cs.device_ms(torch, lambda: lib.hash64_empty_launch(n, stream),
