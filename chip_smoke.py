@@ -21,7 +21,10 @@ Phases, one line each:
      the ring with every count above capacity (count, min, max bitwise with
      NaN equal, sum to rtol 1e-5, a second call bitwise equal); its device
      time at each batch and channel count beside the bytes it must move;
-     then per-kernel timings beside their bounds (voronoi_assign at the
+     then per-kernel timings beside their bounds (hash64 at an insert
+     round's three shapes, 6,400 slice buckets and 400 midpoint buckets in
+     the H_t form and 400 shard ids in the H_i form, each beside an empty
+     kernel on its grid; voronoi_assign at the
      slice grid's and the placement's shapes, with the sites it visits a
      point, the instructions that costs by a static count from its SASS,
      and its bound recounted for the sites visited): ``ms`` is the call time,
@@ -662,12 +665,14 @@ def main(argv=None) -> int:
     n_keys = 1 << 20
     hi = torch.from_numpy(rng.integers(-2**31, 2**31, n_keys).astype(np.int32)).to(dev)
     lo = torch.from_numpy(rng.integers(-2**31, 2**31, n_keys).astype(np.int32)).to(dev)
-    hash_bad = 0
-    for n in (1, 8, 80, 65535):
-        for h in (hi, None):
-            got = hash64_ops.xxh64_mod_cuda(h, lo, n)
-            want = hashing.xxh64_mod_plain(h, lo, n)
+    hash_bad = hash_keys = 0
+    for n in (1, 8, 80, 65521, 65535):
+        # views at their own 4-byte offsets go to the kernel without a copy
+        for h, l in ((hi, lo), (None, lo), (hi[3:], lo[1:-2]), (None, lo[1:])):
+            got = hash64_ops.xxh64_mod_cuda(h, l, n)
+            want = hashing.xxh64_mod_plain(h, l, n)
             hash_bad += int((got != want).sum())
+            hash_keys += l.numel()
     few = 1000
     got = hash64_ops.xxh64_mod_cuda(hi[:few], lo[:few], 80).cpu().numpy()
     oracle_bad = int((got != xxh64_mod_py(hi[:few].cpu().numpy(),
@@ -696,7 +701,7 @@ def main(argv=None) -> int:
     if vor_bad or vor_oracle_bad:
         raise SystemExit(f"voronoi_assign disagrees: {vor_bad} vs plain, "
                          f"{vor_oracle_bad} vs float64 oracle")
-    phase("kernels_vs_plain", hash64_keys=n_keys * 8, hash64_mismatch=0,
+    phase("kernels_vs_plain", hash64_keys=hash_keys, hash64_mismatch=0,
           hash64_oracle_keys=few, voronoi_points=int(pts.shape[0]),
           voronoi_clear=int(clear.sum()),
           voronoi_mismatch_all=int((got != plain).sum()))
@@ -822,21 +827,41 @@ def main(argv=None) -> int:
     scan = st_scan_phase(torch, dev, cfg, st, db.alive, batches, specs)
     rows = scan["rows"]
 
+    def bound(bytes_, ops=0.0):
+        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
+        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+
     # hash64 at the insert's temporal-slice shape (B x max_t_slices H_t keys).
     buckets = hashing.time_bucket(torch.from_numpy(metas.t0[-1]).to(dev),
                                   cfg.tau)[:, None] + torch.arange(
         16, dtype=torch.int32, device=dev)
-    h_ms = cuda_ms(torch, lambda: hash64_ops.xxh64_mod_cuda(None, buckets, 80), 200)
     h_plain = cuda_ms(torch, lambda: hashing.xxh64_mod_plain(None, buckets, 80), 50)
-    h_dev = device_ms(torch, lambda: hash64_ops.xxh64_mod_cuda(None, buckets, 80),
-                      50, "hash64_mod_kernel")
-    h_bytes = buckets.numel() * 8
-    h_err = int((hash64_ops.xxh64_mod_cuda(None, buckets, 80)
-                 != hashing.xxh64_mod_plain(None, buckets, 80)).sum())
-
-    def bound(bytes_, ops=0.0):
-        b_ms, o_ms = bytes_ / HBM_BYTES_PER_S * 1e3, ops / FP32_FLOP_PER_S * 1e3
-        return (max(b_ms, o_ms), "bytes" if b_ms >= o_ms else "operations")
+    # hash64 at each main-path shape of an insert round: the slice buckets
+    # above, the shard midpoints' buckets (H_t) and the shard ids (H_i), each
+    # beside an empty kernel on its grid (hash64_empty_launch) and its bytes
+    # read once and written once: 8 B a key in the H_t form, 12 in the H_i.
+    mid_t = 0.5 * (torch.from_numpy(metas.t0[-1]) + torch.from_numpy(metas.t1[-1])).to(dev)
+    sid_hi = torch.from_numpy(metas.sid_hi[-1]).to(dev)
+    sid_lo = torch.from_numpy(metas.sid_lo[-1]).to(dev)
+    hash_shapes = {}
+    for shape, hi_k, lo_k, key_bytes in (
+            ("ht_slices", None, buckets, 8),
+            ("ht_midpoints", None, hashing.time_bucket(mid_t, cfg.tau), 8),
+            ("hi_shard_ids", sid_hi, sid_lo, 12)):
+        call = (lambda h=hi_k, lo_=lo_k: hash64_ops.xxh64_mod_cuda(h, lo_, 80))
+        keys = int(lo_k.numel())
+        b_ms, b_by = bound(keys * key_bytes)
+        hash_shapes[shape] = {
+            "keys": keys, "high_word": hi_k is not None,
+            "ms": cuda_ms(torch, call, 200),
+            "device_ms": device_ms(torch, call, 50, "hash64_mod_kernel"),
+            "launch_floor_device_ms": device_ms(
+                torch, lambda k=keys: hash64_ops.launch_floor(k, dev), 50,
+                "hash64_empty_kernel"),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "err": int((call() != hashing.xxh64_mod_plain(hi_k, lo_k, 80)).sum())}
+    h_err = sum(v.pop("err") for v in hash_shapes.values())
+    h_ms, h_dev = (hash_shapes["ht_slices"][k] for k in ("ms", "device_ms"))
 
     # voronoi at the insert's spatial-slice shape (B x 16 x 16 cell centres).
     i0 = torch.floor(torch.from_numpy(metas.lat0[-1]).to(dev) / cell)
@@ -910,7 +935,7 @@ def main(argv=None) -> int:
              None, scan["err"]),
             ("hash64", "cuda", "src/repro_torch/csrc/hash64.cu",
              "src/repro/kernels/hash64/hash64.py:28", h_ms, h_dev, h_plain,
-             bound(h_bytes), None, None, float(h_err)),
+             bound(buckets.numel() * 8), None, None, float(h_err)),
             ("voronoi_assign", "cuda", "src/repro_torch/csrc/voronoi_assign.cu",
              "src/repro/kernels/voronoi_assign/voronoi_assign.py:32", v_ms,
              v_dev, v_plain, bound(n_pts * 12, v_ops), v_lib, v_lib_dev,
@@ -938,7 +963,9 @@ def main(argv=None) -> int:
           st_scan_checks=scan["checks"], st_scan_batches=scan["batches"],
           st_scan_bound_ms={"nine_words_every_live_slot": kernels[0]["bound_ms_old"],
                             "hot_words_plus_matched_channels": kernels[0]["bound_ms"]},
-          hash64_keys=int(buckets.numel()), voronoi_points=int(n_pts),
+          hash64_keys=int(buckets.numel()), hash64_shapes=hash_shapes,
+          launch_floor_device_ms=hash_shapes["ht_slices"]["launch_floor_device_ms"],
+          voronoi_points=int(n_pts),
           voronoi_placement=place, voronoi_work=vor_work)
     if h_err or v_err or place["err"]:
         raise SystemExit(f"kernel disagrees at timing shapes: hash64 {h_err}, "

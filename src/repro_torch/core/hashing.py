@@ -154,8 +154,7 @@ def xxh64_mod_plain(hi: torch.Tensor, lo: torch.Tensor,
 def hash_shard_id(sid_hi: torch.Tensor, sid_lo: torch.Tensor,
                   n_edges: int) -> torch.Tensor:
     """H_i: mod(xxh64(shardID), edgeCount) (paper §3.4.1)."""
-    return hash64_ops.xxh64_mod(sid_hi.to(torch.int32), sid_lo.to(torch.int32),
-                                n_edges)
+    return hash64_ops.xxh64_mod(sid_hi, sid_lo, n_edges)
 
 
 def time_bucket(t: torch.Tensor, tau: float) -> torch.Tensor:
@@ -166,7 +165,7 @@ def time_bucket(t: torch.Tensor, tau: float) -> torch.Tensor:
 def hash_time_bucket(bucket: torch.Tensor, n_edges: int) -> torch.Tensor:
     """H_t applied to a precomputed bucket id: mod(xxh64(bucket), edgeCount),
     the bucket's int32 bits as the low word of a zero-high key."""
-    return hash64_ops.xxh64_mod(None, bucket.to(torch.int32), n_edges)
+    return hash64_ops.xxh64_mod(None, bucket, n_edges)
 
 
 def hash_time(t: torch.Tensor, tau: float, n_edges: int) -> torch.Tensor:

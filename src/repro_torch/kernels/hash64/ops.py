@@ -74,7 +74,7 @@ def xxh64_mod_cuda(hi: Optional[torch.Tensor], lo: torch.Tensor,
         raise ValueError("xxh64_mod_cuda takes CUDA tensors on one device")
     m, r = mod_constants(n_edges)
     lo_c = _int32(lo)
-    out = torch.empty(lo.shape, dtype=torch.int32, device=lo.device)
+    out = torch.empty_like(lo_c)        # contiguous int32, cheaper than empty
     n = lo_c.numel()
     if n == 0:
         return out

@@ -91,3 +91,103 @@ def test_modulus_out_of_range_raises():
     for n in (0, 65536):
         with pytest.raises(ValueError, match="65536"):
             hops.xxh64_mod(x, x, n)
+
+
+# -- the CUDA kernel's modulo (csrc/hash64.cu, mod_n), replayed on the CPU ----
+
+M32, M64 = (1 << 32) - 1, (1 << 64) - 1
+EVERY_N = np.arange(1, 1 << 16, dtype=np.uint64)
+
+
+def _umul64hi_small(y, n):
+    """High 64 bits of y * n for uint64 ``y`` and ``n`` < 2^32, as the kernel
+    writes it: the low word's high product, then the high word's product
+    plus it, whose high word is the result."""
+    t = ((y & np.uint64(M32)) * n) >> np.uint64(32)
+    return ((y >> np.uint64(32)) * n + t) >> np.uint64(32)
+
+
+def _kernel_mod(h, n, m, r):
+    """``mod_n`` of csrc/hash64.cu in wrapping uint64 arithmetic, elementwise
+    over ``h`` (hashes) and ``n``, ``m``, ``r`` (one modulus each)."""
+    x = (h >> np.uint64(32)) * r + (h & np.uint64(M32))
+    assert (x <= np.uint64(M32) * n).all()      # the bound the proof needs
+    return _umul64hi_small(m * x, n)
+
+
+def _constants(ns):
+    """m = ceil(2^64 / n) mod 2^64 and r = 2^32 mod n, in Python ints."""
+    m = np.array([-(-(1 << 64) // int(n)) & M64 for n in ns], np.uint64)
+    r = np.array([(1 << 32) % int(n) for n in ns], np.uint64)
+    return m, r
+
+
+def _hashes(kind, ns):
+    """(len(ns), K) uint64 hashes: a row for each modulus."""
+    rng = np.random.default_rng(7)
+    k = len(ns)
+    if kind == "seeded":            # random words and real xxh64 outputs
+        keys = rng.integers(0, 1 << 64, 3, dtype=np.uint64).tolist()
+        real = np.array([tref.xxh64_u64_py(int(v)) for v in keys], np.uint64)
+        h = rng.integers(0, 1 << 64, (k, 3), dtype=np.uint64)
+        return np.concatenate([h, np.tile(real, (k, 1))], 1)
+    if kind == "edges":
+        return np.tile(np.array([0, 1, M32, 1 << 32, (1 << 63) - 1, 1 << 63,
+                                 M64 - 1, M64], np.uint64), (k, 1))
+    top = np.uint64(M64) // ns * ns            # the largest multiple of n
+    mult = rng.integers(0, 1 << 48, k, dtype=np.uint64) * ns
+    cols = [top, top - ns, mult, ns, ns - np.uint64(1), top - np.uint64(1),
+            top + (ns - np.uint64(1)), mult + ns - np.uint64(1)]
+    return np.stack(cols, 1)                    # multiples of n, n k - 1
+
+
+@pytest.mark.parametrize("kind", ["seeded", "edges", "multiples"])
+def test_kernel_modulo_replay_every_n(kind):
+    m, r = _constants(EVERY_N.tolist())
+    with np.errstate(over="ignore"):
+        h = _hashes(kind, EVERY_N)
+        n, m, r = (a[:, None] for a in (EVERY_N, m, r))
+        got = _kernel_mod(h, n, m, r)
+    np.testing.assert_array_equal(got, h % n)
+    some = [0, 1, 79, 65520, 65534]                 # spot rows in Python ints
+    for i in some:
+        assert [int(v) for v in got[i]] == [int(v) % (i + 1) for v in h[i]]
+
+
+def test_wrapper_constants_every_n():
+    ns = EVERY_N.tolist()
+    m, r = _constants(ns)
+    got = [hops.mod_constants(int(n)) for n in ns]
+    hops.mod_constants.cache_clear()
+    assert [g[0] for g in got] == [int(v) for v in m]
+    assert [g[1] for g in got] == [int(v) for v in r]
+    assert got[0] == (0, 0) and got[79] == (230584300921369396, 16)
+    with np.errstate(over="ignore"):               # the replay, with them
+        h = np.array([M64, 0xDEADBEEFCAFEF00D, 12345], np.uint64)
+        n = EVERY_N[:, None]
+        mm = np.array([g[0] for g in got], np.uint64)[:, None]
+        rr = np.array([g[1] for g in got], np.uint64)[:, None]
+        np.testing.assert_array_equal(_kernel_mod(h[None, :], n, mm, rr),
+                                      h[None, :] % n)
+    for n in (0, 65536):
+        with pytest.raises(ValueError, match="65536"):
+            hops.mod_constants(n)
+
+
+@pytest.mark.parametrize("first", ["repro_torch.kernels.hash64.ops",
+                                   "repro_torch.core.hashing"])
+def test_hashing_and_wrapper_import_in_either_order(first):
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(
+        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+    code = (f"import {first}; from repro_torch.core import hashing; "
+            "from repro_torch.kernels.hash64 import ops; import torch; "
+            "print(int(hashing.hash_time_bucket(torch.arange(3, dtype=torch.int32), 80)[2]), "
+            "int(ops.xxh64_mod(None, torch.tensor([2]), 80)[0]))")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, env=env).stdout.split()
+    want = tref.xxh64_mod_py(np.zeros(1), np.array([2]), 80)[0]
+    assert out == [str(want), str(want)]
