@@ -73,9 +73,11 @@ def xxh64_mod_cuda(hi: Optional[torch.Tensor], lo: torch.Tensor,
     if not lo.is_cuda or (hi is not None and hi.device != lo.device):
         raise ValueError("xxh64_mod_cuda takes CUDA tensors on one device")
     m, r = mod_constants(n_edges)
+    n = lo.numel()
+    if n >= 1 << 31:                    # the kernel's count is a C int
+        raise ValueError(f"xxh64_mod_cuda takes fewer than 2^31 keys, got {n}")
     lo_c = _int32(lo)
     out = torch.empty_like(lo_c)        # contiguous int32, cheaper than empty
-    n = lo_c.numel()
     if n == 0:
         return out
     hi_c = None if hi is None else _int32(hi)

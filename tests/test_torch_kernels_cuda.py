@@ -119,6 +119,14 @@ def test_hash64_redesign_follows_the_current_stream(cuda):
     assert torch.equal(got, want)
 
 
+def test_hash64_redesign_refuses_more_keys_than_a_c_int(cuda):
+    wide = torch.zeros(1, dtype=torch.int32, device=cuda).expand(1 << 31)
+    before = hops.launches
+    with pytest.raises(ValueError, match="2\\^31"):
+        hops.xxh64_mod_cuda(None, wide, 80)
+    assert hops.launches == before
+
+
 def test_hash64_redesign_repeatable(cuda):
     rng = np.random.default_rng(24)
     hi = torch.from_numpy(_i32(rng, 6400)).to(cuda)
