@@ -95,4 +95,4 @@ def launch_floor(n: int, device: torch.device) -> None:
     keys: a yardstick of the launch for timing, called by no path of the
     port, and not counted in ``launches``."""
     build.check("hash64", _lib().hash64_empty_launch(
-        n, torch._C._cuda_getCurrentRawStream(torch.device(device).index)))
+        n, torch.cuda.current_stream(device).cuda_stream))

@@ -127,6 +127,13 @@ def test_hash64_redesign_refuses_more_keys_than_a_c_int(cuda):
     assert hops.launches == before
 
 
+def test_hash64_launch_floor_counts_nothing(cuda):
+    before = hops.launches
+    hops.launch_floor(6400, cuda)           # a device with no index
+    torch.cuda.synchronize()
+    assert hops.launches == before
+
+
 def test_hash64_redesign_repeatable(cuda):
     rng = np.random.default_rng(24)
     hi = torch.from_numpy(_i32(rng, 6400)).to(cuda)
