@@ -30,14 +30,14 @@
 // A key reads 4 bytes in the H_t form (its high word is zero) and 8 in the
 // H_i form and writes 4: 6,400 H_t keys are 51 KB, 0.015 µs at 3.35 TB/s,
 // far below a launch. Compile-time probes at 6,400 keys (H100 80GB HBM3,
-// 700 W; PERF.md, PR 19): an empty kernel with this grid 0.83 µs, the loads
+// 700 W; PERF.md §6): an empty kernel with this grid 0.83 µs, the loads
 // and the store alone 1.08, the hash without the modulo 1.14, with this
-// modulo 1.16, with `%` 1.31 (the parent's kernel 1.36). Two or four keys a
-// thread with 8- or 16-byte loads were slower (1.34; 1.40-1.59): a longer
-// chain a thread costs more than the loads it saves. 128 threads a block
-// read 0.01-0.04 µs below 256. Neighbouring threads take neighbouring keys,
-// so loads and stores are coalesced at any 4-byte offset; there is nothing
-// to share, so no shared memory.
+// modulo 1.16, with `%` 1.31 (the first port of this kernel 1.36). Two or
+// four keys a thread with 8- or 16-byte loads were slower (1.34; 1.40-1.59):
+// a longer chain a thread costs more than the loads it saves. 128 threads a
+// block read 0.005-0.04 µs below 256. Neighbouring threads take neighbouring
+// keys, so loads and stores are coalesced at any 4-byte offset; there is
+// nothing to share, so no shared memory.
 //
 // C entries: hash64_mod_launch(hi or NULL, lo, out, n, n_edges, m, r, stream)
 // launches on `stream` and returns cudaGetLastError(); hash64_empty_launch(n,

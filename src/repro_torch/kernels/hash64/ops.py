@@ -46,7 +46,8 @@ def mod_constants(n_edges: int) -> Tuple[int, int]:
     """``(m, r)`` the kernel reduces with: ``m = ceil(2^64 / n) mod 2^64``
     (0 for n = 1) and ``r = 2^32 mod n``."""
     hashing.check_n_edges(n_edges)
-    return (((1 << 64) - 1) // n_edges + 1) & ((1 << 64) - 1), (1 << 32) % n_edges
+    m = (((1 << 64) - 1) // n_edges + 1) & ((1 << 64) - 1)
+    return m, (1 << 32) % n_edges
 
 
 def _int32(x: torch.Tensor) -> torch.Tensor:

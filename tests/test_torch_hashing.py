@@ -180,12 +180,14 @@ def test_hashing_and_wrapper_import_in_either_order(first):
     import os
     import subprocess
     import sys
-    src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "src")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = {**os.environ, "PYTHONPATH": os.pathsep.join(
-        [src] + [p for p in [os.environ.get("PYTHONPATH")] if p])}
+        [os.path.join(root, "src")]
+        + [p for p in [os.environ.get("PYTHONPATH")] if p])}
     code = (f"import {first}; from repro_torch.core import hashing; "
             "from repro_torch.kernels.hash64 import ops; import torch; "
-            "print(int(hashing.hash_time_bucket(torch.arange(3, dtype=torch.int32), 80)[2]), "
+            "b = torch.arange(3, dtype=torch.int32); "
+            "print(int(hashing.hash_time_bucket(b, 80)[2]), "
             "int(ops.xxh64_mod(None, torch.tensor([2]), 80)[0]))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, env=env).stdout.split()
