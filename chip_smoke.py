@@ -14,7 +14,13 @@ Phases, one line each:
      open, fused ingest of one day (288 rounds), then three 64-query AND
      batches at the paper's §4.5.1 sizes, single- and 4-channel. Checks the
      answers on retained windows against a numpy oracle over the generated
-     payloads and that every kernel's launch count grew;
+     payloads and that every kernel's launch count grew; then, on the same
+     store, the planners line: the same batches through a ``random``
+     session (key from ``--seed``) and a ``min_edges`` one (batch p50, fig.
+     9's mean sub-query edges and shards per edge, launches, the same exact
+     checks) and the random planner's threefry draw and plans on the card
+     against the CPU (bits and uniforms bitwise, picks away from
+     near-ties);
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -177,6 +183,7 @@ def profile(torch, fn, top: int = 12) -> dict:
     busy_ms = sum(r[0] for r in rows)
     return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
             "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+            "device_launches": sum(r[1] for r in rows),
             "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:top]]}
 
 
@@ -207,6 +214,166 @@ def voronoi_visits(torch, vor_ops, lat, lon, sites) -> dict:
 
 def phase(name: str, **fields) -> None:
     print(json.dumps({"phase": name, **fields}), flush=True)
+
+
+def exact_checks(results, batches, specs, flat) -> tuple:
+    """Every answer of ``results`` ((batch, spec) -> (QueryResult,
+    QueryInfo)) has its shape and finite aggregates where it matched; on
+    the recent batches (windows retained on every replica) each count
+    equals the numpy oracle over ``flat`` (the generated tuples) and each
+    sum agrees to rtol 1e-5. Exits non-zero otherwise; returns (queries
+    checked, queries skipped for overflow)."""
+    checked = overflowed = 0
+    for (bi, si), (res, info) in results.items():
+        k = specs[si].n_channels
+        assert res.count.shape == (64,) and res.vsum.shape == ((64,) if k == 1 else (64, k))
+        cnt = res.count.cpu().numpy()
+        some = cnt > 0
+        for a in (res.vsum, res.vmin, res.vmax, res.vmean):
+            a = a.cpu().numpy().reshape(64, -1)
+            if not np.isfinite(a[some]).all():
+                raise SystemExit("non-finite aggregate on a matching query")
+        km, win, recent, w = batches[bi]
+        if not recent:
+            continue
+        ovf = res.overflow.cpu().numpy()
+        vs = res.vsum.cpu().numpy().reshape(64, -1)
+        for qi in range(64):
+            if ovf[qi]:
+                overflowed += 1
+                continue
+            m = ((w["lat0"][qi] <= flat[:, 1]) & (flat[:, 1] <= w["lat1"][qi])
+                 & (w["lon0"][qi] <= flat[:, 2]) & (flat[:, 2] <= w["lon1"][qi])
+                 & (w["t0"][qi] <= flat[:, 0]) & (flat[:, 0] <= w["t1"][qi]))
+            if int(m.sum()) != int(cnt[qi]):
+                raise SystemExit(f"batch {bi} query {qi}: count {cnt[qi]} != "
+                                 f"oracle {int(m.sum())}")
+            want = flat[m][:, 3:3 + k].sum(0)
+            np.testing.assert_allclose(vs[qi], want, rtol=1e-5)
+            checked += 1
+    return checked, overflowed
+
+
+def planners_phase(torch, dev, cfg, db, batches, specs, flat, seed: int,
+                   do_profile: bool, main_results, main_times) -> dict:
+    """Fig. 9's planners on the main path's store: one session per planner
+    (``random`` with its key from ``seed``, then ``min_edges``) over the
+    same state, running the main path's 3 batches x 2 specs three times,
+    the first as the warm-up. Per planner: the batch p50, the mean
+    ``subquery_edges`` and ``max_shards_per_edge`` of each batch (fig. 9's
+    derived axes), each kernel's launches during its run (counts set to 0
+    just before it, read just after; every kernel must launch) and the
+    exact checks of the main path; ``min_shards`` gives the same axes
+    from the main path's own run (``main_results``, ``main_times``). Then
+    the random planner on the card
+    against the CPU: the threefry bits and uniforms of its first query's
+    (Q, S, 3) draw bitwise, and its plan for each batch's MatchedShards
+    away from near-ties (top two CPU gumbels of a shard's usable replicas
+    under 1e-5 apart, counted). Exits non-zero on any mismatch."""
+    import dataclasses
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core import planner, threefry
+    from repro_torch.core.datastore import _lookup_sets, make_pred
+    from repro_torch.core.index import MatchedShards, lookup
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    preds = [make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                       is_and=True, device=dev) for *_, w in batches]
+    out, sessions = {"min_shards": {
+        "from_main_path": True,
+        "query_batch_p50_ms": float(np.median(main_times)),
+        "subquery_edges_mean": [float(np.mean([
+            main_results[(bi, si)][1].subquery_edges.float().mean().item()
+            for si in range(len(specs))])) for bi in range(len(batches))],
+        "max_shards_per_edge_mean": [float(np.mean([
+            main_results[(bi, si)][1].max_shards_per_edge.float().mean().item()
+            for si in range(len(specs))])) for bi in range(len(batches))]}}, {}
+    for name in ("random", "min_edges"):
+        sess = AerialDB(dataclasses.replace(cfg, planner=name), db.state,
+                        device=dev, seed=seed)
+        sessions[name] = sess
+        results, times = {}, []
+        edges, shards = ([[] for _ in batches] for _ in range(2))
+        for mod in mods.values():
+            mod.launches = 0
+        for rep in range(3):
+            for bi, pred in enumerate(preds):
+                for si, spec in enumerate(specs):
+                    torch.cuda.synchronize()
+                    q0 = time.perf_counter()
+                    res, info = sess.query(pred, agg=spec)
+                    torch.cuda.synchronize()
+                    if rep > 0:            # repetition 0 is the warm-up
+                        times.append((time.perf_counter() - q0) * 1e3)
+                        edges[bi].append(float(info.subquery_edges.float().mean()))
+                        shards[bi].append(float(info.max_shards_per_edge.float().mean()))
+                    results[(bi, si)] = (res, info)
+        launches = {k: m.launches for k, m in mods.items()}
+        if min(launches.values()) <= 0:
+            raise SystemExit(f"planner {name}: a kernel never launched: {launches}")
+        checked, overflowed = exact_checks(results, batches, specs, flat)
+        out[name] = {"query_batch_p50_ms": float(np.median(times)),
+                     "query_batch_ms": times,
+                     "subquery_edges_mean": [float(np.mean(e)) for e in edges],
+                     "max_shards_per_edge_mean": [float(np.mean(x)) for x in shards],
+                     "launches": launches, "queries_checked_exact": checked,
+                     "queries_overflowed": overflowed}
+
+    # The random planner on the card against the CPU. Its session's first
+    # query took the second half of the first split of key(seed).
+    s = cfg.max_shards_per_query
+    k1 = threefry.split(threefry.key(seed))[1]
+    qkeys = threefry.fold_in(k1, torch.arange(64, device=dev))
+    qkeys_cpu = threefry.fold_in(k1, torch.arange(64))
+    if not torch.equal(qkeys.cpu(), qkeys_cpu):
+        raise SystemExit("threefry: the folded keys differ on the card")
+    card_draw, cpu_draw = ((threefry.random_bits(k, (s, 3)).cpu(),
+                            threefry.uniform(k, (s, 3), threefry.F32_TINY).cpu()
+                            .view(torch.int32)) for k in (qkeys, qkeys_cpu))
+    draw_bad = sum(int((a != b).sum()) for a, b in zip(card_draw, cpu_draw))
+    if draw_bad:
+        raise SystemExit(f"threefry: {draw_bad} bits or uniforms differ on the card")
+    g_cpu = threefry.gumbel(qkeys_cpu, (s, 3))
+    g_err = float((threefry.gumbel(qkeys, (s, 3)).cpu() - g_cpu).abs().max())
+    alive = sessions["random"].alive
+    plan_shards = near_ties = plan_bad = 0
+    for pred in preds:
+        lookup_mask, _ = _lookup_sets(cfg, pred, cfg.sites_array(dev), alive)
+        matched = lookup(db.state.index, pred, lookup_mask, s)
+        m_cpu = MatchedShards(*(f.cpu() for f in matched))
+        card = planner.plan_random(matched, alive, k1).cpu()
+        cpu = planner.plan_random(m_cpu, alive.cpu(), k1)
+        ok = planner._alive_replica_mask(m_cpu, alive.cpu())
+        top = torch.where(ok, g_cpu, -1e30).sort(dim=-1).values
+        near = (ok.sum(-1) >= 2) & (top[..., -1] - top[..., -2] < 1e-5)
+        plan_shards += int(m_cpu.valid.sum())
+        near_ties += int(near.sum())
+        plan_bad += int(((card != cpu) & ~near).sum())
+    if plan_bad:
+        raise SystemExit(f"plan_random: {plan_bad} picks differ on the card")
+
+    # The draw a random-planner batch adds: the fold of 64 query keys and
+    # the (64, S, 3) gumbels, as plan_random makes them.
+    def draw():
+        return threefry.gumbel(threefry.fold_in(k1, torch.arange(64, device=dev)),
+                               (s, 3))
+    out["random"]["threefry_draw"] = {
+        "ms": cuda_ms(torch, draw, 20),
+        "host_us": host_us(torch, {"draw": draw}, calls=20)["draw"]}
+    if do_profile:
+        prof = profile(torch, draw)
+        out["random"]["threefry_draw"].update(
+            device_ms=prof["device_busy_ms"], launches=prof["device_launches"],
+            device_idle_share=prof["device_idle_share"])
+        out["random"]["profile_query"] = profile(
+            torch, lambda: sessions["random"].query(preds[2], agg=specs[1]))
+    out["card_vs_cpu"] = {"draw_elements": 64 * s * 3, "draw_mismatch": 0,
+                          "gumbel_max_abs_err": g_err,
+                          "plan_shards": plan_shards, "plan_near_ties": near_ties,
+                          "plan_mismatch_away_from_ties": 0}
+    return out
 
 
 def scan_vs_plain(torch, args_scan, channels, cap: int, what: str,
@@ -774,34 +941,7 @@ def main(argv=None) -> int:
     # Correctness: shapes, finiteness, and exact answers on retained windows.
     flat = payloads.reshape(-1, payloads.shape[-1]).astype(np.float64)
     flat = flat[flat[:, 0] >= t_end - RECENT_S - 600]
-    checked = overflowed = 0
-    for (bi, si), (res, info) in results.items():
-        k = specs[si].n_channels
-        assert res.count.shape == (64,) and res.vsum.shape == ((64,) if k == 1 else (64, k))
-        cnt = res.count.cpu().numpy()
-        some = cnt > 0
-        for a in (res.vsum, res.vmin, res.vmax, res.vmean):
-            a = a.cpu().numpy().reshape(64, -1)
-            if not np.isfinite(a[some]).all():
-                raise SystemExit("non-finite aggregate on a matching query")
-        km, win, recent, w = batches[bi]
-        if not recent:
-            continue
-        ovf = res.overflow.cpu().numpy()
-        vs = res.vsum.cpu().numpy().reshape(64, -1)
-        for qi in range(64):
-            if ovf[qi]:
-                overflowed += 1
-                continue
-            m = ((w["lat0"][qi] <= flat[:, 1]) & (flat[:, 1] <= w["lat1"][qi])
-                 & (w["lon0"][qi] <= flat[:, 2]) & (flat[:, 2] <= w["lon1"][qi])
-                 & (w["t0"][qi] <= flat[:, 0]) & (flat[:, 0] <= w["t1"][qi]))
-            if int(m.sum()) != int(cnt[qi]):
-                raise SystemExit(f"batch {bi} query {qi}: count {cnt[qi]} != "
-                                 f"oracle {int(m.sum())}")
-            want = flat[m][:, 3:3 + k].sum(0)
-            np.testing.assert_allclose(vs[qi], want, rtol=1e-5)
-            checked += 1
+    checked, overflowed = exact_checks(results, batches, specs, flat)
     st = db.state
     phase("main_path", rounds=args.rounds, timed_rounds=timed_rounds,
           gen_s=gen_s, ingest_device_s=ingest_s, ingest_wall_s=wall,
@@ -815,6 +955,9 @@ def main(argv=None) -> int:
           tup_overwritten=int(st.tup_overwritten.sum()),
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
           launches=launches)
+    phase("planners", seed=args.seed, **planners_phase(
+        torch, dev, cfg, db, batches, specs, flat, args.seed, args.profile,
+        results, times))
 
     if args.profile:
         extra = fleet.next_rounds(args.chunk)

@@ -2,14 +2,16 @@
 
 Port of the single-device subset of ``repro.api.session``: one object owns
 the ``StoreConfig``, the ``StoreState`` (on one device), the edge ``alive``
-mask and the host-side step counter that paces index retention.
+mask, the planner's PRNG key (on the host, split once a query as the
+reference splits it) and the host-side step counter that paces index
+retention.
 
     db = AerialDB.open(cfg)                       # on the card
     db.ingest_rounds(payloads, metas)             # N rounds, no host sync
     res, info = db.query(Query().bbox(...).time(...).agg("mean", channel=2))
 
-Failure and recovery, repair, partitions, meshes, the latest-per-drone cache
-and the random planner are later slices (ROADMAP Queue 1).
+Failure and recovery, repair, partitions, meshes and the latest-per-drone
+cache are later slices (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.query import Query
+from repro_torch.core import threefry
 from repro_torch.core.datastore import (AggSpec, QueryInfo, QueryResult,
                                         StoreConfig, StoreState,
                                         check_batch_fits, init_store,
@@ -49,10 +52,12 @@ class AerialDB:
     """An open single-device AerialDB deployment."""
 
     def __init__(self, cfg: StoreConfig, state: StoreState, alive=None,
-                 device="cuda", seed: int = 0):
+                 key: Optional[threefry.Key] = None, device="cuda",
+                 seed: int = 0):
         """Wrap existing parts (tests adopt a converted state this way); most
-        callers want :meth:`open`. ``state`` must already be on ``device``;
-        ``seed`` is kept for the random planner, whose port is to come."""
+        callers want :meth:`open`. ``state`` must already be on ``device``.
+        ``key`` is the planner's PRNG key (``threefry.key(seed)`` when
+        None); the session owns it and splits it once a query."""
         self._device = resolve_device(device)
         if cfg.max_drones:
             raise NotImplementedError(
@@ -63,7 +68,7 @@ class AerialDB:
                              f"session on {self._device}")
         self._cfg = cfg
         self._state = state
-        self._seed = seed
+        self._key = threefry.key(seed) if key is None else key
         alive = np.ones(cfg.n_edges, bool) if alive is None else alive
         self._alive = _to_device(alive, self._device, torch.bool)
         # Host mirror of state.steps (one read at adoption, never again): the
@@ -76,13 +81,15 @@ class AerialDB:
         """Open a fresh deployment on ``device`` (default the card; raises
         without CUDA unless ``device="cpu"``). ``cfg=None`` builds
         ``StoreConfig(**overrides)``; with a config, overrides are applied
-        with ``dataclasses.replace``."""
+        with ``dataclasses.replace``. ``seed`` makes the planner's key, as
+        ``jax.random.key(seed)`` does."""
         if cfg is None:
             cfg = StoreConfig(**cfg_overrides)
         elif cfg_overrides:
             cfg = dataclasses.replace(cfg, **cfg_overrides)
         dev = resolve_device(device)
-        return cls(cfg, init_store(cfg, dev), device=dev, seed=seed)
+        return cls(cfg, init_store(cfg, dev), key=threefry.key(seed),
+                   device=dev)
 
     # -- owned pieces (read-only views) -------------------------------------
 
@@ -156,16 +163,23 @@ class AerialDB:
             "QueryPred (e.g. make_pred(...) or Query.batch(...)), or a "
             "(QueryPred, AggSpec) pair.")
 
-    def query(self, q: Queryish, *, agg: Optional[AggSpec] = None
+    def query(self, q: Queryish, *, agg: Optional[AggSpec] = None,
+              key: Optional[threefry.Key] = None
               ) -> Tuple[QueryResult, QueryInfo]:
         """Run a query batch: a ``Query`` builder, a batched ``QueryPred``
         (``Query.batch`` / ``make_pred``) or a ``(QueryPred, AggSpec)`` pair.
         Every channel of the spec is aggregated in one scan of the log.
-        Returns ``(QueryResult, QueryInfo)``."""
+        ``key`` is an explicit planner key; None takes a fresh split of the
+        session's key (every query consumes one, whatever the planner, so
+        the sequence of keys is the reference's). Returns
+        ``(QueryResult, QueryInfo)``."""
         if isinstance(q, Query) and q.want_latest:
             raise NotImplementedError(
                 "latest() reads the latest-per-drone cache, which is not "
                 "ported yet: ROADMAP Queue 1 'latest cache'.")
         pred, spec = self._compile(q, agg)
+        spec.validate_for(self._cfg)         # a refused query takes no key
+        if key is None:
+            self._key, key = threefry.split(self._key)
         return run_query(self._cfg, self._state, pred_to(pred, self._device),
-                         self._alive, spec)
+                         self._alive, spec, key)

@@ -14,15 +14,22 @@ leaf for leaf, so both packages compute with the same weights. bfloat16
 leaves (numpy's ``bfloat16`` extension dtype, as JAX hands them out) are
 read bit for bit; ``params_to_numpy`` widens bfloat16 to float32, which
 keeps every value.
+
+``key_from_numpy(words)`` reads a PRNG key from its uint32 words
+(``np.asarray(jax.random.key_data(k))``): a ``(2,)`` array gives one key of
+the port (a pair of ints on the host), a ``(..., 2)`` array a batch of keys
+(an int64 tensor on ``device``). ``key_to_numpy`` gives the words back as
+uint32.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Union
 
 import numpy as np
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.datastore import StoreState
 from repro_torch.core.index import IndexState
 from repro_torch.device import resolve_device
@@ -75,3 +82,19 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     if params.dtype == torch.bfloat16:
         params = params.to(torch.float32)
     return params.detach().cpu().numpy()
+
+
+def key_from_numpy(words, device="cuda") -> Union[threefry.Key, torch.Tensor]:
+    """One key (a pair of ints) from a (2,) array of uint32 words, or a
+    (..., 2) int64 batch of keys on ``device`` from a larger array."""
+    arr = np.asarray(words).astype(np.uint32)
+    if arr.shape == (2,):
+        return int(arr[0]), int(arr[1])
+    return torch.from_numpy(arr.astype(np.int64)).to(resolve_device(device))
+
+
+def key_to_numpy(key: Union[threefry.Key, torch.Tensor]) -> np.ndarray:
+    """The uint32 words of one key, (2,), or of a batch, (..., 2)."""
+    if isinstance(key, torch.Tensor):
+        return key.detach().cpu().numpy().astype(np.uint32)
+    return np.asarray(key, dtype=np.uint32)

@@ -30,8 +30,11 @@ Differences from the JAX package, none visible in results:
 * Writes avoid scatter drop sentinels (torch has none, and masking rows out
   would sync): each edge's new tuples land on a window of consecutive ring
   slots, rewritten with their old contents where no tuple arrives.
-* ``max_drones > 0`` (the latest-per-drone cache) and the ``random`` planner
-  are not ported yet (ROADMAP Queue 1) and raise ``NotImplementedError``.
+* ``max_drones > 0`` (the latest-per-drone cache) is not ported yet
+  (ROADMAP Queue 1) and raises ``NotImplementedError``.
+* The ``random`` planner's key is one key on the host (a pair of ints,
+  ``core.threefry``), which ``plan_random`` folds with each query index on
+  the query's device; the two other planners draw nothing and fold nothing.
 """
 
 from __future__ import annotations
@@ -43,7 +46,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.core import hashing, planner as planner_lib
+from repro_torch.core import hashing, planner as planner_lib, threefry
 from repro_torch.core.index import (IndexState, QueryPred, compact_index,
                                     init_index, insert_entries, lookup,
                                     retire_entries, selected_order)
@@ -520,9 +523,10 @@ def scan_engine(tup_f, tup_sid, tup_count, pred: QueryPred, sublists,
 
 
 def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
-                    alive: torch.Tensor):
+                    alive: torch.Tensor, key: threefry.Key | None = None):
     """Index lookup -> planning -> per-edge shard OR-lists: everything of a
-    query but the scan. Returns (sublists (Q, E, S, 2), sublist_len (Q, E),
+    query but the scan. ``key`` is the ``random`` planner's (the others
+    take none). Returns (sublists (Q, E, S, 2), sublist_len (Q, E),
     (lookup_mask, broadcast, overflow, shards_matched, replicas_lost,
     completeness_bound))."""
     q = pred.lat0.shape[0]
@@ -545,7 +549,9 @@ def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
             torch.full((q,), float("nan"), device=dev))
 
     matched = lookup(state.index, pred, lookup_mask, s)
-    assignment = planner_lib.plan(cfg.planner, matched, alive)     # (Q, S)
+    # The batch is planned untiled, so plan_random's fold of the key with
+    # each row index is the reference's fold with the global query index.
+    assignment = planner_lib.plan(cfg.planner, matched, alive, key)  # (Q, S)
     # Per-edge OR-lists: entry k of (q, e) is the k-th shard (in matched
     # order) assigned to e — a gather through the stable selection order.
     edge_ids = torch.arange(e, dtype=torch.int32, device=dev)
@@ -574,11 +580,13 @@ def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
 
 
 def query_local(cfg: StoreConfig, state: StoreState, pred: QueryPred,
-                alive: torch.Tensor, agg: AggSpec = AggSpec()):
+                alive: torch.Tensor, agg: AggSpec = AggSpec(),
+                key: threefry.Key | None = None):
     """Single-device query body: plan the sub-queries, then ONE scan of the
     log for the whole batch and every channel of ``agg``. Returns (partials,
     sublist_len, metadata) for ``finalize_query``."""
-    sublists, sublist_len, meta_info = plan_subqueries(cfg, state, pred, alive)
+    sublists, sublist_len, meta_info = plan_subqueries(cfg, state, pred, alive,
+                                                       key)
     partials = scan_engine(state.tup_f, state.tup_sid, state.tup_count, pred,
                            sublists, sublist_len, channels=agg.channels,
                            valid_c=cfg.tuple_capacity)
@@ -617,9 +625,11 @@ def finalize_query(partials, sublist_len, lookup_mask, broadcast, overflow,
 
 
 def run_query(cfg: StoreConfig, state: StoreState, pred: QueryPred,
-              alive: torch.Tensor, agg: AggSpec = AggSpec()):
+              alive: torch.Tensor, agg: AggSpec = AggSpec(),
+              key: threefry.Key | None = None):
     """Single-device query: ``query_local`` then ``finalize_query``.
     Returns (QueryResult, QueryInfo)."""
     agg.validate_for(cfg)
-    partials, sublist_len, meta_info = query_local(cfg, state, pred, alive, agg)
+    partials, sublist_len, meta_info = query_local(cfg, state, pred, alive, agg,
+                                                   key)
     return finalize_query(partials, sublist_len, *meta_info)

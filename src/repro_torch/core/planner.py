@@ -7,14 +7,18 @@ masked to the queries still active, so no iteration reads a flag back to the
 host and the result equals the reference's bit for bit. Ties take the first
 index, as ``jnp.argmin``/``jnp.argmax`` do.
 
-``plan_random`` draws JAX threefry Gumbel noise per folded key; its port is
-ROADMAP Queue 1, "plan_random with threefry", and raises until then.
+``plan_random`` draws the reference's threefry Gumbel noise per query key
+(``repro_torch.core.threefry``: keys, bits and uniforms bit for bit JAX's,
+the gumbels within the ulps of ``log``), so its picks equal the reference's
+wherever the top two gumbels of a shard's alive replicas are not within
+those ulps of each other.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import threefry
 from repro_torch.core.index import MatchedShards
 
 _INT_MAX = (1 << 31) - 1
@@ -28,11 +32,24 @@ def _alive_replica_mask(matched: MatchedShards,
     return ok & matched.valid[..., None]
 
 
-def plan_random(matched: MatchedShards, alive: torch.Tensor, key=None):
-    raise NotImplementedError(
-        "planner='random' draws JAX threefry Gumbel noise per folded query "
-        "key; its port is ROADMAP Queue 1 'plan_random with threefry'. Use "
-        "planner='min_shards' (the default) or 'min_edges'.")
+def plan_random(matched: MatchedShards, alive: torch.Tensor,
+                key: threefry.Keys) -> torch.Tensor:
+    """(Q, S) int32 edge per shard, -1 where unassignable: the alive
+    replica with the largest Gumbel draw, a uniform choice among them.
+
+    ``key`` is one key (a pair of ints, folded with each query index) or a
+    (Q, 2) batch of per-query keys on the device of ``matched``. Both forms
+    draw the same gumbels for the same global query index, so a caller that
+    tiles the query batch and slices the folded keys gets the untiled plan's
+    rows."""
+    ok = _alive_replica_mask(matched, alive)
+    q, s, r = ok.shape
+    if not isinstance(key, torch.Tensor):
+        key = threefry.fold_in(key, torch.arange(q, device=ok.device))
+    g = threefry.gumbel(key, (s, r))                               # (Q,S,3)
+    pick = torch.argmax(torch.where(ok, g, float("-inf")), dim=-1)
+    edge = torch.gather(matched.replicas, 2, pick[..., None])[..., 0]
+    return torch.where(ok.any(dim=-1), edge, -1).to(torch.int32)
 
 
 def plan_min_edges(matched: MatchedShards, alive: torch.Tensor) -> torch.Tensor:
@@ -94,10 +111,12 @@ def plan_min_shards(matched: MatchedShards,
     return assignment
 
 
-def plan(strategy: str, matched: MatchedShards,
-         alive: torch.Tensor) -> torch.Tensor:
+def plan(strategy: str, matched: MatchedShards, alive: torch.Tensor,
+         key: threefry.Keys | None = None) -> torch.Tensor:
     if strategy == "random":
-        return plan_random(matched, alive)
+        if key is None:
+            raise ValueError("random planner needs a PRNG key")
+        return plan_random(matched, alive, key)
     if strategy == "min_edges":
         return plan_min_edges(matched, alive)
     if strategy == "min_shards":

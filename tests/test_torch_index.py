@@ -2,8 +2,10 @@
 ``planner``) held bitwise against the JAX package: every IndexState leaf
 after inserts (including capacity overflow), retirement and compaction;
 every MatchedShards slot of ``dedup_matched``/``lookup`` (valid or not);
-and the ``min_shards`` / ``min_edges`` assignments under alive masks."""
+and the ``min_shards`` / ``min_edges`` / ``random`` assignments under alive
+masks."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -12,6 +14,7 @@ import torch
 from repro.core import index as ji
 from repro.core import planner as jpl
 from repro.core.placement import ShardMeta as JMeta
+from repro_torch import convert
 from repro_torch.core import index as ti
 from repro_torch.core import planner as tpl
 from repro_torch.core.placement import ShardMeta as TMeta
@@ -145,27 +148,43 @@ def _matched(rng, q=8, s=24, e=10):
     return hi, lo, reps, valid, ovf
 
 
-@pytest.mark.parametrize("planner", ["min_shards", "min_edges"])
+@pytest.mark.parametrize("planner", ["min_shards", "min_edges", "random"])
 @pytest.mark.parametrize("n_dead", [0, 3, 10])
 def test_planners_match_jax(planner, n_dead):
+    """Every planner with the same JAX key on both sides (the two greedy
+    ones ignore it). The random planner's picks are held bitwise away from
+    near-ties: shards whose top two reference gumbels among their alive
+    replicas are under 1e-5 apart (the gumbels differ by the ulps of
+    ``log``)."""
     rng = np.random.default_rng(n_dead)
     parts = _matched(rng)
     alive = np.ones(10, bool)
     alive[rng.choice(10, n_dead, replace=False)] = False
+    jkey = jax.random.key(n_dead)
     got = tpl.plan(planner, ti.MatchedShards(*(torch.from_numpy(x) for x in parts)),
-                   torch.from_numpy(alive))
-    want = jpl.plan(planner, ji.MatchedShards(*(jnp.asarray(x) for x in parts)),
-                    jnp.asarray(alive))
+                   torch.from_numpy(alive),
+                   convert.key_from_numpy(jax.random.key_data(jkey)))
+    want = np.asarray(jpl.plan(planner, ji.MatchedShards(*(jnp.asarray(x) for x in parts)),
+                               jnp.asarray(alive), jkey))
     assert got.dtype == torch.int32
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
     a = got.numpy()
+    near = np.zeros(a.shape, bool)
+    if planner == "random":
+        reps, valid = parts[2], parts[3]
+        ok = (reps >= 0) & alive[np.clip(reps, 0, None)] & valid[..., None]
+        qkeys = jax.vmap(jax.random.fold_in, (None, 0))(jkey, jnp.arange(a.shape[0]))
+        g = np.asarray(jax.vmap(lambda k: jax.random.gumbel(k, reps.shape[1:]))(qkeys))
+        top = np.sort(np.where(ok, g, np.float32(-1e30)), axis=-1)
+        near = (ok.sum(-1) >= 2) & (top[..., -1] - top[..., -2] < 1e-5)
+    np.testing.assert_array_equal(a[~near], want[~near])
     assert (a[0] == -1).all()          # no usable replica: nothing assigned
     if n_dead == 10:
         assert (a == -1).all()
 
 
-def test_random_planner_not_ported_yet():
+def test_random_planner_needs_a_key():
+    """As the reference: the random planner without a key is refused."""
     parts = _matched(np.random.default_rng(0))
-    with pytest.raises(NotImplementedError, match="threefry"):
+    with pytest.raises(ValueError, match="random planner needs a PRNG key"):
         tpl.plan("random", ti.MatchedShards(*(torch.from_numpy(x) for x in parts)),
                  torch.ones(10, dtype=torch.bool))

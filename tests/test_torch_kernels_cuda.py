@@ -754,3 +754,99 @@ def test_generate_sends_decode_to_the_decode_kernel(cuda):
     prefill_step(engine.params, {"tokens": torch.from_numpy(prompts).to(cuda)})
     assert fops.launches_by_variant["sm90"] == after["sm90"] + cfg.n_layers
     assert fops.launches_by_variant["decode"] == after["decode"] + cfg.n_layers * (70 + 6)
+
+
+# -- the random planner's threefry draw on the card ---------------------------
+# Not a kernel of its own: plain torch ops on either device, held bitwise to
+# the CPU's (bits, uniforms) and, for the plans, away from near-ties of the
+# gumbels (torch's log on the card and on the host may differ by ulps).
+
+def _word_bits(x: torch.Tensor) -> torch.Tensor:
+    x = x.cpu()
+    return x.view(torch.int32) if x.is_floating_point() else x
+
+
+def test_threefry_on_card_matches_cpu(cuda):
+    from repro_torch.core import threefry
+    key = threefry.key(42)
+    for fn in (threefry.random_bits, threefry.uniform):
+        got = fn(key, (64, 128, 3), device=cuda)
+        assert got.device.type == cuda.type
+        want = fn(key, (64, 128, 3), device="cpu")
+        assert torch.equal(_word_bits(got), _word_bits(want))
+    qkeys = threefry.fold_in(key, torch.arange(64, device=cuda))
+    assert torch.equal(qkeys.cpu(), threefry.fold_in(key, torch.arange(64)))
+    got = threefry.uniform(qkeys, (128, 3), threefry.F32_TINY)
+    want = threefry.uniform(qkeys.cpu(), (128, 3), threefry.F32_TINY)
+    assert torch.equal(_word_bits(got), _word_bits(want))
+    g = threefry.gumbel(qkeys, (128, 3)).cpu()
+    torch.testing.assert_close(g, threefry.gumbel(qkeys.cpu(), (128, 3)),
+                               rtol=0, atol=1e-5)
+
+
+def test_plan_random_on_card_matches_cpu(cuda):
+    from repro_torch.core import planner, threefry
+    from repro_torch.core.index import MatchedShards
+    rng = np.random.default_rng(8)
+    q, s, e = 64, 128, 80
+    reps = rng.integers(-1, e, (q, s, 3)).astype(np.int32)
+    parts = (np.zeros((q, s), np.int32), np.zeros((q, s), np.int32), reps,
+             rng.random((q, s)) < 0.9, np.zeros(q, bool))
+    alive = np.ones(e, bool)
+    alive[rng.choice(e, 7, replace=False)] = False
+    key = threefry.key(5)
+    cpu = planner.plan_random(MatchedShards(*map(torch.from_numpy, parts)),
+                              torch.from_numpy(alive), key)
+    card = planner.plan_random(
+        MatchedShards(*(torch.from_numpy(x).to(cuda) for x in parts)),
+        torch.from_numpy(alive).to(cuda), key)
+    assert card.dtype == torch.int32 and card.device.type == cuda.type
+    ok = ((reps >= 0) & alive[np.clip(reps, 0, None)] & parts[3][..., None])
+    g = threefry.gumbel(threefry.fold_in(key, torch.arange(q)), (s, 3)).numpy()
+    top = np.sort(np.where(ok, g, np.float32(-1e30)), axis=-1)
+    near = (ok.sum(-1) >= 2) & (top[..., -1] - top[..., -2] < 1e-5)
+    np.testing.assert_array_equal(card.cpu().numpy()[~near], cpu.numpy()[~near])
+
+
+def _sync_warnings(fn) -> int:
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("synchroniz" in str(w.message) for w in caught)
+
+
+def test_random_query_syncs_no_more_than_min_shards(cuda):
+    """A random-planner query on the card: the session's split is host
+    work and the fold and draw are device ops, so it syncs no more often
+    than a min_shards query over the same store."""
+    import dataclasses
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import AggSpec, StoreConfig
+    from repro_torch.data.synthetic import DroneFleet
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=4096,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=60)
+    db = AerialDB.open(cfg, device=cuda)
+    fleet = DroneFleet(12, records_per_shard=60, seed=2)
+    payloads, metas = fleet.next_rounds(4)
+    db.ingest_rounds(payloads, metas)
+    rnd = AerialDB(dataclasses.replace(cfg, planner="random"), db.state,
+                   device=cuda, seed=3)
+    pred = make_pred(q=16, lat0=12.9, lat1=13.1, lon0=77.5, lon1=77.7, t0=0.0,
+                     t1=1e9, has_spatial=True, has_temporal=True, is_and=True,
+                     device=cuda)
+    spec = AggSpec(channels=(0, 1))
+    for d in (db, rnd):                  # builds and warm-up, not counted
+        d.query(pred, agg=spec)
+    base = _sync_warnings(lambda: db.query(pred, agg=spec))
+    assert _sync_warnings(lambda: rnd.query(pred, agg=spec)) <= base
+    a, _ = rnd.query(pred, agg=spec)
+    b, _ = db.query(pred, agg=spec)
+    assert torch.equal(a.count, b.count) and int(a.count.sum()) > 0
