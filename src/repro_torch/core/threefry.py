@@ -22,7 +22,7 @@ arithmetic, and ``>>`` on a signed int is arithmetic.
 - ``uniform``, ``gumbel``: ``jax.random.uniform`` and ``jax.random.gumbel``
   (mode ``"low"``) in float32 from those bits. The uniforms are bitwise
   JAX's; the gumbels differ by the ulps in which torch's ``log`` and XLA's
-  differ (up to 9.6e-7 over 2^20 draws).
+  differ (up to 9.54e-7 over 2^20 draws, ``tests/test_torch_threefry.py``).
 """
 
 from __future__ import annotations
@@ -139,8 +139,9 @@ def uniform(k: Keys, shape: Sequence[int], minval: float = 0.0,
     XLA contracts the scale and the shift into one fused multiply-add, so
     they are computed here in float64 (where the product of two float32
     values is exact) and rounded to float32 once. Two float32 ops would
-    round twice and differ from JAX in about half the draws, unless the
-    product is exact, as it is for a span of 1.0 (the gumbel's)."""
+    round twice and differ from JAX in a fifth to a half of the draws
+    (``tests/test_torch_threefry.py``), unless the product is exact, as it
+    is for a span of 1.0 (the gumbel's)."""
     bits = random_bits(k, shape, device)
     f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
