@@ -20,7 +20,15 @@ Phases, one line each:
      9's mean sub-query edges and shards per edge, launches, the same exact
      checks) and the random planner's threefry draw and plans on the card
      against the CPU (bits and uniforms bitwise, picks away from
-     near-ties);
+     near-ties); then the latest line: the same day into a second store
+     with the latest-per-drone cache (``max_drones`` 400), its shards/s
+     beside the main path's, the cache against the oracle over every
+     record (bitwise), every other state leaf and the 5 km batch against
+     the main path's store, the host µs of ``latest()`` and
+     ``query(Query().latest())``, a crafted round of edge cases against the
+     oracle and the CPU, one cache update's call and host time, and the
+     cache's cost on ingest from two fresh stores, with and without it,
+     taking the day's first chunks in turns;
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -164,9 +172,11 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
     raise SystemExit(f"device_ms: no device time for kernel {match!r}")
 
 
-def profile(torch, fn, top: int = 12) -> dict:
+def profile(torch, fn, top: int = 12, host_top: int = 0) -> dict:
     """Wall time of one ``fn()`` (synchronised) and its device time by
-    kernel name (torch.profiler), with the device's busy share."""
+    kernel name (torch.profiler), with the device's busy share; with
+    ``host_top``, also the operators that took the most host time (self
+    CPU µs, calls)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -181,10 +191,18 @@ def profile(torch, fn, top: int = 12) -> dict:
                    for us, n, key in _device_rows(torch, prof) if us > 0),
                   reverse=True)
     busy_ms = sum(r[0] for r in rows)
-    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
-            "device_launches": sum(r[1] for r in rows),
-            "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:top]]}
+    out = {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
+           "device_launches": sum(r[1] for r in rows),
+           "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:top]]}
+    if host_top:
+        ops = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
+                      for ev in prof.key_averages()
+                      if ev.device_type == torch.autograd.DeviceType.CPU),
+                     reverse=True)
+        out["host_top"] = [{"us": us, "calls": n, "name": k[:60]}
+                           for us, n, k in ops[:host_top]]
+    return out
 
 
 def voronoi_visits(torch, vor_ops, lat, lon, sites) -> dict:
@@ -374,6 +392,183 @@ def planners_phase(torch, dev, cfg, db, batches, specs, flat, seed: int,
                           "plan_shards": plan_shards, "plan_near_ties": near_ties,
                           "plan_mismatch_away_from_ties": 0}
     return out
+
+
+def bitwise_equal(torch, a, b) -> bool:
+    """Same shape, dtype and bits (a NaN equals a NaN of the same bits)."""
+    if a.dtype == torch.float32 and b.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def latest_phase(torch, dev, cfg, db, fleet, payloads, metas, chunks,
+                 batches, specs, seed: int, do_profile: bool) -> tuple:
+    """The latest-per-drone cache on a second D400 store (``max_drones``
+    400, drone ids 0-399 as ``sid_hi``): the main path's rounds in the same
+    chunks, timed as the main path times them; then the cache against the
+    vectorised oracle over every record ingested (record, last_seen and
+    valid bitwise), every other state leaf against the main path's store
+    (``torch.equal``), one 4-channel 5 km batch on both stores (every
+    field bitwise), and the host µs of ``latest()`` and of
+    ``query(Query().latest())`` (median of 100 calls each). Then one crafted
+    round at D400 width (``latest_edge_round``: tied duplicate ids, a t
+    equal to the cached row's, NaN and +-inf t, ids -1, 400 and 407, NaN
+    channels), held against the oracle and against the same update run on
+    the CPU, bitwise. Counts are set to 0 before the ingest and read after
+    the batch; every kernel must launch. Also one ``_update_latest`` call
+    at a round's shape on copies of the cache: its call ms (CUDA events)
+    and host µs, and under ``do_profile`` its profile with the operators
+    that took the most host time. Returns (fields, store). Exits non-zero
+    on any mismatch."""
+    import dataclasses
+    from repro_torch.api.query import Query
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import _update_latest, make_pred
+    from repro_torch.data.synthetic import latest_edge_round
+    from repro_torch.ingest.latest import latest_oracle_sorted
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    d = fleet.n_drones
+    lcfg = dataclasses.replace(cfg, max_drones=d)
+    for mod in mods.values():
+        mod.launches = 0
+    ldb = AerialDB.open(lcfg, device=dev)
+
+    def ingest(sl):
+        ldb.ingest_rounds(payloads[sl], type(metas)(*(f[sl] for f in metas)))
+
+    ingest(chunks[0])                  # warm-up chunk, not timed
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    for sl in chunks[1:]:
+        ingest(sl)
+    ev1.record()
+    ev1.synchronize()
+    timed_rounds = chunks[-1].stop - chunks[0].stop
+    ingest_s = ev0.elapsed_time(ev1) / 1e3
+    pred = make_pred(q=64, **batches[2][3], has_spatial=True, has_temporal=True,
+                     is_and=True, device=dev)
+    res_l, info_l = ldb.query(pred, agg=specs[1])
+    launches = {k: m.launches for k, m in mods.items()}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"latest: a kernel never launched: {launches}")
+    res_m, info_m = db.query(pred, agg=specs[1])
+    batch_bad = [f for got, want in ((res_l, res_m), (info_l, info_m))
+                 for f in want._fields
+                 if not bitwise_equal(torch, getattr(got, f), getattr(want, f))]
+    if batch_bad:
+        raise SystemExit(f"latest: the 5 km batch differs on the cached store: {batch_bad}")
+
+    # every state leaf but the cache equals the main path's store
+    other = [f for f in ldb.state._fields if f not in ("latest_f", "latest_seen")]
+    leaf_bad = [f for f in other if f != "index"
+                and not torch.equal(getattr(ldb.state, f), getattr(db.state, f))]
+    leaf_bad += [f"index.{f}" for f in ldb.state.index._fields
+                 if not torch.equal(getattr(ldb.state.index, f),
+                                    getattr(db.state.index, f))]
+    if leaf_bad:
+        raise SystemExit(f"latest: the cache perturbed state leaves {leaf_bad}")
+
+    def check(rows, ids, per_step, what):
+        """The cache against the oracle over ``rows`` (N, W) with drone ids
+        ``ids`` (N,), ``per_step`` records an insert; returns rows checked."""
+        want_rec, want_valid, src = latest_oracle_sorted(ids, rows[:, 0], rows, d)
+        got = ldb.latest()
+        want_seen = np.where(want_valid, src // per_step + 1, -1)
+        rec = got.record.cpu().numpy()
+        bad = {"record": int((rec.view(np.int32) != want_rec.view(np.int32)).any(1).sum()),
+               "last_seen": int((got.last_seen.cpu().numpy() != want_seen).sum()),
+               "valid": int((got.valid.cpu().numpy() != want_valid).sum())}
+        if any(bad.values()) or got.last_seen.dtype != torch.int32:
+            raise SystemExit(f"latest ({what}): rows apart from the oracle {bad}")
+        return int(want_valid.sum())
+
+    n_rounds = chunks[-1].stop
+    per_round = d * cfg.records_per_shard
+    rows = payloads[:n_rounds].reshape(-1, payloads.shape[-1])
+    ids = np.repeat(metas.sid_hi[:n_rounds].reshape(-1), cfg.records_per_shard)
+    drones_exact = check(rows, ids, per_round, "day")
+
+    host = {}
+    for name, fn in (("latest", ldb.latest),
+                     ("query_latest", lambda: ldb.query(Query().latest()))):
+        times = []
+        for _ in range(100):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e6)
+        host[f"{name}_host_us"] = float(np.median(times))
+
+    # one crafted round after the day, on the card and on the CPU
+    before = ldb.latest()
+    cpu_f, cpu_seen = before.record.cpu().clone(), before.last_seen.cpu().clone()
+    cached_t = np.where(before.valid.cpu().numpy(), cpu_f[:, 0].numpy(), np.nan)
+    payload, meta = fleet.next_shards()
+    cp, cids = latest_edge_round(payload, meta.sid_hi, cached_t, d, seed=seed)
+    ldb.insert(cp, meta._replace(sid_hi=cids))
+    _update_latest(cpu_f, cpu_seen, torch.from_numpy(cp), torch.from_numpy(cids),
+                   n_rounds + 1)
+    after = ldb.latest()
+    cpu_bad = int((after.record.cpu().view(torch.int32) != cpu_f.view(torch.int32))
+                  .any(1).sum() + (after.last_seen.cpu() != cpu_seen).sum())
+    if cpu_bad:
+        raise SystemExit(f"latest (crafted round): {cpu_bad} rows apart from the CPU's")
+    crafted_exact = check(np.concatenate([rows, cp.reshape(-1, cp.shape[-1])]),
+                          np.concatenate([ids, np.repeat(cids, cfg.records_per_shard)]),
+                          per_round, "crafted round")
+    seen = after.last_seen.cpu().numpy()
+    # one cache update at a round's shape, on copies
+    uf, us = after.record.clone(), after.last_seen.clone()
+    up, uids = (torch.from_numpy(x).to(dev) for x in (cp, cids))
+
+    def update():
+        return _update_latest(uf, us, up, uids, n_rounds + 2)
+    update_fields = {"ms": cuda_ms(torch, update, 50),
+                     "host_us": host_us(torch, {"u": update}, calls=50)["u"]}
+    if do_profile:
+        update_fields["profile"] = profile(torch, update, host_top=12)
+    return {"max_drones": d, "timed_rounds": timed_rounds, "ingest_device_s": ingest_s,
+            "shards_per_s": timed_rounds * d / ingest_s, **host,
+            "drones_exact": drones_exact, "drones": d,
+            "other_leaves_equal": len(other) - 1 + len(ldb.state.index._fields),
+            "batch_fields_equal": len(res_m._fields) + len(info_m._fields),
+            "crafted": {"drones_exact": crafted_exact, "card_vs_cpu_rows_apart": 0,
+                        "rows_written": int((seen == n_rounds + 1).sum()),
+                        "rows_with_nan": int(np.isnan(after.record.cpu().numpy()).any(1).sum())},
+            "launches": launches, "update_latest": update_fields,
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}, ldb
+
+
+def latest_cost(torch, dev, cfg, payloads, metas, chunks, d: int) -> dict:
+    """The cache's cost on ingest, controlled: two fresh D400 stores, one
+    with ``max_drones=d`` and one without, take the day's first chunks in
+    turns (a warm-up chunk each, then alternating which goes first), each
+    chunk timed alone with CUDA events after a synchronise. Returns each
+    store's chunk ms, the medians, and the ratio of the cached store's
+    shards/s to the uncached one's."""
+    import dataclasses
+    from repro_torch.api.session import AerialDB
+    stores = {"cached": AerialDB.open(dataclasses.replace(cfg, max_drones=d), device=dev),
+              "uncached": AerialDB.open(cfg, device=dev)}
+    times = {k: [] for k in stores}
+    for i, sl in enumerate(chunks[:9]):
+        order = list(stores) if i % 2 == 0 else list(stores)[::-1]
+        for name in order:
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            stores[name].ingest_rounds(payloads[sl], type(metas)(*(f[sl] for f in metas)))
+            ev1.record()
+            ev1.synchronize()
+            if i > 0:                      # chunk 0 is the warm-up
+                times[name].append(ev0.elapsed_time(ev1))
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    return {"chunk_ms": times, "chunk_ms_median": med,
+            "rounds_per_chunk": chunks[0].stop - chunks[0].start,
+            "shards_per_s_ratio": med["uncached"] / med["cached"]}
 
 
 def scan_vs_plain(torch, args_scan, channels, cap: int, what: str,
@@ -787,8 +982,9 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=1)
     ap.add_argument("--profile", action="store_true",
                     help="after each main path, print the device-time "
-                         "breakdown (torch.profiler) of one ingest chunk, "
-                         "one 4-channel query batch, one prefill and one "
+                         "breakdown (torch.profiler) of one ingest chunk "
+                         "(into the main and the cached store), one "
+                         "4-channel query batch, one prefill and one "
                          "decode step")
     args = ap.parse_args(argv)
 
@@ -958,13 +1154,24 @@ def main(argv=None) -> int:
     phase("planners", seed=args.seed, **planners_phase(
         torch, dev, cfg, db, batches, specs, flat, args.seed, args.profile,
         results, times))
+    fields, ldb = latest_phase(torch, dev, cfg, db, fleet, payloads, metas,
+                               chunks, batches, specs, args.seed, args.profile)
+    phase("latest", main_path_shards_per_s=shards / ingest_s,
+          cost=latest_cost(torch, dev, cfg, payloads, metas, chunks, fleet.n_drones),
+          **fields)
 
     if args.profile:
         extra = fleet.next_rounds(args.chunk)
         pred = make_pred(q=64, **batches[2][3], has_spatial=True,
                          has_temporal=True, is_and=True, device=dev)
-        phase("profile_ingest", **profile(torch, lambda: db.ingest_rounds(*extra)))
+        phase("profile_ingest", **profile(torch, lambda: db.ingest_rounds(*extra),
+                                          host_top=12))
         phase("profile_query", **profile(torch, lambda: db.query(pred, agg=specs[1])))
+        # the same chunk into the cached store: the launches it adds are
+        # the cache's cost
+        phase("profile_ingest_latest", **profile(torch, lambda: ldb.ingest_rounds(*extra),
+                                                 host_top=12))
+    del ldb
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------
     scan = st_scan_phase(torch, dev, cfg, st, db.alive, batches, specs)

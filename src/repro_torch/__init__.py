@@ -8,7 +8,10 @@ under ``csrc/``, built with nvcc for ``sm_90a`` at first use
 
 - the store round trip (``api``, ``core``): the per-edge predicate scan
   (``st_scan.cu``), xxHash64 placement hashing (``hash64.cu``) and Voronoi
-  point location (``voronoi_assign.cu``);
+  point location (``voronoi_assign.cu``); queries answer with
+  ``core.datastore.QueryResult`` and ``QueryInfo``, and the latest-per-drone
+  cache (``AerialDB.latest``, ``Query().latest()``; plain torch ops on
+  either device) with ``LatestResult``;
 - the LM serving path (``configs``, ``models``, ``train.train_loop``
   ``make_serve_steps``, ``serve.engine.Engine``) for dense GQA decoders
   such as internlm2-1.8b: FlashAttention-2 forward in every attention

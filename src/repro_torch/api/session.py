@@ -9,9 +9,10 @@ retention.
     db = AerialDB.open(cfg)                       # on the card
     db.ingest_rounds(payloads, metas)             # N rounds, no host sync
     res, info = db.query(Query().bbox(...).time(...).agg("mean", channel=2))
+    db.latest()                                   # newest record per drone
 
-Failure and recovery, repair, partitions, meshes and the latest-per-drone
-cache are later slices (ROADMAP Queue 1).
+Failure and recovery, repair, partitions and meshes are later slices
+(ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import torch
 
 from repro_torch.api.query import Query
 from repro_torch.core import threefry
-from repro_torch.core.datastore import (AggSpec, QueryInfo, QueryResult,
-                                        StoreConfig, StoreState,
+from repro_torch.core.datastore import (AggSpec, LatestResult, QueryInfo,
+                                        QueryResult, StoreConfig, StoreState,
                                         check_batch_fits, init_store,
                                         insert_local, pred_to, run_query)
 from repro_torch.core.index import QueryPred
@@ -59,10 +60,6 @@ class AerialDB:
         ``key`` is the planner's PRNG key (``threefry.key(seed)`` when
         None); the session owns it and splits it once a query."""
         self._device = resolve_device(device)
-        if cfg.max_drones:
-            raise NotImplementedError(
-                "max_drones > 0 (the latest-per-drone cache) is not ported "
-                "yet: ROADMAP Queue 1 'latest cache'.")
         if state.tup_f.device.type != self._device.type:
             raise ValueError(f"state lives on {state.tup_f.device}, the "
                              f"session on {self._device}")
@@ -165,21 +162,40 @@ class AerialDB:
 
     def query(self, q: Queryish, *, agg: Optional[AggSpec] = None,
               key: Optional[threefry.Key] = None
-              ) -> Tuple[QueryResult, QueryInfo]:
+              ) -> Union[Tuple[QueryResult, QueryInfo], LatestResult]:
         """Run a query batch: a ``Query`` builder, a batched ``QueryPred``
         (``Query.batch`` / ``make_pred``) or a ``(QueryPred, AggSpec)`` pair.
         Every channel of the spec is aggregated in one scan of the log.
         ``key`` is an explicit planner key; None takes a fresh split of the
         session's key (every query consumes one, whatever the planner, so
         the sequence of keys is the reference's). Returns
-        ``(QueryResult, QueryInfo)``."""
+        ``(QueryResult, QueryInfo)``. A ``Query().latest()`` builder
+        short-circuits to :meth:`latest` and returns its ``LatestResult``:
+        no scan, no planner, and no split of the session's key."""
         if isinstance(q, Query) and q.want_latest:
-            raise NotImplementedError(
-                "latest() reads the latest-per-drone cache, which is not "
-                "ported yet: ROADMAP Queue 1 'latest cache'.")
+            if agg is not None:
+                raise ValueError(
+                    "latest() queries take no AggSpec: the hot-cache read "
+                    "returns raw (D, 3+V) records, not aggregates.")
+            return self.latest()
         pred, spec = self._compile(q, agg)
         spec.validate_for(self._cfg)         # a refused query takes no key
         if key is None:
             self._key, key = threefry.split(self._key)
         return run_query(self._cfg, self._state, pred_to(pred, self._device),
                          self._alive, spec, key)
+
+    def latest(self) -> LatestResult:
+        """Latest-per-drone hot-cache read (paper §4.4 near-real-time path):
+        the newest (max-t) record, the ingest step that wrote it and its
+        validity per drone id, straight from the cache state (no scan, no
+        index, no planner, nothing read back to the host). Exact up to the
+        last completed insert."""
+        if self._cfg.max_drones == 0:
+            raise ValueError(
+                "the latest-per-drone cache is disabled: open the session "
+                "with StoreConfig.max_drones >= the fleet's highest drone id "
+                "+ 1 to track an O(drones) hot cache (drone id = sid_hi).")
+        seen = self._state.latest_seen
+        return LatestResult(record=self._state.latest_f, last_seen=seen,
+                            valid=seen >= 0)

@@ -9,7 +9,9 @@ identity collectives). Same state layout:
   tup_pos: (E,)            int32     ring write cursor in [0, capacity)
   tup_overwritten, tup_dropped: (E,) retention / loss telemetry
   steps: ()                int32     insert steps executed
-  latest_f, latest_seen              latest-per-drone cache (size 0 here)
+  latest_f: (D, 3+V)       float32   latest-per-drone cache: max-t record
+  latest_seen: (D,)        int32     insert step that last wrote each row
+                                     (-1 never); D = max_drones, 0 = off
   index:   IndexState                sliced distributed index (index.py)
 
 ``CAP_L`` is ``tuple_capacity`` rounded up to a multiple of 128; ring slots
@@ -30,8 +32,11 @@ Differences from the JAX package, none visible in results:
 * Writes avoid scatter drop sentinels (torch has none, and masking rows out
   would sync): each edge's new tuples land on a window of consecutive ring
   slots, rewritten with their old contents where no tuple arrives.
-* ``max_drones > 0`` (the latest-per-drone cache) is not ported yet
-  (ROADMAP Queue 1) and raises ``NotImplementedError``.
+* The latest-per-drone cache (``max_drones > 0``) is updated by
+  ``_update_latest`` in place, with ``host_step + 1`` as the step, and
+  excluded records (non-finite t, ids outside [0, D)) go to a spill row
+  that is cut off: torch's scatter and gather have no drop or fill mode,
+  and an out-of-range index is a device-side assert on the card.
 * The ``random`` planner's key is one key on the host (a pair of ints,
   ``core.threefry``), which ``plan_random`` folds with each query index on
   the query's device; the two other planners draw nothing and fold nothing.
@@ -164,6 +169,26 @@ class StoreState(NamedTuple):
     steps: torch.Tensor
     latest_f: torch.Tensor
     latest_seen: torch.Tensor
+
+
+class LatestResult(NamedTuple):
+    """``AerialDB.latest()`` / ``Query().latest()`` answer: the O(drones)
+    hot-cache read (paper §4.4 near-real-time shape), bypassing the log
+    scan, the index and the planner.
+
+      record:    (D, 3+V) last (max-t) record per drone id; rows of drones
+                 never seen are zeros. Channels a partial payload never
+                 filled are NaN (the validity mask is ``isfinite``).
+      last_seen: (D,) insert step that wrote each row (-1 = never seen).
+      valid:     (D,) ``last_seen >= 0``.
+
+    The cache never forgets: each row is the max-t record ever inserted for
+    that drone, even after ring retention has aged the tuple out of the
+    log, and is exact the moment the insert that carried it completes.
+    """
+    record: torch.Tensor
+    last_seen: torch.Tensor
+    valid: torch.Tensor
 
 
 # The monotonic counter saturates here instead of wrapping int32 negative.
@@ -370,6 +395,47 @@ def _index_edge_mask(cfg: StoreConfig, meta: ShardMeta, replicas: torch.Tensor,
     return mask & alive[None, :]
 
 
+def _update_latest(latest_f: torch.Tensor, latest_seen: torch.Tensor,
+                   payload: torch.Tensor, sid_hi: torch.Tensor, steps: int):
+    """Latest-per-drone hot-cache update (the §4.4 near-real-time path), IN
+    PLACE: ``latest_f`` (D, W) and ``latest_seen`` (D,) int32 take this
+    batch's newest record of each drone id ``sid_hi`` (B,) from ``payload``
+    (B, R, W), and ``steps`` (the insert's step) where a row changes.
+
+    As the reference, two commutative scatter-max passes, so duplicate ids
+    need no winner order: (1) max t per drone, (2) max flat record index
+    among the records reaching that t (a t tie goes to the batch's last
+    record). A cached row is replaced when the batch's t >= its own (a tie
+    goes to the new record). Records with non-finite t or an id outside
+    [0, D) are excluded: they scatter into spill row D, which is cut off
+    (the reference drops them with ``mode="drop"``).
+    """
+    d = latest_f.shape[0]
+    b, r, w = payload.shape
+    if b * r == 0:
+        return latest_f, latest_seen
+    dev = payload.device
+    flat = payload.reshape(b * r, w)                                 # (N, W)
+    did = sid_hi[:, None].expand(b, r).reshape(-1)                   # (N,)
+    t = flat[:, 0]
+    vmask = torch.isfinite(t) & (did >= 0) & (did < d)
+    slot = torch.where(vmask, did, d).long()                         # (N,)
+    t_clean = torch.where(vmask, t, float("-inf"))
+    cand_t = torch.full((d + 1,), float("-inf"), device=dev).scatter_reduce_(
+        0, slot, t_clean, "amax")                                    # (D+1,)
+    hit = vmask & (t_clean == cand_t.gather(0, slot))
+    idx = torch.where(hit, torch.arange(b * r, dtype=torch.int32, device=dev),
+                      -1)
+    best = torch.full((d + 1,), -1, dtype=torch.int32,
+                      device=dev).scatter_reduce_(0, slot, idx, "amax")[:d]
+    cur_t = torch.where(latest_seen >= 0, latest_f[:, 0], float("-inf"))
+    newer = (best >= 0) & (cand_t[:d] >= cur_t)
+    latest_f.copy_(torch.where(newer[:, None], flat[best.clamp(min=0).long()],
+                               latest_f))
+    latest_seen.masked_fill_(newer, steps)
+    return latest_f, latest_seen
+
+
 def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
                  meta: ShardMeta, alive: torch.Tensor, host_step: int):
     """Insert B shards (R tuples each): placement, replication, indexing.
@@ -380,11 +446,6 @@ def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
     retention cadence branches on it). Updates ``state`` IN PLACE and
     returns ``(state, info dict)``; nothing is read back to the host.
     """
-    if cfg.max_drones:
-        raise NotImplementedError(
-            "max_drones > 0 (the latest-per-drone cache) is not ported yet: "
-            "ROADMAP Queue 1 'latest cache'. Open the store with "
-            "max_drones=0.")
     cap = cfg.tuple_capacity
     dev = state.tup_f.device
     e = cfg.n_edges
@@ -447,6 +508,11 @@ def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
     reps3 = torch.nn.functional.pad(replicas, (0, 3 - cfg.replication),
                                     value=-1)
     insert_entries(state.index, meta, reps3, idx_mask, step=steps)
+
+    # --- latest-per-drone hot cache (skipped on the host when disabled).
+    if cfg.max_drones:
+        _update_latest(state.latest_f, state.latest_seen, payload,
+                       meta.sid_hi, steps)
 
     info = {
         "replicas": replicas,

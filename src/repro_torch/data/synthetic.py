@@ -116,6 +116,50 @@ class DroneFleet:
         return payloads, meta
 
 
+def latest_edge_round(payload, sid_hi, cached_t, max_drones: int,
+                      seed: int = 0):
+    """A copy of one round (``payload`` (B, R, 3+V), ``sid_hi`` (B,), B >= 10)
+    reworked, on ten shards drawn from ``seed``, into every edge case of the
+    latest-per-drone cache of ``max_drones`` rows, whose t before this round
+    is ``cached_t`` (D,) (NaN where a row is empty):
+
+    * two shards of one drone with the same t column (their max t ties;
+      the later shard wins), the first also tied within itself;
+    * a shard whose max t equals its drone's cached t (the new record wins),
+      its newest record with NaN channels, and one whose t are all below
+      the cached t (no change);
+    * a shard whose newest t is +inf (excluded: the next record wins), one
+      of all-NaN t, and one ending in NaN, -inf;
+    * shards with drone ids -1, ``max_drones`` and ``max_drones + 7``
+      (excluded).
+
+    The cached-t cases take drones with a finite ``cached_t``. Returns
+    ``(payload, sid_hi)``, new arrays (float32, int32).
+    """
+    rng = np.random.default_rng(seed)
+    p = np.array(payload, np.float32)
+    ids = np.array(sid_hi, np.int32)
+    cached_t = np.asarray(cached_t, np.float32)
+    r = p.shape[1]
+    seen = np.isfinite(cached_t[np.clip(ids, 0, len(cached_t) - 1)]) \
+        & (ids >= 0) & (ids < len(cached_t))
+    tie, stale = rng.choice(np.nonzero(seen)[0], 2, replace=False)
+    rest = rng.permutation(np.setdiff1d(np.arange(p.shape[0]), [tie, stale]))
+    a, c, inf_s, nan_s, ninf_s, neg, big, bigger = rest[:8]
+    ids[c] = ids[a]
+    p[a, r - 2, 0] = p[a, r - 1, 0]
+    p[c, :, 0] = p[a, :, 0]
+    steps = np.arange(r, dtype=np.float32)[::-1]
+    p[tie, :, 0] = cached_t[ids[tie]] - steps
+    p[tie, r - 1, 3::2] = np.nan
+    p[stale, :, 0] = cached_t[ids[stale]] - 100.0 - steps
+    p[inf_s, r - 1, 0] = np.inf
+    p[nan_s, :, 0] = np.nan
+    p[ninf_s, r - 2:, 0] = (-np.inf, np.nan)
+    ids[[neg, big, bigger]] = (-1, max_drones, max_drones + 7)
+    return p, ids
+
+
 def make_query_workload(rng, n_queries: int, city: CityConfig, t_max: float,
                         spatial_km: float, temporal_s: float):
     """Paper §4.5.1 query workloads: random bbox of given size x time range.

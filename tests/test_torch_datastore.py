@@ -266,7 +266,13 @@ def test_validation_matches_reference():
 
 
 def test_unported_features_raise(stores):
-    with pytest.raises(NotImplementedError, match="latest"):
-        AerialDB.open(tds.StoreConfig(**CFG_KW, max_drones=4), device="cpu")
-    with pytest.raises(NotImplementedError, match="latest"):
+    """The latest-per-drone cache, once unported, now holds the reference's
+    contract: a disabled cache raises ValueError on both entry points, and
+    a store with a cache opens."""
+    with pytest.raises(ValueError, match="max_drones"):
+        stores[2].latest()
+    with pytest.raises(ValueError, match="max_drones"):
         stores[2].query(TQuery().latest())
+    db = AerialDB.open(tds.StoreConfig(**CFG_KW, max_drones=4), device="cpu")
+    assert db.latest().record.shape == (4, 3 + db.cfg.n_values)
+    assert not bool(db.latest().valid.any())

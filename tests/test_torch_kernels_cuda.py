@@ -533,28 +533,52 @@ def test_flash_wrapper_refuses_what_the_kernel_lacks(cuda):
             fops.flash_attention_cuda(bad, bad, bad, causal=True)
 
 
+# The smoke decoder's fp32 runs against its float64 run on the CPU. On the
+# card (through the kernel) h sits 4.0e-6 from it, on the CPU (the plain
+# version) 5.6e-6 (values up to 3.9; about sqrt(K) fp32 ulps a matmul
+# through 4 layers); the bound is 3.6x the larger. The CPU's fp32 run is no
+# reference: in 2 of 41 processes its first forward took rope's cos at
+# about 11 bits for the half of the table that PyTorch's 2-thread loop gave
+# one MKL vmsCos call, and ended 4.1e-4 away; none of 92 later forwards
+# did (PERF.md §6). So the reference is made on one thread, after a
+# forward that is thrown away.
+SMOKE_F64_TOL = 2e-5
+
+
 def test_smoke_model_on_card_matches_cpu(cuda):
     """The dense decoder through the kernel (forward and cached decode) in
-    fp32 against its own CPU run through the plain version, at 1e-4."""
+    fp32, bitwise the same on a second forward, and within SMOKE_F64_TOL of
+    the same model run in float64 on one CPU thread (its second forward)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = reduce_for_smoke(get_config("qwen3-14b")).replace(
         compute_dtype_str="float32")
-    cpu = Model(cfg, device="cpu")
-    params = cpu.init(torch.Generator().manual_seed(0))
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(0))
     card = Model(cfg, device=cuda)
     cparams = tree_map(lambda a: a.to(cuda), params)
     toks = torch.from_numpy(np.random.default_rng(2).integers(
         0, cfg.vocab, (2, 70)).astype(np.int32))
     before = fops.launches
     h_card, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
-    h_cpu, _ = cpu.forward(params, {"tokens": toks})
     assert fops.launches == before + cfg.n_layers
-    torch.testing.assert_close(h_card.cpu(), h_cpu, rtol=1e-4, atol=1e-4)
-    cc, cg = cpu.init_cache(2, 70), card.init_cache(2, 70)
+    again, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    assert torch.equal(h_card, again)
+    cg = card.init_cache(2, 70)
     for t in range(70):
-        cc, lc = cpu.decode_step(params, cc, {"tokens": toks[:, t:t + 1]}, t)
         cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(cuda)}, t)
-    torch.testing.assert_close(lg.cpu(), lc, rtol=1e-4, atol=1e-4)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        f64.forward(params, {"tokens": toks})
+        h_ref, _ = f64.forward(params, {"tokens": toks})
+        cr = f64.init_cache(2, 70)
+        for t in range(70):
+            cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+    finally:
+        torch.set_num_threads(threads)
+    tol = dict(rtol=SMOKE_F64_TOL, atol=SMOKE_F64_TOL)
+    torch.testing.assert_close(h_card.cpu().double(), h_ref, **tol)
+    torch.testing.assert_close(lg.cpu().double(), lr, **tol)
 
 
 def test_sm90_probe_matches_matmul(cuda):
@@ -850,3 +874,80 @@ def test_random_query_syncs_no_more_than_min_shards(cuda):
     a, _ = rnd.query(pred, agg=spec)
     b, _ = db.query(pred, agg=spec)
     assert torch.equal(a.count, b.count) and int(a.count.sum()) > 0
+
+
+def _latest_rounds(seed: int = 3):
+    """A D400 fleet's first two rounds, the third reworked by
+    ``latest_edge_round`` against the cache after them, and a round of
+    small integer t (ties everywhere) with ids in [-3, 410) and NaN, +-inf
+    and +-0.0 t: (payload, sid_hi) each, in insert order."""
+    from repro_torch.data.synthetic import DroneFleet, latest_edge_round
+    payloads, metas = DroneFleet(400, records_per_shard=60, n_values=4,
+                                 seed=seed).next_rounds(3)
+    crafted = latest_edge_round(payloads[2], metas.sid_hi[2],
+                                payloads[1, :, -1, 0], 400, seed=seed)
+    rng = np.random.default_rng(seed)
+    wild = payloads[2].copy()
+    wild[..., 0] = rng.choice(np.array([np.nan, np.inf, -np.inf, -0.0, 0.0, 1.0, 2.0],
+                                       np.float32), wild.shape[:2])
+    wild[..., 3][rng.random(wild.shape[:2]) < 0.2] = np.nan
+    wild_ids = rng.integers(-3, 410, wild.shape[0]).astype(np.int32)
+    return [(payloads[0], metas.sid_hi[0]), (payloads[1], metas.sid_hi[1]),
+            crafted, (wild, wild_ids)]
+
+
+def test_latest_update_on_card_matches_cpu(cuda):
+    """``_update_latest`` on the card, round after round at D400 width (400
+    shards x 60 records, every id repeated 60 times a round; a crafted round
+    and a round of ties and non-finite t), bitwise equal to the CPU's, and
+    equal again on a second pass: the scatter's order does not matter."""
+    from repro_torch.core.datastore import _update_latest
+    rounds = _latest_rounds()
+    cpu = (torch.zeros((400, 7)), torch.full((400,), -1, dtype=torch.int32))
+    want = []
+    for k, (p, ids) in enumerate(rounds):
+        _update_latest(*cpu, torch.from_numpy(p), torch.from_numpy(ids), k + 1)
+        want.append(tuple(x.clone() for x in cpu))
+    for _ in range(2):
+        card = (torch.zeros((400, 7), device=cuda),
+                torch.full((400,), -1, dtype=torch.int32, device=cuda))
+        for k, (p, ids) in enumerate(rounds):
+            _update_latest(*card, torch.from_numpy(p).to(cuda),
+                           torch.from_numpy(ids).to(cuda), k + 1)
+            f, seen = (x.cpu() for x in card)
+            assert seen.dtype == torch.int32
+            assert torch.equal(f.view(torch.int32), want[k][0].view(torch.int32)), k
+            assert torch.equal(seen, want[k][1]), k
+    assert bool(torch.isnan(want[2][0]).any())            # NaN channels kept
+
+
+def test_latest_ingest_syncs_no_more_than_without_cache(cuda):
+    """A chunk of ``ingest_rounds`` into a store with ``max_drones=400``,
+    its rounds already on the card, warns of no more syncs than the same
+    chunk without the cache, under ``torch.cuda.set_sync_debug_mode``; the
+    cache it leaves equals the CPU's."""
+    import dataclasses
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.core.placement import ShardMeta
+    from repro_torch.data.synthetic import DroneFleet
+    sites = tuple(map(tuple, make_sites(80, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=80, sites=sites, tuple_capacity=1 << 15,
+                      index_capacity=1 << 12, records_per_shard=60, n_values=4)
+    payloads, metas = DroneFleet(400, records_per_shard=60, n_values=4,
+                                 seed=2).next_rounds(8)
+    on_card = (torch.from_numpy(payloads).to(cuda),
+               ShardMeta(*(torch.from_numpy(np.asarray(f)).to(cuda) for f in metas)))
+    plain = AerialDB.open(cfg, device=cuda)
+    cached = AerialDB.open(dataclasses.replace(cfg, max_drones=400), device=cuda)
+    for db in (plain, cached):                   # builds and warm-up
+        db.ingest_rounds(on_card[0][:4], ShardMeta(*(f[:4] for f in on_card[1])))
+    rest = (on_card[0][4:], ShardMeta(*(f[4:] for f in on_card[1])))
+    base = _sync_warnings(lambda: plain.ingest_rounds(*rest))
+    assert _sync_warnings(lambda: cached.ingest_rounds(*rest)) <= base
+    cpu = AerialDB.open(dataclasses.replace(cfg, max_drones=400), device="cpu")
+    cpu.ingest_rounds(payloads, metas)
+    got, want = cached.latest(), cpu.latest()
+    assert torch.equal(got.record.cpu().view(torch.int32), want.record.view(torch.int32))
+    assert torch.equal(got.last_seen.cpu(), want.last_seen)
+    assert bool(want.valid.all()) and int(want.last_seen.min()) == 8
