@@ -28,7 +28,17 @@ Phases, one line each:
      ``query(Query().latest())``, a crafted round of edge cases against the
      oracle and the CPU, one cache update's call and host time, and the
      cache's cost on ingest from two fresh stores, with and without it,
-     taking the day's first chunks in turns;
+     taking the day's first chunks in turns; then the resilience line: the
+     paper's edge-server loss at D400 width (4 failure domains, 2^19-slot
+     rings, domain 1's
+     20 edges down from round 24 to 48, then recovered with the incremental
+     repair) against a never-faulted twin: the 1 km x 1800 s batch during
+     and after the outage against the twin's, the ledger's no-op flips,
+     the incremental repair against a full sweep of a clone, the
+     canonical content against the twin's, the kernels at the repair's
+     batch against their plain versions, and a small wrapping scenario on
+     the card against the CPU; the repair telemetry, its host seconds (D2H,
+     placement, sweep, H2D), launches, shards/s and peak memory;
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -86,6 +96,10 @@ FP32_FLOP_PER_S = 67e12        # H100 SXM data sheet, outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM data sheet, dense tensor cores
 QUERY_SIZES = ((0.2, 300.0), (1.0, 1800.0), (5.0, 7200.0))   # paper §4.5.1
 RECENT_S = 1800.0              # windows retained on every replica
+# The resilience phase's ring: the main path's 2^18 slots wrap on the dead
+# domain's successor edge (40 takes the block's spatial and id replicas:
+# `resilience.tup_count_max`), and content equality needs no wrap.
+RESILIENCE_CAPACITY = 1 << 19
 SERVE_ARCH = "internlm2-1.8b"
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
@@ -569,6 +583,277 @@ def latest_cost(torch, dev, cfg, payloads, metas, chunks, d: int) -> dict:
     return {"chunk_ms": times, "chunk_ms_median": med,
             "rounds_per_chunk": chunks[0].stop - chunks[0].start,
             "shards_per_s_ratio": med["uncached"] / med["cached"]}
+
+
+def states_equal(torch, a, b) -> list:
+    """Names of the StoreState / IndexState leaves of ``a`` and ``b`` that
+    differ in shape, dtype or bits (empty when every leaf is equal); the
+    leaves may lie on different devices."""
+    out = [f"index.{f}" for f in a.index._fields
+           if not bitwise_equal(torch, getattr(a.index, f).cpu(),
+                                getattr(b.index, f).cpu())]
+    return out + [f for f in a._fields if f != "index" and not bitwise_equal(
+        torch, getattr(a, f).cpu(), getattr(b, f).cpu())]
+
+
+def batch_vs_twin(torch, got, want) -> dict:
+    """A faulted store's (QueryResult, QueryInfo) against its never-faulted
+    twin's on every query neither overflows: count, vmin and vmax bitwise,
+    vsum to rtol 1e-5. Returns the queries compared and overflowed and the
+    largest vsum difference; exits non-zero on a mismatch."""
+    (r, _), (w, _) = got, want
+    keep = ~(r.overflow | w.overflow)
+    if not torch.equal(r.count[keep], w.count[keep]) or not all(
+            bitwise_equal(torch, getattr(r, f)[keep], getattr(w, f)[keep])
+            for f in ("vmin", "vmax")):
+        raise SystemExit("resilience: a query's count, min or max differs "
+                         "from the never-faulted twin's")
+    torch.testing.assert_close(r.vsum[keep], w.vsum[keep], rtol=1e-5, atol=0,
+                               equal_nan=True)
+    d = (r.vsum[keep] - w.vsum[keep]).abs()
+    d = d[~torch.isnan(d)]
+    return {"compared": int(keep.sum()), "overflowed": int((~keep).sum()),
+            "vsum_max_abs_diff": float(d.max()) if d.numel() else 0.0}
+
+
+def small_repair_card_vs_cpu(torch, dev) -> dict:
+    """The wrapping outage scenario of the CPU tests (8 edges, capacity 256,
+    four failure domains: 2 rounds, domain 1 down for 8 rounds that wrap
+    the rings, recovered without a repair) on the card and on the CPU, then
+    the session's incremental repair and ``repair_state``'s full sweep of a
+    clone of the pre-repair state on each: every leaf and both telemetry
+    dicts equal. Exits non-zero otherwise."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig, clone_state
+    from repro_torch.core.repair import repair_state
+    from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=256,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=8, retention_every=2,
+                      n_failure_domains=4)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        db = AerialDB.open(cfg, device=d)
+        fleet = DroneFleet(12, records_per_shard=8, seed=7)
+        for r in range(10):
+            if r == 2:
+                db.fail_device(1)
+            db.insert(*fleet.next_shards())
+        db.recover_device(1, repair=False)
+        pre = clone_state(db.state)
+        inc = db.repair()
+        full = repair_state(cfg, pre, db.alive)
+        out[d.type] = (db.state, inc, full)
+    (s_card, i_card, f_card), (s_cpu, i_cpu, f_cpu) = out[dev.type], out["cpu"]
+    bad = states_equal(torch, s_card, s_cpu) + states_equal(torch, f_card[0], f_cpu[0])
+    if bad or i_card != i_cpu or f_card[1] != f_cpu[1]:
+        raise SystemExit(f"resilience: the small repair differs on the card: "
+                         f"{bad} {i_card} {i_cpu} {f_card[1]} {f_cpu[1]}")
+    if int(s_cpu.tup_count.max()) <= 256 or i_cpu["shards_replaced"] == 0:
+        raise SystemExit("resilience: the small scenario did not wrap and repair")
+    return {"leaves_equal": len(s_cpu.index) + len(s_cpu) - 1,
+            "incremental": i_cpu, "full_swept": f_cpu[1]["shards_swept"]}
+
+
+def repair_batch_vs_plain(torch, dev, cfg, state) -> dict:
+    """voronoi_assign and hash64 at the batch a full repair sends them: the
+    16 x 16 slice-cell centres and 16 temporal buckets of every tracked
+    shard of ``state``'s index, and the shard ids, each kernel once against
+    its plain version on the same card tensors (bitwise). Exits non-zero on
+    a mismatch."""
+    from repro_torch.core import hashing, voronoi
+    from repro_torch.core.repair import _shard_table
+    from repro_torch.core.slicing import _cell_index
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    ent_i = state.index.ent_i.cpu().numpy()
+    ent_f = state.index.ent_f.cpu().numpy()
+    ev, ec, _, _, first = _shard_table(ent_i, ent_f, state.index.valid.cpu().numpy())
+    f0 = torch.from_numpy(ent_f[ev[first], ec[first]]).to(dev)
+    sid = torch.from_numpy(ent_i[ev[first], ec[first], :2].copy()).to(dev)
+    sc = cfg.slice_cfg
+    k = torch.arange(16, dtype=torch.int32, device=dev)
+    ii = _cell_index(f0[:, 0], sc.lat0, sc.cell)[:, None] + k
+    jj = _cell_index(f0[:, 2], sc.lon0, sc.cell)[:, None] + k
+    glat = (sc.lat0 + (ii.float() + 0.5) * sc.cell)[:, :, None].expand(-1, 16, 16)
+    glon = (sc.lon0 + (jj.float() + 0.5) * sc.cell)[:, None, :].expand(-1, 16, 16)
+    sites = cfg.sites_array(dev)
+    got = vor_ops.voronoi_assign_cuda(glat, glon, sites).reshape(-1)
+    want = voronoi.voronoi_assign(torch.stack([glat.reshape(-1), glon.reshape(-1)], -1),
+                                  sites)
+    buckets = hashing.time_bucket(f0[:, 4], cfg.tau)[:, None] + k
+    h_bad = sum(int((hash64_ops.xxh64_mod_cuda(h, lo, cfg.n_edges)
+                     != hashing.xxh64_mod_plain(h, lo, cfg.n_edges)).sum())
+                for h, lo in ((None, buckets), (sid[:, 0], sid[:, 1])))
+    v_bad = int((got != want).sum())
+    if v_bad or h_bad:
+        raise SystemExit(f"resilience: at the repair batch voronoi_assign "
+                         f"differs on {v_bad} points, hash64 on {h_bad} keys")
+    return {"shards": int(first.size), "voronoi_points": int(got.numel()),
+            "hash64_keys": int(buckets.numel() + sid.shape[0]), "mismatch": 0}
+
+
+def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
+    """The paper's edge-server loss (fig. 14's ``device_failure`` row) at
+    D400 width: the main path's config with 4 failure domains, two sessions
+    on the card taking the same 48 rounds of the same fleet; the faulted
+    one loses domain 1 (20 edges) after round 24 and recovers it (the
+    incremental repair) after round 48, the twin never fails. Checks, each
+    fatal: (1) during the outage a 64-query AND batch (1 km x 1800 s, 4
+    channels) over the last 30 minutes and over the 30 minutes before the
+    failure equals the twin's on every query neither overflows, and the
+    second loses replicas on the faulted store (the first matches only
+    shards placed around the dead domain); (2) failing a
+    dead edge and recovering an alive one leave ``ledger()`` unchanged (the
+    latter runs no repair); (3) a full repair of a clone of the pre-repair
+    state equals the incremental repair, every leaf; (4) the two stores'
+    ``canonical_content`` is equal (no ring wraps: ``tup_overwritten`` 0
+    before the repair, on rings of RESILIENCE_CAPACITY); (5) after the repair the batch equals the twin's
+    with no replica lost and a completeness bound of 1, and the ledger is
+    empty; (6) the small wrapping scenario equals the CPU's. Counts are set
+    to 0 before the ingest and read after check 5."""
+    import dataclasses
+    from repro_torch.api.session import AerialDB
+    from repro_torch.chaos.audit import assert_content_equal, canonical_content
+    from repro_torch.core.datastore import AggSpec, clone_state, make_pred
+    from repro_torch.data.synthetic import DroneFleet, make_query_workload
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    t_phase = time.perf_counter()
+    rcfg = dataclasses.replace(cfg, n_failure_domains=4,
+                               tuple_capacity=RESILIENCE_CAPACITY)
+    fleet = DroneFleet(400, city, records_per_shard=60, n_values=4, seed=seed)
+    payloads, metas = fleet.next_rounds(48)
+
+    def part(sl):
+        return payloads[sl], type(metas)(*(f[sl] for f in metas))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    faulted, twin = (AerialDB.open(rcfg, device=dev) for _ in range(2))
+    for db in (faulted, twin):
+        db.ingest_rounds(*part(slice(0, 24)))
+    faulted.fail_device(1)
+    ingest_s = {}
+    for name, db in (("faulted", faulted), ("twin", twin)):
+        torch.cuda.synchronize()
+        ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        ev0.record()
+        db.ingest_rounds(*part(slice(24, 48)))
+        ev1.record()
+        ev1.synchronize()
+        ingest_s[name] = ev0.elapsed_time(ev1) / 1e3
+
+    # The batch's boxes over two 30-minute windows: the last (shards placed
+    # around the dead domain, so none of theirs is lost) and the last before
+    # the failure (shards with replicas on it).
+    t_ends = {"recent": float(payloads[..., 0].max()),
+              "before_failure": float(payloads[:24, ..., 0].max())}
+    w = make_query_workload(np.random.default_rng(seed + 2), 64, city,
+                            t_ends["recent"], 1.0, 1800.0)
+    preds = {}
+    for name, t_end in t_ends.items():
+        t0_ = np.full(64, t_end - RECENT_S, np.float32)
+        preds[name] = make_pred(q=64, **{**w, "t0": t0_, "t1": t0_ + np.float32(1800.0)},
+                                has_spatial=True, has_temporal=True,
+                                is_and=True, device=dev)
+    spec = AggSpec(channels=(0, 1, 2, 3))
+    during = {n: faulted.query(p, agg=spec) for n, p in preds.items()}
+    lost_during = {n: int(r.replicas_lost.sum()) for n, (r, _) in during.items()}
+    if lost_during["before_failure"] <= 0:
+        raise SystemExit("resilience: no replica was lost during the outage")
+    check1 = {n: batch_vs_twin(torch, during[n], twin.query(p, agg=spec))
+              for n, p in preds.items()}
+
+    # (2) ledger no-ops
+    snap = faulted.ledger()
+    faulted.fail_edges(20)                   # in domain 1: already dead
+    same_after_fail = faulted.ledger() == snap
+    faulted.recover_edges(0)                 # alive: no window, no repair
+    if not (same_after_fail and faulted.ledger() == snap
+            and faulted.last_repair is None):
+        raise SystemExit(f"resilience: a no-op flip changed the ledger {snap}")
+
+    pair = (("faulted", faulted), ("twin", twin))
+    over = {n: int(db.state.tup_overwritten.sum()) for n, db in pair}
+    count_max = {n: int(db.state.tup_count.max()) for n, db in pair}
+    if any(over.values()):
+        raise SystemExit(f"resilience: a ring wrapped {over} {count_max}")
+    pre = clone_state(faulted.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    faulted.recover_device(1)
+    inc_wall = time.perf_counter() - t0
+    inc, inc_s = faulted.last_repair, faulted.last_repair_seconds
+
+    # (3) incremental == full, from a clone of the pre-repair state
+    full_db = AerialDB(rcfg, pre, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = full_db.repair(full=True)
+    full_wall = time.perf_counter() - t0
+    full_s = full_db.last_repair_seconds
+    bad = states_equal(torch, faulted.state, full_db.state)
+    if bad:
+        raise SystemExit(f"resilience: incremental repair != full sweep at {bad}")
+
+    # (4) content equal to the never-faulted twin's
+    t0 = time.perf_counter()
+    got, want = canonical_content(faulted), canonical_content(twin)
+    assert_content_equal(got, want, "resilience: ")
+    content_s = time.perf_counter() - t0
+
+    # (5) after the repair
+    check5 = {}
+    for name, p in preds.items():
+        after = faulted.query(p, agg=spec)
+        check5[name] = batch_vs_twin(torch, after, twin.query(p, agg=spec))
+        res = after[0]
+        if int(res.replicas_lost.max()) != 0 or not bool(
+                (res.completeness_bound[~res.overflow] == 1).all()):
+            raise SystemExit(f"resilience: after the repair, batch {name} "
+                             f"lost {int(res.replicas_lost.max())} replicas")
+    ledger = faulted.ledger()
+    if ledger["open_outages"] or ledger["closed_windows"] \
+            or ledger["pending_sids"] or ledger["dropped_sids"]:
+        raise SystemExit(f"resilience: the ledger after the repair: {ledger}")
+    launches = {k: m.launches for k, m in mods.items()}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"resilience: a kernel never launched: {launches}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch = repair_batch_vs_plain(torch, dev, rcfg, faulted.state)
+    del full_db, pre
+    small = small_repair_card_vs_cpu(torch, dev)
+    shards = 24 * fleet.n_drones
+    return {
+        "config": {"n_failure_domains": 4, "failed_domain": 1, "failed_edges": 20,
+                   "rounds": [24, 24], "tuple_capacity": rcfg.tuple_capacity},
+        "tup_count_max": count_max,
+        "checks": {"1_during_outage_vs_twin": True, "2_ledger_noops": True,
+                   "3_incremental_equals_full": True, "4_content_equals_twin": True,
+                   "5_after_repair": True, "6_small_card_vs_cpu": True},
+        "during": {n: {**c, "replicas_lost_sum": lost_during[n],
+                       "replicas_lost_max": int(during[n][0].replicas_lost.max()),
+                       "matched_queries": int((during[n][0].count > 0).sum())}
+                   for n, c in check1.items()},
+        "after": check5,
+        "repair_incremental": inc, "repair_incremental_seconds": inc_s,
+        "repair_incremental_wall_s": inc_wall,
+        "repair_full": full, "repair_full_seconds": full_s,
+        "repair_full_wall_s": full_wall,
+        "swept_n": {"incremental": inc["shards_swept"], "full": full["shards_swept"]},
+        "content": {"edges": len(got["edges"]), "shards": len(got["index"]),
+                    "tuples": int(sum(r.shape[0] for r in got["edges"])),
+                    "seconds": content_s},
+        "launches": launches,
+        "ingest_shards_per_s": {k: shards / v for k, v in ingest_s.items()},
+        "ingest_device_s": ingest_s,
+        "repair_batch_vs_plain": batch, "small_card_vs_cpu": small,
+        "peak_mem_gb": peak, "phase_s": time.perf_counter() - t_phase}
 
 
 def scan_vs_plain(torch, args_scan, channels, cap: int, what: str,
@@ -1172,6 +1457,8 @@ def main(argv=None) -> int:
         phase("profile_ingest_latest", **profile(torch, lambda: ldb.ingest_rounds(*extra),
                                                  host_top=12))
     del ldb
+    phase("resilience", **resilience_phase(torch, dev, cfg, city, args.seed))
+    torch.cuda.empty_cache()
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------
     scan = st_scan_phase(torch, dev, cfg, st, db.alive, batches, specs)

@@ -3,16 +3,32 @@
 Port of the single-device subset of ``repro.api.session``: one object owns
 the ``StoreConfig``, the ``StoreState`` (on one device), the edge ``alive``
 mask, the planner's PRNG key (on the host, split once a query as the
-reference splits it) and the host-side step counter that paces index
-retention.
+reference splits it), the host-side step counter that paces index retention
+and the failure ledger.
 
     db = AerialDB.open(cfg)                       # on the card
     db.ingest_rounds(payloads, metas)             # N rounds, no host sync
     res, info = db.query(Query().bbox(...).time(...).agg("mean", channel=2))
     db.latest()                                   # newest record per drone
+    db.fail_edges(1, 5); ...; db.recover_edges(1, 5)
+    db.fail_device(0); ...; db.recover_device(0)  # a whole failure domain
 
-Failure and recovery, repair, partitions and meshes are later slices
-(ROADMAP Queue 1).
+Failure-domain resilience (paper §4.5.3), as the reference: ``fail_*``
+opens an outage-epoch record ``(dead edges, fail step)`` on a host-side
+ledger, ``recover_*`` closes its window at the current step and by default
+runs the incremental anti-entropy repair (``core.repair``) over the shards
+the recorded outages could have touched; ``repair(full=True)`` sweeps every
+shard. Ingest-time index drops are watched without a read (the per-insert
+drop counts stay on the device until the ledger, a repair or a backlog of
+64 inserts drains them) and ride the ledger's pending set.
+
+The alive mask is a host fact: the session keeps it in numpy and makes a
+fresh device tensor of it at every flip (from pinned memory on the card),
+and takes the step from its host mirror, so a fail or recover without
+repair reads nothing from the device. Repair, ``ledger()`` and the drop
+watch's drain are the sync points. Partitions and meshes are later slices
+(ROADMAP Queue 1); ``effective_alive`` is the alive mask until partitions
+add reachability.
 """
 
 from __future__ import annotations
@@ -24,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.api.query import Query
+from repro_torch.core import repair as _repair
 from repro_torch.core import threefry
 from repro_torch.core.datastore import (AggSpec, LatestResult, QueryInfo,
                                         QueryResult, StoreConfig, StoreState,
@@ -32,6 +49,7 @@ from repro_torch.core.datastore import (AggSpec, LatestResult, QueryInfo,
 from repro_torch.core.index import QueryPred
 from repro_torch.core.placement import ShardMeta
 from repro_torch.device import resolve_device
+from repro_torch.distributed.sharding import device_edge_block
 
 __all__ = ["AerialDB"]
 
@@ -47,6 +65,33 @@ def _to_device(x, dev: torch.device, dtype: torch.dtype) -> torch.Tensor:
 def _meta_to(meta: ShardMeta, dev: torch.device) -> ShardMeta:
     dts = (torch.int32, torch.int32) + (torch.float32,) * 6
     return ShardMeta(*(_to_device(f, dev, dt) for f, dt in zip(meta, dts)))
+
+
+def _mask_to(mask: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A fresh (E,) bool tensor on ``dev`` holding a copy of the host mask;
+    on the card the copy leaves pinned memory without blocking, so a flip
+    never waits on the device."""
+    t = torch.from_numpy(np.array(mask, bool))
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t
+
+
+def _sids(x):
+    """An insert's sid words, kept for the drop watch without a read: a
+    tensor as given (read when the watch drains), anything else as a host
+    copy."""
+    return x.detach() if isinstance(x, torch.Tensor) else np.array(x)
+
+
+def _host_array(x) -> np.ndarray:
+    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+def _multi_process() -> bool:
+    dist = torch.distributed
+    return (dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1)
 
 
 class AerialDB:
@@ -66,11 +111,37 @@ class AerialDB:
         self._cfg = cfg
         self._state = state
         self._key = threefry.key(seed) if key is None else key
-        alive = np.ones(cfg.n_edges, bool) if alive is None else alive
-        self._alive = _to_device(alive, self._device, torch.bool)
+        # The alive mask lives on the host (one read of an adopted tensor);
+        # its device tensor is made anew at every flip.
+        self._alive_np = (np.ones(cfg.n_edges, bool) if alive is None
+                          else _host_array(alive).astype(bool).copy())
+        self._alive = _mask_to(self._alive_np, self._device)
         # Host mirror of state.steps (one read at adoption, never again): the
-        # retention cadence branches on it without a device sync.
+        # retention cadence and the outage ledger read it without a sync.
         self._steps = int(state.steps)
+        self._last_repair: Optional[dict] = None
+        self._last_repair_seconds: Optional[dict] = None
+        # Outage-epoch ledger (see ``core.repair``): open records are
+        # in-flight outages ``[dead edge set, fail_step]``; closed records
+        # ``(recovered edge set, fail_step, recover_step)`` accumulate until
+        # a repair consumes them. ``_pending_sids`` holds shards swept by a
+        # repair that ran while other edges were still dead: they must be
+        # re-swept until a repair completes with every edge alive.
+        self._open_outages: list = []
+        self._closed_outages: list = []
+        self._pending_sids: set = set()
+        # Ingest-time index drop watch: each insert's (sids, per-edge
+        # index_entries_dropped device tensor) is kept unread; the drain
+        # (repair, ledger, or a backlog past _DROP_WATCH_MAX) reads them and
+        # folds the sids of every round that dropped into ``_dropped_sids``.
+        self._drop_watch: list = []
+        self._dropped_sids: set = set()
+        dead = np.nonzero(~self._alive_np)[0]
+        if dead.size:
+            # Adopted state with unknown outage history: a fail_step of -1
+            # covers every index entry, so the first repair after recovery
+            # degenerates to (a correct) full-coverage sweep.
+            self._open_outages.append([set(dead.tolist()), -1])
 
     @classmethod
     def open(cls, cfg: Optional[StoreConfig] = None, *, device="cuda",
@@ -103,10 +174,49 @@ class AerialDB:
         return self._alive
 
     @property
+    def effective_alive(self) -> torch.Tensor:
+        """(E,) bool — the mask every placement, query and repair decision
+        sees. The alive mask until partitions add reachability."""
+        return self._alive
+
+    @property
     def device(self) -> torch.device:
         return self._device
 
     # -- ingest -------------------------------------------------------------
+
+    # Drop-watch backlog bound: past this many unread insert telemetry
+    # records, the next ingest drains them (their compute long finished, so
+    # the read does not stall the queue).
+    _DROP_WATCH_MAX = 64
+
+    def _watch_drops(self, sid_hi, sid_lo, dropped: torch.Tensor) -> None:
+        """Record one ingest's (sids (N, B), device drop counts (N, E))
+        unread, for the lazy drain."""
+        self._drop_watch.append((sid_hi, sid_lo, dropped))
+        if len(self._drop_watch) > self._DROP_WATCH_MAX:
+            self._drain_drop_watch()
+
+    def _drain_drop_watch(self) -> None:
+        """Read the watched drop counters (one device read for the whole
+        backlog) and fold the sids of every round that dropped index entries
+        into ``_dropped_sids``. Sweeping a batch-mate whose entry landed is
+        a canonical-placement no-op, so a superset is fine."""
+        if not self._drop_watch:
+            return
+        counts = torch.cat([d for _, _, d in self._drop_watch]).cpu().numpy()
+        row = 0
+        for hi, lo, dropped in self._drop_watch:
+            d = counts[row:row + dropped.shape[0]]
+            row += dropped.shape[0]
+            hit = np.nonzero(d.sum(axis=1) > 0)[0]
+            if hit.size:
+                hi, lo = _host_array(hi), _host_array(lo)
+                for rnd in hit:
+                    self._dropped_sids.update(
+                        _repair.sid_key(int(h), int(l))
+                        for h, l in zip(hi[rnd], lo[rnd]))
+        self._drop_watch = []
 
     def insert(self, payload, meta: ShardMeta) -> dict:
         """Insert one batch of B shards (R tuples each); returns the info
@@ -115,8 +225,10 @@ class AerialDB:
         payload = _to_device(payload, self._device, torch.float32)
         self._state, info = insert_local(
             self._cfg, self._state, payload, _meta_to(meta, self._device),
-            self._alive, self._steps)
+            self.effective_alive, self._steps)
         self._steps += 1
+        self._watch_drops(_sids(meta.sid_hi)[None], _sids(meta.sid_lo)[None],
+                          info["index_entries_dropped"][None])
         return info
 
     def ingest_rounds(self, payloads, metas: ShardMeta) -> dict:
@@ -125,18 +237,22 @@ class AerialDB:
         round by round with no host sync. Returns the info dict stacked over
         rounds."""
         check_batch_fits(self._cfg, tuple(np.shape(payloads))[1:])
+        sid_hi, sid_lo = _sids(metas.sid_hi), _sids(metas.sid_lo)
         payloads = _to_device(payloads, self._device, torch.float32)
         metas = _meta_to(metas, self._device)
+        mask = self.effective_alive
         infos = []
         for i in range(payloads.shape[0]):
             self._state, info = insert_local(
                 self._cfg, self._state, payloads[i],
-                ShardMeta(*(f[i] for f in metas)), self._alive, self._steps)
+                ShardMeta(*(f[i] for f in metas)), mask, self._steps)
             self._steps += 1
             infos.append(info)
         if not infos:
             return {}
-        return {k: torch.stack([inf[k] for inf in infos]) for k in infos[0]}
+        out = {k: torch.stack([inf[k] for inf in infos]) for k in infos[0]}
+        self._watch_drops(sid_hi, sid_lo, out["index_entries_dropped"])
+        return out
 
     # -- query --------------------------------------------------------------
 
@@ -183,7 +299,7 @@ class AerialDB:
         if key is None:
             self._key, key = threefry.split(self._key)
         return run_query(self._cfg, self._state, pred_to(pred, self._device),
-                         self._alive, spec, key)
+                         self.effective_alive, spec, key)
 
     def latest(self) -> LatestResult:
         """Latest-per-drone hot-cache read (paper §4.4 near-real-time path):
@@ -199,3 +315,192 @@ class AerialDB:
         seen = self._state.latest_seen
         return LatestResult(record=self._state.latest_f, last_seen=seen,
                             valid=seen >= 0)
+
+    # -- membership / failure domains ---------------------------------------
+
+    def _edge_ids(self, edges) -> np.ndarray:
+        """Normalise and validate edge ids on the host, before any device
+        op sees them: an out-of-range index into a CUDA tensor is a
+        device-side assert that poisons the context, so negatives, ids >=
+        ``cfg.n_edges``, duplicates and an empty list all raise here."""
+        ids = np.asarray(
+            edges[0] if len(edges) == 1 and not isinstance(edges[0], int)
+            else edges, np.int64).reshape(-1)
+        if ids.size == 0:
+            raise ValueError("no edge ids given: pass at least one edge id "
+                             "(fail_edges(3) or fail_edges([3, 5])).")
+        e = self._cfg.n_edges
+        bad = ids[(ids < 0) | (ids >= e)]
+        if bad.size:
+            raise ValueError(
+                f"edge id(s) {sorted(set(bad.tolist()))} out of range: this "
+                f"deployment has n_edges={e} (valid ids 0..{e - 1}); an "
+                "out-of-range index would be a device-side assert on the "
+                "card.")
+        if np.unique(ids).size != ids.size:
+            dup = sorted({int(i) for i in ids
+                          if (ids == i).sum() > 1})
+            raise ValueError(
+                f"duplicate edge id(s) {dup}: membership flips take each "
+                "edge at most once.")
+        return ids.astype(np.int32)
+
+    def _device_edges(self, device: int) -> np.ndarray:
+        """Resolve a failure-domain id to its contiguous edge block of
+        ``E / cfg.n_failure_domains`` edges."""
+        n = self._cfg.n_failure_domains
+        if n == 1:
+            raise ValueError(
+                "no failure domains to address: set "
+                "StoreConfig.n_failure_domains > 1 (device-level failures "
+                "flip one contiguous block of E / n_domains edges).")
+        return np.asarray(device_edge_block(self._cfg.n_edges, n, device),
+                          np.int32)
+
+    def _set_alive(self, ids: np.ndarray, value: bool) -> None:
+        self._alive_np = self._alive_np.copy()
+        self._alive_np[ids] = value
+        self._alive = _mask_to(self._alive_np, self._device)
+
+    def fail_edges(self, *edges) -> "AerialDB":
+        """Mark edges dead (paper §4.5.3): later inserts place around them
+        and queries re-plan around them; ids are validated eagerly. Each
+        call opens an outage-epoch record ``(newly dead edges, current
+        step)``. Failing an already-dead edge changes nothing (it stays on
+        the record its first failure opened); a call whose every id is dead
+        is a no-op."""
+        ids = self._edge_ids(edges)
+        newly_dead = ids[self._alive_np[ids]]
+        self._set_alive(ids, False)
+        if newly_dead.size:
+            self._open_outages.append(
+                [set(int(i) for i in newly_dead), self._steps])
+        return self
+
+    def recover_edges(self, *edges, repair: bool = True) -> "AerialDB":
+        """Bring failed edges back (their state was kept while dead).
+
+        Closes the recovered edges' outage windows at the current step and,
+        by default, runs the incremental :meth:`repair`, so shards ingested
+        during the outage are re-placed onto the recovered edges and their
+        entries and tuples backfilled. ``repair=False`` defers (the closed
+        windows stay on the ledger). Recovering edges that are all alive
+        leaves the session untouched: no window closes and no repair runs.
+        """
+        ids = self._edge_ids(edges)
+        newly_alive = set(int(i) for i in ids[~self._alive_np[ids]])
+        if not newly_alive:
+            return self
+        self._set_alive(ids, True)
+        recover_step = self._steps
+        for rec in self._open_outages:
+            inter = rec[0] & newly_alive
+            if inter:
+                self._closed_outages.append(
+                    (frozenset(inter), rec[1], recover_step))
+                rec[0] -= inter
+                newly_alive -= inter
+        self._open_outages = [r for r in self._open_outages if r[0]]
+        if newly_alive:
+            # Dead edges with no ledger record: treat their history as
+            # unknown.
+            self._closed_outages.append(
+                (frozenset(newly_alive), -1, recover_step))
+        if repair:
+            self.repair()
+        return self
+
+    def fail_device(self, device: int) -> "AerialDB":
+        """Kill a whole failure domain (one contiguous edge block): the
+        paper's edge-server loss. Placement spreads replicas across domains
+        (``StoreConfig.n_failure_domains``), so one loss leaves every shard
+        reachable."""
+        return self.fail_edges(self._device_edges(device))
+
+    def recover_device(self, device: int, repair: bool = True) -> "AerialDB":
+        """Bring a failed domain's edge block back; runs the incremental
+        :meth:`repair` by default (see :meth:`recover_edges`)."""
+        return self.recover_edges(self._device_edges(device), repair=repair)
+
+    def ledger(self) -> dict:
+        """Snapshot of the failure ledger: open outage records, closed
+        (unconsumed) windows, the open partition (None until partitions are
+        ported) and the pending and dropped sweep debts. Drains the drop
+        watch, a device read."""
+        self._drain_drop_watch()
+        return {
+            "open_outages": [(sorted(rec[0]), int(rec[1]))
+                             for rec in self._open_outages],
+            "closed_windows": [(sorted(eds), int(f), int(r))
+                               for eds, f, r in self._closed_outages],
+            "partition": None,
+            "pending_sids": len(self._pending_sids),
+            "dropped_sids": len(self._dropped_sids),
+        }
+
+    def _outage_log(self) -> _repair.OutageLog:
+        """The ledger as the ``OutageLog`` of an incremental sweep (sorted,
+        so deterministic): the closed windows, the edges of the open
+        outages (dead now), and the pending and dropped sids."""
+        self._drain_drop_watch()
+        affected = set()
+        for rec in self._open_outages:
+            affected |= rec[0]
+        return _repair.OutageLog(
+            windows=tuple(sorted((int(f), int(r))
+                                 for _eds, f, r in self._closed_outages)),
+            affected_edges=tuple(sorted(affected)),
+            pending_sids=tuple(sorted(self._pending_sids
+                                      | self._dropped_sids)))
+
+    def repair(self, *, full: bool = False) -> dict:
+        """Anti-entropy sweep (``core.repair.repair_state``) under the
+        current mask, in place. Incremental by default — only the shards
+        the ledger's outages could have touched, so an empty ledger is a
+        telemetry-only no-op; ``full=True`` sweeps every tracked shard. A
+        repair consumes the closed windows; shards swept while edges are
+        still dead stay pending. Single-process only: the sweep gathers the
+        whole store to one host, so a ``torch.distributed`` world of more
+        than one process raises. Returns the telemetry dict (also
+        :attr:`last_repair`; its host seconds are :attr:`last_repair_seconds`).
+        """
+        if _multi_process():
+            raise NotImplementedError(
+                "AerialDB.repair() is single-process only: it gathers the "
+                "full store to the host, which under a multi-process world "
+                f"(torch.distributed world size "
+                f"{torch.distributed.get_world_size()}) would repair each "
+                "process's slice independently and diverge the replicated "
+                "state. Run repair from a single-process session, or defer "
+                "with recover_edges(..., repair=False).")
+        outage = None if full else self._outage_log()
+        seconds: dict = {}
+        self._state, info = _repair.repair_state(
+            self._cfg, self._state, self.effective_alive, outage=outage,
+            timings=seconds)
+        swept_keys = info.pop("_swept_keys")
+        self._closed_outages = []
+        if bool(self.effective_alive.all()):
+            self._pending_sids = set()
+        else:
+            self._pending_sids |= set(swept_keys)
+        # A sweep that re-attempted every watched sid without dropping again
+        # settles the dropped-entry debt.
+        self._drain_drop_watch()
+        if info.get("entries_dropped", 0) == 0:
+            self._dropped_sids = set()
+        self._last_repair = info
+        self._last_repair_seconds = seconds
+        return info
+
+    @property
+    def last_repair(self) -> Optional[dict]:
+        """Telemetry of the most recent :meth:`repair` (None before)."""
+        return self._last_repair
+
+    @property
+    def last_repair_seconds(self) -> Optional[dict]:
+        """The most recent repair's host seconds (``repair_state``'s
+        ``timings``: ``d2h_s``, ``placement_s``, ``sweep_s``, ``h2d_s``,
+        and ``swept``); None before."""
+        return self._last_repair_seconds

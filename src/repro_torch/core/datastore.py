@@ -376,6 +376,14 @@ def init_store(cfg: StoreConfig, device="cuda") -> StoreState:
     )
 
 
+def clone_state(state: StoreState) -> StoreState:
+    """A copy of every leaf, on the same device: what a caller keeps before
+    an in-place update (insert, repair) when it still needs the old state."""
+    return StoreState(index=IndexState(*(t.clone() for t in state.index)),
+                      **{f: getattr(state, f).clone()
+                         for f in StoreState._fields if f != "index"})
+
+
 # ---------------------------------------------------------------------------
 # Insertion (paper §3.4, Fig 2)
 # ---------------------------------------------------------------------------

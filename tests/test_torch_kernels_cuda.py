@@ -12,7 +12,10 @@ all three bf16 kernels (``-k "flash or sm90 or decode"`` runs these
 alone). The split-KV decode kernel is also held, at 1e-2, to its own plain
 version (``flash_decode_split_ref``) at the splits the wrapper chose. The sm90
 kernel's layout probe is held to ``torch.matmul`` in fp32 at 1e-4 relative
-(the same bf16 products, summed in another order).
+(the same bf16 products, summed in another order). ``-k repair`` runs the
+fail/recover/repair tests: a wrapping outage scenario on the card against
+the CPU (every leaf and every repair's telemetry bitwise), deferred flips
+that make no sync, and the placement kernels at a full repair's batch.
 """
 
 import numpy as np
@@ -951,3 +954,123 @@ def test_latest_ingest_syncs_no_more_than_without_cache(cuda):
     assert torch.equal(got.record.cpu().view(torch.int32), want.record.view(torch.int32))
     assert torch.equal(got.last_seen.cpu(), want.last_seen)
     assert bool(want.valid.all()) and int(want.last_seen.min()) == 8
+
+
+def _repair_schedule(device):
+    """The small wrapping outage scenario (8 edges, capacity 256, four
+    failure domains) on ``device``: a domain lost and recovered with rings
+    wrapping in between (the incremental repair), then overlapping edge
+    outages with a partial recovery, deferred and repaired, and a full
+    sweep. Returns (session, every repair's telemetry)."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.data.synthetic import DroneFleet
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=256,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=8, retention_every=2,
+                      n_failure_domains=4)
+    db = AerialDB.open(cfg, device=device)
+    fleet = DroneFleet(12, records_per_shard=8, seed=7)
+    infos = []
+
+    def ingest(n):
+        for _ in range(n):
+            db.insert(*fleet.next_shards())
+    ingest(2)
+    db.fail_device(1)
+    ingest(8)
+    db.recover_device(1)
+    infos.append(db.last_repair)
+    db.fail_edges(0)
+    ingest(1)
+    db.fail_edges(5)
+    ingest(1)
+    db.recover_edges(0, repair=False)
+    infos.append(db.repair())
+    ingest(1)
+    db.recover_edges(5)
+    infos.append(db.last_repair)
+    infos.append(db.repair(full=True))
+    return db, infos
+
+
+def test_repair_on_card_matches_cpu(cuda):
+    """Fail, ingest, recover and repair on the card equal the same schedule
+    on the CPU: every state leaf and every repair's telemetry, bitwise (the
+    placement kernels run inside each repair on the card)."""
+    from repro_torch.convert import state_to_numpy
+    before = (hops.launches, vops.launches)
+    card, card_infos = _repair_schedule(cuda)
+    cpu, cpu_infos = _repair_schedule("cpu")
+    assert card_infos == cpu_infos
+    assert card_infos[0]["shards_replaced"] > 0
+    assert card.ledger() == cpu.ledger()
+    got, want = state_to_numpy(card.state), state_to_numpy(cpu.state)
+    for k in want:
+        pairs = want[k].items() if k == "index" else [(k, want[k])]
+        for name, w in pairs:
+            g = got["index"][name] if k == "index" else got[name]
+            assert g.dtype == w.dtype
+            if w.dtype == np.float32:
+                g, w = g.view(np.int32), w.view(np.int32)
+            np.testing.assert_array_equal(g, w, err_msg=name)
+    assert hops.launches > before[0] and vops.launches > before[1]
+
+
+def test_repair_deferred_fail_recover_makes_no_sync(cuda):
+    """Failing and recovering edges and domains without a repair reads
+    nothing from the card: the mask flips on the host and reaches the card
+    from pinned memory, the step is the host mirror, and the drop watch
+    stays unread."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.data.synthetic import DroneFleet
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=512,
+                      index_capacity=256, records_per_shard=8,
+                      n_failure_domains=4)
+    db = AerialDB.open(cfg, device=cuda)
+    fleet = DroneFleet(12, records_per_shard=8, seed=3)
+    db.ingest_rounds(*fleet.next_rounds(2))
+    db.fail_edges(7)                       # warm-up: pinned memory, builds
+    db.recover_edges(7, repair=False)
+
+    def flips():
+        db.fail_edges(1, 2)
+        db.fail_device(2)
+        db.fail_edges(1)
+        db.recover_edges([1, 2], repair=False)
+        db.recover_device(2, repair=False)
+        db.recover_edges(0, repair=False)
+    assert _sync_warnings(flips) == 0
+    assert bool(db.alive.all()) and len(db.ledger()["closed_windows"]) == 2
+    assert db.repair()["mode"] == "incremental"
+
+
+@pytest.mark.parametrize("n_shards", [19_200])
+def test_repair_sized_batch_placement_kernels_match_plain(cuda, n_shards):
+    """``voronoi_assign`` and ``hash64`` at the batch a full repair of the
+    D400 card scenario sends them: 16 x 16 cell centres a shard (4.9 M
+    points) and its 16 temporal buckets and shard ids, bitwise against
+    their plain versions, one launch each."""
+    rng = np.random.default_rng(5)
+    sites = torch.from_numpy(make_sites(80, CityConfig(), seed=3)).to(cuda)
+    i0 = torch.from_numpy(rng.integers(1280, 1310, n_shards)).to(cuda)
+    j0 = torch.from_numpy(rng.integers(7740, 7770, n_shards)).to(cuda)
+    k = torch.arange(16, device=cuda)
+    lat = ((i0[:, None] + k + 0.5) * 0.01).float()[:, :, None].expand(-1, 16, 16)
+    lon = ((j0[:, None] + k + 0.5) * 0.01).float()[:, None, :].expand(-1, 16, 16)
+    assert lat.numel() >= 4_900_000
+    before = vops.launches
+    got = vops.hash_spatial_kernel(lat, lon, sites)
+    assert vops.launches == before + 1
+    pts = torch.stack([lat.reshape(-1), lon.reshape(-1)], -1)
+    assert torch.equal(got.reshape(-1), voronoi.voronoi_assign(pts, sites))
+    buckets = torch.from_numpy(rng.integers(0, 300, (n_shards, 1))).to(cuda) + k
+    hi = torch.from_numpy(_i32(rng, n_shards * 16)).to(cuda)
+    for h, lo in ((None, buckets.int()), (hi, buckets.int().reshape(-1))):
+        before = hops.launches
+        out = hops.xxh64_mod(h, lo, 80)
+        assert hops.launches == before + 1
+        assert torch.equal(out, hashing.xxh64_mod_plain(h, lo, 80))
