@@ -11,7 +11,12 @@ under ``csrc/``, built with nvcc for ``sm_90a`` at first use
   point location (``voronoi_assign.cu``); queries answer with
   ``core.datastore.QueryResult`` and ``QueryInfo``, and the latest-per-drone
   cache (``AerialDB.latest``, ``Query().latest()``; plain torch ops on
-  either device) with ``LatestResult``;
+  either device) with ``LatestResult``; the store fails and recovers edges
+  and failure domains (``AerialDB.fail_edges`` / ``fail_device`` and
+  ``recover_*``, with the reference's outage-epoch ledger) and repairs
+  itself after an outage (``core.repair``: a host-side sweep whose swept
+  subset is placed on the state's device), and ``chaos.audit`` compares
+  stores by their canonical content;
 - the LM serving path (``configs``, ``models``, ``train.train_loop``
   ``make_serve_steps``, ``serve.engine.Engine``) for dense GQA decoders
   such as internlm2-1.8b: FlashAttention-2 forward in every attention

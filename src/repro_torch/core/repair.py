@@ -155,18 +155,15 @@ def repair_state(cfg: StoreConfig, state: StoreState, alive,
     ``_swept_keys`` (the swept shards' sid keys, for the session's
     pending-sweep bookkeeping).
     """
-    clock = {"d2h_s": 0.0, "placement_s": 0.0, "sweep_s": 0.0, "h2d_s": 0.0,
-             "swept": 0}
-    if timings is not None:
-        timings.clear()
-        timings.update(clock)
-        clock = timings
+    clock = {} if timings is None else timings
+    clock.clear()
+    clock.update(d2h_s=0.0, placement_s=0.0, sweep_s=0.0, h2d_s=0.0, swept=0)
     t0 = time.perf_counter()
     e = state.tup_f.shape[0]
     cap = cfg.tuple_capacity
     dev = state.tup_f.device
     alive_np = (_host(alive) if isinstance(alive, torch.Tensor)
-                else np.array(alive)).astype(bool)
+                else np.asarray(alive)).astype(bool)
 
     info = {"shards_tracked": 0, "shards_swept": 0, "shards_replaced": 0,
             "shards_unrepairable": 0, "tuples_copied": 0,

@@ -1035,6 +1035,9 @@ def test_repair_deferred_fail_recover_makes_no_sync(cuda):
     db.ingest_rounds(*fleet.next_rounds(2))
     db.fail_edges(7)                       # warm-up: pinned memory, builds
     db.recover_edges(7, repair=False)
+    # set_sync_debug_mode's own "prototype feature ... synchronizing
+    # operations" warning comes once a process: take it here
+    _sync_warnings(lambda: None)
 
     def flips():
         db.fail_edges(1, 2)

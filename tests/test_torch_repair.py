@@ -11,7 +11,7 @@ a full sweep from the same pre-state runs on ``clone_state`` of it.
 
 The reference's sweep calls ``place_replicas`` and ``_index_edge_mask``
 eagerly on the swept subset, and JAX compiles every eager op anew for each
-subset size (some 6 s a size on this CPU). The module fixture
+subset size (several seconds a size). The module fixture
 ``bucketed_reference_placement`` runs those two calls under ``jax.jit`` on
 the subset padded to a power-of-two bucket and cut back: both are
 row-independent (``repro/core/repair.py``), and
@@ -19,7 +19,6 @@ row-independent (``repro/core/repair.py``), and
 bitwise to the eager call's.
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
