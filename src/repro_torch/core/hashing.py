@@ -18,7 +18,7 @@ from typing import Tuple
 
 import torch
 
-from repro_torch.device import scalar_like
+from repro_torch.device import reciprocal_like
 from repro_torch.kernels.hash64 import ops as hash64_ops
 
 M32 = 0xFFFFFFFF
@@ -158,8 +158,10 @@ def hash_shard_id(sid_hi: torch.Tensor, sid_lo: torch.Tensor,
 
 
 def time_bucket(t: torch.Tensor, tau: float) -> torch.Tensor:
-    """Bucket id of a timepoint for tau-width temporal slicing (int32)."""
-    return torch.floor(t / scalar_like(tau, t)).to(torch.int32)
+    """Bucket id of a timepoint for tau-width temporal slicing (int32), as
+    the reference's jitted insert and query compute it (``t`` times the
+    float32 reciprocal of ``tau``, see ``device.reciprocal_like``)."""
+    return torch.floor(t * reciprocal_like(tau, t)).to(torch.int32)
 
 
 def hash_time_bucket(bucket: torch.Tensor, n_edges: int) -> torch.Tensor:

@@ -15,7 +15,7 @@ import torch
 
 from repro_torch.core import hashing
 from repro_torch.core.voronoi import hash_spatial
-from repro_torch.device import scalar_like
+from repro_torch.device import reciprocal_like
 
 
 class SliceConfig(NamedTuple):
@@ -43,7 +43,7 @@ def temporal_slice_edges(t0: torch.Tensor, t1: torch.Tensor, n_edges: int,
 
 
 def _cell_index(x: torch.Tensor, origin: float, cell: float) -> torch.Tensor:
-    return torch.floor((x - origin) / scalar_like(cell, x)).to(torch.int32)
+    return torch.floor((x - origin) * reciprocal_like(cell, x)).to(torch.int32)
 
 
 def spatial_slice_edges(lat0, lat1, lon0, lon1, sites: torch.Tensor,

@@ -2,6 +2,7 @@
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 
@@ -21,12 +22,17 @@ def resolve_device(device="cuda") -> torch.device:
     return dev
 
 
-def scalar_like(x: float, like: torch.Tensor) -> torch.Tensor:
-    """0-d float32 tensor on ``like``'s device.
+def reciprocal_like(c: float, like: torch.Tensor) -> torch.Tensor:
+    """0-d float32 tensor on ``like``'s device holding ``float32(1) /
+    float32(c)``.
 
-    Dividing a CUDA tensor by a Python float makes PyTorch multiply by the
-    reciprocal instead (one ulp away from the true quotient); dividing by a
-    device tensor keeps IEEE division, which the hashes' bucket boundaries
-    need to agree with the JAX reference bit for bit.
+    The JAX reference divides by a constant (a slice cell's width, the
+    temporal bucket width) inside ``jit``, which XLA compiles as a multiply
+    by the constant's float32 reciprocal: at exact boundaries such as a
+    longitude of 77.45 (the city's edge, where drones clamp) the product
+    floors one cell below the true quotient. Multiplying by this tensor
+    repeats that float32 product on either device; a Python scalar would
+    enter the CUDA kernel through a double.
     """
-    return torch.full((), x, dtype=torch.float32, device=like.device)
+    return torch.full((), float(np.float32(1) / np.float32(c)),
+                      dtype=torch.float32, device=like.device)

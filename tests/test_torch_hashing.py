@@ -3,6 +3,7 @@ kernel wrapper) held bitwise against the JAX package and the pure-Python
 xxHash64 oracle. On the CPU the wrapper runs the plain limb version; the
 kernel itself is tested on the card in ``test_torch_kernels_cuda.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -75,6 +76,20 @@ def test_time_bucket_and_hash_time_match_jax():
     np.testing.assert_array_equal(
         th.hash_time(torch.from_numpy(t), 300.0, 80).numpy(),
         np.asarray(jh.hash_time(jnp.asarray(t), 300.0, 80)))
+
+
+def test_time_bucket_matches_jitted_jax_at_bucket_boundaries():
+    """t on and beside every multiple of 300 s up to 1.2e8 s: the port's
+    bucket equals the reference's under ``jax.jit`` (its insert and query),
+    which multiplies by the float32 reciprocal of tau, not its eager
+    quotient (they differ on thousands of these floats)."""
+    t = (np.arange(1, 400000) * np.float32(300)).astype(np.float32)
+    t = np.concatenate([t, np.nextafter(t, np.float32(0)),
+                        np.nextafter(t, np.float32(1e12))])
+    want = np.asarray(jax.jit(jh.time_bucket, static_argnums=1)(jnp.asarray(t), 300.0))
+    np.testing.assert_array_equal(th.time_bucket(torch.from_numpy(t), 300.0).numpy(),
+                                  want)
+    assert (want != np.floor(t / np.float32(300)).astype(np.int32)).sum() > 1000
 
 
 def test_wrapper_runs_plain_on_cpu_without_launching():

@@ -6,6 +6,7 @@ points sit on a cell boundary within float32 rounding). On the CPU the
 wrapper runs the plain version; the kernel itself is tested on the card in
 ``test_torch_kernels_cuda.py``."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -170,6 +171,46 @@ def test_spatial_slices_match_jax():
     np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
     assert got_o.any() and not got_o.all()
+
+
+def test_slices_match_jitted_jax_at_cell_and_bucket_boundaries():
+    """Ranges starting and ending on exact slice boundaries (k x 0.01
+    degrees, the city's edges among them, and k x 300 s), and on the floats
+    beside them: the port's slices equal the reference's under ``jax.jit``,
+    as its insert and query run them, where XLA multiplies by the float32
+    reciprocal of the cell and bucket widths (a longitude of 77.45 floors
+    one cell below its true quotient)."""
+    sites = make_sites(16, CITY, seed=3)
+    k = np.arange(1284, 7776)
+    k = k[(k <= 1311) | (k >= 7744)]
+    edge = (k * np.float32(0.01)).astype(np.float32)
+    near = np.concatenate([edge, np.nextafter(edge, np.float32(0)),
+                           np.nextafter(edge, np.float32(100))])
+    lat = near[near < 20]
+    lon = near[near > 20]
+    n = min(lat.size, lon.size)
+    lat0, lon0 = lat[:n], lon[:n]
+    lat1, lon1 = lat0 + np.float32(0.02), lon0[::-1] + np.float32(0.0)
+    lon0 = np.minimum(lon0, lon1)
+    lon1 = np.maximum(lon0, lon1)
+    got_m, got_o = ts.spatial_slice_edges(
+        *(torch.from_numpy(np.ascontiguousarray(x)) for x in (lat0, lat1, lon0, lon1)),
+        torch.from_numpy(sites), ts.SliceConfig())
+    want_m, want_o = jax.jit(js.spatial_slice_edges, static_argnums=5)(
+        *(jnp.asarray(x) for x in (lat0, lat1, lon0, lon1)), jnp.asarray(sites),
+        js.SliceConfig())
+    np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
+    t = (np.arange(1, 60000) * np.float32(300)).astype(np.float32)
+    t0 = np.concatenate([t, np.nextafter(t, np.float32(0)),
+                         np.nextafter(t, np.float32(1e9))])
+    t1 = (t0 + np.float32(1200)).astype(np.float32)
+    got_m, got_o = ts.temporal_slice_edges(torch.from_numpy(t0),
+                                           torch.from_numpy(t1), 16, ts.SliceConfig())
+    want_m, want_o = jax.jit(js.temporal_slice_edges, static_argnums=(2, 3))(
+        jnp.asarray(t0), jnp.asarray(t1), 16, js.SliceConfig())
+    np.testing.assert_array_equal(got_o.numpy(), np.asarray(want_o))
+    np.testing.assert_array_equal(got_m.numpy(), np.asarray(want_m))
 
 
 def test_overlapping_ranges_share_a_slice_edge():

@@ -12,11 +12,15 @@ a full sweep from the same pre-state runs on ``clone_state`` of it.
 The reference's sweep calls ``place_replicas`` and ``_index_edge_mask``
 eagerly on the swept subset, and JAX compiles every eager op anew for each
 subset size (several seconds a size). The module fixture
-``bucketed_reference_placement`` runs those two calls under ``jax.jit`` on
-the subset padded to a power-of-two bucket and cut back: both are
-row-independent (``repro/core/repair.py``), and
-``test_bucketed_reference_placement_equals_eager`` holds the bucketed rows
-bitwise to the eager call's.
+``bucketed_reference_placement`` runs those two calls under ``jax.jit``, as
+the reference's insert runs them, on the subset padded to a power-of-two
+bucket and cut back: both are row-independent (``repro/core/repair.py``),
+and ``test_bucketed_reference_placement_equals_its_jitted_call`` holds the
+bucketed rows bitwise to the unpadded jitted call's. Jitted and eager JAX
+differ at exact slice-cell boundaries (XLA multiplies by the cell width's
+float32 reciprocal where the eager op divides); the port follows the
+jitted reference, which its insert and query are held to
+(``test_reference_jit_and_eager_cells_split_and_the_port_follows_jit``).
 """
 
 
@@ -178,10 +182,10 @@ def _fleet(seed):
     return DroneFleet(12, records_per_shard=8, seed=seed)
 
 
-@pytest.mark.parametrize("n", [37])
-def test_bucketed_reference_placement_equals_eager(n):
-    """The fixture's bucketed, jitted placement calls give the eager calls'
-    rows bitwise, with a dead edge and failure domains."""
+@pytest.mark.parametrize("n", [1, 37, 100])
+def test_bucketed_reference_placement_equals_its_jitted_call(n):
+    """The fixture's bucketed calls give the rows of the same jitted calls
+    on the unpadded subset, bitwise, with a dead edge and failure domains."""
     fleet = _fleet(59)
     rows = [fleet.next_shards()[1] for _ in range(-(-n // 12))]
     meta = jplace.ShardMeta(*(jnp.asarray(np.concatenate(f)[:n])
@@ -189,11 +193,36 @@ def test_bucketed_reference_placement_equals_eager(n):
     cfg = jds.StoreConfig(**CFG_KW)
     alive = jnp.asarray(np.arange(E) != 5)
     args = (meta, cfg.sites_array(), alive, cfg.tau, cfg.n_failure_domains)
-    want = jplace.place_replicas(*args)
+    want = _JIT_PLACE(*args)
     np.testing.assert_array_equal(_place_bucketed(*args), want)
     np.testing.assert_array_equal(
         _mask_bucketed(cfg, meta, want, cfg.sites_array(), alive),
-        jds._index_edge_mask(cfg, meta, want, cfg.sites_array(), alive))
+        _JIT_MASK(cfg, meta, want, cfg.sites_array(), alive))
+
+
+def test_reference_jit_and_eager_cells_split_and_the_port_follows_jit():
+    """A shard whose west edge is the city's (lon 77.45, where drones
+    clamp): the reference's jitted index mask (its insert's) names a cell
+    and an edge that its eager mask (its repair's) does not; the port's
+    equals the jitted one."""
+    cfg = jds.StoreConfig(**CFG_KW)
+    f32 = np.float32
+    meta = dict(sid_hi=np.int32([3]), sid_lo=np.int32([4]),
+                lat0=f32([13.024896]), lat1=f32([13.024961]), lon0=f32([77.45]),
+                lon1=f32([77.45049]), t0=f32([120.0]), t1=f32([155.0]))
+    jmeta = jplace.ShardMeta(**{k: jnp.asarray(v) for k, v in meta.items()})
+    reps = jnp.full((1, 3), -1, jnp.int32)
+    alive = jnp.ones(E, bool)
+    jit = np.asarray(_JIT_MASK(cfg, jmeta, reps, cfg.sites_array(), alive))
+    eager = np.asarray(jds._index_edge_mask(cfg, jmeta, reps, cfg.sites_array(),
+                                            alive))
+    tcfg = tds.StoreConfig(**CFG_KW)
+    port = tds._index_edge_mask(
+        tcfg, tds.ShardMeta(**{k: torch.from_numpy(v) for k, v in meta.items()}),
+        torch.from_numpy(np.asarray(reps)), tcfg.sites_array(),
+        torch.ones(E, dtype=torch.bool)).numpy()
+    assert (jit & ~eager).any()
+    np.testing.assert_array_equal(port, jit)
 
 
 # ---------------------------------------------------------------------------
