@@ -477,12 +477,8 @@ def latest_phase(torch, dev, cfg, db, fleet, payloads, metas, chunks,
         raise SystemExit(f"latest: the 5 km batch differs on the cached store: {batch_bad}")
 
     # every state leaf but the cache equals the main path's store
-    other = [f for f in ldb.state._fields if f not in ("latest_f", "latest_seen")]
-    leaf_bad = [f for f in other if f != "index"
-                and not torch.equal(getattr(ldb.state, f), getattr(db.state, f))]
-    leaf_bad += [f"index.{f}" for f in ldb.state.index._fields
-                 if not torch.equal(getattr(ldb.state.index, f),
-                                    getattr(db.state.index, f))]
+    cache = ("latest_f", "latest_seen")
+    leaf_bad = states_equal(torch, ldb.state, db.state, skip=cache)
     if leaf_bad:
         raise SystemExit(f"latest: the cache perturbed state leaves {leaf_bad}")
 
@@ -547,7 +543,8 @@ def latest_phase(torch, dev, cfg, db, fleet, payloads, metas, chunks,
     return {"max_drones": d, "timed_rounds": timed_rounds, "ingest_device_s": ingest_s,
             "shards_per_s": timed_rounds * d / ingest_s, **host,
             "drones_exact": drones_exact, "drones": d,
-            "other_leaves_equal": len(other) - 1 + len(ldb.state.index._fields),
+            "other_leaves_equal": len(ldb.state) - 1 - len(cache)
+            + len(ldb.state.index),
             "batch_fields_equal": len(res_m._fields) + len(info_m._fields),
             "crafted": {"drones_exact": crafted_exact, "card_vs_cpu_rows_apart": 0,
                         "rows_written": int((seen == n_rounds + 1).sum()),
@@ -585,15 +582,16 @@ def latest_cost(torch, dev, cfg, payloads, metas, chunks, d: int) -> dict:
             "shards_per_s_ratio": med["uncached"] / med["cached"]}
 
 
-def states_equal(torch, a, b) -> list:
-    """Names of the StoreState / IndexState leaves of ``a`` and ``b`` that
-    differ in shape, dtype or bits (empty when every leaf is equal); the
-    leaves may lie on different devices."""
+def states_equal(torch, a, b, skip=()) -> list:
+    """Names of the StoreState / IndexState leaves of ``a`` and ``b`` (but
+    those in ``skip``) that differ in shape, dtype or bits (empty when every
+    leaf is equal); ``b``'s leaves are compared on ``a``'s device."""
+    def differ(x, y):
+        return not bitwise_equal(torch, x, y.to(x.device))
     out = [f"index.{f}" for f in a.index._fields
-           if not bitwise_equal(torch, getattr(a.index, f).cpu(),
-                                getattr(b.index, f).cpu())]
-    return out + [f for f in a._fields if f != "index" and not bitwise_equal(
-        torch, getattr(a, f).cpu(), getattr(b, f).cpu())]
+           if differ(getattr(a.index, f), getattr(b.index, f))]
+    return out + [f for f in a._fields if f not in ("index", *skip)
+                  and differ(getattr(a, f), getattr(b, f))]
 
 
 def batch_vs_twin(torch, got, want) -> dict:
@@ -711,12 +709,16 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
     ``canonical_content`` is equal (no ring wraps: ``tup_overwritten`` 0
     before the repair, on rings of RESILIENCE_CAPACITY); (5) after the repair the batch equals the twin's
     with no replica lost and a completeness bound of 1, and the ledger is
-    empty; (6) the small wrapping scenario equals the CPU's. Counts are set
-    to 0 before the ingest and read after check 5."""
+    empty; (6) the small wrapping scenario equals the CPU's. Both batches'
+    degraded scans (during the outage) and post-repair scans are also held
+    against st_scan's plain version at this capacity (``scan_vs_plain``,
+    launches not counted). Counts are set to 0 before the ingest and read
+    after check 5."""
     import dataclasses
     from repro_torch.api.session import AerialDB
     from repro_torch.chaos.audit import assert_content_equal, canonical_content
-    from repro_torch.core.datastore import AggSpec, clone_state, make_pred
+    from repro_torch.core.datastore import (AggSpec, clone_state, make_pred,
+                                            plan_subqueries)
     from repro_torch.data.synthetic import DroneFleet, make_query_workload
     from repro_torch.kernels.hash64 import ops as hash64_ops
     from repro_torch.kernels.st_scan import ops as st_ops
@@ -762,12 +764,29 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
                                 has_spatial=True, has_temporal=True,
                                 is_and=True, device=dev)
     spec = AggSpec(channels=(0, 1, 2, 3))
+
+    def scan_check(db, name, when):
+        """st_scan against its plain version on ``db``'s log at RESILIENCE_
+        CAPACITY, at batch ``name``'s sublists planned under the session's
+        mask (around the dead domain during the outage); these launches are
+        not counted. Returns the largest vsum difference."""
+        counts = {k: m.launches for k, m in mods.items()}
+        st_, p = db.state, preds[name]
+        subl, slen, _ = plan_subqueries(rcfg, st_, p, db.effective_alive)
+        err = scan_vs_plain(torch, (st_.tup_f, st_.tup_sid, st_.tup_count, p,
+                                    subl, slen), spec.channels,
+                            rcfg.tuple_capacity, f"resilience {when}, {name}")
+        for k, m in mods.items():
+            m.launches = counts[k]
+        return err
     during = {n: faulted.query(p, agg=spec) for n, p in preds.items()}
     lost_during = {n: int(r.replicas_lost.sum()) for n, (r, _) in during.items()}
     if lost_during["before_failure"] <= 0:
         raise SystemExit("resilience: no replica was lost during the outage")
     check1 = {n: batch_vs_twin(torch, during[n], twin.query(p, agg=spec))
               for n, p in preds.items()}
+    scan_err = {"during": max(scan_check(faulted, n, "during the outage")
+                              for n in preds)}
 
     # (2) ledger no-ops
     snap = faulted.ledger()
@@ -817,6 +836,8 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
                 (res.completeness_bound[~res.overflow] == 1).all()):
             raise SystemExit(f"resilience: after the repair, batch {name} "
                              f"lost {int(res.replicas_lost.max())} replicas")
+    scan_err["after"] = max(scan_check(faulted, n, "after the repair")
+                            for n in preds)
     ledger = faulted.ledger()
     if ledger["open_outages"] or ledger["closed_windows"] \
             or ledger["pending_sids"] or ledger["dropped_sids"]:
@@ -849,7 +870,7 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
         "content": {"edges": len(got["edges"]), "shards": len(got["index"]),
                     "tuples": int(sum(r.shape[0] for r in got["edges"])),
                     "seconds": content_s},
-        "launches": launches,
+        "launches": launches, "st_scan_vs_plain_vsum_max_abs_diff": scan_err,
         "ingest_shards_per_s": {k: shards / v for k, v in ingest_s.items()},
         "ingest_device_s": ingest_s,
         "repair_batch_vs_plain": batch, "small_card_vs_cpu": small,

@@ -79,13 +79,9 @@ def _mask_to(mask: np.ndarray, dev: torch.device) -> torch.Tensor:
 
 def _sids(x):
     """An insert's sid words, kept for the drop watch without a read: a
-    tensor as given (read when the watch drains), anything else as a host
-    copy."""
-    return x.detach() if isinstance(x, torch.Tensor) else np.array(x)
-
-
-def _host_array(x) -> np.ndarray:
-    return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    tensor as a copy on its own device (no sync; a caller may refill its
+    buffer before the watch drains), anything else as a host copy."""
+    return x.detach().clone() if isinstance(x, torch.Tensor) else np.array(x)
 
 
 def _multi_process() -> bool:
@@ -114,7 +110,7 @@ class AerialDB:
         # The alive mask lives on the host (one read of an adopted tensor);
         # its device tensor is made anew at every flip.
         self._alive_np = (np.ones(cfg.n_edges, bool) if alive is None
-                          else _host_array(alive).astype(bool).copy())
+                          else _repair.host_copy(alive).astype(bool))
         self._alive = _mask_to(self._alive_np, self._device)
         # Host mirror of state.steps (one read at adoption, never again): the
         # retention cadence and the outage ledger read it without a sync.
@@ -211,7 +207,7 @@ class AerialDB:
             row += dropped.shape[0]
             hit = np.nonzero(d.sum(axis=1) > 0)[0]
             if hit.size:
-                hi, lo = _host_array(hi), _host_array(lo)
+                hi, lo = _repair.host_copy(hi), _repair.host_copy(lo)
                 for rnd in hit:
                     self._dropped_sids.update(
                         _repair.sid_key(int(h), int(l))
@@ -358,7 +354,6 @@ class AerialDB:
                           np.int32)
 
     def _set_alive(self, ids: np.ndarray, value: bool) -> None:
-        self._alive_np = self._alive_np.copy()
         self._alive_np[ids] = value
         self._alive = _mask_to(self._alive_np, self._device)
 
@@ -480,7 +475,7 @@ class AerialDB:
             timings=seconds)
         swept_keys = info.pop("_swept_keys")
         self._closed_outages = []
-        if bool(self.effective_alive.all()):
+        if self._alive_np.all():
             self._pending_sids = set()
         else:
             self._pending_sids |= set(swept_keys)

@@ -43,7 +43,7 @@ from repro_torch.core.datastore import (_COUNT_SAT, StoreConfig, StoreState,
                                         _index_edge_mask)
 from repro_torch.core.placement import ShardMeta, place_replicas
 
-__all__ = ["OutageLog", "repair_state", "sid_key"]
+__all__ = ["OutageLog", "host_copy", "repair_state", "sid_key"]
 
 # Leaves the sweep reads and writes back, by (StoreState | IndexState) field.
 _INDEX_LEAVES = ("ent_f", "ent_i", "valid", "cursor", "dropped", "retired",
@@ -73,10 +73,13 @@ class OutageLog(NamedTuple):
     pending_sids: Tuple[int, ...] = ()
 
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A host numpy copy of ``t`` that shares no memory with it (``.cpu()``
-    of a CPU tensor is the tensor itself, which the sweep must not mutate)."""
-    return t.detach().to("cpu", copy=True).numpy()
+def host_copy(x) -> np.ndarray:
+    """A host numpy copy of a tensor or array-like ``x`` that shares no
+    memory with it (``.cpu()`` of a CPU tensor is the tensor itself, which
+    the sweep must not mutate)."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.array(x)
 
 
 def _shard_table(ent_i, ent_f, valid):
@@ -162,8 +165,7 @@ def repair_state(cfg: StoreConfig, state: StoreState, alive,
     e = state.tup_f.shape[0]
     cap = cfg.tuple_capacity
     dev = state.tup_f.device
-    alive_np = (_host(alive) if isinstance(alive, torch.Tensor)
-                else np.asarray(alive)).astype(bool)
+    alive_np = host_copy(alive).astype(bool)
 
     info = {"shards_tracked": 0, "shards_swept": 0, "shards_replaced": 0,
             "shards_unrepairable": 0, "tuples_copied": 0,
@@ -173,7 +175,7 @@ def repair_state(cfg: StoreConfig, state: StoreState, alive,
             "mode": "full" if outage is None else "incremental",
             "_swept_keys": ()}
 
-    ix = {f: _host(getattr(state.index, f)) for f in _INDEX_LEAVES}
+    ix = {f: host_copy(getattr(state.index, f)) for f in _INDEX_LEAVES}
     ent_f, ent_i, valid = ix["ent_f"], ix["ent_i"], ix["valid"]
     clock["d2h_s"] += time.perf_counter() - t0
 
@@ -220,7 +222,7 @@ def repair_state(cfg: StoreConfig, state: StoreState, alive,
     cursor, dropped, retired = ix["cursor"], ix["dropped"], ix["retired"]
     ent_step_tab = ix["ent_step"]
     tup_f, tup_sid, tup_count, tup_pos, tup_over = (
-        _host(getattr(state, f)) for f in _LOG_LEAVES)
+        host_copy(getattr(state, f)) for f in _LOG_LEAVES)
     step_now = int(state.steps)
     clock["d2h_s"] += time.perf_counter() - t0
 

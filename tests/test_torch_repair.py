@@ -20,7 +20,11 @@ bucketed rows bitwise to the unpadded jitted call's. Jitted and eager JAX
 differ at exact slice-cell boundaries (XLA multiplies by the cell width's
 float32 reciprocal where the eager op divides); the port follows the
 jitted reference, which its insert and query are held to
-(``test_reference_jit_and_eager_cells_split_and_the_port_follows_jit``).
+(``test_reference_jit_and_eager_cells_split_and_the_port_follows_jit``),
+so on a stream with a boundary shard the port's repair differs from the
+reference's as shipped. On a stream without one the shipped reference's
+repair equals the port's
+(``test_unpatched_reference_repair_equals_the_port_without_boundary_shards``).
 """
 
 
@@ -53,6 +57,9 @@ CATCH_ALL = dict(q=1, t0=0.0, t1=1e9, has_temporal=True, is_and=True)
 
 _JIT_PLACE = jax.jit(jplace.place_replicas, static_argnums=(3, 4))
 _JIT_MASK = jax.jit(jds._index_edge_mask, static_argnums=0)
+# The reference's repair placement calls as shipped (eager), before the
+# module fixture replaces them.
+_EAGER_PLACE, _EAGER_MASK = jrepair.place_replicas, jrepair._index_edge_mask
 
 
 def _padded(x, b):
@@ -223,6 +230,32 @@ def test_reference_jit_and_eager_cells_split_and_the_port_follows_jit():
         torch.ones(E, dtype=torch.bool)).numpy()
     assert (jit & ~eager).any()
     np.testing.assert_array_equal(port, jit)
+
+
+def test_unpatched_reference_repair_equals_the_port_without_boundary_shards(
+        monkeypatch):
+    """The reference's repair as shipped, its placement calls eager, equals
+    the port's on a stream in which no shard's eager and jitted placement
+    or index mask part (checked first): the fixture changes nothing but
+    the boundary shards."""
+    pair = Pair()
+    fleet = _fleet(61)
+    metas = [pair.ingest(fleet)[1]]
+    pair.both("fail_device", 1)
+    metas += [pair.ingest(fleet)[1] for _ in range(2)]
+    pair.both("recover_device", 1, repair=False)
+    cfg, sites = pair.jcfg, pair.jcfg.sites_array()
+    meta = jplace.ShardMeta(*(jnp.asarray(np.concatenate(f)) for f in zip(*metas)))
+    alive = jnp.asarray(pair.j.alive)
+    args = (meta, sites, alive, cfg.tau, cfg.n_failure_domains)
+    reps = _JIT_PLACE(*args)
+    np.testing.assert_array_equal(_EAGER_PLACE(*args), reps)
+    np.testing.assert_array_equal(_EAGER_MASK(cfg, meta, reps, sites, alive),
+                                  _JIT_MASK(cfg, meta, reps, sites, alive))
+    monkeypatch.setattr(jrepair, "place_replicas", _EAGER_PLACE)
+    monkeypatch.setattr(jrepair, "_index_edge_mask", _EAGER_MASK)
+    info = pair.repair_against_full()
+    assert info["shards_replaced"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -636,6 +669,22 @@ def test_drop_watch_reads_nothing_until_it_drains():
     assert pair.t.ledger() == pair.j.ledger() and not pair.t._drop_watch
     pair.both("repair")
     pair.check()
+
+
+def test_drop_watch_keeps_its_own_copy_of_tensor_sids():
+    """Sids passed as tensors are copied onto the watch: a caller that
+    refills its meta buffers in place before the watch drains does not
+    change the dropped sids, which equal the reference's."""
+    kw = dict(index_capacity=24, retention_every=1 << 20)
+    pair = Pair(**kw)
+    payloads, metas = DroneFleet(12, records_per_shard=8, seed=67).next_rounds(6)
+    pair.j.ingest_rounds(payloads, metas)
+    buf = type(metas)(*(torch.from_numpy(np.array(f)) for f in metas))
+    pair.t.ingest_rounds(payloads, buf)
+    for f in buf:
+        f.fill_(-7)
+    assert pair.t.ledger() == pair.j.ledger()
+    assert pair.t._dropped_sids == pair.j._dropped_sids != set()
 
 
 def test_repair_state_updates_in_place_and_clone_keeps_the_pre_state():
