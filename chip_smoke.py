@@ -38,7 +38,18 @@ Phases, one line each:
      canonical content against the twin's, the kernels at the repair's
      batch against their plain versions, and a small wrapping scenario on
      the card against the CPU; the repair telemetry, its host seconds (D2H,
-     placement, sweep, H2D), launches, shards/s and peak memory;
+     placement, sweep, H2D), launches, shards/s and peak memory; its
+     partition leg: a third store on the same rounds, split after round
+     24 (edges 60-79 unreachable) and healed after round 48, held to the
+     same twin (the far side frozen, both batches during and after the
+     split, the heal's repair against a full sweep, the swept shards,
+     the content, an empty ledger); then the streaming line: 48 rounds of
+     a 400-drone fleet sent as an adversarial stream (re-sends, gaps,
+     NaN-partial records, shuffled, transient dispatch faults, the
+     journal on) through ``IngestPipeline`` into a D400 store with the
+     latest cache, its counters, the three batch sizes against a numpy
+     oracle (NaN a value), ``latest()`` before the drain against the
+     oracle and a journal replay into a fresh store;
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -100,6 +111,17 @@ RECENT_S = 1800.0              # windows retained on every replica
 # domain's successor edge (40 takes the block's spatial and id replicas:
 # `resilience.tup_count_max`), and content equality needs no wrap.
 RESILIENCE_CAPACITY = 1 << 19
+# The resilience phase's partition leg: a cut along the failure-domain
+# blocks (domain 3 unreachable), so every shard keeps a reachable replica.
+SPLIT_GROUPS = (list(range(60)), list(range(60, 80)))
+PER_EDGE_LEAVES = ("tup_f", "tup_sid", "tup_count", "tup_pos",
+                   "tup_overwritten", "tup_dropped")
+# The streaming phase: 48 rounds of the D400 fleet as a drone stream, made
+# adversarial as benchmarks/fig18_streaming_ingest.py makes it.
+STREAM_ROUNDS = 48
+STREAM_BURSTS = 4
+DUP_FRAC, DROP_FRAC, PARTIAL_FRAC = 0.03, 0.02, 0.05
+FAULT_FRAC = 0.05              # dispatch attempts that raise a transient fault
 SERVE_ARCH = "internlm2-1.8b"
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
@@ -594,18 +616,19 @@ def states_equal(torch, a, b, skip=()) -> list:
                   and differ(getattr(a, f), getattr(b, f))]
 
 
-def batch_vs_twin(torch, got, want) -> dict:
+def batch_vs_twin(torch, got, want, what: str = "resilience") -> dict:
     """A faulted store's (QueryResult, QueryInfo) against its never-faulted
     twin's on every query neither overflows: count, vmin and vmax bitwise,
     vsum to rtol 1e-5. Returns the queries compared and overflowed and the
-    largest vsum difference; exits non-zero on a mismatch."""
+    largest vsum difference; exits non-zero, naming ``what``, on a
+    mismatch."""
     (r, _), (w, _) = got, want
     keep = ~(r.overflow | w.overflow)
     if not torch.equal(r.count[keep], w.count[keep]) or not all(
             bitwise_equal(torch, getattr(r, f)[keep], getattr(w, f)[keep])
             for f in ("vmin", "vmax")):
-        raise SystemExit("resilience: a query's count, min or max differs "
-                         "from the never-faulted twin's")
+        raise SystemExit(f"{what}: a query's count, min or max differs from "
+                         "the store it is held to")
     torch.testing.assert_close(r.vsum[keep], w.vsum[keep], rtol=1e-5, atol=0,
                                equal_nan=True)
     d = (r.vsum[keep] - w.vsum[keep]).abs()
@@ -692,7 +715,7 @@ def repair_batch_vs_plain(torch, dev, cfg, state) -> dict:
             "hash64_keys": int(buckets.numel() + sid.shape[0]), "mismatch": 0}
 
 
-def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
+def resilience_phase(torch, dev, cfg, city, seed: int, card: str) -> dict:
     """The paper's edge-server loss (fig. 14's ``device_failure`` row) at
     D400 width: the main path's config with 4 failure domains, two sessions
     on the card taking the same 48 rounds of the same fleet; the faulted
@@ -713,7 +736,8 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
     degraded scans (during the outage) and post-repair scans are also held
     against st_scan's plain version at this capacity (``scan_vs_plain``,
     launches not counted). Counts are set to 0 before the ingest and read
-    after check 5."""
+    after check 5. Then the partition leg (``partition_leg``) on a third
+    store, held to the same twin; its results under ``partition``."""
     import dataclasses
     from repro_torch.api.session import AerialDB
     from repro_torch.chaos.audit import assert_content_equal, canonical_content
@@ -850,6 +874,9 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
     del full_db, pre
     small = small_repair_card_vs_cpu(torch, dev)
     shards = 24 * fleet.n_drones
+    faulted_s = time.perf_counter() - t_phase
+    split = partition_leg(torch, dev, rcfg, part, twin, want, preds, spec,
+                          scan_check, mods, fleet.n_drones, card)
     return {
         "config": {"n_failure_domains": 4, "failed_domain": 1, "failed_edges": 20,
                    "rounds": [24, 24], "tuple_capacity": rcfg.tuple_capacity},
@@ -874,6 +901,377 @@ def resilience_phase(torch, dev, cfg, city, seed: int) -> dict:
         "ingest_shards_per_s": {k: shards / v for k, v in ingest_s.items()},
         "ingest_device_s": ingest_s,
         "repair_batch_vs_plain": batch, "small_card_vs_cpu": small,
+        "peak_mem_gb": peak, "faulted_s": faulted_s, "partition": split,
+        "phase_s": time.perf_counter() - t_phase}
+
+
+def edge_rows(state, edges: slice) -> dict:
+    """Copies of every per-edge leaf's rows for ``edges``."""
+    out = {f"index.{f}": getattr(state.index, f)[edges].clone()
+           for f in state.index._fields}
+    out.update({f: getattr(state, f)[edges].clone() for f in PER_EDGE_LEAVES})
+    return out
+
+
+def partition_leg(torch, dev, rcfg, part, twin, twin_content, preds, spec,
+                  scan_check, mods, n_drones: int, card: str) -> dict:
+    """The resilience phase's partition leg: a third store on ``rcfg`` takes
+    the phase's 48 rounds, split after round 24 (``SPLIT_GROUPS``: edges
+    60-79 unreachable) and healed with the incremental repair after round
+    48, held to the phase's never-faulted ``twin``. Checks, each fatal:
+    (P1) every per-edge leaf's rows for the far side are bitwise the same
+    at the heal as at the split; (P2) during the split both batches equal
+    the twin's on every query neither overflows, and the pre-split batch
+    loses replicas; (P3) a full repair of a clone of the pre-heal state
+    equals the heal's incremental repair, every leaf; (P4) the heal sweeps
+    exactly the shards ingested during the split; (P5) the canonical
+    content equals the twin's; (P6) after the heal both batches equal the
+    twin's with no replica lost and a completeness bound of 1, and the
+    ledger is empty. The degraded and post-heal scans are held to
+    st_scan's plain version (launches not counted). Counts are set to 0
+    just before the leg's ingest and read after P6."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.chaos.audit import assert_content_equal, canonical_content
+    from repro_torch.core.datastore import clone_state
+    t_leg = time.perf_counter()
+    want = {n: twin.query(p, agg=spec) for n, p in preds.items()}
+    near, far = SPLIT_GROUPS
+    far_rows = slice(far[0], far[-1] + 1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    split = AerialDB.open(rcfg, device=dev)
+    split.ingest_rounds(*part(slice(0, 24)))
+    split.partition([near, far])
+    frozen = edge_rows(split.state, far_rows)
+    torch.cuda.synchronize()
+    ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    ev0.record()
+    split.ingest_rounds(*part(slice(24, 48)))
+    ev1.record()
+    ev1.synchronize()
+    split_ingest_s = ev0.elapsed_time(ev1) / 1e3
+    opened = split.ledger()["partition"]
+    if opened != {"unreachable": far, "step": 24}:
+        raise SystemExit(f"partition: the ledger holds {opened}")
+
+    # (P2) during the split
+    during = {n: split.query(p, agg=spec) for n, p in preds.items()}
+    p2 = {n: batch_vs_twin(torch, during[n], want[n], "partition") for n in preds}
+    lost = {n: int(r.replicas_lost.sum()) for n, (r, _) in during.items()}
+    if lost["before_failure"] <= 0:
+        raise SystemExit("partition: no replica was cut off during the split")
+    scan_err = {"during": max(scan_check(split, n, "during the split")
+                              for n in preds)}
+
+    # (P1) the far side frozen
+    now = edge_rows(split.state, far_rows)
+    moved = [k for k in frozen if not bitwise_equal(torch, frozen[k], now[k])]
+    if moved:
+        raise SystemExit(f"partition: the unreachable edges' {moved} changed")
+    del now
+    over = int(split.state.tup_overwritten.sum())
+    if over:
+        raise SystemExit(f"partition: a ring wrapped ({over} tuples)")
+
+    pre = clone_state(split.state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    split.heal()
+    heal_wall = time.perf_counter() - t0
+    inc, inc_s = split.last_repair, split.last_repair_seconds
+
+    # (P4) the heal sweeps the split's shards
+    if inc["shards_swept"] != 24 * n_drones or inc["shards_unrepairable"]:
+        raise SystemExit(f"partition: the heal swept {inc['shards_swept']} "
+                         f"shards, not the {24 * n_drones} of the split: {inc}")
+    # (P3) incremental == full, from a clone of the pre-heal state
+    full_db = AerialDB(rcfg, pre, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    full = full_db.repair(full=True)
+    full_wall = time.perf_counter() - t0
+    full_s = full_db.last_repair_seconds
+    bad = states_equal(torch, split.state, full_db.state)
+    if bad:
+        raise SystemExit(f"partition: incremental repair != full sweep at {bad}")
+    del full_db, pre
+
+    # (P5) content equal to the never-faulted twin's
+    t0 = time.perf_counter()
+    got = canonical_content(split)
+    assert_content_equal(got, twin_content, "partition: ")
+    content_s = time.perf_counter() - t0
+
+    # (P6) after the heal
+    after = {}
+    for name, p in preds.items():
+        res = split.query(p, agg=spec)
+        after[name] = batch_vs_twin(torch, res, want[name], "partition")
+        r = res[0]
+        if int(r.replicas_lost.max()) != 0 or not bool(
+                (r.completeness_bound[~r.overflow] == 1).all()):
+            raise SystemExit(f"partition: after the heal, batch {name} lost "
+                             f"{int(r.replicas_lost.max())} replicas")
+    scan_err["after"] = max(scan_check(split, n, "after the heal") for n in preds)
+    ledger = split.ledger()
+    empty = {"open_outages": [], "closed_windows": [], "partition": None,
+             "pending_sids": 0, "dropped_sids": 0}
+    if ledger != empty:
+        raise SystemExit(f"partition: the ledger after the heal: {ledger}")
+    launches = {k: m.launches for k, m in mods.items()}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"partition: a kernel never launched: {launches}")
+    return {
+        "card": card, "groups": [[near[0], near[-1]], [far[0], far[-1]]],
+        "rounds": [24, 24],
+        "checks": {"P1_far_side_frozen": True, "P2_during_split_vs_twin": True,
+                   "P3_incremental_equals_full": True,
+                   "P4_heal_sweeps_the_split": True,
+                   "P5_content_equals_twin": True, "P6_after_heal": True},
+        "frozen_leaves": len(frozen),
+        "during": {n: {**c, "replicas_lost_sum": lost[n],
+                       "replicas_lost_max": int(during[n][0].replicas_lost.max()),
+                       "matched_queries": int((during[n][0].count > 0).sum())}
+                   for n, c in p2.items()},
+        "after": after, "swept_n": {"heal": inc["shards_swept"],
+                                    "full": full["shards_swept"]},
+        "repair_heal": inc, "repair_heal_seconds": inc_s,
+        "repair_heal_wall_s": heal_wall, "repair_full": full,
+        "repair_full_seconds": full_s, "repair_full_wall_s": full_wall,
+        "content": {"shards": len(got["index"]), "seconds": content_s},
+        "split_ingest_shards_per_s": 24 * n_drones / split_ingest_s,
+        "tup_count_max": int(split.state.tup_count.max()),
+        "launches": launches, "st_scan_vs_plain_vsum_max_abs_diff": scan_err,
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+        "leg_s": time.perf_counter() - t_leg}
+
+
+def adversarial_round(rng, payload: np.ndarray, rnd: int) -> tuple:
+    """Round ``rnd`` of a fleet (``payload`` (D, R, 3+V)) as the drones send
+    it: each record with its drone's record counter as seq; DROP_FRAC of
+    the seqs never sent, PARTIAL_FRAC of the records NaN from a random value
+    channel on, DUP_FRAC of the sent records sent twice, all shuffled.
+    Returns (drone, seq, rows) as sent and the accepted (drone, rows), in
+    the order sent, and the number of re-sends."""
+    d, r, w = payload.shape
+    n = d * r
+    drone = np.repeat(np.arange(d, dtype=np.int64), r)
+    seq = np.tile(np.arange(rnd * r, (rnd + 1) * r, dtype=np.int64), d)
+    rows = payload.reshape(n, w).copy()
+    start = rng.integers(0, w - 3, n)
+    nan = (rng.random(n) < PARTIAL_FRAC)[:, None] \
+        & (np.arange(w - 3)[None, :] >= start[:, None])
+    rows[:, 3:][nan] = np.nan
+    sent = np.nonzero(rng.random(n) >= DROP_FRAC)[0]
+    dup = sent[rng.random(sent.size) < DUP_FRAC]
+    order = np.concatenate([sent, dup])
+    rng.shuffle(order)
+    return (drone[order], seq[order], rows[order]), (drone[sent], rows[sent]), dup.size
+
+
+def stream_checks(results, batches, specs, recs) -> tuple:
+    """Every non-overflowed answer of ``results`` ((batch, spec) ->
+    (QueryResult, QueryInfo)) against a numpy oracle over the accepted
+    records ``recs`` (N, 3+V) float32: the count equal, min and max equal
+    (NaN, where a matched record's channel is NaN, counts as a value), the
+    sum to rtol 1e-5 (NaN equal). Exits non-zero otherwise; returns
+    (queries checked, queries skipped for overflow)."""
+    recs = recs[np.argsort(recs[:, 0], kind="stable")]
+    checked = overflowed = 0
+    for (bi, si), (res, _) in results.items():
+        ch = [3 + c for c in specs[si].channels]
+        w = batches[bi][3]
+        cnt, ovf = res.count.cpu().numpy(), res.overflow.cpu().numpy()
+        got = {f: getattr(res, f).cpu().numpy().reshape(64, -1)
+               for f in ("vsum", "vmin", "vmax")}
+        for qi in range(64):
+            if ovf[qi]:
+                overflowed += 1
+                continue
+            sub = recs[np.searchsorted(recs[:, 0], w["t0"][qi], "left"):
+                       np.searchsorted(recs[:, 0], w["t1"][qi], "right")]
+            m = ((w["lat0"][qi] <= sub[:, 1]) & (sub[:, 1] <= w["lat1"][qi])
+                 & (w["lon0"][qi] <= sub[:, 2]) & (sub[:, 2] <= w["lon1"][qi]))
+            if int(m.sum()) != int(cnt[qi]):
+                raise SystemExit(f"streaming: batch {bi} query {qi}: count "
+                                 f"{cnt[qi]} != oracle {int(m.sum())}")
+            checked += 1
+            if not m.any():
+                continue
+            vals = sub[m][:, ch]
+            np.testing.assert_array_equal(got["vmin"][qi], vals.min(0))
+            np.testing.assert_array_equal(got["vmax"][qi], vals.max(0))
+            np.testing.assert_allclose(got["vsum"][qi],
+                                       vals.astype(np.float64).sum(0),
+                                       rtol=1e-5, equal_nan=True)
+    return checked, overflowed
+
+
+def streaming_phase(torch, dev, cfg, city, seed: int, card: str,
+                    n_drones: int = 400, rounds: int = STREAM_ROUNDS) -> dict:
+    """The paper's ingest front door (§4.4) at D400 width: the main path's
+    config with the latest cache (``max_drones``), fed through
+    ``IngestPipeline`` by ``rounds`` rounds of a fresh fleet made
+    adversarial (``adversarial_round``), submitted in STREAM_BURSTS bursts a
+    round, ``flush()`` after each round and ``flush(drain=True)`` at the
+    end, with the write-ahead journal on and a seeded fault hook raising a
+    transient error on FAULT_FRAC of the dispatch attempts. Checks, each
+    fatal: (S1) the counters reconcile, ``accepted`` is the stream's
+    distinct (drone, seq) count and ``duplicate`` its re-sends; (S2) the
+    main path's three batch sizes, each window inside the last
+    max(30 minutes, window), at 1 and 4 channels, against a numpy oracle
+    over the accepted records (``stream_checks``); (S3) ``latest()``
+    before the drain (pending records overlaid) bitwise equal to the
+    oracle over every accepted record; (S4) a fresh pipeline over a fresh
+    store replays the journal and drains: the same accepted count, its
+    counters reconcile, and its S2 batches equal the first store's. Counts
+    are set to 0 just before the first submit and read after S2."""
+    import dataclasses
+    import tempfile
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import AggSpec, make_pred
+    from repro_torch.data.synthetic import DroneFleet, make_query_workload
+    from repro_torch.ingest import (IngestPipeline, TransientDispatchError,
+                                    latest_oracle_sorted)
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    t_phase = time.perf_counter()
+    scfg = dataclasses.replace(cfg, max_drones=n_drones)
+    payloads, _ = DroneFleet(n_drones, city, records_per_shard=60, n_values=4,
+                             seed=seed + 3).next_rounds(rounds)
+    rng = np.random.default_rng(seed + 3)
+    stream = [adversarial_round(rng, payloads[r], r) for r in range(rounds)]
+    acc_drone = np.concatenate([a[0] for _, a, _ in stream])
+    acc_rows = np.concatenate([a[1] for _, a, _ in stream])
+    resent = sum(n for _, _, n in stream)
+    fault_rng = np.random.default_rng(seed + 4)
+
+    def fault_hook(pipe, attempt):
+        if fault_rng.random() < FAULT_FRAC:
+            raise TransientDispatchError("injected: a dispatch lost on the link")
+
+    t_end = float(acc_rows[:, 0].max())
+    qrng = np.random.default_rng(seed + 5)
+    batches = []
+    for km, win in QUERY_SIZES:
+        w = make_query_workload(qrng, 64, city, t_end, km, win)
+        w["t0"] = qrng.uniform(t_end - max(win, RECENT_S), t_end - win,
+                               64).astype(np.float32)
+        w["t1"] = (w["t0"] + np.float32(win)).astype(np.float32)
+        batches.append((km, win, True, w))
+    specs = (AggSpec(channel=0), AggSpec(channels=(0, 1, 2, 3)))
+
+    def run_batches(db):
+        out = {}
+        for bi, (_, _, _, w) in enumerate(batches):
+            pred = make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                             is_and=True, device=dev)
+            for si, spec in enumerate(specs):
+                out[(bi, si)] = db.query(pred, agg=spec)
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        journal = Path(tmp) / "ingest.wal"
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in mods.values():
+            mod.launches = 0
+        pipe = IngestPipeline(AerialDB.open(scfg, device=dev), journal=journal,
+                              sleep=lambda s: None)
+        pipe.fault_hook = fault_hook
+        submit_s, sent, flushes, latency = 0.0, 0, [], []
+
+        def timed_flush(**kw):
+            tf = time.perf_counter()
+            out = pipe.flush(**kw)
+            latency.append(out["latency_s"])
+            return {"wall_ms": (time.perf_counter() - tf) * 1e3,
+                    **{k: out[k] for k in ("dispatches", "flushed_shards",
+                                           "retries", "gave_up")}}
+        t0 = time.perf_counter()
+        for (d, s, rows), _, _ in stream:
+            for part in np.array_split(np.arange(d.size), STREAM_BURSTS):
+                ts = time.perf_counter()
+                pipe.submit_arrays(d[part], s[part], rows[part, 0], rows[part, 1],
+                                   rows[part, 2], rows[part, 3:])
+                submit_s += time.perf_counter() - ts
+            sent += d.size
+            flushes.append(timed_flush())
+        # (S3) latest before the drain, pending records overlaid
+        t_latest = time.perf_counter()
+        rec, valid = pipe.latest()
+        latest_s = time.perf_counter() - t_latest
+        o_rec, o_valid, _ = latest_oracle_sorted(acc_drone, acc_rows[:, 0],
+                                                 acc_rows, n_drones)
+        pending_at_latest = pipe.pending
+        if not (np.array_equal(valid, o_valid)
+                and np.array_equal(rec.view(np.int32), o_rec.view(np.int32))):
+            raise SystemExit("streaming: latest() before the drain differs "
+                             "from the oracle")
+        drain = timed_flush(drain=True)
+        end_to_end_s = time.perf_counter() - t0
+        # (S1)
+        rec1 = pipe.reconcile()
+        if not rec1["ok"] or rec1["accepted"] != acc_drone.size \
+                or rec1["duplicate"] != resent or rec1["pending"]:
+            raise SystemExit(f"streaming: the counters do not reconcile: {rec1} "
+                             f"(distinct {acc_drone.size}, re-sent {resent})")
+        # (S2)
+        results = run_batches(pipe.db)
+        checked, overflowed = stream_checks(results, batches, specs, acc_rows)
+        launches = {k: m.launches for k, m in mods.items()}
+        if min(launches.values()) <= 0:
+            raise SystemExit(f"streaming: a kernel never launched: {launches}")
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        journal_bytes = journal.stat().st_size
+        pipe.close()
+        # (S4) a fresh pipeline over a fresh store replays the journal
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay = IngestPipeline(AerialDB.open(scfg, device=dev), journal=journal)
+        rep = replay.replay_journal()
+        replay.flush(drain=True)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        rec2 = replay.reconcile()
+        replay.close()
+    if rec2["accepted"] != rec1["accepted"] or not rec2["ok"]:
+        raise SystemExit(f"streaming: the replay reconciles to {rec2}, the "
+                         f"stream to {rec1}")
+    again = run_batches(replay.db)
+    s4 = {f"{bi},{si}": batch_vs_twin(torch, again[(bi, si)], results[(bi, si)],
+                                      "streaming replay")
+          for bi, si in results}
+    lat = np.concatenate(latency)
+    return {
+        "card": card, "drones": n_drones, "rounds": rounds,
+        "records_sent": sent, "records_accepted": rec1["accepted"],
+        "checks": {"S1_counters": True, "S2_batches_vs_oracle": True,
+                   "S3_latest_vs_oracle": True, "S4_replay": True},
+        "reconcile": rec1, "queries_checked": checked,
+        "queries_overflowed": overflowed,
+        "matched_queries": int(sum(int((r.count > 0).sum())
+                                   for r, _ in results.values())),
+        "nan_matched_queries": int(sum(int(torch.isnan(r.vsum).reshape(64, -1)
+                                           .any(1).sum())
+                                       for r, _ in results.values())),
+        "submit_host_us_per_record": submit_s / sent * 1e6,
+        "flush": flushes, "drain": drain,
+        "flush_wall_ms_median": float(np.median([f["wall_ms"] for f in flushes])),
+        "dispatches": sum(f["dispatches"] for f in flushes),
+        "latency_s": {"p50": float(np.percentile(lat, 50)),
+                      "p99": float(np.percentile(lat, 99)), "records": int(lat.size)},
+        "records_per_s": rec1["accepted"] / end_to_end_s,
+        "end_to_end_s": end_to_end_s,
+        "retries": rec1["retries"], "gave_up": rec1["gave_up"],
+        "latest_s": latest_s, "pending_at_latest": pending_at_latest,
+        "journal_bytes": journal_bytes, "replay": rep, "replay_s": replay_s,
+        "replay_vs_stream": s4, "launches": launches,
+        "tup_count_max": int(pipe.db.state.tup_count.max()),
         "peak_mem_gb": peak, "phase_s": time.perf_counter() - t_phase}
 
 
@@ -1478,7 +1876,9 @@ def main(argv=None) -> int:
         phase("profile_ingest_latest", **profile(torch, lambda: ldb.ingest_rounds(*extra),
                                                  host_top=12))
     del ldb
-    phase("resilience", **resilience_phase(torch, dev, cfg, city, args.seed))
+    phase("resilience", **resilience_phase(torch, dev, cfg, city, args.seed, smi))
+    torch.cuda.empty_cache()
+    phase("streaming", **streaming_phase(torch, dev, cfg, city, args.seed, smi))
     torch.cuda.empty_cache()
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------

@@ -12,6 +12,7 @@ and the failure ledger.
     db.latest()                                   # newest record per drone
     db.fail_edges(1, 5); ...; db.recover_edges(1, 5)
     db.fail_device(0); ...; db.recover_device(0)  # a whole failure domain
+    db.partition([[0, 1], [2, 3]]); ...; db.heal()  # a network partition
 
 Failure-domain resilience (paper §4.5.3), as the reference: ``fail_*``
 opens an outage-epoch record ``(dead edges, fail step)`` on a host-side
@@ -22,13 +23,20 @@ shard. Ingest-time index drops are watched without a read (the per-insert
 drop counts stay on the device until the ledger, a repair or a backlog of
 64 inserts drains them) and ride the ledger's pending set.
 
-The alive mask is a host fact: the session keeps it in numpy and makes a
-fresh device tensor of it at every flip (from pinned memory on the card),
-and takes the step from its host mirror, so a fail or recover without
-repair reads nothing from the device. Repair, ``ledger()`` and the drop
-watch's drain are the sync points. Partitions and meshes are later slices
-(ROADMAP Queue 1); ``effective_alive`` is the alive mask until partitions
-add reachability.
+Fleet partitions, as the reference: :meth:`partition` cuts edges off as
+unreachable but intact (a ledger state distinct from dead) and
+:meth:`heal` closes the split's window on the same outage ledger. Every
+placement, query and repair sees ``effective_alive = alive & reachable``;
+the unreachable side's state is never written, reclaimed or backfilled
+while the split is open.
+
+The alive and reachable masks are host facts: the session keeps both in
+numpy and makes fresh device tensors of them (and of their conjunction) at
+every flip, from pinned memory on the card, and takes the step from its
+host mirror, so a fail, recover, partition or heal without repair reads
+nothing from the device and adds no launch to an insert. Repair,
+``ledger()`` and the drop watch's drain are the sync points. Meshes are a
+later slice (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -111,7 +119,13 @@ class AerialDB:
         # its device tensor is made anew at every flip.
         self._alive_np = (np.ones(cfg.n_edges, bool) if alive is None
                           else _repair.host_copy(alive).astype(bool))
-        self._alive = _mask_to(self._alive_np, self._device)
+        # Fleet partition: ``_reachable_np`` marks the edges the session can
+        # still talk to; ``_partition`` holds the open split's unreachable
+        # set and opening step (at most one open), closed onto the outage
+        # ledger by :meth:`heal`.
+        self._reachable_np = np.ones(cfg.n_edges, bool)
+        self._partition: Optional[dict] = None
+        self._masks_to_device()
         # Host mirror of state.steps (one read at adoption, never again): the
         # retention cadence and the outage ledger read it without a sync.
         self._steps = int(state.steps)
@@ -170,10 +184,18 @@ class AerialDB:
         return self._alive
 
     @property
+    def reachable(self) -> torch.Tensor:
+        """(E,) bool — edges not cut off by an open :meth:`partition`.
+        Orthogonal to :attr:`alive`: an edge can be dead, unreachable, or
+        both; only ``alive & reachable`` edges serve."""
+        return self._reachable
+
+    @property
     def effective_alive(self) -> torch.Tensor:
         """(E,) bool — the mask every placement, query and repair decision
-        sees. The alive mask until partitions add reachability."""
-        return self._alive
+        sees: ``alive & reachable``, made on the host at each flip (the
+        alive tensor itself while no partition is open)."""
+        return self._effective
 
     @property
     def device(self) -> torch.device:
@@ -353,9 +375,19 @@ class AerialDB:
         return np.asarray(device_edge_block(self._cfg.n_edges, n, device),
                           np.int32)
 
+    def _masks_to_device(self) -> None:
+        """Fresh device tensors of the host masks and of their conjunction
+        (the alive tensor itself while every edge is reachable)."""
+        dev = self._device
+        self._alive = _mask_to(self._alive_np, dev)
+        self._reachable = _mask_to(self._reachable_np, dev)
+        self._effective = (
+            self._alive if self._reachable_np.all()
+            else _mask_to(self._alive_np & self._reachable_np, dev))
+
     def _set_alive(self, ids: np.ndarray, value: bool) -> None:
         self._alive_np[ids] = value
-        self._alive = _mask_to(self._alive_np, self._device)
+        self._masks_to_device()
 
     def fail_edges(self, *edges) -> "AerialDB":
         """Mark edges dead (paper §4.5.3): later inserts place around them
@@ -417,18 +449,96 @@ class AerialDB:
         :meth:`repair` by default (see :meth:`recover_edges`)."""
         return self.recover_edges(self._device_edges(device), repair=repair)
 
+    # -- fleet partitions (unreachable but intact) ---------------------------
+
+    def partition(self, edge_groups) -> "AerialDB":
+        """Open a fleet network partition: split the edges into disjoint
+        connectivity groups; the session stays with the FIRST group, and
+        every edge of the other groups becomes unreachable but intact. Those
+        edges leave placement, query planning and repair (through
+        :attr:`effective_alive`), and their state is never written while
+        the split is open: their data is invisible, not lost.
+
+        ``edge_groups`` is a sequence of edge-id groups (a flat list of ids
+        is one group). Edges named in no group join the coordinator's side;
+        with one group given, its complement is cut off. Groups must be
+        disjoint and the split must separate something. At most one
+        partition is open at a time (:meth:`heal` first). Dead edges may sit
+        in any group: death and reachability compose. Reads nothing from
+        the device."""
+        if self._partition is not None:
+            raise ValueError(
+                "a fleet partition is already open (unreachable edges "
+                f"{sorted(self._partition['unreachable'])}): heal() it "
+                "first — nested/overlapping partitions are not modeled.")
+        groups = list(edge_groups)
+        if groups and isinstance(groups[0], (int, np.integer)):
+            groups = [groups]                   # flat id list = one group
+        if not groups:
+            raise ValueError("partition() needs at least one edge group.")
+        ids = [self._edge_ids((g,)) if len(g) else np.empty(0, np.int32)
+               for g in groups]           # empty group: names no edges
+        flat = np.concatenate(ids)
+        if np.unique(flat).size != flat.size:
+            dup = sorted({int(i) for i in flat if (flat == i).sum() > 1})
+            raise ValueError(
+                f"edge id(s) {dup} appear in more than one partition group: "
+                "connectivity groups must be disjoint.")
+        if len(ids) == 1:
+            unreachable = np.setdiff1d(
+                np.arange(self._cfg.n_edges, dtype=np.int32), ids[0])
+        else:
+            unreachable = np.concatenate(ids[1:])
+        if unreachable.size == 0:
+            raise ValueError(
+                "partition separates nothing: every edge ends up on the "
+                "coordinator side. Name at least one edge in a non-first "
+                "group (or pass a single group that excludes some edges).")
+        if unreachable.size == self._cfg.n_edges:
+            raise ValueError(
+                "partition leaves the coordinator no reachable edges: the "
+                "first group (the session's side) must keep at least one.")
+        self._reachable_np[unreachable] = False
+        self._masks_to_device()
+        self._partition = {"unreachable": set(int(i) for i in unreachable),
+                           "step": self._steps}
+        return self
+
+    def heal(self, *, repair: bool = True) -> "AerialDB":
+        """Close the open partition: every edge is reachable again and the
+        split's window ``(open step, current step]`` closes onto the outage
+        ledger a recovery uses, so the default incremental :meth:`repair`
+        sweeps the shards ingested while the fleet was split (plus those
+        straddling still-dead edges). ``repair=False`` defers, like
+        :meth:`recover_edges`. Healing a healed session is a no-op. Without
+        the repair, reads nothing from the device."""
+        if self._partition is None:
+            return self
+        rec = self._partition
+        self._partition = None
+        self._reachable_np[:] = True
+        self._masks_to_device()
+        self._closed_outages.append(
+            (frozenset(rec["unreachable"]), rec["step"], self._steps))
+        if repair:
+            self.repair()
+        return self
+
     def ledger(self) -> dict:
         """Snapshot of the failure ledger: open outage records, closed
-        (unconsumed) windows, the open partition (None until partitions are
-        ported) and the pending and dropped sweep debts. Drains the drop
-        watch, a device read."""
+        (unconsumed) windows, the open partition if any (its unreachable
+        edges and opening step) and the pending and dropped sweep debts.
+        Drains the drop watch, a device read."""
         self._drain_drop_watch()
         return {
             "open_outages": [(sorted(rec[0]), int(rec[1]))
                              for rec in self._open_outages],
             "closed_windows": [(sorted(eds), int(f), int(r))
                                for eds, f, r in self._closed_outages],
-            "partition": None,
+            "partition": (None if self._partition is None else
+                          {"unreachable":
+                           sorted(self._partition["unreachable"]),
+                           "step": self._partition["step"]}),
             "pending_sids": len(self._pending_sids),
             "dropped_sids": len(self._dropped_sids),
         }
@@ -436,11 +546,14 @@ class AerialDB:
     def _outage_log(self) -> _repair.OutageLog:
         """The ledger as the ``OutageLog`` of an incremental sweep (sorted,
         so deterministic): the closed windows, the edges of the open
-        outages (dead now), and the pending and dropped sids."""
+        outages (dead now) and of the open partition (unreachable now), and
+        the pending and dropped sids."""
         self._drain_drop_watch()
         affected = set()
         for rec in self._open_outages:
             affected |= rec[0]
+        if self._partition is not None:
+            affected |= self._partition["unreachable"]
         return _repair.OutageLog(
             windows=tuple(sorted((int(f), int(r))
                                  for _eds, f, r in self._closed_outages)),
@@ -450,11 +563,12 @@ class AerialDB:
 
     def repair(self, *, full: bool = False) -> dict:
         """Anti-entropy sweep (``core.repair.repair_state``) under the
-        current mask, in place. Incremental by default — only the shards
-        the ledger's outages could have touched, so an empty ledger is a
-        telemetry-only no-op; ``full=True`` sweeps every tracked shard. A
-        repair consumes the closed windows; shards swept while edges are
-        still dead stay pending. Single-process only: the sweep gathers the
+        effective mask (unreachable edges are treated as dead: never read,
+        written or reclaimed), in place. Incremental by default — only the
+        shards the ledger's outages could have touched, so an empty ledger
+        is a telemetry-only no-op; ``full=True`` sweeps every tracked shard.
+        A repair consumes the closed windows; shards swept while edges are
+        still dead or unreachable stay pending. Single-process only: the sweep gathers the
         whole store to one host, so a ``torch.distributed`` world of more
         than one process raises. Returns the telemetry dict (also
         :attr:`last_repair`; its host seconds are :attr:`last_repair_seconds`).
@@ -475,7 +589,7 @@ class AerialDB:
             timings=seconds)
         swept_keys = info.pop("_swept_keys")
         self._closed_outages = []
-        if self._alive_np.all():
+        if (self._alive_np & self._reachable_np).all():
             self._pending_sids = set()
         else:
             self._pending_sids |= set(swept_keys)

@@ -16,6 +16,10 @@ kernel's layout probe is held to ``torch.matmul`` in fp32 at 1e-4 relative
 fail/recover/repair tests: a wrapping outage scenario on the card against
 the CPU (every leaf and every repair's telemetry bitwise), deferred flips
 that make no sync, and the placement kernels at a full repair's batch.
+``-k "partition or pipeline"`` runs the partition flips (no sync) and the
+streaming pipeline on the card: a non-blocking flush from numpy against
+``ingest_rounds`` from the card (syncs), and an adversarial stream with NaN
+payloads against the CPU (every leaf bitwise).
 """
 
 import numpy as np
@@ -1078,3 +1082,160 @@ def test_repair_sized_batch_placement_kernels_match_plain(cuda, n_shards):
         out = hops.xxh64_mod(h, lo, 80)
         assert hops.launches == before + 1
         assert torch.equal(out, hashing.xxh64_mod_plain(h, lo, 80))
+
+
+def _assert_card_state_equals_cpu(card_state, cpu_state):
+    from repro_torch.convert import state_to_numpy
+    got, want = state_to_numpy(card_state), state_to_numpy(cpu_state)
+    for k in want:
+        pairs = want[k].items() if k == "index" else [(k, want[k])]
+        for name, w in pairs:
+            g = got["index"][name] if k == "index" else got[name]
+            assert g.dtype == w.dtype
+            if w.dtype == np.float32:
+                g, w = g.view(np.int32), w.view(np.int32)
+            np.testing.assert_array_equal(g, w, err_msg=name)
+
+
+def test_partition_heal_flips_make_no_sync(cuda):
+    """Opening and healing a partition without a repair reads nothing from
+    the card, alone and composed with fail/recover flips; the effective
+    mask the next insert takes is made at the flip, not at the insert."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.data.synthetic import DroneFleet
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=512,
+                      index_capacity=256, records_per_shard=8,
+                      n_failure_domains=4)
+    db = AerialDB.open(cfg, device=cuda)
+    fleet = DroneFleet(12, records_per_shard=8, seed=3)
+    db.ingest_rounds(*fleet.next_rounds(2))
+    db.partition([[0, 1, 2, 3, 4, 5], [6, 7]])        # warm-up
+    db.heal(repair=False)
+    _sync_warnings(lambda: None)
+
+    def flips():
+        db.partition([[0, 1, 2, 3], [4, 5, 6, 7]])
+        db.fail_edges(1)
+        db.heal(repair=False)
+        db.partition([5, 6, 7])
+        db.recover_edges(1, repair=False)
+    assert _sync_warnings(flips) == 0
+    assert db.effective_alive.device.type == "cuda"
+    assert db.effective_alive.cpu().tolist() == [False] * 5 + [True] * 3
+    assert db.reachable.cpu().tolist() == [False] * 5 + [True] * 3
+    before = db.effective_alive
+    db.insert(*fleet.next_shards())
+    assert db.effective_alive is before
+    db.heal(repair=False)
+    assert db.effective_alive is db.alive
+    assert db.repair()["mode"] == "incremental"
+    assert db.ledger()["pending_sids"] == 0
+
+
+def test_pipeline_flush_from_numpy_syncs_no_more_than_ingest_rounds(cuda):
+    """A ``flush(block=False)`` of two dispatches (32 and 16 shards, from
+    numpy through pinned memory) warns of no more syncs than the same
+    chunks through ``ingest_rounds`` with their inputs already on the
+    card, and the two stores end bitwise equal."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.core.placement import ShardMeta
+    from repro_torch.data.synthetic import DroneFleet
+    from repro_torch.ingest import IngestPipeline, group_shards
+    sites = tuple(map(tuple, make_sites(80, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=80, sites=sites, tuple_capacity=1 << 15,
+                      index_capacity=1 << 12, records_per_shard=60, n_values=4)
+    payloads, _ = DroneFleet(48, records_per_shard=60, n_values=4,
+                             seed=2).next_rounds(2)
+
+    def records(rnd):
+        n = 48 * 60
+        rows = payloads[rnd].reshape(n, 7)
+        return (np.repeat(np.arange(48), 60), np.tile(np.arange(60), 48) + 60 * rnd,
+                rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:])
+    pipe = IngestPipeline(AerialDB.open(cfg, device=cuda), batch_shards=32)
+    direct = AerialDB.open(cfg, device=cuda)
+    shard_seq = {}
+    chunks = []
+    for rnd in range(2):
+        d, s, t, la, lo, v = records(rnd)
+        rows = np.concatenate([np.stack([t, la, lo], 1), v], 1).astype(np.float32)
+        (pay, meta, _), = group_shards(d, s, rows, 60, shard_seq, False)[0].values()
+        chunks.append([(torch.from_numpy(pay[a:b][None]).to(cuda),
+                        ShardMeta(*(torch.from_numpy(np.asarray(f)[a:b][None]).to(cuda)
+                                    for f in meta)))
+                       for a, b in ((0, 32), (32, 48))])
+    pipe.submit_arrays(*records(0))                   # warm-up round
+    assert pipe.flush(block=False)["dispatches"] == 2
+    for c in chunks[0]:
+        direct.ingest_rounds(*c)
+    pipe.submit_arrays(*records(1))
+    _sync_warnings(lambda: None)
+    base = _sync_warnings(lambda: [direct.ingest_rounds(*c) for c in chunks[1]])
+    out = {}
+    assert _sync_warnings(lambda: out.update(pipe.flush(block=False))) <= base
+    assert out["dispatches"] == 2 and out["latency_s"].size == 0
+    assert pipe.reconcile()["ok"]
+    _assert_card_state_equals_cpu(pipe.db.state, direct.state)
+
+
+def _card_stream(seed, n_drones=12, max_seq=30):
+    """The CPU tests' adversarial stream shape: per-drone seqs with a tenth
+    never sent, a tenth NaN from a random value channel on, a tenth
+    re-sent, shuffled. Returns (drone, seq, rows (N, 7))."""
+    rng = np.random.default_rng(seed)
+    drone, seq, rows = [], [], []
+    for d in range(n_drones):
+        n = int(rng.integers(1, max_seq + 1))
+        for s in np.arange(n)[rng.random(n) > 0.1]:
+            row = np.empty(7, np.float32)
+            row[:3] = (1000.0 * s + d, 12.9 + 0.001 * d, 77.5 + 0.0005 * s)
+            row[3:] = rng.normal(25, 5, 4)
+            if rng.random() < 0.1:
+                row[3 + int(rng.integers(0, 4)):] = np.nan
+            drone.append(d), seq.append(s), rows.append(row)
+    drone, seq, rows = np.asarray(drone), np.asarray(seq), np.stack(rows)
+    dup = rng.integers(0, len(drone), max(len(drone) // 10, 1))
+    order = rng.permutation(np.r_[np.arange(len(drone)), dup])
+    return drone[order], seq[order], rows[order]
+
+
+def test_pipeline_stream_on_card_matches_cpu(cuda):
+    """An adversarial stream with NaN payloads through the pipeline on the
+    card and on the CPU, in bursts with a flush after each and a drain:
+    every flush summary (latency aside), the counters, ``latest()`` and
+    every state leaf bitwise equal; the card's blocking flush stamps a
+    latency for every record it ships."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.ingest import IngestPipeline
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=2048,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=4, retention_every=2, max_drones=16)
+    d, s, rows = _card_stream(7)
+    assert np.isnan(rows).any()
+    pipes = [IngestPipeline(AerialDB.open(cfg, device=dev), batch_shards=4)
+             for dev in (cuda, "cpu")]
+    for part in np.array_split(np.arange(d.size), 3):
+        outs = []
+        for pipe in pipes:
+            pipe.submit_arrays(d[part], s[part], rows[part, 0], rows[part, 1],
+                               rows[part, 2], rows[part, 3:])
+            outs.append(pipe.flush())
+        for k in outs[1]:
+            if k != "latency_s":
+                assert outs[0][k] == outs[1][k], k
+        assert outs[0]["latency_s"].size == outs[0]["flushed_records"]
+    card_latest, cpu_latest = (p.latest() for p in pipes)
+    np.testing.assert_array_equal(card_latest[1], cpu_latest[1])
+    np.testing.assert_array_equal(card_latest[0].view(np.int32),
+                                  cpu_latest[0].view(np.int32))
+    for pipe in pipes:
+        pipe.flush(drain=True)
+    assert pipes[0].counters == pipes[1].counters
+    assert pipes[0].reconcile() == pipes[1].reconcile()
+    assert pipes[0].reconcile()["ok"]
+    _assert_card_state_equals_cpu(pipes[0].db.state, pipes[1].db.state)

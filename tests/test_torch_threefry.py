@@ -13,6 +13,18 @@ from repro_torch import convert
 from repro_torch.core import threefry as tf
 
 
+@pytest.fixture(scope="module", autouse=True)
+def warm_vector_math():
+    """One large float32 ``log`` on the CPU before the module's tests. In a
+    process that has already run XLA, the first parallel transcendental op
+    torch runs on the CPU can return other bits on part of its output (up to
+    1e-4 off in ``log``; any later call, of any such op, is stable), as if
+    the vector-math dispatch were still being set up on some threads. The
+    gumbel comparison below would otherwise hold that first call, not the
+    port, to JAX."""
+    torch.log(torch.rand(1 << 20, generator=torch.Generator().manual_seed(0)))
+
+
 def _words(k) -> np.ndarray:
     return np.asarray(jax.random.key_data(k))
 
