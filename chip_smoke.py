@@ -49,7 +49,16 @@ Phases, one line each:
      journal on) through ``IngestPipeline`` into a D400 store with the
      latest cache, its counters, the three batch sizes against a numpy
      oracle (NaN a value), ``latest()`` before the drain against the
-     oracle and a journal replay into a fresh store;
+     oracle and a journal replay into a fresh store; then the chaos line:
+     fig. 19's soak at D400 width (the resilience config) for seeds 3, 11
+     and 42, each a ``FaultPlan.random`` over 16 rounds (domain losses,
+     edge losses, partitions cut across the domain blocks, flush bursts)
+     through ``ChaosRunner`` on a session and pipeline beside a
+     never-faulted twin: the plan replayed from its seed, the counters
+     every step, a probe batch after every repair (exact against the twin
+     with bound 1 at full health), no wrap and the content equal to the
+     twin's at the end; a mid-flush crash replayed from the journal; the
+     reference tests' smoke plan on the card against the CPU;
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -94,6 +103,7 @@ from __future__ import annotations
 
 import argparse
 import json
+from collections import Counter
 import re
 import subprocess
 import sys
@@ -122,6 +132,20 @@ STREAM_ROUNDS = 48
 STREAM_BURSTS = 4
 DUP_FRAC, DROP_FRAC, PARTIAL_FRAC = 0.03, 0.02, 0.05
 FAULT_FRAC = 0.05              # dispatch attempts that raise a transient fault
+# The chaos phase: fig. 19's soak (benchmarks/fig19_chaos_soak.py:100-150)
+# at D400 width, FaultPlan.random over the 80 edges and 4 failure domains,
+# one D400 round a step; fig. 19's default seeds.
+CHAOS_SEEDS = (3, 11, 42)
+CHAOS_STEPS = 16
+CHAOS_MIN_ALIVE = 30           # alive AND reachable floor (>= replication 3)
+CHAOS_REPAIRS = ("heal", "recover_edges", "recover_device")
+# The reference chaos tests' smoke plan (tests/test_chaos.py, 8 edges):
+# (step, kind, args) rows over 4 steps.
+CHAOS_SMOKE = ((0, "fail_edges", ((6,),)),
+               (1, "partition", (((0, 1, 2, 3, 6), (4, 5, 7)),)),
+               (1, "flush_fail", (2,)),
+               (2, "heal", ()),
+               (3, "recover_edges", ((6,),)))
 SERVE_ARCH = "internlm2-1.8b"
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
@@ -1275,6 +1299,321 @@ def streaming_phase(torch, dev, cfg, city, seed: int, card: str,
         "peak_mem_gb": peak, "phase_s": time.perf_counter() - t_phase}
 
 
+def chaos_round(payload: np.ndarray, step: int) -> tuple:
+    """Round ``step`` of a fleet (``payload`` (D, R, 3+V)) as the drones send
+    it, in order: drone d's R records with seqs ``step * R`` on, one full
+    shard a drone (fig. 19's ``_step_records``), as ``submit_arrays``
+    columns."""
+    d, r, w = payload.shape
+    rows = payload.reshape(d * r, w)
+    return (np.repeat(np.arange(d, dtype=np.int64), r),
+            np.tile(np.arange(step * r, (step + 1) * r, dtype=np.int64), d),
+            rows[:, 0], rows[:, 1], rows[:, 2], rows[:, 3:])
+
+
+def chaos_feed(pipe, payloads: np.ndarray, step: int) -> dict:
+    pipe.submit_arrays(*chaos_round(payloads[step], step))
+    return pipe.flush()
+
+
+def chaos_probe(torch, db, twin, pred, spec, what: str) -> dict:
+    """The probe batch on the faulted store ``db``. With every edge alive
+    and reachable, every query that does not overflow must have a
+    completeness bound of exactly 1 and no replica lost, and equal the
+    twin's (``batch_vs_twin``); degraded, only its bounds are read. Exits
+    non-zero when every query overflowed."""
+    res, info = db.query(pred, agg=spec)
+    keep = ~res.overflow
+    if not bool(keep.any()):
+        raise SystemExit(f"chaos {what}: every probe query overflowed")
+    bound = res.completeness_bound[keep]
+    out = {"full": bool(db.effective_alive.all()),
+           "min_bound": float(bound.min()),
+           "replicas_lost_max": int(res.replicas_lost[keep].max()),
+           "overflowed": int((~keep).sum())}
+    if out["full"]:
+        if not bool((bound == 1).all()) or out["replicas_lost_max"]:
+            raise SystemExit(f"chaos {what}: at full health a probe query "
+                             f"has bound {out['min_bound']} and lost "
+                             f"{out['replicas_lost_max']} replicas")
+        out.update(batch_vs_twin(torch, (res, info),
+                                 twin.query(pred, agg=spec), f"chaos {what}"))
+    return out
+
+
+def chaos_soak(torch, dev, rcfg, payloads, soak_seed: int, pred, spec,
+               n_steps: int) -> dict:
+    """One seed of the soak: ``FaultPlan.random(soak_seed, ...)`` through
+    ``ChaosRunner`` against a session + pipeline on ``rcfg``, a
+    never-faulted twin (its own session + pipeline) fed the same rounds.
+    Checks, each fatal: (C1) the plan rebuilt from its seed equals the
+    first; (C2) ``counters_ok`` after every step, and at the end no give-up
+    and a full reconcile; (C3) ``chaos_probe`` after every event that runs
+    a repair; (C4) no ring wrapped, ``canonical_content`` equal to the
+    twin's, one log entry a plan event, every repair incremental."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.chaos import (ChaosRunner, FaultPlan,
+                                   assert_content_equal, canonical_content)
+    from repro_torch.ingest import IngestPipeline
+    kw = dict(n_edges=rcfg.n_edges, n_steps=n_steps, n_domains=4,
+              min_alive=CHAOS_MIN_ALIVE, max_transient=2,
+              require=("partition", "flush_fail"))
+    plan = FaultPlan.random(soak_seed, **kw)
+    if FaultPlan.random(soak_seed, **kw) != plan:                    # C1
+        raise SystemExit(f"chaos seed {soak_seed}: the plan does not replay")
+    events = []
+
+    class TimedRunner(ChaosRunner):
+        """The runner, with each applied event's host wall (to the end of
+        its device work) and, for a repair, ``last_repair_seconds``."""
+
+        def _apply(self, ev):
+            t0 = time.perf_counter()
+            entry = super()._apply(ev)
+            torch.cuda.synchronize()
+            row = {"step": entry["step"], "kind": entry["kind"],
+                   "wall_s": time.perf_counter() - t0}
+            if "repair" in entry:
+                row["repair_seconds"] = self.db.last_repair_seconds
+                row["shards_swept"] = entry["repair"]["shards_swept"]
+            events.append(row)
+            return entry
+
+    noop = lambda s: None     # noqa: E731 — instant backoff
+    db, twin = (AerialDB.open(rcfg, device=dev) for _ in range(2))
+    pipe = IngestPipeline(db, max_retries=4, sleep=noop)
+    twin_pipe = IngestPipeline(twin, max_retries=4, sleep=noop)
+    runner = TimedRunner(plan, db, pipe)
+    probes, step_s = [], []
+
+    def probe(applied, step):
+        for entry in applied:
+            if entry["kind"] in CHAOS_REPAIRS:                        # C3
+                probes.append({"step": step, "kind": entry["kind"],
+                               **chaos_probe(torch, db, twin, pred, spec,
+                                             f"seed {soak_seed} step {step}")})
+    t_soak = time.perf_counter()
+    for step in range(n_steps):
+        t0 = time.perf_counter()
+        applied = runner.advance(step)
+        ev_s = time.perf_counter() - t0
+        probe(applied, step)
+        t0 = time.perf_counter()
+        chaos_feed(pipe, payloads, step)
+        rec = pipe.reconcile()                                        # C2
+        step_s.append(ev_s + time.perf_counter() - t0)
+        if not rec["counters_ok"]:
+            raise SystemExit(f"chaos seed {soak_seed} step {step}: {rec}")
+        chaos_feed(twin_pipe, payloads, step)
+    probe(runner.advance(n_steps), n_steps)             # the closing events
+    soak_s = time.perf_counter() - t_soak
+    rec = pipe.reconcile()
+    if not rec["ok"] or pipe.counters["gave_up"]:                     # C2
+        raise SystemExit(f"chaos seed {soak_seed}: reconcile {rec}, "
+                         f"{pipe.counters['gave_up']} give-ups")
+    # C4: no ring wrapped. A repair's reclaim adds the slots it frees to
+    # tup_overwritten (the retention watermark reads it), so every
+    # overwritten slot must be one of the repairs' reclaimed slots.
+    count_max = int(db.state.tup_count.max())
+    over = int(db.state.tup_overwritten.sum())
+    reclaimed = sum(e["repair"]["slots_reclaimed"] for e in runner.log
+                    if "repair" in e)
+    if count_max > rcfg.tuple_capacity or over != reclaimed:
+        raise SystemExit(f"chaos seed {soak_seed}: a ring wrapped "
+                         f"({count_max} tuples on the fullest; {over} slots "
+                         f"overwritten, {reclaimed} reclaimed by repairs)")
+    t0 = time.perf_counter()
+    got = canonical_content(db)
+    assert_content_equal(got, canonical_content(twin),
+                         f"chaos seed {soak_seed}: ")
+    content_s = time.perf_counter() - t0
+    log = runner.log
+    modes = {e["repair"]["mode"] for e in log if e["kind"] in CHAOS_REPAIRS}
+    if [(e["step"], e["kind"]) for e in log] != \
+            [(e.step, e.kind) for e in plan.events] or modes != {"incremental"}:
+        raise SystemExit(f"chaos seed {soak_seed}: the log {runner.to_json()}")
+    runner.to_json()      # raises unless every logged value is plain JSON
+    degraded = [p["min_bound"] for p in probes if not p["full"]]
+    return {
+        "seed": soak_seed, "events": len(plan.events),
+        "kinds": dict(Counter(plan.kinds())),
+        "plan": plan.to_rows(),
+        "checks": {"C1_plan_replays": True, "C2_counters": True,
+                   "C3_probes": True, "C4_converged": True},
+        "step_wall_s": {"p50": float(np.median(step_s)),
+                        "max": float(np.max(step_s))},
+        "event_walls": events,
+        "repair_wall_s": float(sum(e["wall_s"] for e in events
+                                   if "repair_seconds" in e)),
+        "shards_swept": int(sum(e.get("shards_swept", 0) for e in events)),
+        "probes": len(probes), "full_health_probes": len(probes) - len(degraded),
+        "degraded_min_bound": min(degraded) if degraded else None,
+        "probe_queries_overflowed_max": max(p["overflowed"] for p in probes),
+        "probe_vsum_max_abs_diff": max((p.get("vsum_max_abs_diff", 0.0)
+                                        for p in probes), default=0.0),
+        "reconcile": {k: rec[k] for k in ("accepted", "flushed_records",
+                                          "pending", "stored_tuples",
+                                          "retries", "gave_up")},
+        "tup_count_max": count_max, "slots_reclaimed": reclaimed,
+        "content_shards": len(got["index"]),
+        "content_s": content_s, "soak_s": soak_s}
+
+
+def chaos_crash_leg(torch, dev, rcfg, payloads) -> dict:
+    """(C5) A ``pipeline_crash`` armed by the runner at step 1 of a 2-step
+    plan on a journaled pipeline fires in step 1's flush; a fresh session
+    and pipeline replay the journal and drain. Fatal unless the replay
+    loses no acknowledged record, reconciles, and holds the content of a
+    never-crashed store fed the same two rounds."""
+    import tempfile
+    from repro_torch.api.session import AerialDB
+    from repro_torch.chaos import (ChaosRunner, FaultPlan,
+                                   assert_content_equal, canonical_content)
+    from repro_torch.ingest import IngestPipeline, PipelineCrash
+    noop = lambda s: None     # noqa: E731 — instant backoff
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "ingest.wal"
+        pipe = IngestPipeline(AerialDB.open(rcfg, device=dev), journal=path,
+                              sleep=noop)
+        chaos_feed(pipe, payloads, 0)
+        runner = ChaosRunner(FaultPlan(events=((1, "pipeline_crash", ()),),
+                                       n_steps=2), pipe.db, pipe)
+        runner.advance(1)
+        try:
+            chaos_feed(pipe, payloads, 1)
+            raise SystemExit("chaos crash leg: the injected crash did not fire")
+        except PipelineCrash:
+            pass
+        acked = pipe.counters["accepted"]
+        pipe.close()
+        del pipe
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        replay = IngestPipeline(AerialDB.open(rcfg, device=dev), journal=path,
+                                sleep=noop)
+        rep = replay.replay_journal()
+        replay.flush(drain=True)
+        torch.cuda.synchronize()
+        replay_s = time.perf_counter() - t0
+        rec = replay.reconcile()
+        replay.close()
+    lost = acked - rec["flushed_records"]
+    ref = IngestPipeline(AerialDB.open(rcfg, device=dev), sleep=noop)
+    for step in range(2):
+        chaos_feed(ref, payloads, step)
+    assert_content_equal(canonical_content(replay.db), canonical_content(ref.db),
+                         "chaos crash leg: ")
+    if not rec["ok"] or lost:
+        raise SystemExit(f"chaos crash leg: lost {lost}, reconcile {rec}")
+    return {"acked": acked, "journal_records": rep["journal_records"],
+            "replayed": rep["accepted"], "already_seen": rep["already_seen"],
+            "lost": lost, "replay_s": replay_s}
+
+
+def chaos_small_card_vs_cpu(torch, dev) -> dict:
+    """(C6) The reference chaos tests' smoke plan (``CHAOS_SMOKE``: 8 edges,
+    4 failure domains, 2048-slot rings, 8-record shards, 12 drones a tick)
+    through the runner on the card and on the CPU: every state leaf
+    bitwise, the logs byte-identical, the counters equal. Exits non-zero
+    otherwise."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.chaos import ChaosRunner, FaultPlan
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.data.synthetic import CityConfig, make_sites
+    from repro_torch.ingest import IngestPipeline
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=2048,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=8, retention_every=2,
+                      n_failure_domains=4)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        pipe = IngestPipeline(AerialDB.open(cfg, device=d), max_retries=4,
+                              sleep=lambda s: None)
+        runner = ChaosRunner(FaultPlan(events=CHAOS_SMOKE, n_steps=4),
+                             pipe.db, pipe)
+
+        def tick(step, pipe=pipe):
+            rng = np.random.default_rng((0, step))
+            seq = np.tile(np.arange(8), 12) + step * 8
+            pipe.submit_arrays(np.repeat(np.arange(12), 8), seq,
+                               seq + step * 0.25, rng.uniform(12.90, 13.00, 96),
+                               rng.uniform(77.50, 77.62, 96),
+                               rng.normal(size=(96, 4)))
+            pipe.flush()
+        runner.run(tick)
+        out[d.type] = (pipe, runner.to_json())
+    (card, card_log), (cpu, cpu_log) = out[dev.type], out["cpu"]
+    bad = states_equal(torch, card.db.state, cpu.db.state)
+    if bad or card_log != cpu_log or card.counters != cpu.counters \
+            or not card.reconcile()["ok"]:
+        raise SystemExit(f"chaos: the smoke plan differs on the card: {bad}")
+    return {"leaves_equal": len(cpu.db.state.index) + len(cpu.db.state) - 1,
+            "log_bytes": len(card_log), "retries": card.counters["retries"]}
+
+
+def chaos_phase(torch, dev, cfg, city, seed: int, card: str,
+                seeds=CHAOS_SEEDS, n_steps: int = CHAOS_STEPS,
+                n_drones: int = 400, capacity: int = RESILIENCE_CAPACITY) -> dict:
+    """Fig. 19's chaos soak at D400 width: the resilience phase's config
+    (4 failure domains, ``capacity``-slot rings), for each seed a random
+    plan over ``n_steps`` rounds of a fresh ``n_drones`` fleet
+    (``chaos_soak``: checks C1-C4), the seeds one after another with the
+    stores freed between them; then the crash leg (C5) and the smoke plan
+    on the card against the CPU (C6). The probe batch: 64 AND queries, 1 km
+    x 1800 s, 4 channels, windows spread over the rounds. Counts are set to
+    0 just before the first soak and read after the last."""
+    import dataclasses
+    from repro_torch.core.datastore import AggSpec, make_pred
+    from repro_torch.data.synthetic import DroneFleet, make_query_workload
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    t_phase = time.perf_counter()
+    rcfg = dataclasses.replace(cfg, n_failure_domains=4, tuple_capacity=capacity)
+    spec = AggSpec(channels=(0, 1, 2, 3))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    soaks, payloads = [], None
+    for i, s in enumerate(seeds):
+        payloads, _ = DroneFleet(n_drones, city, records_per_shard=60,
+                                 n_values=4, seed=seed + 10 * (i + 1)
+                                 ).next_rounds(n_steps)
+        t = payloads[..., 0]
+        w = make_query_workload(np.random.default_rng(seed + 7), 64, city,
+                                float(t.max()), 1.0, 1800.0)
+        w["t0"] = np.random.default_rng(seed + 8).uniform(
+            float(t.min()), float(t.max()) - 1800.0, 64).astype(np.float32)
+        w["t1"] = (w["t0"] + np.float32(1800.0)).astype(np.float32)
+        pred = make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                         is_and=True, device=dev)
+        soaks.append(chaos_soak(torch, dev, rcfg, payloads, s, pred, spec,
+                                n_steps))
+        torch.cuda.empty_cache()
+    launches = {k: m.launches for k, m in mods.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    soaks_s = time.perf_counter() - t_phase
+    crash = chaos_crash_leg(torch, dev, rcfg, payloads)
+    torch.cuda.empty_cache()
+    small = chaos_small_card_vs_cpu(torch, dev)
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"chaos: a kernel never launched: {launches}")
+    return {
+        "card": card, "drones": n_drones, "steps": n_steps,
+        "config": {"n_failure_domains": 4, "tuple_capacity": rcfg.tuple_capacity,
+                   "min_alive": CHAOS_MIN_ALIVE, "max_transient": 2,
+                   "max_retries": 4},
+        "checks": {f"seed_{r['seed']}": r.pop("checks") for r in soaks}
+        | {"C5_crash_replay": True, "C6_smoke_card_vs_cpu": True},
+        "seeds": soaks, "crash": crash, "smoke_card_vs_cpu": small,
+        "launches": launches, "peak_mem_gb": peak, "soaks_s": soaks_s,
+        "phase_s": time.perf_counter() - t_phase}
+
+
 def scan_vs_plain(torch, args_scan, channels, cap: int, what: str,
                   want_nan: bool = False) -> float:
     """st_scan's kernel against its plain version on ``args_scan``: count,
@@ -1879,6 +2218,8 @@ def main(argv=None) -> int:
     phase("resilience", **resilience_phase(torch, dev, cfg, city, args.seed, smi))
     torch.cuda.empty_cache()
     phase("streaming", **streaming_phase(torch, dev, cfg, city, args.seed, smi))
+    torch.cuda.empty_cache()
+    phase("chaos", **chaos_phase(torch, dev, cfg, city, args.seed, smi))
     torch.cuda.empty_cache()
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------

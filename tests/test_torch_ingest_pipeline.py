@@ -556,11 +556,13 @@ def test_crash_mid_flush_recovers_from_journal(tmp_path):
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """``repro_torch.ingest`` and the session, imported in a fresh
-    interpreter, bring in no module of JAX or of the JAX package."""
+    """``repro_torch.ingest``, the session and ``repro_torch.chaos``,
+    imported in a fresh interpreter, bring in no module of JAX or of the
+    JAX package."""
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "src")
-    code = ("import sys; import repro_torch.ingest, repro_torch.api.session; "
+    code = ("import sys; import repro_torch.ingest, repro_torch.api.session, "
+            "repro_torch.chaos; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(repr(bad))")
     env = dict(os.environ, PYTHONPATH=src)

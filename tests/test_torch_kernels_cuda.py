@@ -19,7 +19,11 @@ that make no sync, and the placement kernels at a full repair's batch.
 ``-k "partition or pipeline"`` runs the partition flips (no sync) and the
 streaming pipeline on the card: a non-blocking flush from numpy against
 ``ingest_rounds`` from the card (syncs), and an adversarial stream with NaN
-payloads against the CPU (every leaf bitwise).
+payloads against the CPU (every leaf bitwise). ``-k chaos`` runs the chaos
+engine's fault plans through a session and pipeline on the card against
+the same plans on the CPU: the reference tests' smoke plan, and a cut
+across the failure-domain blocks overlapping a domain loss and its
+recovery (every leaf bitwise, the runners' logs byte-identical).
 """
 
 import numpy as np
@@ -1239,3 +1243,75 @@ def test_pipeline_stream_on_card_matches_cpu(cuda):
     assert pipes[0].reconcile() == pipes[1].reconcile()
     assert pipes[0].reconcile()["ok"]
     _assert_card_state_equals_cpu(pipes[0].db.state, pipes[1].db.state)
+
+
+# The reference chaos tests' smoke plan (tests/test_chaos.py), and a cut
+# across the failure-domain blocks (edges 3, 4, 6 of 8; blocks of 2) opened
+# while domain 0 is down, with domain 0 recovered and an edge lost and
+# recovered inside the split; (step, kind, args) rows.
+CHAOS_SMOKE = ((0, "fail_edges", ((6,),)),
+               (1, "partition", (((0, 1, 2, 3, 6), (4, 5, 7)),)),
+               (1, "flush_fail", (2,)),
+               (2, "heal", ()),
+               (3, "recover_edges", ((6,),)))
+CHAOS_OVERLAP = ((0, "fail_device", (0,)),
+                 (1, "partition", (((0, 1, 2, 5, 7), (3, 4, 6)),)),
+                 (2, "recover_device", (0,)),
+                 (2, "fail_edges", ((7,),)),
+                 (3, "recover_edges", ((7,),)),
+                 (4, "heal", ()))
+
+
+def _chaos_run(device, rows, n_steps):
+    """``rows`` as a FaultPlan through ``ChaosRunner`` over a session and
+    pipeline on ``device`` (8 edges, 4 failure domains, 8-record shards),
+    each tick every one of 12 drones sending one full shard."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.chaos import ChaosRunner, FaultPlan
+    from repro_torch.core.datastore import StoreConfig
+    from repro_torch.ingest import IngestPipeline
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=2048,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=8, retention_every=2,
+                      n_failure_domains=4)
+    db = AerialDB.open(cfg, device=device)
+    pipe = IngestPipeline(db, max_retries=4, sleep=lambda s: None)
+    runner = ChaosRunner(FaultPlan(events=rows, n_steps=n_steps), db, pipe)
+
+    def tick(step):
+        rng = np.random.default_rng((0, step))
+        drone = np.repeat(np.arange(12), 8)
+        seq = np.tile(np.arange(8), 12) + step * 8
+        pipe.submit_arrays(drone, seq, seq + step * 0.25,
+                           rng.uniform(12.90, 13.00, 96),
+                           rng.uniform(77.50, 77.62, 96),
+                           rng.normal(size=(96, 4)))
+        pipe.flush()
+        assert pipe.reconcile()["counters_ok"], step
+    runner.run(tick)
+    return db, pipe, runner
+
+
+@pytest.mark.parametrize("plan", ["smoke", "overlap"])
+def test_chaos_plan_on_card_matches_cpu(cuda, plan):
+    """A fault plan through the runner on the card and on the CPU: every
+    state leaf bitwise, the ledgers, counters and reconciles equal, the
+    logs byte-identical (every logged value a plain Python value: the JSON
+    encoder takes no tensor or numpy scalar), and the repairs incremental;
+    the placement kernels ran on the card."""
+    from repro_torch.chaos import assert_content_equal, canonical_content
+    rows, n_steps = {"smoke": (CHAOS_SMOKE, 4), "overlap": (CHAOS_OVERLAP, 5)}[plan]
+    before = (hops.launches, vops.launches)
+    card = _chaos_run(cuda, rows, n_steps)
+    assert hops.launches > before[0] and vops.launches > before[1]
+    cpu = _chaos_run("cpu", rows, n_steps)
+    _assert_card_state_equals_cpu(card[0].state, cpu[0].state)
+    assert card[2].to_json() == cpu[2].to_json()
+    assert card[0].ledger() == cpu[0].ledger()
+    assert card[1].counters == cpu[1].counters
+    assert card[1].reconcile() == cpu[1].reconcile()
+    assert card[1].reconcile()["ok"] and card[1].counters["gave_up"] == 0
+    modes = [e["repair"]["mode"] for e in card[2].log if "repair" in e]
+    assert modes and set(modes) == {"incremental"}
+    assert_content_equal(canonical_content(card[0]), canonical_content(cpu[0]))
