@@ -58,7 +58,19 @@ Phases, one line each:
      every step, a probe batch after every repair (exact against the twin
      with bound 1 at full health), no wrap and the content equal to the
      twin's at the end; a mid-flush crash replayed from the journal; the
-     reference tests' smoke plan on the card against the CPU;
+     reference tests' smoke plan on the card against the CPU; then the
+     federation line: the store split over a one-process edge mesh of 4
+     blocks of 20 edges on the card (``make_edge_mesh(4)``) against the
+     single store, both taking the day's rounds in turns (shards/s of
+     each), every leaf of the gathered store against the single store's,
+     the three batches (1 and 4 channels) and the 5 km batch under the
+     ``random`` and ``min_edges`` planners equal on both (p50 of each);
+     the resilience config's domain loss and incremental repair on a mesh
+     and a single store in lockstep (leaves, ledgers, telemetry and the
+     1 km x 1800 s batch equal during and after; repair walls and host
+     seconds, the mesh's gather and write-back); a small wrapping mesh on
+     the card against the CPU; every kernel's launches against 4 x the
+     single store's counts;
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -1614,6 +1626,345 @@ def chaos_phase(torch, dev, cfg, city, seed: int, card: str,
         "phase_s": time.perf_counter() - t_phase}
 
 
+FED_BLOCKS = 4                 # the federation phase's edge mesh: 4 blocks on one card
+# What the federation phase's path launches, per call on one store
+# (core/placement.py, core/slicing.py, core/datastore.py): an insert hashes
+# its shards' time midpoints and ids (place_replicas) and their time slices
+# (the index mask), and locates their midpoints and slice cells; a query
+# batch hashes its time slices and sid points and locates its slice cells,
+# then scans once for up to 4 channels. A mesh runs every block's body, so
+# each count is FED_BLOCKS times the store's.
+FED_PER_INSERT = {"hash64": 3, "voronoi_assign": 2, "st_scan": 0}
+FED_PER_BATCH = {"hash64": 2, "voronoi_assign": 1, "st_scan": 1}
+
+
+def answers_equal(torch, got, want, what: str) -> float:
+    """Two (QueryResult, QueryInfo) answers: count, vmin, vmax, overflow,
+    completeness_bound, replicas_lost and every QueryInfo field bitwise,
+    vsum and vmean to rtol 1e-5 with NaN equal. Returns the largest vsum
+    difference; exits non-zero, naming ``what``, otherwise."""
+    (r, i), (w, j) = got, want
+    bad = [f for f in ("count", "vmin", "vmax", "overflow",
+                       "completeness_bound", "replicas_lost")
+           if not bitwise_equal(torch, getattr(r, f), getattr(w, f))]
+    bad += [f"info.{f}" for f in i._fields
+            if not bitwise_equal(torch, getattr(i, f), getattr(j, f))]
+    if bad:
+        raise SystemExit(f"federation: {what}: {bad} differ")
+    for f in ("vsum", "vmean"):
+        torch.testing.assert_close(getattr(r, f), getattr(w, f), rtol=1e-5,
+                                   atol=0, equal_nan=True)
+    d = (r.vsum - w.vsum).abs()
+    d = d[~torch.isnan(d)]
+    return float(d.max()) if d.numel() else 0.0
+
+
+def federation_small_card_vs_cpu(torch, dev) -> dict:
+    """(F4) The card tests' small federation scenario (8 edges, 256-slot
+    rings that wrap, 4 failure domains, 16 cached drones) on a 4-block mesh
+    on the card and on the CPU: 2 rounds, block 1 lost for 6 rounds and
+    recovered with the incremental repair, a 4-channel batch of three
+    queries. Every leaf of every block, the repair telemetry and the
+    ledger bitwise, the answers by ``answers_equal`` (the kernel sums vsum
+    in another order than the plain version). Exits non-zero otherwise."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import AggSpec, StoreConfig, make_pred
+    from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
+    from repro_torch.launch.mesh import make_edge_mesh
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=256,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=8, retention_every=2,
+                      n_failure_domains=4, max_drones=16)
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        db = AerialDB.open(cfg, make_edge_mesh(FED_BLOCKS, device=d))
+        fleet = DroneFleet(12, records_per_shard=8, seed=7)
+        db.ingest_rounds(*fleet.next_rounds(2))
+        db.fail_device(1)
+        for _ in range(6):
+            db.insert(*fleet.next_shards())
+        db.recover_device(1)
+        pred = make_pred(q=3, lat0=[12.85, 12.9, 12.95], lat1=[13.1, 13.0, 13.05],
+                         lon0=[77.45, 77.5, 77.55], lon1=[77.75, 77.6, 77.65],
+                         t0=[0.0, 200.0, 300.0], t1=[1e9, 400.0, 400.0],
+                         has_spatial=[False, True, True], has_temporal=True,
+                         is_and=True, device=d)
+        ans = db.query(pred, agg=AggSpec(channels=(0, 1, 2, 3)), key=(0, 7))
+        out[d.type] = (db, ans)
+    (card, card_ans), (cpu, cpu_ans) = out[dev.type], out["cpu"]
+    bad = [b for x, y in zip(card.blocks, cpu.blocks)
+           for b in states_equal(torch, x, y)]
+    if bad or card.last_repair != cpu.last_repair \
+            or card.ledger() != cpu.ledger():
+        raise SystemExit(f"federation: the small mesh differs on the card: "
+                         f"{bad} {card.last_repair} {cpu.last_repair}")
+    vsum_diff = answers_equal(
+        torch, tuple(type(x)(*(t.cpu() for t in x)) for x in card_ans),
+        cpu_ans, "the small mesh on the card against the CPU")
+    if int(cpu.state.tup_overwritten.sum()) == 0 \
+            or cpu.last_repair["shards_replaced"] == 0:
+        raise SystemExit("federation: the small scenario did not wrap and repair")
+    return {"blocks": FED_BLOCKS,
+            "leaves_equal_per_block": len(cpu.blocks[0].index) + len(cpu.blocks[0]) - 1,
+            "repair": cpu.last_repair, "count": cpu_ans[0].count.tolist(),
+            "vsum_max_abs_diff": vsum_diff}
+
+
+def federation_phase(torch, dev, cfg, city, payloads, metas, chunks,
+                     batches, specs, seed: int, card: str, do_profile: bool,
+                     n_drones: int = 400, fail_rounds: int = 48,
+                     capacity: int = RESILIENCE_CAPACITY) -> dict:
+    """The federated runtime on a one-process edge mesh: FED_BLOCKS blocks
+    of the store on the card against the single store on the card.
+
+    Day leg, at the main path's D400 width: a mesh session
+    (``make_edge_mesh(4)``: 4 blocks of 20 edges on ``dev``) and a single
+    session take the main path's rounds in its chunks, in turns (chunk 0 a
+    warm-up; CUDA events around each later chunk); (F1) every leaf of the
+    mesh's gathered store equals the single store's, bitwise; (F2) the main
+    path's three batches, single- and 4-channel, under ``min_shards``, and
+    the 5 km batch under ``random`` (an explicit key) and ``min_edges``
+    sessions adopting both stores, give equal answers (``answers_equal``);
+    each batch's p50 on both over 3 timed repetitions after a warm-up.
+    Failure leg, at the resilience config (4 failure domains,
+    ``capacity``-slot rings, ``fail_rounds`` rounds of a fresh
+    ``n_drones`` fleet): a mesh and a single session in lockstep,
+    ``fail_device(1)`` halfway, ``recover_device(1)`` (the incremental
+    repair) at the end; (F3) the leaves and the ledgers
+    equal after the outage's rounds and after the repair, the repair
+    telemetry equal, the 1 km x 1800 s batch equal during the outage and
+    after it; the repair walls, their host seconds by part and the mesh's
+    gather and write-back alone. (F4) ``federation_small_card_vs_cpu``.
+    (F5) the counts are set to 0 at the start and each part's launches
+    equal FED_BLOCKS times the single store's count (FED_PER_INSERT,
+    FED_PER_BATCH) on the mesh and once that count on the single store."""
+    import dataclasses
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import AggSpec, make_pred
+    from repro_torch.data.synthetic import DroneFleet, make_query_workload
+    from repro_torch.distributed.sharding import gather_store, shard_store
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    from repro_torch.launch.mesh import make_edge_mesh
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    got = {}                    # part -> launches on the mesh and the single
+
+    def counted(part, fn):
+        before = {k: m.launches for k, m in mods.items()}
+        out = fn()
+        acc = got.setdefault(part, dict.fromkeys(mods, 0))
+        for k, m in mods.items():
+            acc[k] += m.launches - before[k]
+        return out
+
+    mesh = make_edge_mesh(FED_BLOCKS, cfg.n_edges, device=dev)
+    sess = {"mesh": AerialDB.open(cfg, mesh), "single": AerialDB.open(cfg, device=dev)}
+    ingest_ms = dict.fromkeys(sess, 0.0)
+    for ci, sl in enumerate(chunks):
+        part = (payloads[sl], type(metas)(*(f[sl] for f in metas)))
+        for name, db in sess.items():
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            counted(f"{name}_ingest", lambda db=db: db.ingest_rounds(*part))
+            ev1.record()
+            ev1.synchronize()
+            if ci > 0:
+                ingest_ms[name] += ev0.elapsed_time(ev1)
+    timed_rounds = len(payloads) - (chunks[0].stop - chunks[0].start)
+    shards = timed_rounds * payloads.shape[1]
+    mdb, sdb = sess["mesh"], sess["single"]
+    bad = states_equal(torch, mdb.state, sdb.state)
+    if bad:
+        raise SystemExit(f"federation F1: the mesh's store differs at {bad}")
+    blocks_own = len({t.untyped_storage().data_ptr()
+                      for b in mdb.blocks + sdb.blocks
+                      for t in (b.tup_f, b.tup_sid, b.steps, b.index.ent_i)})
+    if blocks_own != 4 * (FED_BLOCKS + 1):
+        raise SystemExit("federation F1: a block shares storage with another "
+                         f"store ({blocks_own} distinct)")
+
+    # F2: the main path's batches on both, then the 5 km batch per planner.
+    times = {n: {bi: [] for bi in range(len(batches))} for n in sess}
+    vsum_diff = 0.0
+    preds = [make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                       is_and=True, device=dev) for _, _, _, w in batches]
+    for rep in range(4):
+        for bi, pred in enumerate(preds):
+            for si, spec in enumerate(specs):
+                ans = {}
+                for name, db in sess.items():
+                    torch.cuda.synchronize()
+                    q0 = time.perf_counter()
+                    ans[name] = counted(f"{name}_queries", lambda db=db: db.query(
+                        pred, agg=spec, key=(seed, bi)))
+                    torch.cuda.synchronize()
+                    if rep > 0:
+                        times[name][bi].append((time.perf_counter() - q0) * 1e3)
+                if rep == 0:
+                    vsum_diff = max(vsum_diff, answers_equal(
+                        torch, ans["mesh"], ans["single"],
+                        f"batch {bi} spec {si}"))
+    n_batches = 4 * len(preds) * len(specs)
+    planners = {}
+    for planner in ("random", "min_edges"):
+        pcfg = dataclasses.replace(cfg, planner=planner)
+        pm = AerialDB(pcfg, mdb.blocks, mesh=mesh)
+        ps = AerialDB(pcfg, sdb.state, device=dev)
+        row = {}
+        for si, spec in enumerate(specs):
+            a = counted("mesh_queries", lambda: pm.query(preds[2], agg=spec,
+                                                          key=(seed, 5)))
+            b = counted("single_queries", lambda: ps.query(preds[2], agg=spec,
+                                                            key=(seed, 5)))
+            row[f"spec{si}_vsum_max_abs_diff"] = answers_equal(
+                torch, a, b, f"{planner} spec {si}")
+            row[f"spec{si}_matched"] = int((a[0].count > 0).sum())
+        planners[planner] = row
+        n_batches += len(specs)
+    profiles = {}
+    if do_profile:      # after the checks: the profiled chunk goes in twice
+        sl = chunks[1]
+        again = (payloads[sl], type(metas)(*(f[sl] for f in metas)))
+        for name, db in sess.items():
+            profiles[f"query_5km_4ch_{name}"] = profile(
+                torch, lambda db=db: db.query(preds[2], agg=specs[1],
+                                              key=(seed, 2)))
+            profiles[f"ingest_chunk_{name}"] = profile(
+                torch, lambda db=db: db.ingest_rounds(*again), host_top=8)
+    day_rounds = len(payloads)
+    del pm, ps, sess, mdb, sdb
+    torch.cuda.empty_cache()
+
+    # Failure leg (F3).
+    rcfg = dataclasses.replace(cfg, n_failure_domains=4,
+                               tuple_capacity=capacity)
+    rp, rm = DroneFleet(n_drones, city, records_per_shard=60, n_values=4,
+                        seed=seed).next_rounds(fail_rounds)
+    half = fail_rounds // 2
+    rmesh = make_edge_mesh(FED_BLOCKS, rcfg.n_edges, device=dev)
+    fail = {"mesh": AerialDB.open(rcfg, rmesh),
+            "single": AerialDB.open(rcfg, device=dev)}
+    # The resilience phase's batch over its two windows: the last 30
+    # minutes, and the 30 minutes before the failure (replicas lost).
+    w = make_query_workload(np.random.default_rng(seed + 2), 64, city,
+                            float(rp[..., 0].max()), 1.0, 1800.0)
+    fpreds = {}
+    for name, t_end in (("recent", float(rp[..., 0].max())),
+                        ("before_failure", float(rp[:half, ..., 0].max()))):
+        t0_ = np.full(64, t_end - RECENT_S, np.float32)
+        fpreds[name] = make_pred(
+            q=64, **{**w, "t0": t0_, "t1": t0_ + np.float32(1800.0)},
+            has_spatial=True, has_temporal=True, is_and=True, device=dev)
+    spec4 = AggSpec(channels=(0, 1, 2, 3))
+
+    def lockstep_check(when):
+        m, s = fail["mesh"], fail["single"]
+        bad = states_equal(torch, m.state, s.state)
+        if bad or m.ledger() != s.ledger():
+            raise SystemExit(f"federation F3 ({when}): leaves {bad} or the "
+                             "ledgers differ")
+        out = {}
+        for name, p in fpreds.items():
+            a = counted("mesh_queries", lambda: m.query(p, agg=spec4))
+            b = counted("single_queries", lambda: s.query(p, agg=spec4))
+            out[name] = {
+                "vsum_max_abs_diff": answers_equal(torch, a, b,
+                                                   f"F3 {when}, {name}"),
+                "replicas_lost_sum": int(a[0].replicas_lost.sum()),
+                "matched_queries": int((a[0].count > 0).sum())}
+        return out
+    for name, db in fail.items():
+        counted(f"{name}_ingest", lambda db=db: db.ingest_rounds(
+            rp[:half], type(rm)(*(f[:half] for f in rm))))
+        db.fail_device(1)
+        counted(f"{name}_ingest", lambda db=db: db.ingest_rounds(
+            rp[half:], type(rm)(*(f[half:] for f in rm))))
+    n_batches += len(fpreds)
+    during = lockstep_check("during the outage")
+    if during["before_failure"]["replicas_lost_sum"] <= 0:
+        raise SystemExit("federation F3: no replica was lost during the outage")
+    repair = {}
+    for name, db in fail.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        counted(f"{name}_repair", lambda db=db: db.recover_device(1))
+        torch.cuda.synchronize()
+        repair[name] = {"wall_s": time.perf_counter() - t0,
+                        "seconds": db.last_repair_seconds}
+    if fail["mesh"].last_repair != fail["single"].last_repair:
+        raise SystemExit(f"federation F3: the repairs differ: "
+                         f"{fail['mesh'].last_repair} {fail['single'].last_repair}")
+    n_batches += len(fpreds)
+    after = lockstep_check("after the repair")
+    # The mesh's repair gathers the blocks and writes the result back: each
+    # alone, on the repaired store (writing back what is there).
+    mblocks = fail["mesh"].blocks
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    whole = gather_store(mblocks)
+    torch.cuda.synchronize()
+    gather_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    shard_store(whole, rmesh, into=mblocks)
+    torch.cuda.synchronize()
+    write_back_s = time.perf_counter() - t0
+    fail_repair = fail["single"].last_repair
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del whole, mblocks, fail
+    torch.cuda.empty_cache()
+    small = counted("small_card_vs_cpu", lambda: federation_small_card_vs_cpu(
+        torch, dev))
+
+    # F5: each part's launches against FED_BLOCKS x the store's counts; a
+    # repair runs once, on the gathered store, on either.
+    n_inserts = day_rounds + fail_rounds
+    want = {}
+    for name, k in (("mesh", FED_BLOCKS), ("single", 1)):
+        want[f"{name}_ingest"] = {m: k * c * n_inserts
+                                  for m, c in FED_PER_INSERT.items()}
+        want[f"{name}_queries"] = {m: k * c * n_batches
+                                   for m, c in FED_PER_BATCH.items()}
+    want["mesh_repair"] = got["single_repair"]
+    off = {p: (got.get(p), w_) for p, w_ in want.items() if got.get(p) != w_}
+    if off or got["single_repair"]["hash64"] <= 0:
+        raise SystemExit(f"federation F5: launches against the prediction: {off}")
+    launches = {k: m.launches for k, m in mods.items()}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"federation: a kernel never launched: {launches}")
+    mesh_ms, single_ms = ingest_ms["mesh"], ingest_ms["single"]
+    return {
+        "card": card, "blocks": FED_BLOCKS, "edges_per_block": cfg.n_edges // FED_BLOCKS,
+        "day_rounds": day_rounds, "timed_rounds": timed_rounds,
+        "checks": {"F1_day_leaves_equal": True, "F2_batches_equal": True,
+                   "F3_failure_leg_equal": True, "F4_small_card_vs_cpu": True,
+                   "F5_launches_as_predicted": True},
+        "ingest_shards_per_s": {"mesh": shards / (mesh_ms / 1e3),
+                                "single": shards / (single_ms / 1e3)},
+        "ingest_device_s": {"mesh": mesh_ms / 1e3, "single": single_ms / 1e3},
+        "query_batch_p50_ms": {n: {f"{batches[bi][0]}km_{batches[bi][1]:.0f}s":
+                                   float(np.median(v)) for bi, v in t.items()}
+                               for n, t in times.items()},
+        "batches_vsum_max_abs_diff": vsum_diff, "planners": planners,
+        "blocks_distinct_storages": blocks_own,
+        "failure": {"during": during, "after": after, "repair": fail_repair,
+                    "repair_wall_s": {n: r["wall_s"] for n, r in repair.items()},
+                    "repair_seconds": {n: r["seconds"] for n, r in repair.items()},
+                    "mesh_gather_s": gather_s, "mesh_write_back_s": write_back_s},
+        "small_card_vs_cpu": small,
+        "launches": launches, "launches_by_part": got,
+        "launches_predicted": want, "query_batches": n_batches,
+        "profiles": profiles,
+        "peak_mem_gb": peak, "phase_s": time.perf_counter() - t_phase}
+
+
 def scan_vs_plain(torch, args_scan, channels, cap: int, what: str,
                   want_nan: bool = False) -> float:
     """st_scan's kernel against its plain version on ``args_scan``: count,
@@ -2220,6 +2571,10 @@ def main(argv=None) -> int:
     phase("streaming", **streaming_phase(torch, dev, cfg, city, args.seed, smi))
     torch.cuda.empty_cache()
     phase("chaos", **chaos_phase(torch, dev, cfg, city, args.seed, smi))
+    torch.cuda.empty_cache()
+    phase("federation", **federation_phase(
+        torch, dev, cfg, city, payloads, metas, chunks, batches, specs,
+        args.seed, smi, args.profile))
     torch.cuda.empty_cache()
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------

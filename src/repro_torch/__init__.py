@@ -16,7 +16,9 @@ under ``csrc/``, built with nvcc for ``sm_90a`` at first use
   ``recover_*``, with the reference's outage-epoch ledger) and repairs
   itself after an outage (``core.repair``: a host-side sweep whose swept
   subset is placed on the state's device), and ``chaos.audit`` compares
-  stores by their canonical content;
+  stores by their canonical content; the store also runs split over a
+  one-process edge mesh (``launch.mesh.make_edge_mesh``,
+  ``distributed.federation``: ``AerialDB.open(cfg, mesh)``);
 - the LM serving path (``configs``, ``models``, ``train.train_loop``
   ``make_serve_steps``, ``serve.engine.Engine``) for dense GQA decoders
   such as internlm2-1.8b: FlashAttention-2 forward in every attention

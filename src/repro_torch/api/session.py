@@ -1,12 +1,19 @@
-"""``AerialDB``: the single-device session facade of the port.
+"""``AerialDB``: the session facade of the port, on one device or on a
+one-process edge mesh.
 
-Port of the single-device subset of ``repro.api.session``: one object owns
-the ``StoreConfig``, the ``StoreState`` (on one device), the edge ``alive``
-mask, the planner's PRNG key (on the host, split once a query as the
-reference splits it), the host-side step counter that paces index retention
-and the failure ledger.
+Port of ``repro.api.session``: one object owns the ``StoreConfig``, the
+``StoreState`` (on one device, or split into the blocks of an edge mesh),
+the edge ``alive`` mask, the planner's PRNG key (on the host, split once a
+query as the reference splits it), the host-side step counter that paces
+index retention and the failure ledger, and dispatches every operation to
+the single-device bodies (``core.datastore``) or the federated runtime
+(``distributed.federation``), depending on whether the session was opened
+on a mesh. The two paths are held bitwise equal
+(``tests/test_torch_federation.py``), so the dispatch is a deployment
+choice.
 
     db = AerialDB.open(cfg)                       # on the card
+    db = AerialDB.open(cfg, make_edge_mesh(4))    # 4 edge blocks on the card
     db.ingest_rounds(payloads, metas)             # N rounds, no host sync
     res, info = db.query(Query().bbox(...).time(...).agg("mean", channel=2))
     db.latest()                                   # newest record per drone
@@ -21,7 +28,9 @@ runs the incremental anti-entropy repair (``core.repair``) over the shards
 the recorded outages could have touched; ``repair(full=True)`` sweeps every
 shard. Ingest-time index drops are watched without a read (the per-insert
 drop counts stay on the device until the ledger, a repair or a backlog of
-64 inserts drains them) and ride the ledger's pending set.
+64 inserts drains them) and ride the ledger's pending set. On a mesh the
+failure domains default to its blocks, and a repair runs on the gathered
+store and writes the result back into the blocks.
 
 Fleet partitions, as the reference: :meth:`partition` cuts edges off as
 unreachable but intact (a ledger state distinct from dead) and
@@ -35,8 +44,7 @@ numpy and makes fresh device tensors of them (and of their conjunction) at
 every flip, from pinned memory on the card, and takes the step from its
 host mirror, so a fail, recover, partition or heal without repair reads
 nothing from the device and adds no launch to an insert. Repair,
-``ledger()`` and the drop watch's drain are the sync points. Meshes are a
-later slice (ROADMAP Queue 1).
+``ledger()`` and the drop watch's drain are the sync points.
 """
 
 from __future__ import annotations
@@ -57,7 +65,9 @@ from repro_torch.core.datastore import (AggSpec, LatestResult, QueryInfo,
 from repro_torch.core.index import QueryPred
 from repro_torch.core.placement import ShardMeta
 from repro_torch.device import resolve_device
-from repro_torch.distributed.sharding import device_edge_block
+from repro_torch.distributed import federation as _fed
+from repro_torch.distributed.sharding import (device_edge_block, gather_store,
+                                              mesh_edge_devices, shard_store)
 
 __all__ = ["AerialDB"]
 
@@ -92,6 +102,25 @@ def _sids(x):
     return x.detach().clone() if isinstance(x, torch.Tensor) else np.array(x)
 
 
+def _session_device(mesh, device) -> torch.device:
+    """The session's device: ``device`` (default the card) without a mesh;
+    on a mesh, its first block's, which a ``device`` also given must
+    name."""
+    if mesh is None:
+        return resolve_device("cuda" if device is None else device)
+    dev = mesh.devices[0]
+    if device is not None:
+        want = resolve_device(device)
+        if want.type != dev.type or (want.index is not None
+                                     and dev.index is not None
+                                     and want.index != dev.index):
+            raise ValueError(
+                f"device={str(device)!r} disagrees with the mesh, whose "
+                f"first block is on {dev}: pass the mesh alone, or a device "
+                "it uses.")
+    return dev
+
+
 def _multi_process() -> bool:
     dist = torch.distributed
     return (dist.is_available() and dist.is_initialized()
@@ -99,20 +128,40 @@ def _multi_process() -> bool:
 
 
 class AerialDB:
-    """An open single-device AerialDB deployment."""
+    """An open AerialDB deployment, on one device or on an edge mesh."""
 
     def __init__(self, cfg: StoreConfig, state: StoreState, alive=None,
-                 key: Optional[threefry.Key] = None, device="cuda",
-                 seed: int = 0):
+                 key: Optional[threefry.Key] = None, device=None,
+                 seed: int = 0, mesh=None):
         """Wrap existing parts (tests adopt a converted state this way); most
-        callers want :meth:`open`. ``state`` must already be on ``device``.
-        ``key`` is the planner's PRNG key (``threefry.key(seed)`` when
-        None); the session owns it and splits it once a query."""
-        self._device = resolve_device(device)
-        if state.tup_f.device.type != self._device.type:
-            raise ValueError(f"state lives on {state.tup_f.device}, the "
-                             f"session on {self._device}")
+        callers want :meth:`open`. ``key`` is the planner's PRNG key
+        (``threefry.key(seed)`` when None); the session owns it and splits
+        it once a query.
+
+        Without a mesh, ``state`` must already be on ``device`` (default
+        the card). On a mesh (``launch.mesh.EdgeMesh``), ``state`` is
+        either a logical store, which is split into the mesh's blocks (a
+        copy, ``distributed.sharding.shard_store``), or the blocks
+        themselves, which are adopted; the session's device is the first
+        block's, and a ``device`` also given must agree."""
+        self._device = _session_device(mesh, device)
+        if mesh is None:
+            blocks, devices = (state,), (self._device,)
+        else:
+            _fed.check_edge_mesh(cfg, mesh)
+            if isinstance(state, StoreState):
+                state = shard_store(state, mesh)
+            state = blocks = tuple(state)
+            devices = mesh.devices
+            if len(blocks) != mesh.size:
+                raise ValueError(f"{len(blocks)} block states for a mesh of "
+                                 f"{mesh.size} blocks")
+        for blk, dev in zip(blocks, devices):
+            if blk.tup_f.device.type != dev.type:
+                raise ValueError(f"state lives on {blk.tup_f.device}, the "
+                                 f"session on {dev}")
         self._cfg = cfg
+        self._mesh = mesh
         self._state = state
         self._key = threefry.key(seed) if key is None else key
         # The alive mask lives on the host (one read of an adopted tensor);
@@ -128,7 +177,7 @@ class AerialDB:
         self._masks_to_device()
         # Host mirror of state.steps (one read at adoption, never again): the
         # retention cadence and the outage ledger read it without a sync.
-        self._steps = int(state.steps)
+        self._steps = int(blocks[0].steps)
         self._last_repair: Optional[dict] = None
         self._last_repair_seconds: Optional[dict] = None
         # Outage-epoch ledger (see ``core.repair``): open records are
@@ -154,20 +203,30 @@ class AerialDB:
             self._open_outages.append([set(dead.tolist()), -1])
 
     @classmethod
-    def open(cls, cfg: Optional[StoreConfig] = None, *, device="cuda",
-             seed: int = 0, **cfg_overrides) -> "AerialDB":
-        """Open a fresh deployment on ``device`` (default the card; raises
-        without CUDA unless ``device="cpu"``). ``cfg=None`` builds
-        ``StoreConfig(**overrides)``; with a config, overrides are applied
-        with ``dataclasses.replace``. ``seed`` makes the planner's key, as
-        ``jax.random.key(seed)`` does."""
+    def open(cls, cfg: Optional[StoreConfig] = None, mesh=None, *,
+             device=None, seed: int = 0, **cfg_overrides) -> "AerialDB":
+        """Open a fresh deployment.
+
+        Args:
+          cfg:    deployment config; None builds ``StoreConfig(**overrides)``;
+                  with a config, overrides are applied with
+                  ``dataclasses.replace``.
+          mesh:   optional edge mesh (``launch.mesh.make_edge_mesh``): the
+                  store is split into its blocks, and every operation runs
+                  the federated runtime. None runs on one device.
+          device: without a mesh, the store's device (default the card;
+                  raises without CUDA unless ``device="cpu"``); with one,
+                  the mesh's devices are used and a ``device`` given must
+                  agree with them.
+          seed:   makes the planner's key, as ``jax.random.key(seed)``.
+        """
         if cfg is None:
             cfg = StoreConfig(**cfg_overrides)
         elif cfg_overrides:
             cfg = dataclasses.replace(cfg, **cfg_overrides)
-        dev = resolve_device(device)
+        dev = _session_device(mesh, device)
         return cls(cfg, init_store(cfg, dev), key=threefry.key(seed),
-                   device=dev)
+                   device=dev, mesh=mesh)
 
     # -- owned pieces (read-only views) -------------------------------------
 
@@ -177,7 +236,24 @@ class AerialDB:
 
     @property
     def state(self) -> StoreState:
-        return self._state
+        """The store. On a mesh, the logical ``(E, ...)`` store gathered
+        from the blocks (``distributed.sharding.gather_store``): a copy on
+        the first block's device, made anew at each read, that the session
+        never writes; the session's own paths use :attr:`blocks`."""
+        if self._mesh is None:
+            return self._state
+        return gather_store(self._state)
+
+    @property
+    def blocks(self) -> Tuple[StoreState, ...]:
+        """The store's blocks, updated in place by the session: the mesh's,
+        in block order, or the one store on one device."""
+        return self._state if self._mesh is not None else (self._state,)
+
+    @property
+    def mesh(self):
+        """The edge mesh the session runs on (None on one device)."""
+        return self._mesh
 
     @property
     def alive(self) -> torch.Tensor:
@@ -241,9 +317,15 @@ class AerialDB:
         dict (replicas, per-edge intake/index telemetry)."""
         check_batch_fits(self._cfg, tuple(np.shape(payload)))
         payload = _to_device(payload, self._device, torch.float32)
-        self._state, info = insert_local(
-            self._cfg, self._state, payload, _meta_to(meta, self._device),
-            self.effective_alive, self._steps)
+        dmeta = _meta_to(meta, self._device)
+        if self._mesh is None:
+            self._state, info = insert_local(
+                self._cfg, self._state, payload, dmeta, self.effective_alive,
+                self._steps)
+        else:
+            self._state, info = _fed.federated_insert_step(
+                self._cfg, self._state, payload, dmeta, self.effective_alive,
+                self._mesh, self._steps)
         self._steps += 1
         self._watch_drops(_sids(meta.sid_hi)[None], _sids(meta.sid_lo)[None],
                           info["index_entries_dropped"][None])
@@ -257,19 +339,12 @@ class AerialDB:
         check_batch_fits(self._cfg, tuple(np.shape(payloads))[1:])
         sid_hi, sid_lo = _sids(metas.sid_hi), _sids(metas.sid_lo)
         payloads = _to_device(payloads, self._device, torch.float32)
-        metas = _meta_to(metas, self._device)
-        mask = self.effective_alive
-        infos = []
-        for i in range(payloads.shape[0]):
-            self._state, info = insert_local(
-                self._cfg, self._state, payloads[i],
-                ShardMeta(*(f[i] for f in metas)), mask, self._steps)
-            self._steps += 1
-            infos.append(info)
-        if not infos:
-            return {}
-        out = {k: torch.stack([inf[k] for inf in infos]) for k in infos[0]}
-        self._watch_drops(sid_hi, sid_lo, out["index_entries_dropped"])
+        self._state, out = _fed.ingest_rounds(
+            self._cfg, self._state, payloads, _meta_to(metas, self._device),
+            self.effective_alive, self._mesh, host_step=self._steps)
+        self._steps += payloads.shape[0]
+        if out:
+            self._watch_drops(sid_hi, sid_lo, out["index_entries_dropped"])
         return out
 
     # -- query --------------------------------------------------------------
@@ -316,22 +391,29 @@ class AerialDB:
         spec.validate_for(self._cfg)         # a refused query takes no key
         if key is None:
             self._key, key = threefry.split(self._key)
-        return run_query(self._cfg, self._state, pred_to(pred, self._device),
-                         self.effective_alive, spec, key)
+        pred = pred_to(pred, self._device)
+        if self._mesh is None:
+            return run_query(self._cfg, self._state, pred,
+                             self.effective_alive, spec, key)
+        return _fed.federated_query_step(self._cfg, self._state, pred,
+                                         self.effective_alive, key,
+                                         self._mesh, spec)
 
     def latest(self) -> LatestResult:
         """Latest-per-drone hot-cache read (paper §4.4 near-real-time path):
         the newest (max-t) record, the ingest step that wrote it and its
         validity per drone id, straight from the cache state (no scan, no
-        index, no planner, nothing read back to the host). Exact up to the
-        last completed insert."""
+        index, no planner, nothing read back to the host; on a mesh, the
+        first block's copy of the replicated cache). Exact up to the last
+        completed insert."""
         if self._cfg.max_drones == 0:
             raise ValueError(
                 "the latest-per-drone cache is disabled: open the session "
                 "with StoreConfig.max_drones >= the fleet's highest drone id "
                 "+ 1 to track an O(drones) hot cache (drone id = sid_hi).")
-        seen = self._state.latest_seen
-        return LatestResult(record=self._state.latest_f, last_seen=seen,
+        first = self.blocks[0]
+        seen = first.latest_seen
+        return LatestResult(record=first.latest_f, last_seen=seen,
                             valid=seen >= 0)
 
     # -- membership / failure domains ---------------------------------------
@@ -364,14 +446,17 @@ class AerialDB:
         return ids.astype(np.int32)
 
     def _device_edges(self, device: int) -> np.ndarray:
-        """Resolve a failure-domain id to its contiguous edge block of
-        ``E / cfg.n_failure_domains`` edges."""
+        """Resolve a failure-domain id to its contiguous edge block:
+        ``cfg.n_failure_domains`` blocks when configured (> 1), else the
+        session mesh's blocks (the layout contract)."""
         n = self._cfg.n_failure_domains
+        if n == 1 and self._mesh is not None:
+            n = mesh_edge_devices(self._mesh)
         if n == 1:
             raise ValueError(
-                "no failure domains to address: set "
-                "StoreConfig.n_failure_domains > 1 (device-level failures "
-                "flip one contiguous block of E / n_domains edges).")
+                "no failure domains to address: open the session on an edge "
+                "mesh or set StoreConfig.n_failure_domains > 1 (device-level "
+                "failures flip one contiguous block of E / n_domains edges).")
         return np.asarray(device_edge_block(self._cfg.n_edges, n, device),
                           np.int32)
 
@@ -568,9 +653,11 @@ class AerialDB:
         shards the ledger's outages could have touched, so an empty ledger
         is a telemetry-only no-op; ``full=True`` sweeps every tracked shard.
         A repair consumes the closed windows; shards swept while edges are
-        still dead or unreachable stay pending. Single-process only: the sweep gathers the
-        whole store to one host, so a ``torch.distributed`` world of more
-        than one process raises. Returns the telemetry dict (also
+        still dead or unreachable stay pending. On a mesh the sweep runs on
+        the gathered store and its result is written back into every block
+        (replicated leaves included). Single-process only: the sweep gathers
+        the whole store to one host, so a ``torch.distributed`` world of
+        more than one process raises. Returns the telemetry dict (also
         :attr:`last_repair`; its host seconds are :attr:`last_repair_seconds`).
         """
         if _multi_process():
@@ -584,9 +671,15 @@ class AerialDB:
                 "with recover_edges(..., repair=False).")
         outage = None if full else self._outage_log()
         seconds: dict = {}
-        self._state, info = _repair.repair_state(
-            self._cfg, self._state, self.effective_alive, outage=outage,
-            timings=seconds)
+        if self._mesh is None:
+            self._state, info = _repair.repair_state(
+                self._cfg, self._state, self.effective_alive, outage=outage,
+                timings=seconds)
+        else:
+            whole, info = _repair.repair_state(
+                self._cfg, gather_store(self._state), self.effective_alive,
+                outage=outage, timings=seconds)
+            shard_store(whole, self._mesh, into=self._state)
         swept_keys = info.pop("_swept_keys")
         self._closed_outages = []
         if (self._alive_np & self._reachable_np).all():

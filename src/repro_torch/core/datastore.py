@@ -1,7 +1,10 @@
-"""AerialDB datastore, single device: insert and decentralized query (§3).
+"""AerialDB datastore: insert and decentralized query (§3).
 
-Port of ``repro.core.datastore`` for one device (``edge_ids = arange(E)``,
-identity collectives). Same state layout:
+Port of ``repro.core.datastore``: the shard-local insert and query bodies
+over a block of the edge axis (``edge_ids``, the whole ``range(E)`` on one
+device) with their two collective hooks (``EdgeCollectives``; the identity
+bundle ``LOCAL_COLLECTIVES`` on one device, in-process gathers on an edge
+mesh, ``distributed.federation``). Same state layout:
 
   tup_f:   (E, 3+V, CAP_L) float32   COLUMN-MAJOR tuple log (tuple axis last)
   tup_sid: (E, 2, CAP_L)   int32     owning shard id rows (hi, lo)
@@ -40,21 +43,30 @@ Differences from the JAX package, none visible in results:
 * The ``random`` planner's key is one key on the host (a pair of ints,
   ``core.threefry``), which ``plan_random`` folds with each query index on
   the query's device; the two other planners draw nothing and fold nothing.
+* The shard-local bodies (``insert_body``, ``plan_body``, ``query_body``)
+  are generators that stop at their collective: the reference's blocks
+  meet at a collective under ``shard_map``, while the port's run one after
+  another in one process. ``lockstep`` runs every block's body up to its
+  collective, performs the collective once over all their contributions
+  and runs every body on; the single-device entry points (``insert_local``,
+  ``plan_subqueries``, ``query_local``) run the same bodies through it as
+  a list of one. A block is a contiguous ``range`` of global edge ids (the
+  layout contract's blocks), so its slices of the global masks are views.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache
-from typing import NamedTuple, Optional, Tuple
+from functools import lru_cache, partial
+from typing import Callable, Generator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from repro_torch.core import hashing, planner as planner_lib, threefry
-from repro_torch.core.index import (IndexState, QueryPred, compact_index,
-                                    init_index, insert_entries, lookup,
-                                    retire_entries, selected_order)
+from repro_torch.core.index import (IndexState, MatchedShards, QueryPred,
+                                    compact_index, init_index, insert_entries,
+                                    lookup, retire_entries, selected_order)
 from repro_torch.core.placement import ShardMeta, place_replicas
 from repro_torch.core.slicing import (SliceConfig, spatial_slice_edges,
                                       temporal_slice_edges)
@@ -385,6 +397,85 @@ def clone_state(state: StoreState) -> StoreState:
 
 
 # ---------------------------------------------------------------------------
+# Collective hooks and the lockstep driver of the shard-local bodies
+# ---------------------------------------------------------------------------
+
+class EdgeCollectives(NamedTuple):
+    """The two metadata-scale exchanges of the shard-local bodies (as
+    ``repro.core.datastore.EdgeCollectives``), each called once on the list
+    of every block's contribution, in block order:
+
+      gather_watermark: [(E_loc,) retention watermark per block] -> (E,)
+          global watermark (entries name replica edges anywhere, so
+          retirement needs every edge's);
+      combine_matched:  ([MatchedShards over each block's edges],
+          max_shards) -> the global MatchedShards every block plans against.
+
+    ``LOCAL_COLLECTIVES`` is the identity on a list of one (one device);
+    ``distributed.federation.make_collectives`` builds the edge mesh's.
+    """
+    gather_watermark: Callable
+    combine_matched: Callable
+
+
+def _only(parts: Sequence):
+    if len(parts) != 1:
+        raise ValueError(f"LOCAL_COLLECTIVES takes one block, got {len(parts)}: "
+                         "a mesh's blocks need distributed.federation."
+                         "make_collectives")
+    return parts[0]
+
+
+#: Identity hooks: the one-device special case (``edge_ids == range(E)``).
+LOCAL_COLLECTIVES = EdgeCollectives(
+    gather_watermark=_only,
+    combine_matched=lambda parts, max_shards: _only(parts))
+
+
+def lockstep(bodies: Sequence[Generator], collective: Callable) -> list:
+    """Run shard-local bodies as the blocks of a mesh run under
+    ``shard_map``: every body up to its collective (a body yields its
+    contribution there), then ``collective`` once on the list of
+    contributions in block order, then every body on with the result. A
+    call in which no body reaches a collective (a non-sweep insert, the
+    broadcast baseline) performs none; the blocks share the decision.
+    Returns the bodies' return values in block order."""
+    bodies = list(bodies)
+    sent, done = [], []
+    for body in bodies:
+        try:
+            sent.append(next(body))
+        except StopIteration as stop:
+            done.append(stop.value)
+    if not sent:
+        return done
+    if done:
+        raise RuntimeError("the blocks disagree on whether to exchange")
+    merged = collective(sent)
+    out = []
+    for body in bodies:
+        try:
+            body.send(merged)
+        except StopIteration as stop:
+            out.append(stop.value)
+        else:
+            raise RuntimeError("a shard-local body yielded twice")
+    return out
+
+
+def _block(cfg: StoreConfig, edge_ids: Optional[range]) -> range:
+    """The block's global edge ids: ``range(E)`` by default; a block is a
+    contiguous run of the edge axis (the layout contract)."""
+    if edge_ids is None:
+        return range(cfg.n_edges)
+    if not isinstance(edge_ids, range) or edge_ids.step != 1 or \
+            not 0 <= edge_ids.start <= edge_ids.stop <= cfg.n_edges:
+        raise ValueError(f"edge_ids={edge_ids!r} must be a contiguous range "
+                         f"of edge ids within range({cfg.n_edges})")
+    return edge_ids
+
+
+# ---------------------------------------------------------------------------
 # Insertion (paper §3.4, Fig 2)
 # ---------------------------------------------------------------------------
 
@@ -444,30 +535,38 @@ def _update_latest(latest_f: torch.Tensor, latest_seen: torch.Tensor,
     return latest_f, latest_seen
 
 
-def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
-                 meta: ShardMeta, alive: torch.Tensor, host_step: int):
-    """Insert B shards (R tuples each): placement, replication, indexing.
+def insert_body(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
+                meta: ShardMeta, alive: torch.Tensor, host_step: int,
+                edge_ids: range):
+    """Shard-local insert of B shards (R tuples each) into the block of edges
+    ``edge_ids`` whose state is ``state``: placement, replication, indexing.
+    A generator (see ``lockstep``): on a sweep step it yields the block's
+    (E_loc,) retention watermark and takes the global (E,) one back.
 
     ``payload`` (B, R, 3+V) float32, ``meta`` ShardMeta of (B,) tensors and
-    ``alive`` (E,) bool, all on the state's device; ``host_step`` is the
-    value of ``state.steps`` before this insert, mirrored on the host (the
-    retention cadence branches on it). Updates ``state`` IN PLACE and
-    returns ``(state, info dict)``; nothing is read back to the host.
+    ``alive`` (E,) bool are global; ``host_step`` is the value of
+    ``state.steps`` before this insert, mirrored on the host (the retention
+    cadence branches on it, and every block shares it). Placement and the
+    slice masks are computed from the global inputs on every block; the
+    ring write and the index writes touch only the block's edges. Updates
+    ``state`` IN PLACE and returns ``(state, info dict)`` with the per-edge
+    info sliced like the block; nothing is read back to the host.
     """
     cap = cfg.tuple_capacity
     dev = state.tup_f.device
-    e = cfg.n_edges
+    lo, hi = edge_ids.start, edge_ids.stop
+    e = hi - lo
     b, r, w = payload.shape
     sites = cfg.sites_array(dev)
     alive = alive.to(device=dev, dtype=torch.bool)
-    edge_ids = torch.arange(e, dtype=torch.int32, device=dev)
+    ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
 
     replicas = place_replicas(meta, sites, alive, cfg.tau,
                               n_domains=cfg.n_failure_domains)
     replicas = replicas[:, : cfg.replication]
 
     # --- tuple dispatch: shard -> replica edges, appended at each ring cursor.
-    dm = (replicas[..., None] == edge_ids).any(dim=1) & alive[None, :]  # (B, E)
+    dm = (replicas[..., None] == ids).any(dim=1) & alive[None, lo:hi]  # (B, E)
     n_sel = dm.sum(dim=0, dtype=torch.int32)
     n_in = n_sel * r                                                     # (E,)
     # Slot j of edge e's write window is tuple j % R of its (j // R)-th
@@ -497,7 +596,9 @@ def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
     state.steps.add_(1)
     steps = host_step + 1
 
-    # --- index retention (cadenced), before this batch's index writes.
+    # --- index retention (cadenced), before this batch's index writes. The
+    # watermark exchange happens only on a sweep step, which every block
+    # shares.
     dropped_before = state.index.dropped.clone()
     retired_before = state.index.retired.clone()
     if steps % cfg.retention_every == 0:
@@ -506,18 +607,20 @@ def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
         t_oldest = torch.where(retained, state.tup_f[:, 0, :],
                                float("inf")).amin(dim=1)
         lossy = (state.tup_count > cap) | (state.tup_overwritten > 0)
-        watermark = torch.where(lossy, t_oldest, float("-inf"))
+        watermark = yield torch.where(lossy, t_oldest, float("-inf"))
+        watermark = watermark.to(dev)                              # (E,) global
         compact_index(retire_entries(state.index, watermark))
     else:
-        watermark = torch.full((e,), float("-inf"), device=dev)
+        watermark = torch.full((cfg.n_edges,), float("-inf"), device=dev)
 
-    # --- sliced index entries (§3.4.3).
-    idx_mask = _index_edge_mask(cfg, meta, replicas, sites, alive)
+    # --- sliced index entries (§3.4.3), the block's columns of the mask.
+    idx_mask = _index_edge_mask(cfg, meta, replicas, sites, alive)[:, lo:hi]
     reps3 = torch.nn.functional.pad(replicas, (0, 3 - cfg.replication),
                                     value=-1)
     insert_entries(state.index, meta, reps3, idx_mask, step=steps)
 
-    # --- latest-per-drone hot cache (skipped on the host when disabled).
+    # --- latest-per-drone hot cache (skipped on the host when disabled):
+    # replicated, so every block updates its own copy from the same batch.
     if cfg.max_drones:
         _update_latest(state.latest_f, state.latest_seen, payload,
                        meta.sid_hi, steps)
@@ -533,6 +636,19 @@ def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
         "retention_watermark": watermark,
     }
     return state, info
+
+
+def insert_local(cfg: StoreConfig, state: StoreState, payload: torch.Tensor,
+                 meta: ShardMeta, alive: torch.Tensor, host_step: int,
+                 edge_ids: Optional[range] = None,
+                 collectives: EdgeCollectives = LOCAL_COLLECTIVES):
+    """Insert B shards into one block (``insert_body``, run through
+    ``lockstep`` as a list of one): the whole store on one device, where
+    ``edge_ids`` is ``range(E)`` and the hooks are the identity. Updates
+    ``state`` IN PLACE; returns ``(state, info dict)``."""
+    return lockstep([insert_body(cfg, state, payload, meta, alive, host_step,
+                                 _block(cfg, edge_ids))],
+                    collectives.gather_watermark)[0]
 
 
 def check_batch_fits(cfg: StoreConfig, payload_shape) -> None:
@@ -596,25 +712,35 @@ def scan_engine(tup_f, tup_sid, tup_count, pred: QueryPred, sublists,
                           sublist_len, channels=channels, valid_c=valid_c)
 
 
-def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
-                    alive: torch.Tensor, key: threefry.Key | None = None):
-    """Index lookup -> planning -> per-edge shard OR-lists: everything of a
-    query but the scan. ``key`` is the ``random`` planner's (the others
-    take none). Returns (sublists (Q, E, S, 2), sublist_len (Q, E),
+def plan_body(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+              alive: torch.Tensor, key: threefry.Key | None,
+              edge_ids: range):
+    """Shard-local planning: index lookup over the block's edges, then the
+    candidate merge (a generator, see ``lockstep``: it yields the block's
+    MatchedShards and takes the global ones back), planning and the block's
+    per-edge shard OR-lists — everything of a query but the scan. Lookup
+    sets and planning are computed from the global ``pred``/``alive`` on
+    every block. ``key`` is the ``random`` planner's (the others take none).
+    Returns (sublists (Q, E_loc, S, 2), sublist_len (Q, E_loc),
     (lookup_mask, broadcast, overflow, shards_matched, replicas_lost,
-    completeness_bound))."""
+    completeness_bound)); the metadata is global and equal on every block.
+    """
     q = pred.lat0.shape[0]
     s = cfg.max_shards_per_query
-    e = cfg.n_edges
     dev = state.tup_f.device
+    lo, hi = edge_ids.start, edge_ids.stop
+    e = hi - lo
     sites = cfg.sites_array(dev)
     alive = alive.to(device=dev, dtype=torch.bool)
+    pred = pred_to(pred, dev)
     lookup_mask, broadcast = _lookup_sets(cfg, pred, sites, alive)
 
     if not cfg.use_index:
-        # Broadcast baseline (Feather-like): every alive edge scans all.
+        # Broadcast baseline (Feather-like): every alive edge scans all; no
+        # candidate merge.
         sublists = torch.zeros((q, e, 1, 2), dtype=torch.int32, device=dev)
-        sublist_len = torch.where(alive.expand(q, e), -1, 0).to(torch.int32)
+        sublist_len = torch.where(alive[lo:hi].expand(q, e), -1,
+                                  0).to(torch.int32)
         return sublists, sublist_len, (
             lookup_mask, broadcast, torch.zeros((q,), dtype=torch.bool,
                                                 device=dev),
@@ -622,14 +748,15 @@ def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
             torch.zeros((q,), dtype=torch.int32, device=dev),
             torch.full((q,), float("nan"), device=dev))
 
-    matched = lookup(state.index, pred, lookup_mask, s)
+    matched = yield lookup(state.index, pred, lookup_mask[:, lo:hi], s)
+    matched = MatchedShards(*(t.to(dev) for t in matched))
     # The batch is planned untiled, so plan_random's fold of the key with
     # each row index is the reference's fold with the global query index.
     assignment = planner_lib.plan(cfg.planner, matched, alive, key)  # (Q, S)
     # Per-edge OR-lists: entry k of (q, e) is the k-th shard (in matched
     # order) assigned to e — a gather through the stable selection order.
-    edge_ids = torch.arange(e, dtype=torch.int32, device=dev)
-    am = assignment[..., None] == edge_ids                          # (Q, S, E)
+    ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
+    am = assignment[..., None] == ids                               # (Q, S, E)
     sublist_len = am.sum(dim=1, dtype=torch.int32)                  # (Q, E)
     src = selected_order(am, dim=1).transpose(1, 2)                 # (Q, E, S)
     sidv = torch.stack([matched.sid_hi, matched.sid_lo], dim=-1)    # (Q, S, 2)
@@ -653,18 +780,50 @@ def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
                                    shards_matched, replicas_lost, bound)
 
 
-def query_local(cfg: StoreConfig, state: StoreState, pred: QueryPred,
-                alive: torch.Tensor, agg: AggSpec = AggSpec(),
-                key: threefry.Key | None = None):
-    """Single-device query body: plan the sub-queries, then ONE scan of the
-    log for the whole batch and every channel of ``agg``. Returns (partials,
-    sublist_len, metadata) for ``finalize_query``."""
-    sublists, sublist_len, meta_info = plan_subqueries(cfg, state, pred, alive,
-                                                       key)
+def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+                    alive: torch.Tensor, key: threefry.Key | None = None,
+                    edge_ids: Optional[range] = None,
+                    collectives: EdgeCollectives = LOCAL_COLLECTIVES):
+    """Index lookup -> planning -> per-edge shard OR-lists of one block
+    (``plan_body`` through ``lockstep`` as a list of one; on one device the
+    whole store). Returns ``plan_body``'s (sublists, sublist_len,
+    metadata)."""
+    return lockstep([plan_body(cfg, state, pred, alive, key,
+                               _block(cfg, edge_ids))],
+                    partial(collectives.combine_matched,
+                            max_shards=cfg.max_shards_per_query))[0]
+
+
+def query_body(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+               alive: torch.Tensor, agg: AggSpec, key: threefry.Key | None,
+               edge_ids: range):
+    """Shard-local query: ``plan_body`` (yielding at its candidate merge),
+    then ONE scan of the block's log for the whole batch and every channel
+    of ``agg``. Returns (partials — count (Q, E_loc) and vsum/vmin/vmax
+    (Q, K, E_loc) — sublist_len (Q, E_loc), metadata) for
+    ``finalize_query``, once the blocks' per-edge pieces are concatenated
+    back to full E."""
+    pred = pred_to(pred, state.tup_f.device)
+    sublists, sublist_len, meta_info = yield from plan_body(
+        cfg, state, pred, alive, key, edge_ids)
     partials = scan_engine(state.tup_f, state.tup_sid, state.tup_count, pred,
                            sublists, sublist_len, channels=agg.channels,
                            valid_c=cfg.tuple_capacity)
     return partials, sublist_len, meta_info
+
+
+def query_local(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+                alive: torch.Tensor, agg: AggSpec = AggSpec(),
+                key: threefry.Key | None = None,
+                edge_ids: Optional[range] = None,
+                collectives: EdgeCollectives = LOCAL_COLLECTIVES):
+    """One block's query (``query_body`` through ``lockstep`` as a list of
+    one; on one device the whole store). Returns (partials, sublist_len,
+    metadata) for ``finalize_query``."""
+    return lockstep([query_body(cfg, state, pred, alive, agg, key,
+                                _block(cfg, edge_ids))],
+                    partial(collectives.combine_matched,
+                            max_shards=cfg.max_shards_per_query))[0]
 
 
 def finalize_query(partials, sublist_len, lookup_mask, broadcast, overflow,

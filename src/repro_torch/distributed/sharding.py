@@ -1,17 +1,31 @@
-"""The edge axis's contiguous device blocks (port of the layout-contract
-half of ``repro.distributed.sharding``).
+"""The edge axis's contiguous blocks (port of the datastore half of
+``repro.distributed.sharding``).
 
 Every per-edge ``StoreState`` leaf carries the logical edge axis E in
-front, split into equal contiguous blocks, one per device. The single-device
-port places nothing, but the blocks are also the failure domains:
-``AerialDB.fail_device`` takes out exactly one block. The mesh helpers
-(``mesh_edge_axes``, ``store_partition_specs``, ``shard_store``) come with
-the federated runtime.
+front, split into equal contiguous blocks, one per mesh block
+(``launch.mesh.EdgeMesh``); the step counter and the latest-per-drone cache
+are replicated, a copy on every block. ``store_partition_specs`` is that
+contract as a ``StoreState``-shaped tree of markers, and ``shard_store`` /
+``gather_store`` split a logical store into blocks and put it back
+together by reading it. The blocks are also the failure domains:
+``AerialDB.fail_device`` takes out exactly one block
+(``device_edge_block``).
 """
 
 from __future__ import annotations
 
-__all__ = ["check_edge_partition", "device_edge_block"]
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core.datastore import StoreState
+from repro_torch.core.index import IndexState
+
+__all__ = ["EDGE_AXIS", "check_edge_partition", "device_edge_block",
+           "gather_store", "mesh_edge_axes", "mesh_edge_devices",
+           "shard_store", "store_partition_specs"]
+
+EDGE_AXIS = "edge"
 
 
 def check_edge_partition(n_edges: int, n_blocks: int,
@@ -26,6 +40,87 @@ def check_edge_partition(n_edges: int, n_blocks: int,
             "contiguous blocks of the leading E axis). Pick an edge/device "
             "count pair with n_edges % n_devices == 0.")
     return n_edges // n_blocks
+
+
+def mesh_edge_axes(mesh) -> tuple:
+    """The mesh's edge-bearing axes: ``("edge",)`` for the 1-D mesh. A mesh
+    without an ``"edge"`` axis raises."""
+    axes = tuple(n for n in mesh.axis_names if n == EDGE_AXIS)
+    if not axes:
+        raise ValueError(
+            f"mesh axes {tuple(mesh.axis_names)} lack the '{EDGE_AXIS}' "
+            "axis; build the datastore mesh with launch.mesh.make_edge_mesh.")
+    return axes
+
+
+def mesh_edge_devices(mesh) -> int:
+    """Number of edge partitions a mesh carries: the product of its
+    edge-bearing axis sizes (its block count)."""
+    n = 1
+    for ax in mesh_edge_axes(mesh):
+        n *= mesh.shape[ax]
+    return n
+
+
+def store_partition_specs() -> StoreState:
+    """``StoreState``-shaped tree of the layout contract's markers: every
+    per-edge leaf (leading logical-E dim, the nested ``IndexState``
+    included) is ``EDGE_AXIS``, split into the mesh's contiguous blocks;
+    the step counter and the latest-per-drone cache (leading dim drones,
+    not edges) are ``None``, replicated on every block."""
+    edge = EDGE_AXIS
+    return StoreState(
+        index=IndexState(*(edge for _ in IndexState._fields)),
+        tup_f=edge, tup_sid=edge, tup_count=edge, tup_pos=edge,
+        tup_overwritten=edge, tup_dropped=edge, steps=None,
+        latest_f=None, latest_seen=None)
+
+
+def _flat(state: StoreState) -> list:
+    return list(state.index) + [getattr(state, f) for f in StoreState._fields
+                                if f != "index"]
+
+
+def _unflat(leaves: Sequence) -> StoreState:
+    n = len(IndexState._fields)
+    rest = [f for f in StoreState._fields if f != "index"]
+    return StoreState(index=IndexState(*leaves[:n]),
+                      **dict(zip(rest, leaves[n:])))
+
+
+def shard_store(state: StoreState, mesh,
+                into: Optional[Sequence[StoreState]] = None
+                ) -> Tuple[StoreState, ...]:
+    """Split a logical store into the mesh's blocks per
+    ``store_partition_specs``: block ``d`` takes rows ``d * E / n .. (d + 1)
+    * E / n - 1`` of every per-edge leaf and a copy of every replicated
+    leaf, in storage of its own on ``mesh.devices[d]`` (the port updates
+    state in place, so a block is never a view of another store). With
+    ``into``, the blocks' existing tensors are overwritten instead, in
+    place. Returns the blocks in block order."""
+    ranges = mesh.blocks(state.tup_f.shape[0])
+    specs = _flat(store_partition_specs())
+    leaves = _flat(state)
+    if into is not None:
+        for blk, ids in zip(into, ranges):
+            for dst, src, spec in zip(_flat(blk), leaves, specs):
+                dst.copy_(src[ids.start:ids.stop] if spec else src)
+        return tuple(into)
+    return tuple(
+        _unflat([(src[ids.start:ids.stop] if spec else src).to(
+            dev, copy=True) for src, spec in zip(leaves, specs)])
+        for ids, dev in zip(ranges, mesh.devices))
+
+
+def gather_store(blocks: Sequence[StoreState]) -> StoreState:
+    """The logical ``(E, ...)`` store from its blocks, on block 0's device,
+    in storage of its own: the per-edge leaves concatenated in block order,
+    the replicated leaves copied from block 0."""
+    dev = blocks[0].tup_f.device
+    specs = _flat(store_partition_specs())
+    cols = zip(*(_flat(b) for b in blocks))
+    return _unflat([torch.cat([x.to(dev) for x in col]) if spec
+                    else col[0].clone() for col, spec in zip(cols, specs)])
 
 
 def device_edge_block(n_edges: int, n_devices: int, device: int) -> range:

@@ -10,9 +10,10 @@ Also here: the retry and give-up path and a crash replayed from the journal
 against the reference, and the package boundary (``repro_torch.ingest`` and
 the session import neither JAX nor the JAX package).
 
-Left for federation (ROADMAP Queue 1, item 7):
-``test_latest_cache_identical_on_meshes`` (the ``(4,)`` and ``(2, 2)``
-meshes).
+``test_latest_cache_identical_on_meshes`` runs the reference's mesh case
+on the ``(4,) ("edge",)`` mesh: pipelines over the JAX package's 4-device
+mesh, the port's one-process mesh and the port's single store. The 2-D
+``(2, 2)`` fleet mesh waits for ROADMAP Queue 1, item 7.2.
 """
 
 import os
@@ -33,6 +34,7 @@ from repro.ingest import PipelineCrash as JaxCrash
 from repro.ingest import TransientDispatchError as JaxTransient
 from repro.ingest import group_shards as j_group_shards
 from repro.ingest import plan_chunks as j_plan_chunks
+from repro.launch.mesh import make_edge_mesh as j_make_edge_mesh
 from repro_torch import convert
 from repro_torch.api import AerialDB, Query
 from repro_torch.core import datastore as tds
@@ -40,6 +42,7 @@ from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
 from repro_torch.ingest import (IngestPipeline, PipelineCrash,
                                 TransientDispatchError, group_shards,
                                 latest_oracle, plan_chunks)
+from repro_torch.launch.mesh import make_edge_mesh
 from test_torch_repair import (Pair, _assert_states_identical, _bits,
                                bucketed_reference_placement)  # noqa: F401
 
@@ -551,18 +554,54 @@ def test_crash_mid_flush_recovers_from_journal(tmp_path):
 
 
 # ---------------------------------------------------------------------------
+# the latest cache on the edge mesh
+# ---------------------------------------------------------------------------
+
+
+def test_latest_cache_identical_on_meshes():
+    """The same pipeline traffic into the JAX package's edge4 mesh, the
+    port's edge4 mesh and the port's single store: every StoreState leaf
+    (the replicated latest cache included) bitwise identical, the counters
+    equal, and ``latest()`` equal to the oracle on every side."""
+    if jax.device_count() < 4:
+        pytest.skip("needs 4 host devices")
+    kw = dict(CFG_KW)
+    stream, clean = _stream(23)
+    pipes = [JaxPipeline(JaxDB.open(jds.StoreConfig(**kw),
+                                    mesh=j_make_edge_mesh(4), seed=0)),
+             IngestPipeline(AerialDB.open(tds.StoreConfig(**kw),
+                                          make_edge_mesh(4, device="cpu"),
+                                          seed=0)),
+             IngestPipeline(AerialDB.open(tds.StoreConfig(**kw), seed=0,
+                                          device="cpu"))]
+    for pipe in pipes:
+        _submit_stream(pipe, stream, 2)
+        pipe.flush(drain=True)
+    for pipe in pipes[1:]:
+        _assert_states_identical(pipe.db.state, pipes[0].db.state)
+        assert pipe.counters == pipes[0].counters
+        assert pipe.reconcile() == pipes[0].reconcile()
+    o_rec, o_val = latest_oracle(clean[0], clean[2][:, 0], clean[2], D_MAX)
+    for pipe in pipes:
+        got = pipe.db.latest()
+        np.testing.assert_array_equal(np.asarray(got.valid), o_val)
+        np.testing.assert_array_equal(_bits(got.record), _bits(o_rec))
+
+
+# ---------------------------------------------------------------------------
 # the package boundary
 # ---------------------------------------------------------------------------
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """``repro_torch.ingest``, the session and ``repro_torch.chaos``,
-    imported in a fresh interpreter, bring in no module of JAX or of the
-    JAX package."""
+    """``repro_torch.ingest``, the session, ``repro_torch.chaos`` and the
+    federated runtime, imported in a fresh interpreter, bring in no module
+    of JAX or of the JAX package."""
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "src")
     code = ("import sys; import repro_torch.ingest, repro_torch.api.session, "
-            "repro_torch.chaos; "
+            "repro_torch.chaos, repro_torch.distributed.federation, "
+            "repro_torch.launch.mesh; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(repr(bad))")
     env = dict(os.environ, PYTHONPATH=src)

@@ -24,6 +24,11 @@ engine's fault plans through a session and pipeline on the card against
 the same plans on the CPU: the reference tests' smoke plan, and a cut
 across the failure-domain blocks overlapping a domain loss and its
 recovery (every leaf bitwise, the runners' logs byte-identical).
+``-k federation`` runs the one-process edge mesh on the card: four blocks
+on one card against the same mesh on the CPU and against the single store
+on the card (inserts that wrap the rings, a block lost and repaired, a
+4-channel batch: every leaf, the repair telemetry and the answers
+bitwise), and st_scan launched once per block a batch.
 """
 
 import numpy as np
@@ -1315,3 +1320,108 @@ def test_chaos_plan_on_card_matches_cpu(cuda, plan):
     modes = [e["repair"]["mode"] for e in card[2].log if "repair" in e]
     assert modes and set(modes) == {"incremental"}
     assert_content_equal(canonical_content(card[0]), canonical_content(cpu[0]))
+
+
+def _federation_run(device, n_blocks):
+    """The small federation scenario on ``device``, on an edge mesh of
+    ``n_blocks`` blocks (None: the single store): 8 edges with 256-slot
+    rings that wrap, four failure domains, block 1 lost for 6 rounds and
+    recovered with the incremental repair, then a 4-channel catch-all and
+    box batch. Returns (session, repair telemetry, query answers)."""
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import AggSpec, StoreConfig
+    from repro_torch.data.synthetic import DroneFleet
+    from repro_torch.launch.mesh import make_edge_mesh
+    sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
+    cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=256,
+                      index_capacity=512, max_shards_per_query=64,
+                      records_per_shard=8, retention_every=2,
+                      n_failure_domains=4, max_drones=16)
+    if n_blocks is None:
+        db = AerialDB.open(cfg, device=device)
+    else:
+        db = AerialDB.open(cfg, make_edge_mesh(n_blocks, device=device))
+    fleet = DroneFleet(12, records_per_shard=8, seed=7)
+    pay, met = fleet.next_rounds(2)
+    db.ingest_rounds(pay, met)
+    db.fail_device(1)
+    for _ in range(6):
+        db.insert(*fleet.next_shards())
+    db.recover_device(1)
+    pred = make_pred(q=3, lat0=[12.85, 12.9, 12.95], lat1=[13.1, 13.0, 13.05],
+                     lon0=[77.45, 77.5, 77.55], lon1=[77.75, 77.6, 77.65],
+                     t0=[0.0, 200.0, 300.0], t1=[1e9, 400.0, 400.0],
+                     has_spatial=[False, True, True], has_temporal=True,
+                     is_and=True, device=device)
+    res, info = db.query(pred, agg=AggSpec(channels=(0, 1, 2, 3)), key=(0, 7))
+    return db, db.last_repair, (res, info)
+
+
+def _assert_answers_equal(got, want):
+    """QueryResult and QueryInfo fields bitwise, but vsum and vmean: to
+    rtol 1e-5 (the kernel and the plain version sum in other orders)."""
+    (r, i), (w, j) = got, want
+    for f in r._fields + tuple(f"info.{f}" for f in i._fields):
+        a, b = (getattr(i, f[5:]), getattr(j, f[5:])) if f.startswith("info.") \
+            else (getattr(r, f), getattr(w, f))
+        a, b = a.cpu(), b.cpu()
+        if f in ("vsum", "vmean"):
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=0, equal_nan=True)
+            continue
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), f
+
+
+def test_federation_mesh_on_card_matches_cpu(cuda):
+    """Four blocks on one card against the same mesh on the CPU: every leaf
+    of the gathered store and of each block, the repair telemetry, the
+    ledger and the 4-channel answers bitwise, vsum and vmean to rtol 1e-5
+    (the kernel sums in another order than the CPU's plain version)."""
+    card, card_rep, card_ans = _federation_run(cuda, 4)
+    cpu, cpu_rep, cpu_ans = _federation_run("cpu", 4)
+    assert card_rep == cpu_rep and card_rep["shards_replaced"] > 0
+    assert card.ledger() == cpu.ledger()
+    assert int(card.state.tup_overwritten.sum()) > 0       # the rings wrapped
+    _assert_card_state_equals_cpu(card.state, cpu.state)
+    for got, want in zip(card.blocks, cpu.blocks):
+        assert got.tup_f.device.type == "cuda"
+        _assert_card_state_equals_cpu(got, want)
+    _assert_answers_equal(card_ans, cpu_ans)
+
+
+def test_federation_mesh_matches_single_store_on_card(cuda):
+    """The mesh on the card against the single store on the card: the same
+    leaves, telemetry, ledger and answers, bitwise (vsum and vmean to rtol
+    1e-5)."""
+    mesh, mesh_rep, mesh_ans = _federation_run(cuda, 4)
+    one, one_rep, one_ans = _federation_run(cuda, None)
+    assert mesh_rep == one_rep
+    assert mesh.ledger() == one.ledger()
+    _assert_card_state_equals_cpu(mesh.state, one.state)
+    _assert_answers_equal(mesh_ans, one_ans)
+    assert int(mesh_ans[0].count[0]) == int(one_ans[0].count[0]) > 0
+
+
+def test_federation_st_scan_launches_per_block(cuda):
+    """A batch of up to four channels launches st_scan once on each block of
+    the mesh and once on the single store; the placement kernels run on
+    every block of an insert."""
+    from repro_torch.core.datastore import AggSpec
+    mesh, _, _ = _federation_run(cuda, 4)
+    one, _, _ = _federation_run(cuda, None)
+    pred = make_pred(q=2, t0=0.0, t1=1e9, has_temporal=True, device=cuda)
+    for db, per_batch in ((mesh, 4), (one, 1)):
+        for spec in (AggSpec(channel=0), AggSpec(channels=(0, 1, 2, 3))):
+            before = st_ops.launches
+            db.query(pred, agg=spec, key=(0, 1))
+            assert st_ops.launches == before + per_batch
+    from repro_torch.data.synthetic import DroneFleet
+    p, m = DroneFleet(12, records_per_shard=8, seed=9).next_shards()
+    counts = {}
+    for name, db in (("mesh", mesh), ("one", one)):
+        before = (hops.launches, vops.launches)
+        db.insert(p, m)
+        counts[name] = (hops.launches - before[0], vops.launches - before[1])
+    assert counts["mesh"] == tuple(4 * c for c in counts["one"])
+    assert min(counts["one"]) > 0

@@ -8,11 +8,13 @@ bitwise, QueryResult count/min/max and QueryInfo bitwise (vsum/vmean to rtol
 1e-5), ``ledger()``, the repair telemetry, the masks and
 ``canonical_content`` equal.
 
-Ported: the seven single-device cases and the ledger semantics of the two
+Ported: the seven single-device cases, the ledger semantics of the two
 mesh-parametrised cases (double fail merges into its first epoch, a
-recovery of an alive edge is a no-op), here on one device. Left for
-federation (ROADMAP Queue 1, item 7): ``test_partition_differential_mesh``
-and the mesh layouts of those two cases.
+recovery of an alive edge is a no-op) on one device and on the edge4 mesh
+(``Pair(mesh=True)``: the JAX package's 4-device ``("edge",)`` mesh and
+the port's one-process mesh), and ``test_partition_differential_mesh`` on
+the edge4 mesh beside the port's single store. The reference's 2-D fleet
+mesh layouts wait for ROADMAP Queue 1, item 7.2.
 """
 
 import jax
@@ -29,6 +31,7 @@ from repro_torch.core import datastore as tds
 from repro_torch.core import repair as trepair
 from repro_torch.core.placement import ShardMeta
 from repro_torch.data.synthetic import DroneFleet
+from repro_torch.api.session import AerialDB
 from test_torch_repair import (E, Pair, _assert_query_equal,
                                _assert_states_identical,
                                bucketed_reference_placement)  # noqa: F401
@@ -343,7 +346,15 @@ def test_double_fail_merges_into_original_epoch():
     """Failing a dead edge keeps it under the record its first failure
     opened; a call whose every id is dead is a no-op; both recover with a
     repair whose content is self-consistent."""
-    pair = Pair()
+    _double_fail_case(Pair())
+
+
+def test_double_fail_merges_into_original_epoch_mesh():
+    """The same ledger case on the edge4 mesh, as the reference runs it."""
+    _double_fail_case(Pair(mesh=True))
+
+
+def _double_fail_case(pair):
     fleet = _fleet(29)
     pair.both("fail_edges", 2)
     step0 = pair.t.ledger()["open_outages"][0][1]
@@ -368,7 +379,15 @@ def test_recover_alive_edge_is_bitwise_noop():
     """Recovering an alive edge closes nothing and repairs nothing, and
     leaves a window deferred by an earlier ``repair=False`` recovery for the
     explicit repair."""
-    pair = Pair()
+    _recover_alive_case(Pair())
+
+
+def test_recover_alive_edge_is_bitwise_noop_mesh():
+    """The same ledger case on the edge4 mesh, as the reference runs it."""
+    _recover_alive_case(Pair(mesh=True))
+
+
+def _recover_alive_case(pair):
     fleet = _fleet(31)
     pair.ingest(fleet, 1)
     pair.both("fail_edges", 3)
@@ -385,3 +404,45 @@ def test_recover_alive_edge_is_bitwise_noop():
     assert info == jinfo and info["shards_swept"] > 0
     assert pair.t.ledger()["closed_windows"] == []
     pair.check()
+
+
+# ---------------------------------------------------------------------------
+# the partition script on the edge mesh
+# ---------------------------------------------------------------------------
+
+
+def test_partition_differential_mesh():
+    """The reference's partition/heal script through the JAX mesh session,
+    the port mesh session and the port single-device session: a split
+    across the blocks, rounds on either side of it, a query mid-split and
+    the heal's repair keep every state bitwise identical, the repair
+    telemetry and the ledgers equal."""
+    pair = Pair(mesh=True)
+    single = AerialDB.open(pair.tcfg, seed=0, device="cpu")
+    fleet = _fleet(23)
+
+    def step(name, *args, **kw):
+        pair.both(name, *args, **kw)
+        return getattr(single, name)(*args, **kw)
+
+    for _ in range(2):
+        step("insert", *fleet.next_shards())
+    step("partition", [[0, 1, 2, 5], [3, 4, 6, 7]])
+    for _ in range(2):
+        step("insert", *fleet.next_shards())
+    w = dict(q=1, t0=0.0, t1=1e9, has_temporal=True, is_and=True)
+    res, qi = _query_both(pair, 3, **w)
+    sres, sinfo = single.query(tds.make_pred(**w, device="cpu"),
+                               key=_tkey(jax.random.key(3)))
+    _assert_query_equal(sres, sinfo, res, qi)
+    _check_masks(pair)
+    step("heal")
+    assert single.last_repair == pair.t.last_repair == pair.j.last_repair
+    assert pair.t.last_repair["shards_swept"] > 0
+    pair.check("post-heal: ")
+    _assert_states_identical(single.state, pair.j.state, "post-heal single: ")
+    assert single.ledger() == pair.j.ledger()
+    total = pair.total_count()
+    res, _ = single.query(tds.make_pred(**w, device="cpu"),
+                          key=_tkey(jax.random.key(0)))
+    assert int(res.count[0]) == total

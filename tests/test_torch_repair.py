@@ -25,6 +25,11 @@ so on a stream with a boundary shard the port's repair differs from the
 reference's as shipped. On a stream without one the shipped reference's
 repair equals the port's
 (``test_unpatched_reference_repair_equals_the_port_without_boundary_shards``).
+
+``test_incremental_repair_differential_mesh`` runs the reference's mesh
+case on the ``(4,) ("edge",)`` mesh only: the JAX package's 4-device mesh,
+the port's one-process mesh (``Pair(mesh=True)``) and the port's single
+store. The 2-D fleet mesh waits for ROADMAP Queue 1, item 7.2.
 """
 
 
@@ -40,13 +45,16 @@ from repro.api import AerialDB as JaxDB
 from repro.core import datastore as jds
 from repro.core import placement as jplace
 from repro.core import repair as jrepair
+from repro.launch.mesh import make_edge_mesh as j_make_edge_mesh
 from repro_torch import convert
 from repro_torch.api.session import AerialDB
 from repro_torch.core import datastore as tds
 from repro_torch.core import repair as trepair
 from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
+from repro_torch.launch.mesh import make_edge_mesh
 
 E = 8
+N_DEV = 4          # the edge mesh's blocks (the reference's forced devices)
 CAP = 256          # small ring: sustained ingest wraps it mid-outage
 SITES = tuple(map(tuple, make_sites(E, CityConfig(), seed=3).tolist()))
 CFG_KW = dict(n_edges=E, sites=SITES, tuple_capacity=CAP, index_capacity=512,
@@ -128,13 +136,21 @@ def _assert_query_equal(tres, tinfo, jres, jinfo):
 
 
 class Pair:
-    """A JAX session and a port session (CPU) driven in lockstep."""
+    """A JAX session and a port session (CPU) driven in lockstep; with
+    ``mesh``, each on its package's ``(4,) ("edge",)`` edge mesh."""
 
-    def __init__(self, **overrides):
+    def __init__(self, mesh=False, **overrides):
         kw = dict(CFG_KW, **overrides)
         self.jcfg, self.tcfg = jds.StoreConfig(**kw), tds.StoreConfig(**kw)
-        self.j = JaxDB.open(self.jcfg, seed=0)
-        self.t = AerialDB.open(self.tcfg, seed=0, device="cpu")
+        if mesh:
+            if jax.device_count() < N_DEV:
+                pytest.skip(f"needs {N_DEV} host devices")
+            self.j = JaxDB.open(self.jcfg, mesh=j_make_edge_mesh(N_DEV), seed=0)
+            self.t = AerialDB.open(self.tcfg, make_edge_mesh(N_DEV, device="cpu"),
+                                   seed=0)
+        else:
+            self.j = JaxDB.open(self.jcfg, seed=0)
+            self.t = AerialDB.open(self.tcfg, seed=0, device="cpu")
 
     def both(self, name, *args, **kw):
         jout = getattr(self.j, name)(*args, **kw)
@@ -374,6 +390,53 @@ def test_incremental_repair_overlapping_outages_pending_set():
     pair.repair_against_full("all back: ")
     assert pair.t.ledger()["pending_sids"] == 0
     pair.total_count()
+
+
+def test_incremental_repair_differential_mesh():
+    """The reference's mesh case with churn, on the edge4 mesh: the same
+    fail/ingest/recover/repair script through the JAX mesh session, the
+    port mesh session and the port single-device session keeps every state
+    bitwise identical and the (incremental) repair telemetry equal, and
+    each incremental repair equals its full sweep (a domain loss, then
+    overlapping outages with a partial recovery: the pending-sweep path)."""
+    pair = Pair(mesh=True)
+    single = AerialDB.open(pair.tcfg, seed=0, device="cpu")
+    fleet = _fleet(11)
+
+    def step(name, *args, **kw):
+        pair.both(name, *args, **kw)
+        return getattr(single, name)(*args, **kw)
+
+    def ingest(rounds):
+        for _ in range(rounds):
+            step("insert", *fleet.next_shards())
+
+    def repair_and_check(msg):
+        info = pair.repair_against_full(msg)
+        assert single.repair() == info, msg
+        _assert_states_identical(single.state, pair.j.state, msg)
+        assert single.ledger() == pair.j.ledger(), msg
+
+    ingest(2)
+    step("fail_device", 1)
+    ingest(2)
+    step("recover_device", 1, repair=False)
+    repair_and_check("domain loss: ")
+    step("fail_edges", 0)
+    ingest(1)
+    step("fail_edges", 5)
+    ingest(1)
+    step("recover_edges", 0, repair=False)
+    repair_and_check("edge 5 still dead: ")
+    assert pair.t.ledger()["pending_sids"] > 0
+    ingest(1)
+    step("recover_edges", 5, repair=False)
+    repair_and_check("all recovered: ")
+    total = pair.total_count()
+    res, _ = single.query(tds.make_pred(**CATCH_ALL, device="cpu"),
+                          key=convert.key_from_numpy(
+                              jax.random.key_data(jax.random.key(0))))
+    assert int(res.count[0]) == total
 
 
 # ---------------------------------------------------------------------------

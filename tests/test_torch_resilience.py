@@ -8,7 +8,9 @@ backfilled by repair).
 Policy as ``tests/test_torch_repair.py`` (whose lockstep ``Pair`` of
 sessions and bucketed reference placement this file reuses): leaves,
 QueryResult count/min/max and QueryInfo bitwise, vsum/vmean to rtol 1e-5,
-repair telemetry, ``ledger()`` and ``canonical_content`` equal.
+repair telemetry, ``ledger()`` and ``canonical_content`` equal. The
+mesh case (``test_mesh_incompatible_failure_domains_rejected``) opens the
+sessions on each package's 2-block edge mesh.
 """
 
 import dataclasses
@@ -32,6 +34,7 @@ from repro_torch.core import datastore as tds
 from repro_torch.core import repair as trepair
 from repro_torch.core.placement import ShardMeta
 from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
+from repro_torch.launch.mesh import make_edge_mesh
 from test_torch_repair import (Pair, _assert_query_equal,
                                _assert_states_identical,
                                bucketed_reference_placement)  # noqa: F401
@@ -243,6 +246,26 @@ def test_device_failure_requires_domains():
         db4.fail_device(4)
     db4.fail_device(3)
     assert db4.ledger()["open_outages"] == [([6, 7], 0)]
+
+
+def test_mesh_incompatible_failure_domains_rejected():
+    """Failure domains finer than the mesh's device blocks void the
+    whole-device durability guarantee: both packages' sessions refuse them
+    with the same message; one domain a block, or none, is accepted."""
+    from repro.launch.mesh import make_edge_mesh as j_make_edge_mesh
+    if jax.device_count() < 2:
+        pytest.skip("needs >= 2 host devices")
+    msgs = []
+    for db_cls, cfg_cls, mesh in (
+            (JaxDB, jds.StoreConfig, j_make_edge_mesh(2)),
+            (AerialDB, tds.StoreConfig, make_edge_mesh(2, device="cpu"))):
+        with pytest.raises(ValueError, match="n_failure_domains") as err:
+            db_cls.open(cfg_cls(**dict(FACADE_KW, n_failure_domains=4)),
+                        mesh=mesh)
+        msgs.append(str(err.value))
+        db_cls.open(cfg_cls(**dict(FACADE_KW, n_failure_domains=2)), mesh=mesh)
+        db_cls.open(cfg_cls(**FACADE_KW), mesh=mesh)
+    assert msgs[0] == msgs[1]
 
 
 def test_device_failure_completeness_exact():
