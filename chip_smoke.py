@@ -70,7 +70,19 @@ Phases, one line each:
      1 km x 1800 s batch equal during and after; repair walls and host
      seconds, the mesh's gather and write-back); a small wrapping mesh on
      the card against the CPU; every kernel's launches against 4 x the
-     single store's counts;
+     single store's counts; then the fleet line: the store split over a
+     one-process 2-D fleet mesh (``make_fleet_mesh(2, 2)``: 2 fleets of 2
+     blocks of 20 edges on the card, the candidate merge in two levels,
+     each 64-query batch in two tiles) against a single store, both taking
+     the day's rounds in turns (G1: every leaf equal), the three batches
+     and the 5 km batch under ``random`` and ``min_edges`` equal on both
+     (G2, p50 of each), every kernel's launches against the prediction by
+     part (G3), the small wrapping scenario on the fleet mesh on the card
+     against the CPU (G4), and the two-process smoke at D400 width (G5:
+     ``python -m repro_torch.launch.multihost_smoke --device cuda --width
+     d400``, 2 gloo processes on the card, one a fleet, each held to its
+     own single store; the wall, the exchanges, their syncs and host
+     seconds);
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -1659,18 +1671,19 @@ def answers_equal(torch, got, want, what: str) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def federation_small_card_vs_cpu(torch, dev) -> dict:
+def federation_small_card_vs_cpu(torch, dev, n_fleet=None) -> dict:
     """(F4) The card tests' small federation scenario (8 edges, 256-slot
     rings that wrap, 4 failure domains, 16 cached drones) on a 4-block mesh
-    on the card and on the CPU: 2 rounds, block 1 lost for 6 rounds and
-    recovered with the incremental repair, a 4-channel batch of three
-    queries. Every leaf of every block, the repair telemetry and the
+    on the card and on the CPU (with ``n_fleet``, a fleet mesh of
+    ``n_fleet`` fleets: the fleet line's G4): 2 rounds, block 1 lost for 6
+    rounds and recovered with the incremental repair, a 4-channel batch of
+    three queries. Every leaf of every block, the repair telemetry and the
     ledger bitwise, the answers by ``answers_equal`` (the kernel sums vsum
     in another order than the plain version). Exits non-zero otherwise."""
     from repro_torch.api.session import AerialDB
     from repro_torch.core.datastore import AggSpec, StoreConfig, make_pred
     from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
-    from repro_torch.launch.mesh import make_edge_mesh
+    from repro_torch.launch.mesh import make_edge_mesh, make_fleet_mesh
     sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
     cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=256,
                       index_capacity=512, max_shards_per_query=64,
@@ -1678,7 +1691,9 @@ def federation_small_card_vs_cpu(torch, dev) -> dict:
                       n_failure_domains=4, max_drones=16)
     out = {}
     for d in (dev, torch.device("cpu")):
-        db = AerialDB.open(cfg, make_edge_mesh(FED_BLOCKS, device=d))
+        db = AerialDB.open(cfg, make_edge_mesh(FED_BLOCKS, device=d)
+                           if n_fleet is None else make_fleet_mesh(
+                               n_fleet, FED_BLOCKS // n_fleet, device=d))
         fleet = DroneFleet(12, records_per_shard=8, seed=7)
         db.ingest_rounds(*fleet.next_rounds(2))
         db.fail_device(1)
@@ -1962,6 +1977,221 @@ def federation_phase(torch, dev, cfg, city, payloads, metas, chunks,
         "launches": launches, "launches_by_part": got,
         "launches_predicted": want, "query_batches": n_batches,
         "profiles": profiles,
+        "peak_mem_gb": peak, "phase_s": time.perf_counter() - t_phase}
+
+
+FLEET = (2, 2)                 # the fleet phase's mesh: 2 fleets of 2 blocks on one card
+FLEET_TILES = 2                # a fleet mesh runs a batch of >= 2 queries in 2 tiles
+MULTIHOST_ROUNDS = 24          # the two-process leg's rounds at D400 width
+MULTIHOST_TIMEOUT_S = 600
+
+
+def fleet_phase(torch, dev, cfg, payloads, metas, chunks, batches, specs,
+                seed: int, card: str, do_profile: bool = False,
+                multihost_rounds: int = MULTIHOST_ROUNDS,
+                multihost_args=("--device", "cuda", "--width", "d400")
+                ) -> dict:
+    """The federated runtime on a one-process 2-D fleet mesh, and on two
+    processes.
+
+    (G1) A fleet-mesh session (``make_fleet_mesh(2, 2, 80)``: 2 fleets of 2
+    blocks of 20 edges on ``dev``) and a single session take the main
+    path's rounds in its chunks, in turns (chunk 0 a warm-up; CUDA events
+    around each later chunk); every leaf of the gathered store equals the
+    single store's, bitwise, and every block has storage of its own. (G2)
+    The main path's three batches, single- and 4-channel, under
+    ``min_shards``, and the 5 km batch under ``random`` and ``min_edges``
+    sessions adopting both stores, give equal answers (``answers_equal``);
+    each batch's p50 on both over 3 timed repetitions after a warm-up.
+    (G3) The counts are set to 0 at the start; each part's launches equal
+    the prediction: an insert FED_PER_INSERT on each block, a 64-query
+    batch the lookup sets' hash64 and voronoi_assign once a block and
+    st_scan once a tile and block on the fleet mesh, FED_PER_BATCH on the
+    single store. (G4) ``federation_small_card_vs_cpu`` on a fleet mesh.
+    With ``do_profile``, after the checks: the device-time breakdown of the
+    5 km 4-channel batch and of one more ingest chunk on both stores.
+    (G5) ``python -m repro_torch.launch.multihost_smoke`` with
+    ``multihost_args`` (default: on the card at D400 width) and
+    ``multihost_rounds`` rounds: 2 gloo processes, one a fleet, each
+    holding its blocks and answers to its own single store; both must exit
+    0."""
+    import dataclasses
+    import os
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import make_pred
+    from repro_torch.kernels.hash64 import ops as hash64_ops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vor_ops
+    from repro_torch.launch.mesh import make_fleet_mesh
+    mods = {"hash64": hash64_ops, "voronoi_assign": vor_ops, "st_scan": st_ops}
+    n_blocks = FLEET[0] * FLEET[1]
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for mod in mods.values():
+        mod.launches = 0
+    got = {}                    # part -> launches on the fleet mesh and the single
+
+    def counted(part, fn):
+        before = {k: m.launches for k, m in mods.items()}
+        out = fn()
+        acc = got.setdefault(part, dict.fromkeys(mods, 0))
+        for k, m in mods.items():
+            acc[k] += m.launches - before[k]
+        return out
+
+    mesh = make_fleet_mesh(*FLEET, cfg.n_edges, device=dev)
+    sess = {"fleet": AerialDB.open(cfg, mesh),
+            "single": AerialDB.open(cfg, device=dev)}
+    ingest_ms = dict.fromkeys(sess, 0.0)
+    for ci, sl in enumerate(chunks):
+        part = (payloads[sl], type(metas)(*(f[sl] for f in metas)))
+        for name, db in sess.items():
+            torch.cuda.synchronize()
+            ev0, ev1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            ev0.record()
+            counted(f"{name}_ingest", lambda db=db: db.ingest_rounds(*part))
+            ev1.record()
+            ev1.synchronize()
+            if ci > 0:
+                ingest_ms[name] += ev0.elapsed_time(ev1)
+    timed_rounds = len(payloads) - (chunks[0].stop - chunks[0].start)
+    shards = timed_rounds * payloads.shape[1]
+    fdb, sdb = sess["fleet"], sess["single"]
+    bad = states_equal(torch, fdb.state, sdb.state)
+    if bad:
+        raise SystemExit(f"fleet G1: the fleet mesh's store differs at {bad}")
+    blocks_own = len({t.untyped_storage().data_ptr()
+                      for b in fdb.blocks + sdb.blocks
+                      for t in (b.tup_f, b.tup_sid, b.steps, b.index.ent_i)})
+    if blocks_own != 4 * (n_blocks + 1):
+        raise SystemExit("fleet G1: a block shares storage with another "
+                         f"store ({blocks_own} distinct)")
+
+    # G2: the main path's batches on both, then the 5 km batch per planner.
+    times = {n: {bi: [] for bi in range(len(batches))} for n in sess}
+    vsum_diff = 0.0
+    preds = [make_pred(q=64, **w, has_spatial=True, has_temporal=True,
+                       is_and=True, device=dev) for _, _, _, w in batches]
+    for rep in range(4):
+        for bi, pred in enumerate(preds):
+            for si, spec in enumerate(specs):
+                ans = {}
+                for name, db in sess.items():
+                    torch.cuda.synchronize()
+                    q0 = time.perf_counter()
+                    ans[name] = counted(f"{name}_queries", lambda db=db: db.query(
+                        pred, agg=spec, key=(seed, bi)))
+                    torch.cuda.synchronize()
+                    if rep > 0:
+                        times[name][bi].append((time.perf_counter() - q0) * 1e3)
+                if rep == 0:
+                    vsum_diff = max(vsum_diff, answers_equal(
+                        torch, ans["fleet"], ans["single"],
+                        f"fleet G2 batch {bi} spec {si}"))
+    n_batches = 4 * len(preds) * len(specs)
+    planners = {}
+    for planner in ("random", "min_edges"):
+        pcfg = dataclasses.replace(cfg, planner=planner)
+        pf = AerialDB(pcfg, fdb.blocks, mesh=mesh)
+        ps = AerialDB(pcfg, sdb.state, device=dev)
+        row = {}
+        for si, spec in enumerate(specs):
+            a = counted("fleet_queries", lambda: pf.query(preds[2], agg=spec,
+                                                           key=(seed, 5)))
+            b = counted("single_queries", lambda: ps.query(preds[2], agg=spec,
+                                                            key=(seed, 5)))
+            row[f"spec{si}_vsum_max_abs_diff"] = answers_equal(
+                torch, a, b, f"fleet G2 {planner} spec {si}")
+            row[f"spec{si}_matched"] = int((a[0].count > 0).sum())
+        planners[planner] = row
+        n_batches += len(specs)
+    profiles = {}
+    if do_profile:      # not counted by part
+        sl = chunks[1]
+        again = (payloads[sl], type(metas)(*(f[sl] for f in metas)))
+        for name, db in sess.items():
+            profiles[f"query_5km_4ch_{name}"] = profile(
+                torch, lambda db=db: db.query(preds[2], agg=specs[1],
+                                              key=(seed, 2)))
+            profiles[f"ingest_chunk_{name}"] = profile(
+                torch, lambda db=db: db.ingest_rounds(*again), host_top=8)
+    day_rounds = len(payloads)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del pf, ps, sess, fdb, sdb
+    torch.cuda.empty_cache()
+    small = counted("small_card_vs_cpu", lambda: federation_small_card_vs_cpu(
+        torch, dev, n_fleet=FLEET[0]))
+
+    # G3: each part's launches against the prediction.
+    per_batch = {"hash64": FED_PER_BATCH["hash64"] * n_blocks,
+                 "voronoi_assign": FED_PER_BATCH["voronoi_assign"] * n_blocks,
+                 "st_scan": FED_PER_BATCH["st_scan"] * n_blocks * FLEET_TILES}
+    want = {"fleet_ingest": {m: n_blocks * c * day_rounds
+                             for m, c in FED_PER_INSERT.items()},
+            "single_ingest": {m: c * day_rounds
+                              for m, c in FED_PER_INSERT.items()},
+            "fleet_queries": {m: c * n_batches for m, c in per_batch.items()},
+            "single_queries": {m: c * n_batches
+                               for m, c in FED_PER_BATCH.items()}}
+    off = {p: (got.get(p), w_) for p, w_ in want.items() if got.get(p) != w_}
+    if off:
+        raise SystemExit(f"fleet G3: launches against the prediction: {off}")
+    launches = {k: m.launches for k, m in mods.items()}
+    if min(launches.values()) <= 0:
+        raise SystemExit(f"fleet: a kernel never launched: {launches}")
+
+    # G5: two processes, one a fleet, both on the card.
+    env = dict(os.environ)
+    src = str(Path(__file__).resolve().parent / "src")
+    env["PYTHONPATH"] = src + (os.pathsep + env["PYTHONPATH"]
+                               if env.get("PYTHONPATH") else "")
+    cmd = [sys.executable, "-m", "repro_torch.launch.multihost_smoke",
+           *multihost_args, "--rounds", str(multihost_rounds),
+           "--timeout", str(MULTIHOST_TIMEOUT_S)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                          timeout=MULTIHOST_TIMEOUT_S + 60)
+    mh_wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise SystemExit(f"fleet G5: the two-process smoke exited "
+                         f"{proc.returncode}: {proc.stderr[-3000:]}")
+    mh = json.loads(proc.stdout.strip().splitlines()[-1])
+    workers = mh["workers"]
+    if [w["fleet"] for w in workers] != [0, 1] or any(
+            w["device"].split(":")[0] != dev.type or w["gloo_exchanges"] <= 0
+            or (dev.type == "cuda" and min(w["launches"].values()) <= 0)
+            for w in workers):
+        raise SystemExit(f"fleet G5: unexpected worker reports {workers}")
+    fleet_ms, single_ms = ingest_ms["fleet"], ingest_ms["single"]
+    return {
+        "card": card, "mesh": mesh.shape, "edges_per_block": cfg.n_edges // n_blocks,
+        "tiles": FLEET_TILES, "day_rounds": day_rounds, "timed_rounds": timed_rounds,
+        "checks": {"G1_day_leaves_equal": True, "G2_batches_equal": True,
+                   "G3_launches_as_predicted": True,
+                   "G4_small_card_vs_cpu": True,
+                   "G5_two_processes_on_the_card": True},
+        "ingest_shards_per_s": {"fleet": shards / (fleet_ms / 1e3),
+                                "single": shards / (single_ms / 1e3)},
+        "ingest_device_s": {"fleet": fleet_ms / 1e3, "single": single_ms / 1e3},
+        "query_batch_p50_ms": {n: {f"{batches[bi][0]}km_{batches[bi][1]:.0f}s":
+                                   float(np.median(v)) for bi, v in t.items()}
+                               for n, t in times.items()},
+        "batches_vsum_max_abs_diff": vsum_diff, "planners": planners,
+        "blocks_distinct_storages": blocks_own, "small_card_vs_cpu": small,
+        "launches": launches, "launches_by_part": got,
+        "launches_predicted": want, "query_batches_per_store": n_batches,
+        "profiles": profiles,
+        "multihost": {"wall_s": mh_wall, "smoke_wall_s": mh["wall_s"],
+                      "rounds": mh["rounds"], "edges": mh["edges"],
+                      "drones": mh["drones"],
+                      "gloo_exchanges": [w["gloo_exchanges"] for w in workers],
+                      "host_syncs": [w["host_syncs"] for w in workers],
+                      "exchange_host_s": [w["exchange_host_s"] for w in workers],
+                      "worker_s": [w["worker_s"] for w in workers],
+                      "leaves_checked": [w["leaves_checked"] for w in workers],
+                      "counts": workers[0]["counts"],
+                      "worker_launches": [w["launches"] for w in workers]},
         "peak_mem_gb": peak, "phase_s": time.perf_counter() - t_phase}
 
 
@@ -2576,6 +2806,10 @@ def main(argv=None) -> int:
         torch, dev, cfg, city, payloads, metas, chunks, batches, specs,
         args.seed, smi, args.profile))
     torch.cuda.empty_cache()
+    fleet = fleet_phase(torch, dev, cfg, payloads, metas, chunks, batches,
+                        specs, args.seed, smi, args.profile)
+    phase("fleet", **fleet)
+    torch.cuda.empty_cache()
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------
     scan = st_scan_phase(torch, dev, cfg, st, db.alive, batches, specs)
@@ -2700,6 +2934,8 @@ def main(argv=None) -> int:
                         "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms, "device_ms": dev_ms,
                         "library_device_ms": lib_dev})
+    for k in kernels:               # the fleet phase's launches beside the main path's
+        k["fleet_launches"] = fleet["launches"][k["name"]]
     kernels[-1]["wrapper_device_ms"] = v_wrap_dev
     kernels[-1].update({f"placement_{k}": v for k, v in place.items() if k != "err"})
     # The ranking's bound_ms counts all E sites a point; beside it, recounted

@@ -1,8 +1,9 @@
 """``AerialDB``: the session facade of the port, on one device or on a
-one-process edge mesh.
+datastore mesh (the 1-D edge mesh or the 2-D fleet mesh, in one process or
+one process a fleet).
 
 Port of ``repro.api.session``: one object owns the ``StoreConfig``, the
-``StoreState`` (on one device, or split into the blocks of an edge mesh),
+``StoreState`` (on one device, or split into the blocks of a mesh),
 the edge ``alive`` mask, the planner's PRNG key (on the host, split once a
 query as the reference splits it), the host-side step counter that paces
 index retention and the failure ledger, and dispatches every operation to
@@ -14,6 +15,7 @@ choice.
 
     db = AerialDB.open(cfg)                       # on the card
     db = AerialDB.open(cfg, make_edge_mesh(4))    # 4 edge blocks on the card
+    db = AerialDB.open(cfg, make_fleet_mesh(2, 2))  # 2 fleets of 2 blocks
     db.ingest_rounds(payloads, metas)             # N rounds, no host sync
     res, info = db.query(Query().bbox(...).time(...).agg("mean", channel=2))
     db.latest()                                   # newest record per drone
@@ -68,6 +70,7 @@ from repro_torch.device import resolve_device
 from repro_torch.distributed import federation as _fed
 from repro_torch.distributed.sharding import (device_edge_block, gather_store,
                                               mesh_edge_devices, shard_store)
+from repro_torch.launch.mesh import world_size
 
 __all__ = ["AerialDB"]
 
@@ -121,14 +124,8 @@ def _session_device(mesh, device) -> torch.device:
     return dev
 
 
-def _multi_process() -> bool:
-    dist = torch.distributed
-    return (dist.is_available() and dist.is_initialized()
-            and dist.get_world_size() > 1)
-
-
 class AerialDB:
-    """An open AerialDB deployment, on one device or on an edge mesh."""
+    """An open AerialDB deployment, on one device or on a datastore mesh."""
 
     def __init__(self, cfg: StoreConfig, state: StoreState, alive=None,
                  key: Optional[threefry.Key] = None, device=None,
@@ -141,8 +138,9 @@ class AerialDB:
         Without a mesh, ``state`` must already be on ``device`` (default
         the card). On a mesh (``launch.mesh.EdgeMesh``), ``state`` is
         either a logical store, which is split into the mesh's blocks (a
-        copy, ``distributed.sharding.shard_store``), or the blocks
-        themselves, which are adopted; the session's device is the first
+        copy, ``distributed.sharding.shard_store``; in a multi-process world
+        this process's blocks only), or the blocks themselves, which are
+        adopted; the session's device is the first
         block's, and a ``device`` also given must agree."""
         self._device = _session_device(mesh, device)
         if mesh is None:
@@ -153,9 +151,9 @@ class AerialDB:
                 state = shard_store(state, mesh)
             state = blocks = tuple(state)
             devices = mesh.devices
-            if len(blocks) != mesh.size:
+            if len(blocks) != len(devices):
                 raise ValueError(f"{len(blocks)} block states for a mesh of "
-                                 f"{mesh.size} blocks")
+                                 f"{len(devices)} blocks in this process")
         for blk, dev in zip(blocks, devices):
             if blk.tup_f.device.type != dev.type:
                 raise ValueError(f"state lives on {blk.tup_f.device}, the "
@@ -211,9 +209,12 @@ class AerialDB:
           cfg:    deployment config; None builds ``StoreConfig(**overrides)``;
                   with a config, overrides are applied with
                   ``dataclasses.replace``.
-          mesh:   optional edge mesh (``launch.mesh.make_edge_mesh``): the
-                  store is split into its blocks, and every operation runs
-                  the federated runtime. None runs on one device.
+          mesh:   optional datastore mesh (``launch.mesh.make_edge_mesh``
+                  or ``make_fleet_mesh``): the store is split into its
+                  blocks, and every operation runs the federated runtime.
+                  In a multi-process world the session holds its fleet's
+                  blocks: :attr:`state` and :meth:`repair` raise there.
+                  None runs on one device.
           device: without a mesh, the store's device (default the card;
                   raises without CUDA unless ``device="cpu"``); with one,
                   the mesh's devices are used and a ``device`` given must
@@ -242,6 +243,12 @@ class AerialDB:
         never writes; the session's own paths use :attr:`blocks`."""
         if self._mesh is None:
             return self._state
+        if self._mesh.multi_process:
+            raise ValueError(
+                "AerialDB.state gathers every block of the mesh, but this "
+                f"process holds fleet {self._mesh.fleet}'s blocks only: read "
+                "AerialDB.blocks (this process's blocks, in block order) and "
+                "mesh.blocks(n_edges) for their edge ranges.")
         return gather_store(self._state)
 
     @property
@@ -252,7 +259,7 @@ class AerialDB:
 
     @property
     def mesh(self):
-        """The edge mesh the session runs on (None on one device)."""
+        """The mesh the session runs on (None on one device)."""
         return self._mesh
 
     @property
@@ -660,7 +667,7 @@ class AerialDB:
         more than one process raises. Returns the telemetry dict (also
         :attr:`last_repair`; its host seconds are :attr:`last_repair_seconds`).
         """
-        if _multi_process():
+        if world_size() > 1:
             raise NotImplementedError(
                 "AerialDB.repair() is single-process only: it gathers the "
                 "full store to the host, which under a multi-process world "

@@ -52,12 +52,17 @@ Differences from the JAX package, none visible in results:
   ``plan_subqueries``, ``query_local``) run the same bodies through it as
   a list of one. A block is a contiguous ``range`` of global edge ids (the
   layout contract's blocks), so its slices of the global masks are views.
+  ``query_body`` takes the reference's ``overlap_tiles``: the batch is cut
+  into tiles, every tile's index match is yielded at the one collective
+  (a tuple of candidate lists, merged tile by tile, ``merge_tiles``), and
+  the tiles are then planned and scanned one after another; the fleet
+  mesh runs two, everything else one.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from functools import lru_cache, partial
+from functools import lru_cache
 from typing import Callable, Generator, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -412,7 +417,8 @@ class EdgeCollectives(NamedTuple):
           max_shards) -> the global MatchedShards every block plans against.
 
     ``LOCAL_COLLECTIVES`` is the identity on a list of one (one device);
-    ``distributed.federation.make_collectives`` builds the edge mesh's.
+    ``distributed.federation.make_collectives`` builds a mesh's. The query
+    bodies reach ``combine_matched`` once a tile, through ``merge_tiles``.
     """
     gather_watermark: Callable
     combine_matched: Callable
@@ -712,54 +718,89 @@ def scan_engine(tup_f, tup_sid, tup_count, pred: QueryPred, sublists,
                           sublist_len, channels=channels, valid_c=valid_c)
 
 
-def plan_body(cfg: StoreConfig, state: StoreState, pred: QueryPred,
-              alive: torch.Tensor, key: threefry.Key | None,
-              edge_ids: range):
-    """Shard-local planning: index lookup over the block's edges, then the
-    candidate merge (a generator, see ``lockstep``: it yields the block's
-    MatchedShards and takes the global ones back), planning and the block's
-    per-edge shard OR-lists — everything of a query but the scan. Lookup
-    sets and planning are computed from the global ``pred``/``alive`` on
-    every block. ``key`` is the ``random`` planner's (the others take none).
-    Returns (sublists (Q, E_loc, S, 2), sublist_len (Q, E_loc),
-    (lookup_mask, broadcast, overflow, shards_matched, replicas_lost,
-    completeness_bound)); the metadata is global and equal on every block.
-    """
+def _tile_slices(q: int, n_tiles: int):
+    """Split the query-batch dim into ``min(n_tiles, q)`` contiguous slices,
+    as evenly as possible (sizes differ by at most 1)."""
+    n = max(1, min(n_tiles, q))
+    base, rem = divmod(q, n)
+    out, start = [], 0
+    for i in range(n):
+        size = base + (1 if i < rem else 0)
+        out.append(slice(start, start + size))
+        start += size
+    return out
+
+
+def _tile(x, sl: slice, tiles: Sequence[slice]):
+    """A NamedTuple of (Q, ...) tensors sliced to one tile (itself when the
+    batch is one tile)."""
+    return x if len(tiles) == 1 else type(x)(*(f[sl] for f in x))
+
+
+def merge_tiles(collectives: EdgeCollectives, max_shards: int) -> Callable:
+    """The query bodies' collective for ``lockstep``: every block yields the
+    tuple of its tiles' candidate lists; ``combine_matched`` merges each
+    tile over the blocks. Returns the tuple of merged tiles."""
+    def merge(parts):
+        return tuple(collectives.combine_matched(list(tile), max_shards)
+                     for tile in zip(*parts))
+    return merge
+
+
+def _match_tiles(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+                 alive: torch.Tensor, edge_ids: range, overlap_tiles: int):
+    """Phase 1 of a shard-local query: the lookup sets from the global
+    inputs, then the block's index match for EVERY tile of the batch before
+    any tile is planned; one yield (see ``lockstep``) of the tuple of the
+    tiles' MatchedShards, which takes the merged tiles back. Returns
+    (tiles, merged MatchedShards per tile or None without the index,
+    lookup_mask, broadcast)."""
     q = pred.lat0.shape[0]
-    s = cfg.max_shards_per_query
     dev = state.tup_f.device
     lo, hi = edge_ids.start, edge_ids.stop
-    e = hi - lo
     sites = cfg.sites_array(dev)
-    alive = alive.to(device=dev, dtype=torch.bool)
-    pred = pred_to(pred, dev)
     lookup_mask, broadcast = _lookup_sets(cfg, pred, sites, alive)
-
     if not cfg.use_index:
         # Broadcast baseline (Feather-like): every alive edge scans all; no
-        # candidate merge.
+        # candidate merge, nothing to tile.
+        return [slice(0, q)], None, lookup_mask, broadcast
+    tiles = _tile_slices(q, overlap_tiles)
+    mine = [lookup(state.index, _tile(pred, sl, tiles),
+                   lookup_mask[sl, lo:hi], cfg.max_shards_per_query)
+            for sl in tiles]
+    merged = yield tuple(mine)
+    merged = [MatchedShards(*(t.to(dev) for t in m)) for m in merged]
+    return tiles, merged, lookup_mask, broadcast
+
+
+def _plan_tile(cfg: StoreConfig, matched: Optional[MatchedShards],
+               alive: torch.Tensor, key, edge_ids: range, q: int,
+               dev: torch.device):
+    """Phase 2's planning of one tile of ``q`` queries: the assignment and
+    the block's per-edge shard OR-lists. ``key`` is the ``random``
+    planner's (one key, or the tile's rows of the (Q, 2) folded keys).
+    Returns (sublists (q, E_loc, S, 2), sublist_len (q, E_loc), (overflow,
+    shards_matched, replicas_lost, completeness_bound))."""
+    s = cfg.max_shards_per_query
+    lo, hi = edge_ids.start, edge_ids.stop
+    e = hi - lo
+    if matched is None:
         sublists = torch.zeros((q, e, 1, 2), dtype=torch.int32, device=dev)
         sublist_len = torch.where(alive[lo:hi].expand(q, e), -1,
                                   0).to(torch.int32)
         return sublists, sublist_len, (
-            lookup_mask, broadcast, torch.zeros((q,), dtype=torch.bool,
-                                                device=dev),
+            torch.zeros((q,), dtype=torch.bool, device=dev),
             torch.full((q,), -1, dtype=torch.int32, device=dev),
             torch.zeros((q,), dtype=torch.int32, device=dev),
             torch.full((q,), float("nan"), device=dev))
-
-    matched = yield lookup(state.index, pred, lookup_mask[:, lo:hi], s)
-    matched = MatchedShards(*(t.to(dev) for t in matched))
-    # The batch is planned untiled, so plan_random's fold of the key with
-    # each row index is the reference's fold with the global query index.
-    assignment = planner_lib.plan(cfg.planner, matched, alive, key)  # (Q, S)
+    assignment = planner_lib.plan(cfg.planner, matched, alive, key)  # (q, S)
     # Per-edge OR-lists: entry k of (q, e) is the k-th shard (in matched
     # order) assigned to e — a gather through the stable selection order.
     ids = torch.arange(lo, hi, dtype=torch.int32, device=dev)
-    am = assignment[..., None] == ids                               # (Q, S, E)
-    sublist_len = am.sum(dim=1, dtype=torch.int32)                  # (Q, E)
-    src = selected_order(am, dim=1).transpose(1, 2)                 # (Q, E, S)
-    sidv = torch.stack([matched.sid_hi, matched.sid_lo], dim=-1)    # (Q, S, 2)
+    am = assignment[..., None] == ids                               # (q, S, E)
+    sublist_len = am.sum(dim=1, dtype=torch.int32)                  # (q, E)
+    src = selected_order(am, dim=1).transpose(1, 2)                 # (q, E, S)
+    sidv = torch.stack([matched.sid_hi, matched.sid_lo], dim=-1)    # (q, S, 2)
     sidv = torch.gather(sidv[:, None].expand(q, e, s, 2), 2,
                         src[..., None].expand(q, e, s, 2))
     kk = torch.arange(s, dtype=torch.int32, device=dev)
@@ -776,8 +817,44 @@ def plan_body(cfg: StoreConfig, state: StoreState, pred: QueryPred,
     bound = torch.where(shards_matched > 0,
                         assigned_n / torch.clamp(shards_matched, min=1), 1.0)
     bound = torch.where(ovf, float("nan"), bound).to(torch.float32)
-    return sublists, sublist_len, (lookup_mask, broadcast, ovf,
-                                   shards_matched, replicas_lost, bound)
+    return sublists, sublist_len, (ovf, shards_matched, replicas_lost, bound)
+
+
+def _tile_keys(cfg: StoreConfig, key, q: int, tiles, dev: torch.device):
+    """The planner key of each tile: with more than one tile, the
+    ``random`` planner's key folded with the GLOBAL query index and sliced
+    per tile, so a tile's gumbels are the untiled batch's rows; otherwise
+    the key itself (``plan_random`` folds it with the row index)."""
+    if len(tiles) == 1 or cfg.planner != "random" or key is None:
+        return [key] * len(tiles)
+    if not isinstance(key, torch.Tensor):
+        key = threefry.fold_in(key, torch.arange(q, device=dev))
+    return [key[sl] for sl in tiles]
+
+
+def plan_body(cfg: StoreConfig, state: StoreState, pred: QueryPred,
+              alive: torch.Tensor, key: threefry.Key | None,
+              edge_ids: range):
+    """Shard-local planning of the untiled batch: index lookup over the
+    block's edges, then the candidate merge (a generator, see ``lockstep``:
+    it yields the one-tile tuple of the block's MatchedShards and takes the
+    merged tuple back), planning and the block's per-edge shard OR-lists —
+    everything of a query but the scan. Lookup sets and planning are
+    computed from the global ``pred``/``alive`` on every block. ``key`` is
+    the ``random`` planner's (the others take none). Returns (sublists (Q,
+    E_loc, S, 2), sublist_len (Q, E_loc), (lookup_mask, broadcast,
+    overflow, shards_matched, replicas_lost, completeness_bound)); the
+    metadata is global and equal on every block.
+    """
+    dev = state.tup_f.device
+    alive = alive.to(device=dev, dtype=torch.bool)
+    pred = pred_to(pred, dev)
+    _, merged, lookup_mask, broadcast = yield from _match_tiles(
+        cfg, state, pred, alive, edge_ids, 1)
+    sublists, sublist_len, tail = _plan_tile(
+        cfg, None if merged is None else merged[0], alive, key, edge_ids,
+        pred.lat0.shape[0], dev)
+    return sublists, sublist_len, (lookup_mask, broadcast) + tail
 
 
 def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
@@ -790,40 +867,65 @@ def plan_subqueries(cfg: StoreConfig, state: StoreState, pred: QueryPred,
     metadata)."""
     return lockstep([plan_body(cfg, state, pred, alive, key,
                                _block(cfg, edge_ids))],
-                    partial(collectives.combine_matched,
-                            max_shards=cfg.max_shards_per_query))[0]
+                    merge_tiles(collectives, cfg.max_shards_per_query))[0]
 
 
 def query_body(cfg: StoreConfig, state: StoreState, pred: QueryPred,
                alive: torch.Tensor, agg: AggSpec, key: threefry.Key | None,
-               edge_ids: range):
-    """Shard-local query: ``plan_body`` (yielding at its candidate merge),
-    then ONE scan of the block's log for the whole batch and every channel
-    of ``agg``. Returns (partials — count (Q, E_loc) and vsum/vmin/vmax
-    (Q, K, E_loc) — sublist_len (Q, E_loc), metadata) for
-    ``finalize_query``, once the blocks' per-edge pieces are concatenated
+               edge_ids: range, overlap_tiles: int = 1):
+    """Shard-local query. Phase 1: the lookup sets, then the block's index
+    match for every one of ``min(overlap_tiles, Q)`` contiguous tiles of the
+    batch, and ONE yield (see ``lockstep``) of the tuple of their candidate
+    lists, which the collective merges tile by tile. Phase 2, tile by tile:
+    planning, the per-edge OR-lists and ONE scan of the block's log for the
+    tile and every channel of ``agg``. With ``overlap_tiles > 1`` the
+    ``random`` planner's key is folded with the global query index before
+    it is sliced, so the answers do not depend on the tiling. Returns
+    (partials — count (Q, E_loc) and vsum/vmin/vmax (Q, K, E_loc) —
+    sublist_len (Q, E_loc), metadata), the tiles concatenated along Q, for
+    ``finalize_query`` once the blocks' per-edge pieces are concatenated
     back to full E."""
-    pred = pred_to(pred, state.tup_f.device)
-    sublists, sublist_len, meta_info = yield from plan_body(
-        cfg, state, pred, alive, key, edge_ids)
-    partials = scan_engine(state.tup_f, state.tup_sid, state.tup_count, pred,
-                           sublists, sublist_len, channels=agg.channels,
-                           valid_c=cfg.tuple_capacity)
-    return partials, sublist_len, meta_info
+    dev = state.tup_f.device
+    alive = alive.to(device=dev, dtype=torch.bool)
+    pred = pred_to(pred, dev)
+    q = pred.lat0.shape[0]
+    tiles, merged, lookup_mask, broadcast = yield from _match_tiles(
+        cfg, state, pred, alive, edge_ids, overlap_tiles)
+    keys = _tile_keys(cfg, key, q, tiles, dev)
+    outs = []
+    for i, sl in enumerate(tiles):
+        p = _tile(pred, sl, tiles)
+        sublists, sublist_len, tail = _plan_tile(
+            cfg, None if merged is None else merged[i], alive, keys[i],
+            edge_ids, p.lat0.shape[0], dev)
+        partials = scan_engine(state.tup_f, state.tup_sid, state.tup_count,
+                               p, sublists, sublist_len,
+                               channels=agg.channels,
+                               valid_c=cfg.tuple_capacity)
+        outs.append((partials, sublist_len) + tail)
+    if len(outs) == 1:
+        partials, sublist_len, *tail = outs[0]
+    else:
+        partials = tuple(torch.cat([o[0][i] for o in outs])
+                         for i in range(4))
+        sublist_len, *tail = (torch.cat([o[j] for o in outs])
+                              for j in range(1, 6))
+    return partials, sublist_len, (lookup_mask, broadcast, *tail)
 
 
 def query_local(cfg: StoreConfig, state: StoreState, pred: QueryPred,
                 alive: torch.Tensor, agg: AggSpec = AggSpec(),
                 key: threefry.Key | None = None,
                 edge_ids: Optional[range] = None,
-                collectives: EdgeCollectives = LOCAL_COLLECTIVES):
+                collectives: EdgeCollectives = LOCAL_COLLECTIVES,
+                overlap_tiles: int = 1):
     """One block's query (``query_body`` through ``lockstep`` as a list of
-    one; on one device the whole store). Returns (partials, sublist_len,
-    metadata) for ``finalize_query``."""
+    one; on one device the whole store), the batch in ``overlap_tiles``
+    tiles. Returns (partials, sublist_len, metadata) for
+    ``finalize_query``."""
     return lockstep([query_body(cfg, state, pred, alive, agg, key,
-                                _block(cfg, edge_ids))],
-                    partial(collectives.combine_matched,
-                            max_shards=cfg.max_shards_per_query))[0]
+                                _block(cfg, edge_ids), overlap_tiles)],
+                    merge_tiles(collectives, cfg.max_shards_per_query))[0]
 
 
 def finalize_query(partials, sublist_len, lookup_mask, broadcast, overflow,

@@ -3,13 +3,17 @@
 
 Every per-edge ``StoreState`` leaf carries the logical edge axis E in
 front, split into equal contiguous blocks, one per mesh block
-(``launch.mesh.EdgeMesh``); the step counter and the latest-per-drone cache
-are replicated, a copy on every block. ``store_partition_specs`` is that
+(``launch.mesh.EdgeMesh``): over the 1-D ``("edge",)`` mesh's blocks, or
+over the product of the 2-D ``("fleet", "edge")`` mesh's axes, fleet-major,
+so that a 2-D mesh's blocks are the ranges of an edge mesh of F * N
+blocks. The step counter and the latest-per-drone cache are replicated, a
+copy on every block. ``store_partition_specs`` is that
 contract as a ``StoreState``-shaped tree of markers, and ``shard_store`` /
 ``gather_store`` split a logical store into blocks and put it back
 together by reading it. The blocks are also the failure domains:
 ``AerialDB.fail_device`` takes out exactly one block
-(``device_edge_block``).
+(``device_edge_block``). On a multi-process mesh a process holds only
+its fleet's blocks.
 """
 
 from __future__ import annotations
@@ -21,11 +25,12 @@ import torch
 from repro_torch.core.datastore import StoreState
 from repro_torch.core.index import IndexState
 
-__all__ = ["EDGE_AXIS", "check_edge_partition", "device_edge_block",
-           "gather_store", "mesh_edge_axes", "mesh_edge_devices",
-           "shard_store", "store_partition_specs"]
+__all__ = ["EDGE_AXIS", "FLEET_AXIS", "check_edge_partition",
+           "device_edge_block", "gather_store", "mesh_edge_axes",
+           "mesh_edge_devices", "shard_store", "store_partition_specs"]
 
 EDGE_AXIS = "edge"
+FLEET_AXIS = "fleet"
 
 
 def check_edge_partition(n_edges: int, n_blocks: int,
@@ -43,13 +48,15 @@ def check_edge_partition(n_edges: int, n_blocks: int,
 
 
 def mesh_edge_axes(mesh) -> tuple:
-    """The mesh's edge-bearing axes: ``("edge",)`` for the 1-D mesh. A mesh
-    without an ``"edge"`` axis raises."""
-    axes = tuple(n for n in mesh.axis_names if n == EDGE_AXIS)
-    if not axes:
+    """The mesh's edge-bearing axes, fleet-major: ``("edge",)`` for the 1-D
+    mesh, ``("fleet", "edge")`` for the 2-D fleet mesh. A mesh without an
+    ``"edge"`` axis raises."""
+    axes = tuple(n for n in mesh.axis_names if n in (FLEET_AXIS, EDGE_AXIS))
+    if EDGE_AXIS not in axes:
         raise ValueError(
             f"mesh axes {tuple(mesh.axis_names)} lack the '{EDGE_AXIS}' "
-            "axis; build the datastore mesh with launch.mesh.make_edge_mesh.")
+            "axis; build the datastore mesh with launch.mesh.make_edge_mesh "
+            "or launch.mesh.make_fleet_mesh.")
     return axes
 
 
@@ -65,7 +72,8 @@ def mesh_edge_devices(mesh) -> int:
 def store_partition_specs() -> StoreState:
     """``StoreState``-shaped tree of the layout contract's markers: every
     per-edge leaf (leading logical-E dim, the nested ``IndexState``
-    included) is ``EDGE_AXIS``, split into the mesh's contiguous blocks;
+    included) is ``EDGE_AXIS``, split into the mesh's contiguous blocks
+    (over the edge-bearing axes' product, fleet-major, on the 2-D mesh);
     the step counter and the latest-per-drone cache (leading dim drones,
     not edges) are ``None``, replicated on every block."""
     edge = EDGE_AXIS
@@ -92,12 +100,13 @@ def shard_store(state: StoreState, mesh,
                 into: Optional[Sequence[StoreState]] = None
                 ) -> Tuple[StoreState, ...]:
     """Split a logical store into the mesh's blocks per
-    ``store_partition_specs``: block ``d`` takes rows ``d * E / n .. (d + 1)
-    * E / n - 1`` of every per-edge leaf and a copy of every replicated
-    leaf, in storage of its own on ``mesh.devices[d]`` (the port updates
-    state in place, so a block is never a view of another store). With
-    ``into``, the blocks' existing tensors are overwritten instead, in
-    place. Returns the blocks in block order."""
+    ``store_partition_specs``: flat block ``b`` takes rows ``b * E / n ..
+    (b + 1) * E / n - 1`` of every per-edge leaf and a copy of every
+    replicated leaf, in storage of its own on its device (the port updates
+    state in place, so a block is never a view of another store). On a
+    multi-process mesh only this process's blocks are built. With ``into``,
+    the blocks' existing tensors are overwritten instead, in place. Returns
+    the (local) blocks in block order."""
     ranges = mesh.blocks(state.tup_f.shape[0])
     specs = _flat(store_partition_specs())
     leaves = _flat(state)
@@ -115,7 +124,8 @@ def shard_store(state: StoreState, mesh,
 def gather_store(blocks: Sequence[StoreState]) -> StoreState:
     """The logical ``(E, ...)`` store from its blocks, on block 0's device,
     in storage of its own: the per-edge leaves concatenated in block order,
-    the replicated leaves copied from block 0."""
+    the replicated leaves copied from block 0. One process's blocks only:
+    they must be every block of the mesh."""
     dev = blocks[0].tup_f.device
     specs = _flat(store_partition_specs())
     cols = zip(*(_flat(b) for b in blocks))
@@ -127,7 +137,9 @@ def device_edge_block(n_edges: int, n_devices: int, device: int) -> range:
     """Global edge ids hosted by device ``device`` under the layout contract
     (contiguous blocks of ``E / n_devices`` along the leading edge axis):
     the failure-domain resolution of ``AerialDB.fail_device``, since a
-    device loss takes out exactly this block."""
+    device loss takes out exactly this block. On the 2-D fleet mesh,
+    ``device`` is the flat (fleet-major) block index and ``n_devices`` the
+    axis product: block d of fleet f is flat block ``f * N + d``."""
     block = check_edge_partition(n_edges, n_devices, "the device block count")
     if not 0 <= device < n_devices:
         raise ValueError(

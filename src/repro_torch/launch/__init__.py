@@ -1,2 +1,3 @@
-"""Device meshes of the port (``repro.launch``): the one-process edge mesh
-of the federated datastore (``mesh.make_edge_mesh``)."""
+"""Device meshes of the port (``repro.launch``): the datastore's edge and
+fleet meshes and the multi-process fleet world (``mesh``), and the
+two-process smoke of the fleet runtime (``multihost_smoke``)."""

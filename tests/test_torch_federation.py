@@ -1,11 +1,15 @@
-"""The federated runtime of ``repro_torch`` on a one-process edge mesh, held
-against the JAX package: the port of ``tests/test_federation.py``'s 1-D
-``(4,) ("edge",)`` cases, case by case, on the CPU.
+"""The federated runtime of ``repro_torch`` on a one-process mesh, held
+against the JAX package: the port of ``tests/test_federation.py``, case by
+case, on the CPU, every mesh case on both of its layouts (the ``mesh_name``
+fixture): the 1-D ``(4,) ("edge",)`` mesh and the 2-D ``(2, 2) ("fleet",
+"edge")`` mesh, whose candidate merge is hierarchical and whose query
+batch runs in two tiles.
 
 Three sides take the same inserts and queries: the JAX package's
-shard_map runtime on its forced 4-device CPU mesh, the port's runtime on
-``make_edge_mesh(4, device="cpu")`` (four blocks of two edges, collectives
-in process) and the port's single store. Policy: every StoreState /
+shard_map runtime on its forced 4-device CPU mesh of the layout, the
+port's runtime on ``make_edge_mesh(4, device="cpu")`` or
+``make_fleet_mesh(2, 2, device="cpu")`` (four blocks of two edges,
+collectives in process) and the port's single store. Policy: every StoreState /
 IndexState leaf (the mesh's gathered) and the insert info bitwise,
 QueryResult count/min/max/overflow and every QueryInfo field bitwise,
 vsum/vmean to rtol 1e-5 with NaN equal, ``latest()``, ``ledger()`` and the
@@ -13,9 +17,14 @@ repair telemetry equal. The reference's repair placement runs jitted
 (``test_torch_repair``'s module fixture), as in the port's other repair
 tests.
 
-Not ported here: the 2-D ``("fleet", "edge")`` cases (ROADMAP Queue 1,
-item 7.2), the Pallas kernel case (the JAX package's ``slow`` test; the
-port's kernels run on the card, ``-k federation`` in
+Beyond the reference's cases: the two-level candidate merge held at the
+``MatchedShards`` level to the JAX package's ``_merge_matched`` on its
+``(2, 2)`` mesh, and the tiled shard-local query's per-edge partials to its
+``query_local(overlap_tiles=2)``. The two-process path is
+``tests/test_torch_multihost.py``.
+
+Not ported here: the Pallas kernel case (the JAX package's ``slow`` test;
+the port's kernels run on the card, ``-k "federation or fleet"`` in
 ``tests/test_torch_kernels_cuda.py``) and ``test_store_sharding_layout``,
 which reads jax shardings (its port is
 ``test_shard_store_blocks_own_their_storage``).
@@ -40,6 +49,7 @@ from repro.core import datastore as jds
 from repro.core.placement import ShardMeta as JMeta
 from repro.distributed import federation as jfed
 from repro.launch.mesh import make_edge_mesh as j_make_edge_mesh
+from repro.launch.mesh import make_fleet_mesh as j_make_fleet_mesh
 from repro_torch import convert
 from repro_torch.api import AerialDB, AggSpec, Query
 from repro_torch.core import datastore as tds
@@ -48,10 +58,11 @@ from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
 from repro_torch.distributed import federation as tfed
 from repro_torch.distributed.sharding import (gather_store, shard_store,
                                               store_partition_specs)
-from repro_torch.launch.mesh import make_edge_mesh
+from repro_torch.launch.mesh import make_edge_mesh, make_fleet_mesh
 from test_torch_repair import (_assert_query_equal, _assert_states_identical,
                                _bits,
-                               bucketed_reference_placement)  # noqa: F401
+                               bucketed_reference_placement,  # noqa: F401
+                               mesh_pair)
 
 N_DEV = 4
 E = 8
@@ -96,14 +107,26 @@ def _tmeta(metas, i=None):
     return ShardMeta(*(_t(f if i is None else np.asarray(f)[i]) for f in metas))
 
 
-@pytest.fixture(scope="module")
-def jmesh():
-    return j_make_edge_mesh(N_DEV)
+@pytest.fixture(scope="module", params=["edge4", "fleet2x2"])
+def mesh_name(request):
+    """Every mesh-driven case runs on both of the reference's layouts: the
+    same 4 devices (blocks), two mesh contracts, one single-store oracle."""
+    return request.param
 
 
 @pytest.fixture(scope="module")
-def tmesh():
-    return make_edge_mesh(N_DEV, device="cpu")
+def meshes(mesh_name):
+    return mesh_pair(mesh_name)
+
+
+@pytest.fixture(scope="module")
+def jmesh(meshes):
+    return meshes[0]
+
+
+@pytest.fixture(scope="module")
+def tmesh(meshes):
+    return meshes[1]
 
 
 class Sides:
@@ -543,15 +566,14 @@ def test_shard_store_blocks_own_their_storage(tmesh):
     assert int(blocks[0].steps) == int(state.steps) == 2
 
 
-def test_mesh_divisibility_rejected(tmesh):
+def test_mesh_divisibility_rejected(jmesh, tmesh):
     """A mesh whose block count does not divide the edges is refused with
     the reference's message, by the step functions and the session."""
     w = QUERY_PREDS["catch_all_temporal"]
     jcfg, tcfg = _cfgs(n_edges=6, sites=())
     with pytest.raises(ValueError, match="not divisible") as jerr:
         jfed.federated_query_step(jcfg, jds.init_store(jcfg), jds.make_pred(**w),
-                                  jnp.ones(6, bool), jax.random.key(0),
-                                  j_make_edge_mesh(N_DEV))
+                                  jnp.ones(6, bool), jax.random.key(0), jmesh)
     with pytest.raises(ValueError, match="not divisible") as terr:
         tfed.federated_query_step(tcfg, (tds.init_store(tcfg, "cpu"),),
                                   _tpred(**w), torch.ones(6, dtype=torch.bool),
@@ -612,3 +634,231 @@ def test_federation_imports_neither_jax_nor_the_reference():
     out = subprocess.run([sys.executable, "-c", code], env=env, check=True,
                          capture_output=True, text=True, timeout=120)
     assert out.stdout.strip() == "[]", out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the 2-D fleet mesh: factory, layout, the two-level merge and the tiles
+# ---------------------------------------------------------------------------
+
+
+def test_fleet_mesh_factory_validates_at_construction():
+    """``make_fleet_mesh`` raises the reference's errors at construction
+    (divisibility of the edges by the axis product; a fleet count that does
+    not divide the devices given, as three fleets over 4 devices do), and
+    its shape, axes and fleet-major blocks are the reference's."""
+    with pytest.raises(ValueError, match="not divisible") as jerr:
+        j_make_fleet_mesh(2, N_DEV // 2, n_edges=6)
+    with pytest.raises(ValueError, match="not divisible") as terr:
+        make_fleet_mesh(2, N_DEV // 2, n_edges=6, device="cpu")
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="does not divide") as jerr:
+        j_make_fleet_mesh(3)
+    with pytest.raises(ValueError, match="does not divide") as terr:
+        make_fleet_mesh(3, device=["cpu"] * N_DEV)
+    assert str(terr.value) == str(jerr.value)
+    with pytest.raises(ValueError, match="n_edge_per_fleet is required"):
+        make_fleet_mesh(2, device="cpu")
+    with pytest.raises(ValueError, match="must be >= 1"):
+        make_fleet_mesh(0, 2, device="cpu")
+    jm = j_make_fleet_mesh(2, n_edges=E)
+    tm = make_fleet_mesh(2, n_edges=E, device=["cpu"] * N_DEV)
+    assert tm.shape == dict(jm.shape) == {"fleet": 2, "edge": 2}
+    assert tm.axis_names == tuple(jm.axis_names) == ("fleet", "edge")
+    assert tm.size == N_DEV and not tm.multi_process
+    assert tm.blocks(E) == make_edge_mesh(N_DEV, device="cpu").blocks(E)
+    assert tm == make_fleet_mesh(2, 2, device="cpu")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_fleet_mesh(2, 2)
+
+
+def test_fleet_mesh_layout_is_the_edge_mesh_of_the_axis_product():
+    """The layout contract over the axis product: ``mesh_edge_axes`` names
+    both axes, as the reference's does, and a store split over
+    the (2, 2) mesh gives the blocks of the (4,) mesh, leaf by leaf. A
+    process of a two-process world holds its fleet's blocks only, and its
+    session refuses to gather a partial store."""
+    from repro_torch.distributed.sharding import (mesh_edge_axes,
+                                                  mesh_edge_devices)
+    from repro_torch.launch.mesh import EdgeMesh
+    fleet, edge = make_fleet_mesh(2, 2, device="cpu"), make_edge_mesh(
+        N_DEV, device="cpu")
+    jfleet = j_make_fleet_mesh(2, 2)
+    assert mesh_edge_axes(fleet) == jfed.mesh_edge_axes(jfleet) == (
+        "fleet", "edge")
+    assert mesh_edge_devices(fleet) == jfed.mesh_edge_devices(jfleet) == 4
+    tcfg = tds.StoreConfig(**_kw())
+    pay, met = _fleet_rounds(rounds=2)
+    state, _ = tfed.ingest_rounds(tcfg, tds.init_store(tcfg, "cpu"), _t(pay),
+                                  _tmeta(met), torch.ones(E, dtype=torch.bool),
+                                  host_step=0)
+    for a, b in zip(shard_store(state, fleet), shard_store(state, edge)):
+        _assert_states_identical(a, b)
+    half = EdgeMesh(fleet.devices[:2], ("fleet", "edge"), 2, 1)
+    assert half.multi_process and half.size == N_DEV
+    assert half.blocks(E) == (range(4, 6), range(6, 8))
+    blocks = shard_store(state, half)
+    assert len(blocks) == 2 and torch.equal(blocks[1].tup_f, state.tup_f[6:8])
+    db = AerialDB(tcfg, state, mesh=half)
+    assert len(db.blocks) == 2
+    with pytest.raises(ValueError, match="blocks"):
+        db.state
+
+
+def _jax_fleet_run(jcfg, jstate, jmesh, body, out_specs, *args):
+    """``body(state, *args, edge_ids)`` under ``shard_map`` on the JAX mesh,
+    every argument but the state replicated."""
+    from jax.experimental.shard_map import shard_map
+    axes = jfed.mesh_edge_axes(jmesh)
+    fn = shard_map(body, mesh=jmesh,
+                   in_specs=(jfed.store_partition_specs(axes),)
+                   + (P(),) * len(args) + (P(axes),),
+                   out_specs=out_specs, check_rep=False)
+    return jax.jit(fn)(jstate, *args,
+                       jnp.arange(jcfg.n_edges, dtype=jnp.int32))
+
+
+@pytest.mark.parametrize("max_shards", [64, 4])
+def test_candidate_merge_matches_the_reference(loaded, tmesh, max_shards):
+    """The merge itself, at the ``MatchedShards`` level: each block's top-S
+    candidate list and the merged lists every block plans against equal
+    the JAX package's ``lookup`` and ``_merge_matched`` on its mesh of the
+    same layout (on the fleet mesh: each fleet's blocks first, then the
+    fleets), bitwise, replicas and overflow included; ``max_shards=4``
+    clips at both levels."""
+    from repro.core import index as jindex
+    from repro_torch.core import index as tindex
+    jcfg, tcfg, s = loaded.jcfg, loaded.tcfg, max_shards
+    axes = jfed.mesh_edge_axes(loaded.jmesh)
+    per_dev = jindex.MatchedShards(sid_hi=P(None, axes), sid_lo=P(None, axes),
+                                   replicas=P(None, axes), valid=P(None, axes),
+                                   overflow=P(axes))
+    replicated = jindex.MatchedShards(*(P(),) * 5)
+    alive = np.ones(E, bool)
+    alive[5] = False
+    # every predicate of QUERY_PREDS in one batch (queries are independent)
+    names = sorted(QUERY_PREDS)
+    jpreds = [jds.make_pred(**QUERY_PREDS[n]) for n in names]
+    tpreds = [_tpred(**QUERY_PREDS[n]) for n in names]
+    jpred = jax.tree.map(lambda *x: jnp.concatenate(x), *jpreds)
+    pred = tds.QueryPred(*(torch.cat(f) for f in zip(*tpreds)))
+
+    def body(state, pred, alive_, edge_ids):
+        mask, _ = jds._lookup_sets(jcfg, pred, jcfg.sites_array(), alive_)
+        local = jindex.lookup(state.index, pred,
+                              jnp.take(mask, edge_ids, axis=1), s)
+        return local, jfed._merge_matched(local, s, axes)
+    jlocal, jmerged = _jax_fleet_run(jcfg, loaded.j, loaded.jmesh, body,
+                                     (per_dev, replicated), jpred,
+                                     jnp.asarray(alive))
+    ta = torch.from_numpy(alive)
+    mask, _ = tds._lookup_sets(tcfg, pred, tcfg.sites_array("cpu"), ta)
+    parts = [tindex.lookup(blk.index, pred, mask[:, r.start:r.stop], s)
+             for blk, r in zip(loaded.blocks, tmesh.blocks(E))]
+    merged = tfed.make_collectives(tmesh).combine_matched(parts, s)
+    for f in tindex.MatchedShards._fields:
+        got = torch.cat([getattr(p, f) for p in parts],
+                        dim=0 if f == "overflow" else 1)
+        np.testing.assert_array_equal(got.numpy(),
+                                      np.asarray(getattr(jlocal, f)),
+                                      err_msg=f"local {f}")
+        np.testing.assert_array_equal(getattr(merged, f).numpy(),
+                                      np.asarray(getattr(jmerged, f)),
+                                      err_msg=f"merged {f}")
+    assert int(merged.valid.sum()) > 0
+    if s == 4:
+        assert bool(merged.overflow.any())
+
+
+@pytest.mark.parametrize("planner", ["random", "min_shards"])
+def test_tiled_query_partials_match_the_reference(loaded, tmesh, planner):
+    """The shard-local query in two tiles (3 queries: tiles of 2 and 1)
+    gives, block by block, the JAX package's ``query_local(...,
+    overlap_tiles=2)`` per-edge partials, OR-list lengths and metadata on
+    its mesh of the same layout, and the untiled batch's: under ``random``
+    the key is folded with the global query index before the tiles are
+    cut."""
+    jcfg = dataclasses.replace(loaded.jcfg, planner=planner)
+    tcfg = dataclasses.replace(loaded.tcfg, planner=planner)
+    axes = jfed.mesh_edge_axes(loaded.jmesh)
+    w = QUERY_PREDS["and_spatiotemporal"]
+    alive = np.ones(E, bool)
+    alive[1] = False
+
+    def body(state, pred, alive_, key_data, edge_ids):
+        return jds.query_local(
+            jcfg, state, pred, alive_, jax.random.wrap_key_data(key_data),
+            edge_ids, collectives=jfed.make_collectives(axes),
+            agg=jds.AggSpec(channels=(0, 2)), overlap_tiles=2)
+    out_specs = (((P(None, axes),) + (P(None, None, axes),) * 3),
+                 P(None, axes), (P(),) * 6)
+    jparts, jlen, jmeta = _jax_fleet_run(
+        jcfg, loaded.j, loaded.jmesh, body, out_specs, jds.make_pred(**w),
+        jnp.asarray(alive), jax.random.key_data(jax.random.key(7)))
+    got = {}
+    for tiles in (2, 1):
+        outs = tds.lockstep(
+            [tds.query_body(tcfg, blk, _tpred(**w), torch.from_numpy(alive),
+                            tds.AggSpec(channels=(0, 2)), _tkey(7), r, tiles)
+             for blk, r in zip(loaded.blocks, tmesh.blocks(E))],
+            tds.merge_tiles(tfed.make_collectives(tmesh),
+                            tcfg.max_shards_per_query))
+        got[tiles] = ([torch.cat([o[0][i] for o in outs], dim=-1)
+                       for i in range(4)]
+                      + [torch.cat([o[1] for o in outs], dim=-1)]
+                      + list(outs[0][2]))
+    want = list(jparts) + [jlen] + list(jmeta)
+    for i, (a, b, c) in enumerate(zip(got[2], got[1], want)):
+        np.testing.assert_array_equal(_bits(a), _bits(b),
+                                      err_msg=f"tiled vs untiled: output {i}")
+        if i == 1:      # vsum: the accumulation order differs by an ulp
+            np.testing.assert_allclose(a.numpy(), np.asarray(c), rtol=1e-5,
+                                       equal_nan=True, err_msg="vsum")
+        else:
+            np.testing.assert_array_equal(_bits(a), _bits(c),
+                                          err_msg=f"vs the JAX mesh: output {i}")
+    assert int(got[2][0].sum()) > 0
+
+
+def test_fleet_mesh_equals_edge_mesh():
+    """The cross-mesh differential, stated directly: the same lifecycle
+    (ingest, a domain loss, ingest and a query during it, the return with
+    the incremental repair, a query) on the port's (2, 2) fleet mesh and
+    (4,) edge mesh gives bitwise identical states and answers, both equal
+    to the JAX package's fleet mesh: the hierarchical merge and the tiles
+    change the schedule, never the result."""
+    jcfg, tcfg = _cfgs(n_failure_domains=N_DEV)
+    jdb = JaxDB.open(jcfg, mesh=j_make_fleet_mesh(2, N_DEV // 2), seed=0)
+    dbs = [AerialDB.open(tcfg, make_fleet_mesh(2, N_DEV // 2, device="cpu"),
+                         seed=0),
+           AerialDB.open(tcfg, make_edge_mesh(N_DEV, device="cpu"), seed=0)]
+    fleet = DroneFleet(10, records_per_shard=12, seed=43)
+    pay, met = fleet.next_rounds(3)
+    for db in [jdb] + dbs:
+        db.ingest_rounds(pay, met)
+    _assert_states_identical(dbs[0].state, dbs[1].state)
+    _assert_states_identical(dbs[0].state, jdb.state)
+
+    def query(seed):
+        jres, jinfo = jdb.query(
+            JQuery().time(0.0, 1e9).agg("count", "mean", channel=1),
+            key=jax.random.key(seed))
+        for db in dbs:
+            res, info = db.query(Query().time(0.0, 1e9).agg(
+                "count", "mean", channel=1), key=_tkey(seed))
+            _assert_query_equal(res, info, jres, jinfo)
+        return jres
+    for db in [jdb] + dbs:
+        db.fail_device(1)
+    pay2, met2 = fleet.next_rounds(1)
+    for db in [jdb] + dbs:
+        db.ingest_rounds(pay2, met2)
+    query(23)
+    for db in [jdb] + dbs:
+        db.recover_device(1)
+    assert dbs[0].last_repair == dbs[1].last_repair == jdb.last_repair
+    _assert_states_identical(dbs[0].state, dbs[1].state)
+    _assert_states_identical(dbs[0].state, jdb.state)
+    res = query(23)
+    assert int(np.asarray(res.count)[0]) == int(np.prod(pay.shape[:3])) \
+        + int(np.prod(pay2.shape[:3]))

@@ -11,9 +11,10 @@ against the reference, and the package boundary (``repro_torch.ingest`` and
 the session import neither JAX nor the JAX package).
 
 ``test_latest_cache_identical_on_meshes`` runs the reference's mesh case
-on the ``(4,) ("edge",)`` mesh: pipelines over the JAX package's 4-device
-mesh, the port's one-process mesh and the port's single store. The 2-D
-``(2, 2)`` fleet mesh waits for ROADMAP Queue 1, item 7.2.
+on both of its layouts, the ``(4,) ("edge",)`` mesh and the ``(2, 2)
+("fleet", "edge")`` mesh: pipelines over the JAX package's 4-device mesh,
+the port's one-process mesh of the same layout and the port's single
+store.
 """
 
 import os
@@ -34,7 +35,6 @@ from repro.ingest import PipelineCrash as JaxCrash
 from repro.ingest import TransientDispatchError as JaxTransient
 from repro.ingest import group_shards as j_group_shards
 from repro.ingest import plan_chunks as j_plan_chunks
-from repro.launch.mesh import make_edge_mesh as j_make_edge_mesh
 from repro_torch import convert
 from repro_torch.api import AerialDB, Query
 from repro_torch.core import datastore as tds
@@ -42,9 +42,9 @@ from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
 from repro_torch.ingest import (IngestPipeline, PipelineCrash,
                                 TransientDispatchError, group_shards,
                                 latest_oracle, plan_chunks)
-from repro_torch.launch.mesh import make_edge_mesh
 from test_torch_repair import (Pair, _assert_states_identical, _bits,
-                               bucketed_reference_placement)  # noqa: F401
+                               bucketed_reference_placement,  # noqa: F401
+                               mesh_pair)
 
 E = 8
 D_MAX = 16
@@ -554,23 +554,22 @@ def test_crash_mid_flush_recovers_from_journal(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# the latest cache on the edge mesh
+# the latest cache on both mesh layouts
 # ---------------------------------------------------------------------------
 
 
-def test_latest_cache_identical_on_meshes():
-    """The same pipeline traffic into the JAX package's edge4 mesh, the
-    port's edge4 mesh and the port's single store: every StoreState leaf
-    (the replicated latest cache included) bitwise identical, the counters
-    equal, and ``latest()`` equal to the oracle on every side."""
-    if jax.device_count() < 4:
-        pytest.skip("needs 4 host devices")
+@pytest.mark.parametrize("mesh_name", ["edge4", "fleet2x2"])
+def test_latest_cache_identical_on_meshes(mesh_name):
+    """The same pipeline traffic into the JAX package's mesh, the port's
+    mesh of the same layout and the port's single store: every StoreState
+    leaf (the replicated latest cache included) bitwise identical, the
+    counters equal, and ``latest()`` equal to the oracle on every side."""
+    jmesh, tmesh = mesh_pair(mesh_name)
     kw = dict(CFG_KW)
     stream, clean = _stream(23)
-    pipes = [JaxPipeline(JaxDB.open(jds.StoreConfig(**kw),
-                                    mesh=j_make_edge_mesh(4), seed=0)),
-             IngestPipeline(AerialDB.open(tds.StoreConfig(**kw),
-                                          make_edge_mesh(4, device="cpu"),
+    pipes = [JaxPipeline(JaxDB.open(jds.StoreConfig(**kw), mesh=jmesh,
+                                    seed=0)),
+             IngestPipeline(AerialDB.open(tds.StoreConfig(**kw), tmesh,
                                           seed=0)),
              IngestPipeline(AerialDB.open(tds.StoreConfig(**kw), seed=0,
                                           device="cpu"))]
@@ -594,14 +593,14 @@ def test_latest_cache_identical_on_meshes():
 
 
 def test_port_imports_neither_jax_nor_the_reference():
-    """``repro_torch.ingest``, the session, ``repro_torch.chaos`` and the
-    federated runtime, imported in a fresh interpreter, bring in no module
-    of JAX or of the JAX package."""
+    """``repro_torch.ingest``, the session, ``repro_torch.chaos``, the
+    federated runtime and the two-process smoke, imported in a fresh
+    interpreter, bring in no module of JAX or of the JAX package."""
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "src")
     code = ("import sys; import repro_torch.ingest, repro_torch.api.session, "
             "repro_torch.chaos, repro_torch.distributed.federation, "
-            "repro_torch.launch.mesh; "
+            "repro_torch.launch.mesh, repro_torch.launch.multihost_smoke; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(repr(bad))")
     env = dict(os.environ, PYTHONPATH=src)

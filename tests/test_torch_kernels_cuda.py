@@ -28,7 +28,12 @@ recovery (every leaf bitwise, the runners' logs byte-identical).
 on one card against the same mesh on the CPU and against the single store
 on the card (inserts that wrap the rings, a block lost and repaired, a
 4-channel batch: every leaf, the repair telemetry and the answers
-bitwise), and st_scan launched once per block a batch.
+bitwise), and st_scan launched once per block a batch. ``-k fleet`` runs
+the same scenario on the one-process ``(2, 2)`` fleet mesh on the card
+against the CPU and against the single store on the card, st_scan launched
+once per tile and block (2 x 4 a batch), and the two-process smoke
+(``repro_torch.launch.multihost_smoke``) with both gloo workers on the
+card.
 """
 
 import numpy as np
@@ -1322,16 +1327,18 @@ def test_chaos_plan_on_card_matches_cpu(cuda, plan):
     assert_content_equal(canonical_content(card[0]), canonical_content(cpu[0]))
 
 
-def _federation_run(device, n_blocks):
+def _federation_run(device, n_blocks, n_fleet=None):
     """The small federation scenario on ``device``, on an edge mesh of
-    ``n_blocks`` blocks (None: the single store): 8 edges with 256-slot
-    rings that wrap, four failure domains, block 1 lost for 6 rounds and
-    recovered with the incremental repair, then a 4-channel catch-all and
-    box batch. Returns (session, repair telemetry, query answers)."""
+    ``n_blocks`` blocks (None: the single store), or with ``n_fleet`` on a
+    fleet mesh of ``n_fleet`` fleets of ``n_blocks // n_fleet`` blocks: 8
+    edges with 256-slot rings that wrap, four failure domains, block 1 lost
+    for 6 rounds and recovered with the incremental repair, then a
+    4-channel catch-all and box batch. Returns (session, repair telemetry,
+    query answers)."""
     from repro_torch.api.session import AerialDB
     from repro_torch.core.datastore import AggSpec, StoreConfig
     from repro_torch.data.synthetic import DroneFleet
-    from repro_torch.launch.mesh import make_edge_mesh
+    from repro_torch.launch.mesh import make_edge_mesh, make_fleet_mesh
     sites = tuple(map(tuple, make_sites(8, CityConfig(), seed=3).tolist()))
     cfg = StoreConfig(n_edges=8, sites=sites, tuple_capacity=256,
                       index_capacity=512, max_shards_per_query=64,
@@ -1339,8 +1346,11 @@ def _federation_run(device, n_blocks):
                       n_failure_domains=4, max_drones=16)
     if n_blocks is None:
         db = AerialDB.open(cfg, device=device)
-    else:
+    elif n_fleet is None:
         db = AerialDB.open(cfg, make_edge_mesh(n_blocks, device=device))
+    else:
+        db = AerialDB.open(cfg, make_fleet_mesh(
+            n_fleet, n_blocks // n_fleet, device=device))
     fleet = DroneFleet(12, records_per_shard=8, seed=7)
     pay, met = fleet.next_rounds(2)
     db.ingest_rounds(pay, met)
@@ -1425,3 +1435,68 @@ def test_federation_st_scan_launches_per_block(cuda):
         counts[name] = (hops.launches - before[0], vops.launches - before[1])
     assert counts["mesh"] == tuple(4 * c for c in counts["one"])
     assert min(counts["one"]) > 0
+
+
+def test_fleet_mesh_on_card_matches_cpu_and_single_store(cuda):
+    """The (2, 2) fleet mesh on the card against the same mesh on the CPU
+    and against the single store on the card: every leaf of every block,
+    the repair telemetry, the ledger and the 4-channel answers bitwise
+    (vsum and vmean to rtol 1e-5)."""
+    card, card_rep, card_ans = _federation_run(cuda, 4, n_fleet=2)
+    cpu, cpu_rep, cpu_ans = _federation_run("cpu", 4, n_fleet=2)
+    one, one_rep, one_ans = _federation_run(cuda, None)
+    assert card.mesh.shape == {"fleet": 2, "edge": 2}
+    assert card_rep == cpu_rep == one_rep and card_rep["shards_replaced"] > 0
+    assert card.ledger() == cpu.ledger() == one.ledger()
+    for got, want in zip(card.blocks, cpu.blocks):
+        assert got.tup_f.device.type == "cuda"
+        _assert_card_state_equals_cpu(got, want)
+    _assert_card_state_equals_cpu(card.state, one.state)
+    _assert_answers_equal(card_ans, cpu_ans)
+    _assert_answers_equal(card_ans, one_ans)
+    assert int(card_ans[0].count[0]) > 0
+
+
+def test_fleet_st_scan_launches_two_tiles_per_block(cuda):
+    """On the fleet mesh a batch of two or more queries runs in two tiles,
+    each scanned once on each block: 2 x 4 st_scan launches a batch of up
+    to four channels (the edge mesh: 4); a one-query batch is one tile. The
+    lookup sets are made once a batch, so the hash and locate launches are
+    the edge mesh's."""
+    from repro_torch.core.datastore import AggSpec
+    fleet, _, _ = _federation_run(cuda, 4, n_fleet=2)
+    edge, _, _ = _federation_run(cuda, 4)
+    for db, per_batch in ((fleet, 8), (edge, 4)):
+        for q, tiles in ((2, 2), (1, 1)):
+            pred = make_pred(q=q, t0=0.0, t1=1e9, has_temporal=True,
+                             device=cuda)
+            for spec in (AggSpec(channel=0), AggSpec(channels=(0, 1, 2, 3))):
+                before = (st_ops.launches, hops.launches, vops.launches)
+                db.query(pred, agg=spec, key=(0, 1))
+                want = per_batch if tiles == 2 or db is edge else 4
+                assert st_ops.launches - before[0] == want
+                assert (hops.launches - before[1],
+                        vops.launches - before[2]) == (8, 4)
+
+
+def test_fleet_two_process_smoke_on_card(cuda):
+    """``python -m repro_torch.launch.multihost_smoke --device cuda``: two
+    gloo processes, one a fleet, both on the card, each holding its blocks
+    and answers to its single store; both exit 0 inside the limit."""
+    import json
+    import os
+    import subprocess
+    import sys
+    src = os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "src")
+    env = dict(os.environ, PYTHONPATH=src)
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.multihost_smoke",
+         "--device", "cuda"], env=env, capture_output=True, text=True,
+        timeout=180)
+    assert out.returncode == 0, out.stderr[-4000:]
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    for w in report["workers"]:
+        assert w["device"].startswith("cuda") and w["answers_checked"] == 5
+        assert w["host_syncs"] == w["gloo_exchanges"] > 0
+        assert min(w["launches"].values()) > 0

@@ -10,11 +10,12 @@ bitwise, QueryResult count/min/max and QueryInfo bitwise (vsum/vmean to rtol
 
 Ported: the seven single-device cases, the ledger semantics of the two
 mesh-parametrised cases (double fail merges into its first epoch, a
-recovery of an alive edge is a no-op) on one device and on the edge4 mesh
-(``Pair(mesh=True)``: the JAX package's 4-device ``("edge",)`` mesh and
-the port's one-process mesh), and ``test_partition_differential_mesh`` on
-the edge4 mesh beside the port's single store. The reference's 2-D fleet
-mesh layouts wait for ROADMAP Queue 1, item 7.2.
+recovery of an alive edge is a no-op) on one device and on both of the
+reference's mesh layouts, and ``test_partition_differential_mesh`` on both
+beside the port's single store: ``Pair(mesh="edge4")``, the JAX package's
+4-device ``(4,) ("edge",)`` mesh and the port's one-process mesh, and
+``Pair(mesh="fleet2x2")``, both packages' ``(2, 2) ("fleet", "edge")``
+mesh.
 """
 
 import jax
@@ -349,9 +350,11 @@ def test_double_fail_merges_into_original_epoch():
     _double_fail_case(Pair())
 
 
-def test_double_fail_merges_into_original_epoch_mesh():
-    """The same ledger case on the edge4 mesh, as the reference runs it."""
-    _double_fail_case(Pair(mesh=True))
+@pytest.mark.parametrize("mesh", ["edge4", "fleet2x2"])
+def test_double_fail_merges_into_original_epoch_mesh(mesh):
+    """The same ledger case on both mesh layouts, as the reference runs
+    it."""
+    _double_fail_case(Pair(mesh=mesh))
 
 
 def _double_fail_case(pair):
@@ -382,9 +385,11 @@ def test_recover_alive_edge_is_bitwise_noop():
     _recover_alive_case(Pair())
 
 
-def test_recover_alive_edge_is_bitwise_noop_mesh():
-    """The same ledger case on the edge4 mesh, as the reference runs it."""
-    _recover_alive_case(Pair(mesh=True))
+@pytest.mark.parametrize("mesh", ["edge4", "fleet2x2"])
+def test_recover_alive_edge_is_bitwise_noop_mesh(mesh):
+    """The same ledger case on both mesh layouts, as the reference runs
+    it."""
+    _recover_alive_case(Pair(mesh=mesh))
 
 
 def _recover_alive_case(pair):
@@ -407,17 +412,19 @@ def _recover_alive_case(pair):
 
 
 # ---------------------------------------------------------------------------
-# the partition script on the edge mesh
+# the partition script on both mesh layouts
 # ---------------------------------------------------------------------------
 
 
-def test_partition_differential_mesh():
+@pytest.mark.parametrize("mesh", ["edge4", "fleet2x2"])
+def test_partition_differential_mesh(mesh):
     """The reference's partition/heal script through the JAX mesh session,
     the port mesh session and the port single-device session: a split
-    across the blocks, rounds on either side of it, a query mid-split and
-    the heal's repair keep every state bitwise identical, the repair
-    telemetry and the ledgers equal."""
-    pair = Pair(mesh=True)
+    across the blocks (and, on the fleet mesh, across the fleets), rounds
+    on either side of it, a query mid-split and the heal's repair keep
+    every state bitwise identical, the repair telemetry and the ledgers
+    equal."""
+    pair = Pair(mesh=mesh)
     single = AerialDB.open(pair.tcfg, seed=0, device="cpu")
     fleet = _fleet(23)
 

@@ -27,9 +27,10 @@ repair equals the port's
 (``test_unpatched_reference_repair_equals_the_port_without_boundary_shards``).
 
 ``test_incremental_repair_differential_mesh`` runs the reference's mesh
-case on the ``(4,) ("edge",)`` mesh only: the JAX package's 4-device mesh,
-the port's one-process mesh (``Pair(mesh=True)``) and the port's single
-store. The 2-D fleet mesh waits for ROADMAP Queue 1, item 7.2.
+case on both of its layouts, the ``(4,) ("edge",)`` mesh and the ``(2, 2)
+("fleet", "edge")`` mesh: the JAX package's 4-device mesh, the port's
+one-process mesh (``Pair(mesh="edge4")`` / ``Pair(mesh="fleet2x2")``) and
+the port's single store.
 """
 
 
@@ -46,12 +47,13 @@ from repro.core import datastore as jds
 from repro.core import placement as jplace
 from repro.core import repair as jrepair
 from repro.launch.mesh import make_edge_mesh as j_make_edge_mesh
+from repro.launch.mesh import make_fleet_mesh as j_make_fleet_mesh
 from repro_torch import convert
 from repro_torch.api.session import AerialDB
 from repro_torch.core import datastore as tds
 from repro_torch.core import repair as trepair
 from repro_torch.data.synthetic import CityConfig, DroneFleet, make_sites
-from repro_torch.launch.mesh import make_edge_mesh
+from repro_torch.launch.mesh import make_edge_mesh, make_fleet_mesh
 
 E = 8
 N_DEV = 4          # the edge mesh's blocks (the reference's forced devices)
@@ -135,19 +137,31 @@ def _assert_query_equal(tres, tinfo, jres, jinfo):
                                       _bits(getattr(jinfo, f)), err_msg=f)
 
 
+def mesh_pair(name: str):
+    """The JAX package's and the port's (CPU) mesh of one layout:
+    ``"edge4"``, the ``(4,) ("edge",)`` mesh, or ``"fleet2x2"``, the
+    ``(2, 2) ("fleet", "edge")`` mesh."""
+    if jax.device_count() < N_DEV:
+        pytest.skip(f"needs {N_DEV} host devices")
+    if name == "edge4":
+        return j_make_edge_mesh(N_DEV), make_edge_mesh(N_DEV, device="cpu")
+    assert name == "fleet2x2", name
+    return (j_make_fleet_mesh(2, N_DEV // 2),
+            make_fleet_mesh(2, N_DEV // 2, device="cpu"))
+
+
 class Pair:
     """A JAX session and a port session (CPU) driven in lockstep; with
-    ``mesh``, each on its package's ``(4,) ("edge",)`` edge mesh."""
+    ``mesh`` (a ``mesh_pair`` layout name, True for ``"edge4"``), each on
+    its package's mesh of that layout."""
 
     def __init__(self, mesh=False, **overrides):
         kw = dict(CFG_KW, **overrides)
         self.jcfg, self.tcfg = jds.StoreConfig(**kw), tds.StoreConfig(**kw)
         if mesh:
-            if jax.device_count() < N_DEV:
-                pytest.skip(f"needs {N_DEV} host devices")
-            self.j = JaxDB.open(self.jcfg, mesh=j_make_edge_mesh(N_DEV), seed=0)
-            self.t = AerialDB.open(self.tcfg, make_edge_mesh(N_DEV, device="cpu"),
-                                   seed=0)
+            jmesh, tmesh = mesh_pair("edge4" if mesh is True else mesh)
+            self.j = JaxDB.open(self.jcfg, mesh=jmesh, seed=0)
+            self.t = AerialDB.open(self.tcfg, tmesh, seed=0)
         else:
             self.j = JaxDB.open(self.jcfg, seed=0)
             self.t = AerialDB.open(self.tcfg, seed=0, device="cpu")
@@ -392,14 +406,15 @@ def test_incremental_repair_overlapping_outages_pending_set():
     pair.total_count()
 
 
-def test_incremental_repair_differential_mesh():
-    """The reference's mesh case with churn, on the edge4 mesh: the same
+@pytest.mark.parametrize("mesh", ["edge4", "fleet2x2"])
+def test_incremental_repair_differential_mesh(mesh):
+    """The reference's mesh case with churn, on both mesh layouts: the same
     fail/ingest/recover/repair script through the JAX mesh session, the
     port mesh session and the port single-device session keeps every state
     bitwise identical and the (incremental) repair telemetry equal, and
     each incremental repair equals its full sweep (a domain loss, then
     overlapping outages with a partial recovery: the pending-sweep path)."""
-    pair = Pair(mesh=True)
+    pair = Pair(mesh=mesh)
     single = AerialDB.open(pair.tcfg, seed=0, device="cpu")
     fleet = _fleet(11)
 
