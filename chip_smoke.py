@@ -100,25 +100,35 @@ Phases, one line each:
      slower than its kernel shows the host), ``device_ms`` the kernel's own
      device time a launch (torch.profiler, summed by kernel name);
   5. flash_attention's three kernels against their plain version (fp32 at
-     the JAX package's test shapes, decode rows and ragged sizes, to 2e-5,
-     through the mma_sync kernel; bf16 at the serve shapes, decode rows of
-     256 and 4096 slots, a GQA group of 5 and a ragged d-128 case, to 1e-2,
-     through the sm90, decode and mma_sync kernels, each forced and as the
-     wrapper chooses; the decode kernel also bitwise repeatable);
-  6. the LM serving path at full width — internlm2-1.8b (24 layers,
-     d_model 2048, 16 query heads over 8 KV heads, vocab 92544), random
-     weights from a seeded generator on the card, bf16 compute:
-     ``prefill_step`` on 8 prompts of 2048 tokens, then ``Engine.generate``
-     for 8 requests (128-token prompts, 64 new tokens, max_seq 256), twice
-     (identical ids), with the engine's logits after the last prompt token
-     held against ``prefill_step``'s on the same prompts; every prefill
-     flash call must go to the sm90 kernel and every generate call (Sq 1)
-     to the decode kernel;
-  7. flash_attention timings at the prefill shape (sm90 and mma_sync, both
-     forced) and at two decode shapes, 192 of 256 slots and 4096 of 4096
-     (decode and mma_sync, both forced), each beside SDPA and the bytes or
-     operations bound, the profiles each device time took, and the six
-     kernels' timings printed as one JSON line.
+     the JAX package's test shapes, decode rows and ragged sizes, at d 128
+     and 160, to 2e-5, through the mma_sync kernel; bf16 at the serve
+     shapes of internlm2-1.8b (d 128), stablelm-12b (d 160) and
+     deepseek-7b (d 128, GQA group 1), decode rows of 256 and 4096 slots,
+     a GQA group of 5 and ragged d-128 and d-160 cases, to 1e-2, through
+     the sm90, decode and mma_sync kernels, each forced and as the wrapper
+     chooses; the decode kernel also bitwise repeatable);
+  6. the LM serving path at full width, twice: internlm2-1.8b (24 layers,
+     d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
+     92544; weights drawn in fp32, the engine's copy in bf16), then
+     stablelm-12b (40 layers, d_model 5120, 32 query heads over 8 KV
+     heads, d_head 160, d_ff 13824, vocab 100352: 12.14 B parameters,
+     drawn in bf16 so that the engine copies nothing; internlm2's engine
+     freed first), random weights from a seeded generator on the card, bf16
+     compute: ``prefill_step`` on 8 prompts of 2048 tokens, then
+     ``Engine.generate`` for 8 requests (128-token prompts, 64 new tokens,
+     max_seq 256), twice (identical ids), with the engine's logits after
+     the last prompt token held against ``prefill_step``'s on the same
+     prompts; every prefill flash call must go to the sm90 kernel and every
+     generate call (Sq 1) to the decode kernel (lines ``serve_prefill`` /
+     ``serve_generate`` and ``serve_stablelm_prefill`` /
+     ``serve_stablelm_generate``);
+  7. flash_attention timings at each serve path's prefill shape (sm90 and
+     mma_sync, both forced) and at two decode shapes, 192 of 256 slots and
+     4096 of 4096 (decode and mma_sync, both forced), at d 128 and at d
+     160, each beside SDPA and the bytes or operations bound, the profiles
+     each device time took, and the kernels' timings printed as one JSON
+     line (the three flash kernels once at d 128 and once at d 160, with
+     ``_d160`` names).
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -171,6 +181,7 @@ CHAOS_SMOKE = ((0, "fail_edges", ((6,),)),
                (2, "heal", ()),
                (3, "recover_edges", ((6,),)))
 SERVE_ARCH = "internlm2-1.8b"
+SERVE_D160_ARCH = "stablelm-12b"   # the serve path at head dim 160
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 256
@@ -189,6 +200,8 @@ VORONOI_SOURCE = Path(__file__).resolve().parent / "src/repro_torch/csrc/voronoi
 # Profiles taken by each device_ms call, in call order (more than one: a
 # profile recorded no device time for the kernel and was taken again).
 DEVICE_MS_PROFILES: list[int] = []
+# (launches the profile recorded, calls made) of each device_ms call.
+DEVICE_MS_RECORDED: list[tuple[int, int]] = []
 
 
 def cuda_ms(torch, fn, iters: int) -> float:
@@ -234,11 +247,14 @@ def _device_rows(torch, prof):
 
 
 def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
-    """Device time a call of ``fn`` (torch.profiler): the time of the
-    device kernels whose name holds ``match`` (of every device activity
-    when None) over ``iters`` calls, divided by ``iters``. Exits non-zero
-    when no such kernel ran in three profiles; appends the profiles it took
-    to DEVICE_MS_PROFILES."""
+    """Device time a call of ``fn`` (torch.profiler) over ``iters`` calls:
+    the mean time a launch of the device kernels whose name holds
+    ``match``, or, when None, the sum over every device activity of its
+    mean time a launch times its launches a call. Means are taken over the
+    launches the profile recorded, which may be fewer than were made (a
+    profile can drop records); the shortfall is kept in
+    DEVICE_MS_RECORDED. Exits non-zero when no such kernel ran in three
+    profiles; appends the profiles it took to DEVICE_MS_PROFILES."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
@@ -248,11 +264,17 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        us = sum(t for t, _, key in _device_rows(torch, prof)
-                 if match is None or match in key)
+        rows = [(t, n) for t, n, key in _device_rows(torch, prof)
+                if n and (match is None or match in key)]
+        us = sum(t for t, _ in rows)
         if us > 0:
             DEVICE_MS_PROFILES.append(taken)
-            return us / 1e3 / iters
+            if match is not None:
+                n = sum(n for _, n in rows)
+                DEVICE_MS_RECORDED.append((n, iters))
+                return us / n / 1e3
+            DEVICE_MS_RECORDED.append((min(n for _, n in rows), iters))
+            return sum(t / n * max(1, round(n / iters)) for t, n in rows) / 1e3
     raise SystemExit(f"device_ms: no device time for kernel {match!r}")
 
 
@@ -2312,12 +2334,14 @@ def st_scan_phase(torch, dev, cfg, st, alive, batches, specs) -> dict:
 def flash_vs_plain(torch, dev, seed: int) -> dict:
     """flash_attention's kernels against their plain version on the card:
     fp32 at the JAX package's kernel-test shapes, decode rows and a ragged
-    size (to FLASH_F32_TOL), bf16 at the serve shapes, decode rows and a
-    ragged d-128 case (to FLASH_BF16_TOL), each bf16 case through the
-    kernel the wrapper chooses and through every kernel that takes it,
-    forced; the decode kernel twice, bitwise. Exits non-zero on any
-    mismatch or on a call that went to another kernel than expected;
-    returns the largest errors by dtype and by bf16 kernel."""
+    size (to FLASH_F32_TOL), bf16 at the serve shapes of internlm2-1.8b
+    (d 128), stablelm-12b (d 160) and deepseek-7b (d 128, GQA group 1),
+    decode rows and ragged cases (to FLASH_BF16_TOL), each bf16 case
+    through the kernel the wrapper chooses and through every kernel that
+    takes it, forced; the decode kernel twice, bitwise. Exits non-zero on
+    any mismatch or on a call that went to another kernel than expected;
+    returns the largest errors by dtype, by bf16 kernel, and by bf16
+    kernel and head dim (``bfloat16_<kernel>_d<d>``)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(seed)
@@ -2330,12 +2354,26 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                  (2, 77, 131, 4, 2, 64, False, 0)]
     f32_cases += [(SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, p)
                   for p in (0, 63, 64, 191, 255)]
+    # stablelm-12b's head dim on the mma_sync kernel (the fp32 instance)
+    f32_cases += [(1, 256, 256, 4, 1, 160, True, 0),
+                  (2, 77, 131, 4, 2, 160, True, 54),
+                  (2, 77, 131, 4, 2, 160, False, 0),
+                  (SERVE_BATCH, 1, MAX_SEQ, 32, 8, 160, True, 191)]
     bf16_cases = [(SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 16, 8, 128, True, 0),
                   (2, 77, 131, 4, 2, 128, True, 54),    # ragged, d 128
                   (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 191),
                   (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 0),
                   (SERVE_BATCH, 1, LONG_SEQ, 16, 8, 128, True, LONG_SEQ - 1),
-                  (2, 1, MAX_SEQ, 40, 8, 128, True, 100)]   # qwen3-14b heads
+                  (2, 1, MAX_SEQ, 40, 8, 128, True, 100),   # qwen3-14b heads
+                  # stablelm-12b: 32 heads over 8, d 160
+                  (SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 32, 8, 160, True, 0),
+                  (2, 77, 131, 4, 2, 160, True, 54),    # ragged, d 160
+                  (SERVE_BATCH, 1, MAX_SEQ, 32, 8, 160, True, 0),
+                  (SERVE_BATCH, 1, MAX_SEQ, 32, 8, 160, True, 191),
+                  (SERVE_BATCH, 1, LONG_SEQ, 32, 8, 160, True, LONG_SEQ - 1),
+                  # deepseek-7b: 32 heads over 32 (GQA group 1), d 128
+                  (2, 1, MAX_SEQ, 32, 32, 128, True, 191),
+                  (1, PREFILL_LEN, PREFILL_LEN, 32, 32, 128, True, 0)]
     errs = {}
     n_calls = 0
     for dtype, cases, tol in ((torch.float32, f32_cases, FLASH_F32_TOL),
@@ -2369,8 +2407,8 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                                      "call gave other bits")
                 worst = max(worst, float(err.max()))
                 if dtype == torch.bfloat16:
-                    key = f"bfloat16_{ran}"
-                    errs[key] = max(errs.get(key, 0.0), float(err.max()))
+                    for key in (f"bfloat16_{ran}", f"bfloat16_{ran}_d{dh}"):
+                        errs[key] = max(errs.get(key, 0.0), float(err.max()))
                 n_calls += 1
         errs[str(dtype).removeprefix("torch.")] = worst
     phase("flash_vs_plain", f32_cases=len(f32_cases), bf16_cases=len(bf16_cases),
@@ -2379,9 +2417,14 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
     return errs
 
 
-def serve(torch, dev, seed: int, do_profile: bool) -> dict:
-    """The LM serving path at full width: prefill_step, then Engine.generate
-    twice. Returns the flash launch count of these runs."""
+def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
+          param_dtype: str = "float32", tag: str = "serve") -> dict:
+    """The LM serving path of ``arch`` at full width: prefill_step, then
+    Engine.generate twice, as the lines ``<tag>_prefill`` and
+    ``<tag>_generate``. ``param_dtype`` is the dtype the weights are drawn
+    in: "float32" (the engine casts a bf16 copy) or "bfloat16" (the
+    engine's cast copies nothing). Returns the flash launch counts of these
+    runs by kernel; the model and its weights are freed on return."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models.model import Model
@@ -2405,17 +2448,21 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
                 self.prompt_logits = logits.clone()
             return cache, logits
 
-    cfg = get_config(SERVE_ARCH)
+    phase_t0 = time.perf_counter()
+    cfg = get_config(arch).replace(param_dtype_str=param_dtype)
     model = Model(cfg, device=dev)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     n_params = sum(int(x.numel()) for x in _leaves(params))
     engine = TimedEngine(model, params, ServeConfig(
         max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ))
-    del params                      # the engine keeps the bf16 copy
+    del params                      # the engine keeps the bf16 weights
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak = torch.cuda.max_memory_allocated() / 2**30
     eparams = engine.params
+    weight_bytes = sum(int(x.numel()) * x.element_size() for x in _leaves(eparams))
     prefill_step, _ = make_serve_steps(model)
     rng = np.random.default_rng(seed + 7)
     long_prompts = torch.from_numpy(rng.integers(
@@ -2441,18 +2488,23 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
     if prefill_launches != 4 * cfg.n_layers or not torch.isfinite(lg).all() \
             or lg.shape != (SERVE_BATCH, cfg.vocab_padded) \
             or prefill_by_variant["sm90"] != prefill_launches:
-        raise SystemExit(f"prefill: {prefill_launches} flash launches "
+        raise SystemExit(f"{tag} prefill: {prefill_launches} flash launches "
                          f"({prefill_by_variant}), logits {tuple(lg.shape)} "
                          f"finite={bool(torch.isfinite(lg).all())}")
     ms = float(np.median(times))
-    phase("serve_prefill", arch=SERVE_ARCH, params=n_params,
+    phase(f"{tag}_prefill", arch=arch, params=n_params,
+          n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+          n_kv=cfg.n_kv, d_head=cfg.d_head, param_dtype=param_dtype,
+          weight_gb=weight_bytes / 1e9,
           batch=SERVE_BATCH, seq=PREFILL_LEN, init_s=init_s,
+          init_peak_mem_gb=init_peak,
           prefill_ms=times, prefill_p50_ms=ms,
           prefill_tokens_per_s=SERVE_BATCH * PREFILL_LEN / (ms / 1e3),
           peak_mem_gb=torch.cuda.max_memory_allocated() / 2**30,
+          logits_shape=list(lg.shape),
           flash_launches=prefill_launches, flash_by_variant=prefill_by_variant)
 
-    # Engine.generate: 8 requests, 128-token prompts, 64 new tokens.
+    # Engine.generate: 8 requests, 128-token prompts, NEW_TOKENS new tokens.
     ref_logits = prefill_step(eparams, {"tokens": torch.from_numpy(prompts).to(dev)})
     torch.cuda.reset_peak_memory_stats()
     fops.launches = 0
@@ -2464,65 +2516,79 @@ def serve(torch, dev, seed: int, do_profile: bool) -> dict:
     gen_by_variant = dict(fops.launches_by_variant)
     want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS)
     if gen_launches != want_launches or gen_by_variant["decode"] != want_launches:
-        raise SystemExit(f"generate: {gen_launches} flash launches "
+        raise SystemExit(f"{tag} generate: {gen_launches} flash launches "
                          f"({gen_by_variant}), expected {want_launches} "
                          "through the decode kernel")
     if ids.shape != (SERVE_BATCH, NEW_TOKENS) or ids.min() < 0 \
             or ids.max() >= cfg.vocab:
-        raise SystemExit(f"generate: ids {ids.shape} in [{ids.min()}, {ids.max()}]")
+        raise SystemExit(f"{tag} generate: ids {ids.shape} in [{ids.min()}, {ids.max()}]")
     step_ms = [e0.elapsed_time(e1) for e0, e1 in engine.events]
     ev = engine.events
     prompt_ms = ev[0][0].elapsed_time(ev[PROMPT_LEN - 1][1])
     decode_ms = ev[PROMPT_LEN][0].elapsed_time(ev[-1][1])
+    finite = bool(torch.isfinite(engine.prompt_logits).all())
     diff = (engine.prompt_logits.float() - ref_logits.float()).abs()
     max_diff = float(diff[:, :cfg.vocab].max())
     agree = int((engine.prompt_logits.argmax(-1) == ref_logits.argmax(-1)).sum())
     peak = torch.cuda.max_memory_allocated() / 2**30
     again = engine.generate(prompts)
     deterministic = bool(np.array_equal(ids, again))
-    phase("serve_generate", batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
+    phase(f"{tag}_generate", arch=arch, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
           new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, wall_s=wall,
           prompt_phase_ms=prompt_ms,
           decode_step_p50_ms=float(np.median(step_ms[PROMPT_LEN:])),
           decode_step_ms_min_max=[float(min(step_ms[PROMPT_LEN:])),
                                   float(max(step_ms[PROMPT_LEN:]))],
+          decode_step_bytes_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
           generated_tokens_per_s=SERVE_BATCH * NEW_TOKENS / (decode_ms / 1e3),
           peak_mem_gb=peak, flash_launches=gen_launches,
           flash_by_variant=gen_by_variant,
-          deterministic=deterministic,
+          deterministic=deterministic, prompt_logits_finite=finite,
+          prompt_logits_shape=list(engine.prompt_logits.shape),
           prefill_vs_decode_max_abs_diff=max_diff,
           prefill_vs_decode_tol=PREFILL_DECODE_TOL,
-          first_tokens_agree=agree, first_ids=ids[:, 0].tolist())
+          first_tokens_agree=agree, first_ids=ids[:, 0].tolist(),
+          phase_wall_s=time.perf_counter() - phase_t0)
     if not deterministic:
-        raise SystemExit("generate: a second run gave other ids")
-    if not np.isfinite(max_diff) or max_diff > PREFILL_DECODE_TOL:
-        raise SystemExit(f"generate: logits after the prompt differ from "
+        raise SystemExit(f"{tag} generate: a second run gave other ids")
+    if not finite or not np.isfinite(max_diff) or max_diff > PREFILL_DECODE_TOL:
+        raise SystemExit(f"{tag} generate: logits after the prompt differ from "
                          f"prefill_step's by {max_diff} > {PREFILL_DECODE_TOL}")
 
     if do_profile:
         batch = {"tokens": long_prompts}
-        phase("profile_prefill", **profile(torch, lambda: prefill_step(eparams, batch)))
+        name = "profile" if tag == "serve" else f"profile_{tag}"
+        phase(f"{name}_prefill",
+              **profile(torch, lambda: prefill_step(eparams, batch)))
         cache = model.init_cache(SERVE_BATCH, MAX_SEQ)
         tok = torch.from_numpy(prompts[:, :1]).to(dev)
-        phase("profile_decode_step", **profile(
+        phase(f"{name}_decode_step", **profile(
             torch, lambda: model.decode_step(eparams, cache, {"tokens": tok},
                                              PROMPT_LEN + NEW_TOKENS // 2)))
     return {v: prefill_by_variant[v] + gen_by_variant[v] for v in fops.VARIANTS}
 
 
+# The serve shapes flash_timings times, by head dim: (query heads, kv heads)
+# of internlm2-1.8b at d 128 and of stablelm-12b at d 160.
+FLASH_TIMING_HEADS = {128: (16, 8), 160: (32, 8)}
+
+
 def flash_timings(torch, dev, seed: int) -> dict:
-    """flash_attention at the serve path's prefill shape (the sm90 kernel
+    """flash_attention at the serve paths' prefill shape (the sm90 kernel
     and the mma_sync kernel, both forced) and at two decode shapes, 192
     keys of a 256-slot cache and 4096 of 4096 (the decode kernel and the
     mma_sync kernel, both forced), its plain version and SDPA (timed as the
-    yardstick only), each beside the bound of the same work. ``*ms`` is
-    the call time, wrapper included; ``*device_ms`` the kernel's own device
-    time a launch."""
+    yardstick only), each beside the bound of the same work: at d 128 with
+    internlm2-1.8b's heads (keys ``prefill``, ``decode``, ``decode_long``)
+    and at d 160 with stablelm-12b's (the same keys with ``_d160``).
+    ``*ms`` is the call time, wrapper included; ``*device_ms`` the kernel's
+    own device time a launch; ``*bound_ms`` the bound of the work at each
+    shape, for whichever kernel runs it."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(seed)
-    b, h, kv, d = SERVE_BATCH, 16, 8, 128
+    b = SERVE_BATCH
 
     def rand(*shape):
         return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
@@ -2533,54 +2599,59 @@ def flash_timings(torch, dev, seed: int) -> dict:
                                                  variant=variant, **kw)
 
     out = {}
-    # prefill: S = 2048, causal
-    q, k, v = rand(b, PREFILL_LEN, h, d), rand(b, PREFILL_LEN, kv, d), rand(b, PREFILL_LEN, kv, d)
-    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-    s = PREFILL_LEN
-    flops = 4 * b * h * d * s * (s + 1) / 2
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
-    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                                  enable_gqa=True)
-    out["prefill"] = {
-        "ms": cuda_ms(torch, kernel("sm90", q, k, v), 20),
-        "device_ms": device_ms(torch, kernel("sm90", q, k, v), 10, "flash_fwd_sm90"),
-        "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v), 20),
-        "mma_sync_device_ms": device_ms(torch, kernel("mma_sync", q, k, v), 10,
-                                        "flash_fwd_bf16"),
-        "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
-        "library_ms": cuda_ms(torch, sdpa, 20),
-        "library_device_ms": device_ms(torch, sdpa, 10),
-        "flops": flops, "bytes": nbytes,
-        **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
-    # decode: Sq = 1 at the last position of the generate run (191 of a
-    # 256-slot cache), and at the last of a 4096-slot cache
-    for name, slots, pos in (("decode", MAX_SEQ, PROMPT_LEN + NEW_TOKENS - 1),
-                             ("decode_long", LONG_SEQ, LONG_SEQ - 1)):
-        q, k, v = rand(b, 1, h, d), rand(b, slots, kv, d), rand(b, slots, kv, d)
-        qt = q.transpose(1, 2).contiguous()
-        kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
-        flops = 4 * b * h * d * (pos + 1)
-        nbytes = 2 * (2 * q.numel() + 2 * b * (pos + 1) * kv * d)
-        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-        host = host_us(torch, {
-            "decode": kernel("decode", q, k, v, q_offset=pos),
-            "mma_sync": kernel("mma_sync", q, k, v, q_offset=pos)})
-        out[name] = {
-            "host_us": host["decode"], "mma_sync_host_us": host["mma_sync"],
-            "keys": pos + 1, "slots": slots,
-            "n_split": fops.decode_splits(b, kv, pos + 1),
-            "ms": cuda_ms(torch, kernel("decode", q, k, v, q_offset=pos), 200),
-            "device_ms": device_ms(torch, kernel("decode", q, k, v, q_offset=pos),
-                                   50, "flash_decode"),
-            "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v, q_offset=pos), 200),
-            "mma_sync_device_ms": device_ms(
-                torch, kernel("mma_sync", q, k, v, q_offset=pos), 50, "flash_fwd_bf16"),
-            "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
-                q, k, v, causal=True, q_offset=pos), 20),
-            "library_ms": cuda_ms(torch, sdpa, 200),
-            "library_device_ms": device_ms(torch, sdpa, 50),
+    for d, (h, kv) in FLASH_TIMING_HEADS.items():
+        sfx = "" if d == 128 else f"_d{d}"
+        # prefill: S = 2048, causal
+        q, k, v = rand(b, PREFILL_LEN, h, d), rand(b, PREFILL_LEN, kv, d), rand(b, PREFILL_LEN, kv, d)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        s = PREFILL_LEN
+        flops = 4 * b * h * d * s * (s + 1) / 2
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                      enable_gqa=True)
+        out["prefill" + sfx] = {
+            "shape": [b, s, h, kv, d, "causal", "bf16"],
+            "ms": cuda_ms(torch, kernel("sm90", q, k, v), 20),
+            "device_ms": device_ms(torch, kernel("sm90", q, k, v), 10, "flash_fwd_sm90"),
+            "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v), 20),
+            "mma_sync_device_ms": device_ms(torch, kernel("mma_sync", q, k, v), 10,
+                                            "flash_fwd_bf16"),
+            "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
+            "library_ms": cuda_ms(torch, sdpa, 20),
+            "library_device_ms": device_ms(torch, sdpa, 10),
             "flops": flops, "bytes": nbytes,
             **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+        del q, k, v, qt, kt, vt
+        # decode: Sq = 1 at the last position of the generate run (191 of a
+        # 256-slot cache), and at the last of a 4096-slot cache
+        for name, slots, pos in (("decode", MAX_SEQ, PROMPT_LEN + NEW_TOKENS - 1),
+                                 ("decode_long", LONG_SEQ, LONG_SEQ - 1)):
+            q, k, v = rand(b, 1, h, d), rand(b, slots, kv, d), rand(b, slots, kv, d)
+            qt = q.transpose(1, 2).contiguous()
+            kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
+            flops = 4 * b * h * d * (pos + 1)
+            nbytes = 2 * (2 * q.numel() + 2 * b * (pos + 1) * kv * d)
+            sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+            host = host_us(torch, {
+                "decode": kernel("decode", q, k, v, q_offset=pos),
+                "mma_sync": kernel("mma_sync", q, k, v, q_offset=pos)})
+            out[name + sfx] = {
+                "shape": [b, 1, h, kv, d, "q_offset", pos, "Skv", slots],
+                "host_us": host["decode"], "mma_sync_host_us": host["mma_sync"],
+                "keys": pos + 1, "slots": slots,
+                "n_split": fops.decode_splits(b, kv, pos + 1),
+                "ms": cuda_ms(torch, kernel("decode", q, k, v, q_offset=pos), 200),
+                "device_ms": device_ms(torch, kernel("decode", q, k, v, q_offset=pos),
+                                       50, "flash_decode"),
+                "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v, q_offset=pos), 200),
+                "mma_sync_device_ms": device_ms(
+                    torch, kernel("mma_sync", q, k, v, q_offset=pos), 50, "flash_fwd_bf16"),
+                "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+                    q, k, v, causal=True, q_offset=pos), 20),
+                "library_ms": cuda_ms(torch, sdpa, 200),
+                "library_device_ms": device_ms(torch, sdpa, 50),
+                "flops": flops, "bytes": nbytes,
+                **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
     return out
 
 
@@ -2966,55 +3037,62 @@ def main(argv=None) -> int:
     # -- 5-7. flash_attention and the LM serving path ----------------------
     flash_err = flash_vs_plain(torch, dev, args.seed)
     served = serve(torch, dev, args.seed, args.profile)
+    torch.cuda.empty_cache()        # internlm2's engine is gone
+    served_d160 = serve(torch, dev, args.seed, args.profile, arch=SERVE_D160_ARCH,
+                        param_dtype="bfloat16", tag="serve_stablelm")
+    torch.cuda.empty_cache()
     ft = flash_timings(torch, dev, args.seed)
-    pre, dec, long = ft["prefill"], ft["decode"], ft["decode_long"]
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
-    # The mma_sync kernel is on no main path any more (fp32, d 32/64, and
-    # bf16 with 1 < Sq < 64): its entry gives its forced decode-shape times.
-    kernels.append({
-        "name": "flash_attention", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": flash,
-        "launches": served["mma_sync"],
-        "max_abs_err": flash_err["bfloat16_mma_sync"],
-        "ms": dec["mma_sync_ms"], "device_ms": dec["mma_sync_device_ms"],
-        "host_us": dec["mma_sync_host_us"],
-        "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
-        "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
-        "library_device_ms": dec["library_device_ms"],
-        "long_device_ms": long["mma_sync_device_ms"],
-        "prefill_ms": pre["mma_sync_ms"],
-        "prefill_device_ms": pre["mma_sync_device_ms"]})
-    kernels.append({
-        "name": "flash_attention_sm90", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_sm90.cu", "replaces": flash,
-        "launches": served["sm90"],
-        "max_abs_err": flash_err["bfloat16_sm90"],
-        "ms": pre["ms"], "device_ms": pre["device_ms"], "plain_ms": pre["plain_ms"],
-        "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
-        "library_ms": pre["library_ms"],
-        "library_device_ms": pre["library_device_ms"]})
-    kernels.append({
-        "name": "flash_attention_decode", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_decode.cu", "replaces": flash,
-        "launches": served["decode"],
-        "max_abs_err": flash_err["bfloat16_decode"],
-        "ms": dec["ms"], "device_ms": dec["device_ms"], "host_us": dec["host_us"],
-        "plain_ms": dec["plain_ms"],
-        "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
-        "library_ms": dec["library_ms"],
-        "library_device_ms": dec["library_device_ms"],
-        "long_ms": long["ms"], "long_device_ms": long["device_ms"],
-        "long_plain_ms": long["plain_ms"], "long_bound_ms": long["bound_ms"],
-        "long_library_device_ms": long["library_device_ms"]})
-    phase("flash_timings", shapes={
-        "prefill": [SERVE_BATCH, PREFILL_LEN, 16, 8, 128, "causal", "bf16"],
-        "decode": [SERVE_BATCH, 1, 16, 8, 128, "q_offset",
-                   PROMPT_LEN + NEW_TOKENS - 1, "Skv", MAX_SEQ],
-        "decode_long": [SERVE_BATCH, 1, 16, 8, 128, "q_offset", LONG_SEQ - 1,
-                        "Skv", LONG_SEQ]}, **ft)
+    for sfx, launched in (("", served), ("_d160", served_d160)):
+        pre, dec, long = ft["prefill" + sfx], ft["decode" + sfx], ft["decode_long" + sfx]
+        # The mma_sync kernel is on no main path (fp32, d 32/64, and bf16
+        # with 1 < Sq < 64): its entry gives its forced decode-shape times,
+        # with the bound of each shape it was timed at.
+        kernels.append({
+            "name": "flash_attention" + sfx, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention.cu", "replaces": flash,
+            "launches": launched["mma_sync"],
+            "max_abs_err": flash_err["bfloat16_mma_sync" + (sfx or "_d128")],
+            "ms": dec["mma_sync_ms"], "device_ms": dec["mma_sync_device_ms"],
+            "host_us": dec["mma_sync_host_us"],
+            "plain_ms": dec["plain_ms"], "bound_ms": dec["bound_ms"],
+            "bound_by": dec["bound_by"], "library_ms": dec["library_ms"],
+            "library_device_ms": dec["library_device_ms"],
+            "long_device_ms": long["mma_sync_device_ms"],
+            "long_bound_ms": long["bound_ms"],
+            "prefill_ms": pre["mma_sync_ms"],
+            "prefill_device_ms": pre["mma_sync_device_ms"],
+            "prefill_bound_ms": pre["bound_ms"],
+            "prefill_bound_by": pre["bound_by"],
+            "prefill_library_device_ms": pre["library_device_ms"]})
+        kernels.append({
+            "name": "flash_attention_sm90" + sfx, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_sm90.cu", "replaces": flash,
+            "launches": launched["sm90"],
+            "max_abs_err": flash_err["bfloat16_sm90" + (sfx or "_d128")],
+            "ms": pre["ms"], "device_ms": pre["device_ms"], "plain_ms": pre["plain_ms"],
+            "bound_ms": pre["bound_ms"], "bound_by": pre["bound_by"],
+            "library_ms": pre["library_ms"],
+            "library_device_ms": pre["library_device_ms"]})
+        kernels.append({
+            "name": "flash_attention_decode" + sfx, "route": "cuda",
+            "source": "src/repro_torch/csrc/flash_attention_decode.cu", "replaces": flash,
+            "launches": launched["decode"],
+            "max_abs_err": flash_err["bfloat16_decode" + (sfx or "_d128")],
+            "ms": dec["ms"], "device_ms": dec["device_ms"], "host_us": dec["host_us"],
+            "plain_ms": dec["plain_ms"],
+            "bound_ms": dec["bound_ms"], "bound_by": dec["bound_by"],
+            "library_ms": dec["library_ms"],
+            "library_device_ms": dec["library_device_ms"],
+            "long_ms": long["ms"], "long_device_ms": long["device_ms"],
+            "long_plain_ms": long["plain_ms"], "long_bound_ms": long["bound_ms"],
+            "long_library_device_ms": long["library_device_ms"]})
+    phase("flash_timings", **ft)
     phase("device_ms_profiles", calls=len(DEVICE_MS_PROFILES),
           profiles=sum(DEVICE_MS_PROFILES),
-          retried=[i for i, k in enumerate(DEVICE_MS_PROFILES) if k > 1])
+          retried=[i for i, k in enumerate(DEVICE_MS_PROFILES) if k > 1],
+          records_short={i: list(r) for i, r in enumerate(DEVICE_MS_RECORDED)
+                         if r[0] < r[1]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,10 +15,10 @@ import importlib
 import torch
 
 # Families and features the port does not serve yet, with the ROADMAP item
-# (Queue 1, "LM scaffold") that brings them.
+# (Queue 1, item 10, "LM scaffold") that brings them.
 NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba1/2 and the hybrid and enc-dec "
               "families are not ported yet (ROADMAP Queue 1, LM scaffold "
-              "item 2)")
+              "item 10.3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,7 +73,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
     return cfg
 
 
-ARCH_MODULES = ["internlm2_1_8b", "qwen3_14b"]
+ARCH_MODULES = ["internlm2_1_8b", "qwen3_14b", "deepseek_7b",
+                "stablelm_12b"]
 
 
 def get_config(name: str) -> ModelConfig:

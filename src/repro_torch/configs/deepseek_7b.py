@@ -1,0 +1,9 @@
+"""deepseek-7b [dense]: 30L d_model=4096 32H (GQA kv=32) d_ff=11008
+vocab=102400 — llama-arch [arXiv:2401.02954; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="deepseek-7b", family="dense",
+    n_layers=30, d_model=4096, n_heads=32, n_kv=32, d_head=128,
+    d_ff=11008, vocab=102400,
+))

@@ -1,0 +1,9 @@
+"""stablelm-12b [dense]: 40L d_model=5120 32H (GQA kv=8) d_ff=13824
+vocab=100352 [hf:stabilityai/stablelm-2-1_6b; hf]."""
+from repro_torch.configs.base import ModelConfig, register
+
+CONFIG = register(ModelConfig(
+    name="stablelm-12b", family="dense",
+    n_layers=40, d_model=5120, n_heads=32, n_kv=8, d_head=160,
+    d_ff=13824, vocab=100352,
+))

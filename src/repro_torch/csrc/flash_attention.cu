@@ -30,6 +30,12 @@
 // instances, used to hold the kernel tight to the plain version, are a
 // plain FMA loop (no TF32): one warp per query row, one key per lane.
 //
+// Instances: d 32, 64, 128 and 160. The bf16 instance's shared memory is
+// Q and K tiles of 64 x (d + 8) and V^T of d x 72 bf16: 66,048 B at d 160,
+// which launch() opts in to above the default 48 KB; its per-thread Q
+// fragments and accumulator are d/4 + d/2 registers, 40 + 80 at d 160
+// (ptxas's report: chip_smoke.py's `environment` line).
+//
 // C entry: flash_attention_launch(q, k, v, o, is_bf16, d, B, H, KV, Sq, Skv,
 // strides, causal, q_offset, scale, stream); `strides` points to 12 host
 // int64 element strides, (batch, seq, head) of q, k, v and o in turn; the
@@ -397,6 +403,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     case 32: return launch_d<32>(is_bf16 != 0, B, a, st);
     case 64: return launch_d<64>(is_bf16 != 0, B, a, st);
     case 128: return launch_d<128>(is_bf16 != 0, B, a, st);
+    case 160: return launch_d<160>(is_bf16 != 0, B, a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,4 +1,5 @@
-// Split-KV flash decoding for Hopper: one query row a head (Sq == 1), bf16.
+// Split-KV flash decoding for Hopper: one query row a head (Sq == 1), bf16,
+// d 32, 64, 128 and 160.
 //
 // Replaces, for every decode call, the Pallas TPU kernel
 // `flash_attention_kernel` (src/repro/kernels/flash_attention/
@@ -86,9 +87,16 @@ __host__ __device__ constexpr int smem_bytes() {
   return 2 * (D + 8) * 2 * STAGES * TK;
 }
 
-static_assert(smem_bytes<128>() <= 48 * 1024, "no opt-in shared memory");
-static_assert((2 * ROWS + ROWS * 128) * 4 <= STAGES * TK * (128 + 8) * 2,
-              "the partial fits in K's space");
+// Every head dim it takes fits without opt-in shared memory, and its
+// partial fits in K's space (d 160: 43,008 B; a partial of 10,368 B in
+// 21,504).
+template <int D>
+constexpr bool fits() {
+  return smem_bytes<D>() <= 48 * 1024 &&
+         (2 * ROWS + ROWS * D) * 4 <= STAGES * TK * (D + 8) * 2;
+}
+static_assert(fits<32>() && fits<64>() && fits<128>() && fits<160>(),
+              "no opt-in shared memory; the partial fits in K's space");
 
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
@@ -136,6 +144,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// Chunks [C0, C0 + N) (16 bytes each) of the tile's TK key rows of K and V
+// into shared memory, keys past the split zero-filled: lane l takes chunk
+// C0 + l % N of rows l / N, l / N + 32 / N, ...
+template <int N, int C0, int LD>
+__device__ __forceinline__ void copy_chunks(bf16* kd, bf16* vd, const bf16* kbase,
+                                            const bf16* vbase, long long ks,
+                                            long long vs, int key0, int k1, int lane) {
+  static_assert(32 % N == 0, "a row's chunks divide the warp");
+  const int c = C0 + lane % N;
+#pragma unroll
+  for (int r = lane / N; r < TK; r += 32 / N) {
+    const bool in = key0 + r < k1;
+    const long long off = in ? (long long)(key0 + r) : 0;
+    cp_async16(kd + r * LD + c * 8, kbase + off * ks + c * 8, in ? 16 : 0);
+    cp_async16(vd + r * LD + c * 8, vbase + off * vs + c * 8, in ? 16 : 0);
+  }
+}
+
 template <int D>
 __global__ void __launch_bounds__(32) flash_decode(Args a) {
   constexpr int LD = D + 8, CH = D / 8, KSTEPS = D / 16, NT = D / 8;
@@ -161,13 +187,11 @@ __global__ void __launch_bounds__(32) flash_decode(Args a) {
     const int key0 = k0 + tile * TK;
     bf16* kd = Ks + (tile % STAGES) * TK * LD;
     bf16* vd = Vs + (tile % STAGES) * TK * LD;
-    const int c = lane % CH;
-#pragma unroll
-    for (int r = lane / CH; r < TK; r += 32 / CH) {
-      const bool in = key0 + r < k1;
-      const long long off = in ? (long long)(key0 + r) : 0;
-      cp_async16(kd + r * LD + c * 8, kbase + off * a.ks + c * 8, in ? 16 : 0);
-      cp_async16(vd + r * LD + c * 8, vbase + off * a.vs + c * 8, in ? 16 : 0);
+    if constexpr (32 % CH == 0) {
+      copy_chunks<CH, 0, LD>(kd, vd, kbase, vbase, a.ks, a.vs, key0, k1, lane);
+    } else {  // d 160: a row's 20 chunks as 16 + 4, each dividing the warp
+      copy_chunks<16, 0, LD>(kd, vd, kbase, vbase, a.ks, a.vs, key0, k1, lane);
+      copy_chunks<CH - 16, 16, LD>(kd, vd, kbase, vbase, a.ks, a.vs, key0, k1, lane);
     }
   };
 #pragma unroll
@@ -300,8 +324,10 @@ __global__ void __launch_bounds__(32) flash_decode(Args a) {
   }
   cluster.sync();
 
-  // Block `rank` merges its share of the d columns, every peer's partial
-  // read through distributed shared memory in rank order.
+  // Block `rank` merges its share of the d columns (ceil(d/2 / n_split)
+  // pairs; the last ranks' shares may be short or empty, as at d 160 with
+  // 3, 6 or 7 splits), every peer's partial read through distributed
+  // shared memory in rank order.
   constexpr int PAIRS = D / 2;
   const int pairs_per = (PAIRS + a.n_split - 1) / a.n_split;
   const int p0 = min(rank * pairs_per, PAIRS);
@@ -393,6 +419,7 @@ extern "C" int flash_attention_decode_launch(
     case 32: return launch_d<32>(a, B, st);
     case 64: return launch_d<64>(a, B, st);
     case 128: return launch_d<128>(a, B, st);
+    case 160: return launch_d<160>(a, B, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

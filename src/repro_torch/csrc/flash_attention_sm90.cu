@@ -1,25 +1,26 @@
-// FlashAttention-2 forward for Hopper (sm_90a): the bf16 prefill, d = 128.
+// FlashAttention-2 forward for Hopper (sm_90a): the bf16 prefill, d 128 and 160.
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel`
 // (src/repro/kernels/flash_attention/flash_attention.py:66) for bf16
-// inputs with d = 128 and at least 64 query rows; csrc/flash_attention.cu
-// keeps every other shape (decode, fp32, d 32 and 64). It computes the same
-// function: s = (q . k^T) * d^-0.5 in fp32; s = -1e30 where causal and
-// q_offset + row < col, and where col >= Skv; a running max m and sum l in
-// fp32; p cast to bf16 before the PV product; out = acc / max(l, 1e-30)
-// cast to bf16. Query head h reads kv head h / (H / KV). The scores are
-// kept in the log2 domain (scale * log2(e) folded in, exp2f), which moves
-// the result by rounding only.
+// inputs with d = 128 or 160 and at least 64 query rows;
+// csrc/flash_attention.cu keeps every other shape (fp32, d 32 and 64, bf16
+// with 1 < Sq < 64) and csrc/flash_attention_decode.cu the decode rows. It
+// computes the same function: s = (q . k^T) * d^-0.5 in fp32; s = -1e30
+// where causal and q_offset + row < col, and where col >= Skv; a running
+// max m and sum l in fp32; p cast to bf16 before the PV product; out = acc
+// / max(l, 1e-30) cast to bf16. Query head h reads kv head h / (H / KV).
+// The scores are kept in the log2 domain (scale * log2(e) folded in,
+// exp2f), which moves the result by rounding only.
 //
 // Bound: the operations, 4*B*H*d*S(S+1)/2 FLOP for a causal S x S call
-// (1.37e11 at B 8, H 16, S 2048: 0.139 ms at the card's 989 TFLOP/s bf16
-// peak) against 0.2 GB of q, k, v and o. The design spends its effort on
-// the tensor cores:
-// - both products are warpgroup MMAs, wgmma.mma_async m64n128k16 with fp32
-//   accumulators: S = Q K^T reads Q and K from shared memory through
-//   K-major 128B-swizzle descriptors; O += P V takes P from registers (the
-//   S accumulator converted to bf16 pairs is already the A fragment) and V
-//   as an MN-major operand (transpose bit), so no thread transposes V;
+// (d 128 at B 8, H 16, S 2048: 1.37e11, 0.139 ms at the card's 989 TFLOP/s
+// bf16 peak, against 0.2 GB of q, k, v and o; d 160 at B 8, H 32: 3.44e11,
+// 0.348 ms). The design spends its effort on the tensor cores:
+// - both products are warpgroup MMAs (wgmma.mma_async, fp32 accumulators):
+//   S = Q K^T reads Q and K from shared memory through K-major 128B-swizzle
+//   descriptors; O += P V takes P from registers (the S accumulator
+//   converted to bf16 pairs is already the A fragment) and V as an
+//   MN-major operand (transpose bit), so no thread transposes V;
 // - K and V arrive by TMA (cp.async.bulk.tensor, 128B swizzle, zero fill
 //   past Sq and Skv) into a three-stage ring: one thread issues tile j+1's
 //   loads on a "full" mbarrier before its warpgroup computes tile j, and an
@@ -29,24 +30,48 @@
 //   softmax while the tensor cores idle); the third stage lets them drift
 //   up to a tile apart, so one's softmax overlaps the other's products;
 // - a block is two warpgroups over 128 query rows of one (b, h), so each
-//   128-key tile in shared memory feeds 128 rows; the heaviest causal tiles
+//   K/V tile in shared memory feeds 128 rows; the heaviest causal tiles
 //   are scheduled first and a causal block stops at the tile holding key
 //   q_offset + its last row (later tiles would add exactly 0).
-// Shared memory: Q 32 KB + 3 x (K 32 KB + V 32 KB) = 224 KB, one block an
-// SM. No atomics: two runs give the same bits. Not done yet: a producer
-// warp with setmaxnreg, overlap of softmax with the next product inside a
+//
+// The head dim is a template parameter (`Layout<D>`); each row of Q, K and
+// V lies in slabs of 64 columns, one 128-byte swizzled row a slab:
+// - d 128: two slabs, 128-key tiles. Shared memory: Q 32 KB + 3 x (K 32 KB
+//   + V 32 KB) = 224 KB, one block an SM. S is m64n128 (64 fp32 a thread),
+//   O one m64n128 accumulator (64).
+// - d 160: 160 columns are 2.5 slabs. The third slab is a whole 64-column
+//   box at column 128: TMA fills columns 160-191, which lie outside the
+//   tensor, with zeros (as it does past Sq and Skv), so every slab keeps
+//   the one layout, tensor map and descriptor form that d 128 uses. QK^T
+//   runs d/16 = 10 k-steps (the zero columns are never read); PV runs an
+//   n128 product over slabs 0-1 and an n64 product over slab 2, whose 32
+//   zero columns are dropped at the store. A 64-column slab cannot be cut
+//   to 32: a box's inner extent is the swizzle span, and an MN-major
+//   128B-swizzle V operand comes in whole 64-column atoms. With three
+//   slabs a 128-key stage would be 96 KB and Q 48 KB, over the 227 KB a
+//   block may take at two stages, so the tile drops to 64 keys: Q 48 KB +
+//   3 x (K 24 KB + V 24 KB) = 192 KB, three stages as at d 128. S is
+//   m64n64 (32 fp32 a thread), O 64 + 32. The other layout that fits (a
+//   32-column third slab with 64B swizzle, its own tensor maps and
+//   descriptors, 128-key tiles at two stages) needs a second swizzle mode
+//   in every operand path; this one adds only the n64 product and costs
+//   the 20 % of PV's tensor work spent on zeros.
+// No atomics: two runs give the same bits. Not done yet: a producer warp
+// with setmaxnreg, overlap of softmax with the next product inside a
 // warpgroup, persistent blocks, a TMA-store epilogue.
 //
 // C entries (each launches on `stream` and returns a cudaError_t code, or
-// 10000 + the CUresult of a failed cuTensorMapEncodeTiled):
+// 10000 + the CUresult of a failed cuTensorMapEncodeTiled;
+// cudaErrorInvalidValue for a head dim other than 128 and 160):
 //   flash_attention_sm90_launch(q, k, v, o, geo, causal, q_offset, scale,
 //       stream): `geo` holds 24 host int64: for each of q, k and v the
 //       tensor map's dims (d, seq, heads, batch) and byte strides (seq,
 //       heads, batch), then o's element strides (batch, seq, head).
 //   flash_attention_sm90_probe(q, k, v, s_out, o_out, geo, stream): one
-//       warpgroup computes S = Q K^T (64 x 128, fp32) and O = bf16(S) V
-//       (64 x 128, fp32) through the same TMA maps and descriptors, for a
-//       64-row q and 128-row k and v (`geo`: the first 21 values above).
+//       warpgroup computes S = Q K^T (64 x BK, fp32) and O = bf16(S) V
+//       (64 x d, fp32) through the same TMA maps and descriptors, for a
+//       64-row q and BK-row k and v (BK: the head dim's tile, 128 or 64;
+//       `geo`: the first 21 values above).
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -55,23 +80,33 @@
 
 namespace {
 
-constexpr int D = 128;                    // head dim
 constexpr int SLAB = 64;                  // bf16 columns in one 128-byte swizzled row
 constexpr int BQ = 128;                   // query rows a block (two warpgroups x 64)
-constexpr int BK = 128;                   // keys a K/V tile
 constexpr int THREADS = 256;
 constexpr int STAGES = 3;
 constexpr uint32_t ROW_BYTES = 128;       // one slab row
 constexpr uint32_t ATOM_BYTES = 8 * ROW_BYTES;   // 8 rows: one swizzle atom
 constexpr uint32_t SLAB_Q = BQ * ROW_BYTES;      // 16 KB
-constexpr uint32_t SLAB_KV = BK * ROW_BYTES;     // 16 KB
-constexpr uint32_t Q_BYTES = 2 * SLAB_Q;
-constexpr uint32_t STAGE_BYTES = 4 * SLAB_KV;    // K slabs 0, 1, then V slabs 0, 1
-constexpr size_t SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + alignment
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ENCODE_ERROR = 10000;
 constexpr long long WAIT_LIMIT_CYCLES = 1ll << 34;
+
+// The layout of one head dim: 64-column slabs a row, keys a K/V tile.
+template <int D>
+struct Layout {
+  static_assert(D == 128 || D == 160, "head dims 128 and 160");
+  static constexpr int SLABS = D == 128 ? 2 : 3;
+  static constexpr int BK = D == 128 ? 128 : 64;
+  static constexpr uint32_t SLAB_KV = BK * ROW_BYTES;          // 16 KB or 8 KB
+  static constexpr uint32_t Q_BYTES = SLABS * SLAB_Q;
+  static constexpr uint32_t STAGE_BYTES = 2 * SLABS * SLAB_KV; // K slabs, then V slabs
+  static constexpr size_t SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + alignment
+  static constexpr int HI_COLS = D - 128;  // columns past the n128 product: 0 or 32
+};
+
+static_assert(Layout<128>::SMEM_BYTES <= 232448 && Layout<160>::SMEM_BYTES <= 232448,
+              "a block takes at most 227 KB of shared memory");
 
 struct Geo {
   int H, KVH, Sq, Skv, causal, q_offset;
@@ -158,6 +193,11 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i]) :: "memory");
 }
 
+#define WG_D32                                                      \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, "                               \
+  "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
+  "%16, %17, %18, %19, %20, %21, %22, %23, "                        \
+  "%24, %25, %26, %27, %28, %29, %30, %31}"
 #define WG_D64                                                      \
   "{%0, %1, %2, %3, %4, %5, %6, %7, "                               \
   "%8, %9, %10, %11, %12, %13, %14, %15, "                          \
@@ -167,22 +207,24 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
   "%40, %41, %42, %43, %44, %45, %46, %47, "                        \
   "%48, %49, %50, %51, %52, %53, %54, %55, "                        \
   "%56, %57, %58, %59, %60, %61, %62, %63}"
-#define WG_OUT64(d)                                                           \
+#define WG_OUT32(d)                                                           \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),     \
   "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),   \
   "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]),            \
   "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]),            \
   "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]), "+f"(d[26]),            \
-  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),            \
-  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),            \
-  "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),            \
-  "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]),            \
-  "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),            \
-  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), "+f"(d[56]),            \
-  "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),            \
-  "+f"(d[62]), "+f"(d[63])
+  "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+#define WG_OUT64(d)                                                           \
+  WG_OUT32(d), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),           \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]),            \
+  "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]),            \
+  "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), "+f"(d[50]),            \
+  "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),            \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),            \
+  "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
 
-// d (64 x 128) = [d +] A B, A and B both from shared memory, both K-major.
+// d (64 x N) = [d +] A B, A and B both from shared memory, both K-major;
+// N = 128 (64 fp32 a thread) or 64 (32), chosen by the accumulator's size.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
                                          uint64_t db, int accumulate) {
   asm volatile(
@@ -196,8 +238,21 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
-// d (64 x 128) += A B, A (64 x 16) from registers, B from shared memory,
-// MN-major (transpose bit set).
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : WG_OUT32(d)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N) += A B, A (64 x 16) from registers, B from shared memory,
+// MN-major (transpose bit set); N = 128 or 64 as above.
 __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
                                          uint32_t a1, uint32_t a2, uint32_t a3,
                                          uint64_t db) {
@@ -212,11 +267,27 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[64], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-// S (64 rows x 128 keys) = Q K^T over d = 128: 8 k-steps of 16 columns.
-// `q`: this warpgroup's first row in Q slab 0 (slab 1 at + q_slab); `k`:
-// K slab 0 (slab 1 at + SLAB_KV). Rows are 128 bytes and 8-row atoms 1024
-// bytes apart (SBO); a k-step moves 32 bytes inside a slab.
-__device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q,
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
+                                         uint32_t a1, uint32_t a2, uint32_t a3,
+                                         uint64_t db) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WG_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n"
+      "}\n"
+      : WG_OUT32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
+}
+
+// S (64 rows x BK keys) = Q K^T over d: d/16 k-steps of 16 columns. `q`:
+// this warpgroup's first row in Q slab 0 (slab i at + i * q_slab); `k`: K
+// slab 0 (slab i at + i * SLAB_KV). Rows are 128 bytes and 8-row atoms 1024
+// bytes apart (SBO); a k-step moves 32 bytes inside a slab. At d 160 the
+// last two k-steps read the first 32 columns of slab 2.
+template <int D>
+__device__ __forceinline__ void qk_product(float (&s)[Layout<D>::BK / 2], uint32_t q,
                                            uint32_t q_slab, uint32_t k) {
   fence_regs(s);
   wg_fence();
@@ -224,7 +295,7 @@ __device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q,
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     const uint64_t da = sw128_desc(q + (kk / 4) * q_slab + col, 16, ATOM_BYTES);
-    const uint64_t db = sw128_desc(k + (kk / 4) * SLAB_KV + col, 16, ATOM_BYTES);
+    const uint64_t db = sw128_desc(k + (kk / 4) * Layout<D>::SLAB_KV + col, 16, ATOM_BYTES);
     wgmma_ss(s, da, db, kk > 0);
   }
   wg_commit();
@@ -232,23 +303,34 @@ __device__ __forceinline__ void qk_product(float (&s)[64], uint32_t q,
   fence_regs(s);
 }
 
-// O (64 rows x 128 d) += P (64 x 128 keys, bf16 pairs in registers) V.
-// V's tile is MN-major: d is contiguous, 64 columns a slab. A k-step is 16
-// keys = two 8-row atoms (SBO 1024 bytes apart); the second 64 columns of
-// d are the next slab (LBO = SLAB_KV).
-__device__ __forceinline__ void pv_product(float (&o)[64], uint32_t (&p)[32],
+// O (64 rows x d) += P (64 x BK keys, bf16 pairs in registers) V. V's
+// tile is MN-major: d is contiguous, 64 columns a slab. A k-step is 16
+// keys = two 8-row atoms (SBO 1024 bytes apart); columns 64-127 are the
+// next slab (LBO = SLAB_KV). `o` takes columns 0-127; at d 160 `hi` takes
+// slab 2's 64 (128-191, of which 160-191 are TMA's zeros).
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[64], float (&hi)[32],
+                                           uint32_t (&p)[Layout<D>::BK / 4],
                                            uint32_t v) {
+  using L = Layout<D>;
   fence_regs(o);
+  if constexpr (L::HI_COLS > 0) fence_regs(hi);
   fence_regs(p);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < BK / 16; ++kk) {
-    const uint64_t db = sw128_desc(v + kk * 2 * ATOM_BYTES, SLAB_KV, ATOM_BYTES);
+  for (int kk = 0; kk < L::BK / 16; ++kk) {
+    const uint64_t db = sw128_desc(v + kk * 2 * ATOM_BYTES, L::SLAB_KV, ATOM_BYTES);
     wgmma_rs(o, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], db);
+    if constexpr (L::HI_COLS > 0) {
+      const uint64_t dh = sw128_desc(v + 2 * L::SLAB_KV + kk * 2 * ATOM_BYTES,
+                                     L::SLAB_KV, ATOM_BYTES);
+      wgmma_rs(hi, p[4 * kk], p[4 * kk + 1], p[4 * kk + 2], p[4 * kk + 3], dh);
+    }
   }
   wg_commit();
   wg_wait0();
   fence_regs(o);
+  if constexpr (L::HI_COLS > 0) fence_regs(hi);
   fence_regs(p);
 }
 
@@ -260,33 +342,65 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 
 // Accumulator element i of a thread (lane l of warp w in the warpgroup)
 // sits at row 16w + l/4 + 8*((i >> 1) & 1), column 8*(i >> 2) + 2*(l % 4)
-// + (i & 1): the mma.m16n8 layout repeated over 16 eight-column chunks.
+// + (i & 1): the mma.m16n8 layout repeated over N/8 eight-column chunks.
 
 // --- the kernel --------------------------------------------------------------
 
 // K/V tile t (keys t*BK ...) of kv head `kvh`, batch `b`, into ring stage
-// t % STAGES: four 16 KB boxes completing on that stage's "full" barrier.
+// t % STAGES: one box a slab of K, then of V, completing on that stage's
+// "full" barrier.
+template <int D>
 __device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, uint32_t kv_s,
                                         uint32_t full0, int t, int kvh, int b) {
+  using L = Layout<D>;
   const int s = t % STAGES;
-  const uint32_t dst = kv_s + s * STAGE_BYTES, bar = full0 + 8 * s;
-  mbar_expect_tx(bar, STAGE_BYTES);
-  tma_load(dst, kmap, bar, 0, t * BK, kvh, b);
-  tma_load(dst + SLAB_KV, kmap, bar, SLAB, t * BK, kvh, b);
-  tma_load(dst + 2 * SLAB_KV, vmap, bar, 0, t * BK, kvh, b);
-  tma_load(dst + 3 * SLAB_KV, vmap, bar, SLAB, t * BK, kvh, b);
+  const uint32_t dst = kv_s + s * L::STAGE_BYTES, bar = full0 + 8 * s;
+  mbar_expect_tx(bar, L::STAGE_BYTES);
+#pragma unroll
+  for (int sl = 0; sl < L::SLABS; ++sl) {
+    tma_load(dst + sl * L::SLAB_KV, kmap, bar, sl * SLAB, t * L::BK, kvh, b);
+    tma_load(dst + (L::SLABS + sl) * L::SLAB_KV, vmap, bar, sl * SLAB, t * L::BK, kvh, b);
+  }
 }
 
+// The epilogue of one thread's two rows: columns 0-127 from `o`, then, at
+// d 160, columns 128-159 from `hi`.
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* ob, const Geo& g, int row0,
+                                           int t4, const float (&o)[64],
+                                           const float (&hi)[32], const float (&l)[2]) {
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    const int row = row0 + 8 * hr;
+    if (row >= g.Sq) continue;
+    const float den = fmaxf(l[hr], 1e-30f);
+    __nv_bfloat16* orow = ob + (long long)row * g.os[1] + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < 16; ++c) {
+      *reinterpret_cast<uint32_t*>(orow + 8 * c) =
+          pack_bf16(o[4 * c + 2 * hr] / den, o[4 * c + 2 * hr + 1] / den);
+    }
+#pragma unroll
+    for (int c = 0; c < Layout<D>::HI_COLS / 8; ++c) {
+      *reinterpret_cast<uint32_t*>(orow + 128 + 8 * c) =
+          pack_bf16(hi[4 * c + 2 * hr] / den, hi[4 * c + 2 * hr + 1] / den);
+    }
+  }
+}
+
+template <int D>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                __nv_bfloat16* __restrict__ o, const Geo g) {
+  using L = Layout<D>;
+  constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];   // q, full[], empty[]
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base, kv_s = base + Q_BYTES;
+  const uint32_t q_s = base, kv_s = base + L::Q_BYTES;
   const uint32_t qbar = smem_u32(&bars[0]);
   const uint32_t full0 = smem_u32(&bars[1]), empty0 = smem_u32(&bars[1 + STAGES]);
 
@@ -307,10 +421,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(qbar, Q_BYTES);
-    tma_load(q_s, &qmap, qbar, 0, q0, h, b);
-    tma_load(q_s + SLAB_Q, &qmap, qbar, SLAB, q0, h, b);
-    load_kv(&kmap, &vmap, kv_s, full0, 0, kvh, b);
+    mbar_expect_tx(qbar, L::Q_BYTES);
+#pragma unroll
+    for (int sl = 0; sl < L::SLABS; ++sl) tma_load(q_s + sl * SLAB_Q, &qmap, qbar, sl * SLAB, q0, h, b);
+    load_kv<D>(&kmap, &vmap, kv_s, full0, 0, kvh, b);
   }
 
   const int t4 = lane & 3;
@@ -320,9 +434,11 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   const int wg_last = wg_first + 63;                          // warpgroup's rows
   const uint32_t q_wg = q_s + 64 * wg * ROW_BYTES;
 
-  float acc[64];
+  float acc[64], acc_hi[32];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_hi[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
   mbar_wait(qbar, 0);
 
@@ -332,16 +448,16 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       // Tile j+1 goes into the stage tile j+1-STAGES used, once all
       // threads are done with it.
       if (j + 1 >= STAGES) mbar_wait(empty0 + 8 * ((j + 1) % STAGES), ((j + 1) / STAGES - 1) & 1);
-      load_kv(&kmap, &vmap, kv_s, full0, j + 1, kvh, b);
+      load_kv<D>(&kmap, &vmap, kv_s, full0, j + 1, kvh, b);
     }
     __syncwarp();
     mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
     const int kv0 = j * BK;
-    const uint32_t k_s = kv_s + s * STAGE_BYTES;
+    const uint32_t k_s = kv_s + s * L::STAGE_BYTES;
     // A tile past the warpgroup's last causal row would add exactly 0.
     if (!g.causal || kv0 <= wg_last) {
-      float sc[64];
-      qk_product(sc, q_wg, SLAB_Q, k_s);
+      float sc[BK / 2];
+      qk_product<D>(sc, q_wg, SLAB_Q, k_s);
 
       // Mask only tiles that cross the diagonal or the Skv edge. The row
       // max is taken on the raw scores; m lives in the log2 domain
@@ -349,7 +465,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       const bool edge = kv0 + BK > g.Skv || (g.causal && kv0 + BK - 1 > wg_first);
       float mx[2] = {NEG_INF, NEG_INF};
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < BK / 2; ++i) {
         if (edge) {
           const int col = kv0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
           if (col >= g.Skv || (g.causal && pos0 + 8 * ((i >> 1) & 1) < col)) sc[i] = NEG_INF;
@@ -368,9 +484,9 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       // P as bf16 pairs: p[2c] and p[2c+1] hold columns 8c + 2*t4 (+1) of
       // rows row0 and row0 + 8, so p[4kk .. 4kk+3] is the A fragment of
       // k-step kk.
-      uint32_t p[32];
+      uint32_t p[BK / 4];
 #pragma unroll
-      for (int i = 0; i < 64; i += 2) {
+      for (int i = 0; i < BK / 2; i += 2) {
         const int hr = (i >> 1) & 1;
         const float p0 = exp2f(fmaf(sc[i], g.scale_log2, -m[hr]));
         const float p1 = exp2f(fmaf(sc[i + 1], g.scale_log2, -m[hr]));
@@ -385,41 +501,40 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       }
 #pragma unroll
       for (int i = 0; i < 64; ++i) acc[i] *= corr[(i >> 1) & 1];
-      pv_product(acc, p, k_s + 2 * SLAB_KV);
+      if constexpr (L::HI_COLS > 0) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) acc_hi[i] *= corr[(i >> 1) & 1];
+      }
+      pv_product<D>(acc, acc_hi, p, k_s + L::SLABS * L::SLAB_KV);
     }
     mbar_arrive(empty0 + 8 * s);
   }
 
   // Epilogue: each thread writes its two rows straight to global memory.
-  __nv_bfloat16* ob = o + b * g.os[0] + h * g.os[2];
-#pragma unroll
-  for (int hr = 0; hr < 2; ++hr) {
-    const int row = row0 + 8 * hr;
-    if (row >= g.Sq) continue;
-    const float den = fmaxf(l[hr], 1e-30f);
-    __nv_bfloat16* orow = ob + (long long)row * g.os[1] + 2 * t4;
-#pragma unroll
-    for (int c = 0; c < 16; ++c) {
-      *reinterpret_cast<uint32_t*>(orow + 8 * c) =
-          pack_bf16(acc[4 * c + 2 * hr] / den, acc[4 * c + 2 * hr + 1] / den);
-    }
-  }
+  store_rows<D>(o + b * g.os[0] + h * g.os[2], g, row0, t4, acc, acc_hi, l);
 }
 
-// One warpgroup: S = Q K^T and O = bf16(S) V for a 64-row Q and 128-row K
-// and V, written out in fp32 (row-major 64 x 128 each).
+// One warpgroup: S = Q K^T and O = bf16(S) V for a 64-row Q and BK-row K
+// and V, written out in fp32 (row-major 64 x BK and 64 x D).
 constexpr uint32_t PROBE_Q_SLAB = 64 * ROW_BYTES;
-constexpr size_t PROBE_SMEM = 2 * PROBE_Q_SLAB + STAGE_BYTES + 1024;
 
+template <int D>
+constexpr size_t probe_smem() {
+  return Layout<D>::SLABS * PROBE_Q_SLAB + Layout<D>::STAGE_BYTES + 1024;
+}
+
+template <int D>
 __global__ void __launch_bounds__(128, 1)
 probe_sm90(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
            const __grid_constant__ CUtensorMap vmap, float* s_out,
            float* o_out) {
+  using L = Layout<D>;
+  constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_mem;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base, k_s = base + 2 * PROBE_Q_SLAB;
+  const uint32_t q_s = base, k_s = base + L::SLABS * PROBE_Q_SLAB;
   const uint32_t bar = smem_u32(&bar_mem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
@@ -428,33 +543,38 @@ probe_sm90(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar, 2 * PROBE_Q_SLAB + STAGE_BYTES);
-    tma_load(q_s, &qmap, bar, 0, 0, 0, 0);
-    tma_load(q_s + PROBE_Q_SLAB, &qmap, bar, SLAB, 0, 0, 0);
-    tma_load(k_s, &kmap, bar, 0, 0, 0, 0);
-    tma_load(k_s + SLAB_KV, &kmap, bar, SLAB, 0, 0, 0);
-    tma_load(k_s + 2 * SLAB_KV, &vmap, bar, 0, 0, 0, 0);
-    tma_load(k_s + 3 * SLAB_KV, &vmap, bar, SLAB, 0, 0, 0);
+    mbar_expect_tx(bar, L::SLABS * PROBE_Q_SLAB + L::STAGE_BYTES);
+#pragma unroll
+    for (int sl = 0; sl < L::SLABS; ++sl) {
+      tma_load(q_s + sl * PROBE_Q_SLAB, &qmap, bar, sl * SLAB, 0, 0, 0);
+      tma_load(k_s + sl * L::SLAB_KV, &kmap, bar, sl * SLAB, 0, 0, 0);
+      tma_load(k_s + (L::SLABS + sl) * L::SLAB_KV, &vmap, bar, sl * SLAB, 0, 0, 0);
+    }
   }
   __syncwarp();
   mbar_wait(bar, 0);
 
-  float s[64], acc[64];
-  qk_product(s, q_s, PROBE_Q_SLAB, k_s);
-  uint32_t p[32];
+  float s[BK / 2], acc[64], acc_hi[32];
+  qk_product<D>(s, q_s, PROBE_Q_SLAB, k_s);
+  uint32_t p[BK / 4];
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) p[i >> 1] = pack_bf16(s[i], s[i + 1]);
+  for (int i = 0; i < BK / 2; i += 2) p[i >> 1] = pack_bf16(s[i], s[i + 1]);
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  pv_product(acc, p, k_s + 2 * SLAB_KV);
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc_hi[i] = 0.f;
+  pv_product<D>(acc, acc_hi, p, k_s + L::SLABS * L::SLAB_KV);
 
   const int r = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) {
-    const int idx = (r + 8 * ((i >> 1) & 1)) * 128 + 8 * (i >> 2) + c0 + (i & 1);
-    s_out[idx] = s[i];
-    o_out[idx] = acc[i];
-  }
+  for (int i = 0; i < BK / 2; ++i)
+    s_out[(r + 8 * ((i >> 1) & 1)) * BK + 8 * (i >> 2) + c0 + (i & 1)] = s[i];
+#pragma unroll
+  for (int i = 0; i < 64; ++i)
+    o_out[(r + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c0 + (i & 1)] = acc[i];
+#pragma unroll
+  for (int i = 0; i < 4 * L::HI_COLS / 8; ++i)
+    o_out[(r + 8 * ((i >> 1) & 1)) * D + 128 + 8 * (i >> 2) + c0 + (i & 1)] = acc_hi[i];
 }
 
 // --- host side ---------------------------------------------------------------
@@ -488,7 +608,7 @@ EncodeTiledFn encoder() {
 
 // A 4-D bf16 map over (d, seq, heads, batch) with byte strides (seq, heads,
 // batch) from `g` (7 values), boxes of {64, rows, 1, 1}, 128B swizzle, zero
-// fill out of bounds.
+// fill out of bounds (past d at d 160, past Sq and Skv).
 int encode_map(CUtensorMap* map, const void* ptr, const long long* g, int rows) {
   const EncodeTiledFn fn = encoder();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
@@ -514,21 +634,17 @@ int opt_in_smem(Kernel kernel, bool& done, size_t bytes) {
   return 0;
 }
 
-}  // namespace
-
-extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
-                                           const void* v, void* o,
-                                           const long long* geo, int causal,
-                                           int q_offset, float scale,
-                                           void* stream) {
-  if (geo[0] != D || geo[7] != D || geo[14] != D) return (int)cudaErrorInvalidValue;
+template <int D>
+int launch_d(const void* q, const void* k, const void* v, void* o, const long long* geo,
+             int causal, int q_offset, float scale, cudaStream_t stream) {
+  using L = Layout<D>;
   CUtensorMap qm, km, vm;
   int err = encode_map(&qm, q, geo, BQ);
-  if (err == 0) err = encode_map(&km, k, geo + 7, BK);
-  if (err == 0) err = encode_map(&vm, v, geo + 14, BK);
+  if (err == 0) err = encode_map(&km, k, geo + 7, L::BK);
+  if (err == 0) err = encode_map(&vm, v, geo + 14, L::BK);
   if (err != 0) return err;
   static bool smem_set = false;
-  err = opt_in_smem(flash_fwd_sm90, smem_set, SMEM_BYTES);
+  err = opt_in_smem(flash_fwd_sm90<D>, smem_set, L::SMEM_BYTES);
   if (err != 0) return err;
   Geo g;
   g.Sq = (int)geo[1];
@@ -540,23 +656,51 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   for (int i = 0; i < 3; ++i) g.os[i] = geo[21 + i];
   g.scale_log2 = scale * LOG2E;
   const dim3 grid((unsigned)(geo[3] * g.H), (unsigned)((g.Sq + BQ - 1) / BQ));
-  flash_fwd_sm90<<<grid, THREADS, SMEM_BYTES, (cudaStream_t)stream>>>(
+  flash_fwd_sm90<D><<<grid, THREADS, L::SMEM_BYTES, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), g);
   return (int)cudaGetLastError();
+}
+
+template <int D>
+int probe_d(const void* q, const void* k, const void* v, float* s_out, float* o_out,
+            const long long* geo, cudaStream_t stream) {
+  CUtensorMap qm, km, vm;
+  int err = encode_map(&qm, q, geo, 64);
+  if (err == 0) err = encode_map(&km, k, geo + 7, Layout<D>::BK);
+  if (err == 0) err = encode_map(&vm, v, geo + 14, Layout<D>::BK);
+  if (err != 0) return err;
+  static bool smem_set = false;
+  err = opt_in_smem(probe_sm90<D>, smem_set, probe_smem<D>());
+  if (err != 0) return err;
+  probe_sm90<D><<<1, 128, probe_smem<D>(), stream>>>(qm, km, vm, s_out, o_out);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
+                                           const void* v, void* o,
+                                           const long long* geo, int causal,
+                                           int q_offset, float scale,
+                                           void* stream) {
+  if (geo[7] != geo[0] || geo[14] != geo[0]) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (geo[0]) {
+    case 128: return launch_d<128>(q, k, v, o, geo, causal, q_offset, scale, st);
+    case 160: return launch_d<160>(q, k, v, o, geo, causal, q_offset, scale, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 extern "C" int flash_attention_sm90_probe(const void* q, const void* k,
                                           const void* v, float* s_out,
                                           float* o_out, const long long* geo,
                                           void* stream) {
-  CUtensorMap qm, km, vm;
-  int err = encode_map(&qm, q, geo, 64);
-  if (err == 0) err = encode_map(&km, k, geo + 7, BK);
-  if (err == 0) err = encode_map(&vm, v, geo + 14, BK);
-  if (err != 0) return err;
-  static bool smem_set = false;
-  err = opt_in_smem(probe_sm90, smem_set, PROBE_SMEM);
-  if (err != 0) return err;
-  probe_sm90<<<1, 128, PROBE_SMEM, (cudaStream_t)stream>>>(qm, km, vm, s_out, o_out);
-  return (int)cudaGetLastError();
+  if (geo[7] != geo[0] || geo[14] != geo[0]) return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (geo[0]) {
+    case 128: return probe_d<128>(q, k, v, s_out, o_out, geo, st);
+    case 160: return probe_d<160>(q, k, v, s_out, o_out, geo, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

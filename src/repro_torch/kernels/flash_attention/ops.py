@@ -13,14 +13,16 @@ Three kernels, chosen by shape and dtype alone (``_variant``), never on a
 failure:
 
 - ``"sm90"`` (``csrc/flash_attention_sm90.cu``): wgmma fed by a TMA K/V
-  ring, for bf16 with d == 128 and Sq >= 64 (the prefill);
+  ring, for bf16 with d in ``SM90_HEAD_DIMS`` (128 and 160) and Sq >= 64
+  (the prefill);
 - ``"decode"`` (``csrc/flash_attention_decode.cu``): split-KV decoding for
   bf16 with Sq == 1 and a GQA group H / KV of at most 16 (every decode
   step); one one-warp block per (batch, kv head, key split) with the
   group's query heads as its rows, the ``decode_splits`` splits of a kv
   head merged in a fixed order inside a thread-block cluster;
 - ``"mma_sync"`` (``csrc/flash_attention.cu``): every other shape (fp32,
-  d 32 and 64 at Sq > 1, bf16 with 1 < Sq < 64).
+  d 32 and 64 at Sq > 1, bf16 with 1 < Sq < 64, and Sq 1 with a group
+  over 16).
 
 ``flash_attention_cuda(..., variant=...)`` forces one of them, for tests
 and timing only; forcing ``"sm90"`` or ``"decode"`` on a shape it does not
@@ -40,10 +42,13 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 VARIANTS = ("sm90", "decode", "mma_sync")
 launches = 0
 launches_by_variant = dict.fromkeys(VARIANTS, 0)
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 160)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q_TILES = 65535          # the grid's y extent
-SM90_HEAD_DIM = 128
+SM90_HEAD_DIMS = (128, 160)
+# Keys a K/V tile of the sm90 kernel (and its probe's k, v rows), by head
+# dim: d 160 takes three 64-column slabs a row, so 64-key tiles fit.
+SM90_KEYS = {128: 128, 160: 64}
 SM90_MIN_SQ = 64             # one warpgroup's rows
 DECODE_MAX_GROUP = 16        # query heads a block's rows
 DECODE_MAX_SPLITS = 8        # blocks of a cluster (the portable limit)
@@ -109,13 +114,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel for these inputs, from their shapes and dtype only:
     ``"decode"`` for bf16 with Sq == 1, d in ``HEAD_DIMS`` and H / KV <=
-    ``DECODE_MAX_GROUP``; ``"sm90"`` for bf16 with d == 128 and Sq >= 64;
-    else ``"mma_sync"``."""
+    ``DECODE_MAX_GROUP``; ``"sm90"`` for bf16 with d in ``SM90_HEAD_DIMS``
+    and Sq >= 64; else ``"mma_sync"``."""
     if q.dtype == k.dtype == v.dtype == torch.bfloat16:
         if (q.shape[1] == 1 and q.shape[-1] in HEAD_DIMS
                 and q.shape[2] // k.shape[2] <= DECODE_MAX_GROUP):
             return "decode"
-        if q.shape[-1] == SM90_HEAD_DIM and q.shape[1] >= SM90_MIN_SQ:
+        if q.shape[-1] in SM90_HEAD_DIMS and q.shape[1] >= SM90_MIN_SQ:
             return "sm90"
     return "mma_sync"
 
@@ -131,7 +136,7 @@ def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     if variant == "sm90" and chosen != "sm90":
         raise ValueError(
-            f"the sm90 kernel takes bf16 with d == {SM90_HEAD_DIM} and Sq >= "
+            f"the sm90 kernel takes bf16 with d in {SM90_HEAD_DIMS} and Sq >= "
             f"{SM90_MIN_SQ}; got {q.dtype}, q {tuple(q.shape)}")
     if variant == "decode" and chosen != "decode":
         raise ValueError(
@@ -176,7 +181,8 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel "
                          "takes one of float32 and bfloat16 for all three")
     if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}")
+        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}: no kernel "
+                         "takes it")
     if sq < 1 or k.shape[1] < 1 or q_offset < 0 or sq > MAX_Q_TILES * 8:
         raise ValueError(f"Sq={sq}, Skv={k.shape[1]}, q_offset={q_offset}: "
                          "need Sq, Skv >= 1, q_offset >= 0 and Sq <= "
@@ -233,17 +239,21 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def sm90_probe(q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One warpgroup of the sm90 kernel's products, alone: S = q k^T and
-    O = bf16(S) v in fp32, for bf16 CUDA q (64, 128) and k, v (128, 128),
-    through the same TMA maps and shared-memory descriptors. A check of the
-    layouts, not on any path; it counts no launch."""
-    if not q.is_cuda or q.shape != (64, 128) or k.shape != (128, 128) \
-            or v.shape != (128, 128) \
+    O = bf16(S) v in fp32, for bf16 CUDA q (64, d) and k, v (keys, d), d in
+    ``SM90_HEAD_DIMS`` and keys its tile, ``SM90_KEYS[d]``, through the
+    same TMA maps and shared-memory descriptors. Returns S (64, keys) and
+    O (64, d). A check of the layouts, not on any path; it counts no
+    launch."""
+    d = q.shape[-1] if q.dim() == 2 else None
+    keys = SM90_KEYS.get(d)
+    if not q.is_cuda or keys is None or q.shape != (64, d) \
+            or k.shape != (keys, d) or v.shape != (keys, d) \
             or {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
-        raise ValueError("sm90_probe takes bf16 CUDA q (64, 128), k and v "
-                         "(128, 128)")
+        raise ValueError("sm90_probe takes bf16 CUDA q (64, d) and k, v "
+                         f"(keys, d), (d, keys) in {sorted(SM90_KEYS.items())}")
     q4, k4, v4 = (x.contiguous()[None, :, None, :] for x in (q, k, v))
-    s = torch.empty((64, 128), dtype=torch.float32, device=q.device)
-    o = torch.empty_like(s)
+    s = torch.empty((64, keys), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
     geo = (ctypes.c_longlong * 21)(*_geometry(q4, k4, v4))
     err = _sm90_lib().flash_attention_sm90_probe(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), s.data_ptr(),

@@ -10,7 +10,7 @@ dtype), or the call raises. ``q_offset`` is the absolute position of q[0]
 (decode: the cache position). The JAX package computes decode (Sq == 1)
 with ``naive_attention``; here it goes through the split-KV decode kernel
 (``csrc/flash_attention_decode.cu``), which computes the same function. ``naive_attention`` is the oracle. MLA and the mesh-only K/V gather are not
-ported (ROADMAP Queue 1, LM scaffold item 2).
+ported (ROADMAP Queue 1, LM scaffold item 10.3).
 """
 
 from __future__ import annotations

@@ -3,7 +3,8 @@
 Per-layer parameters are stacked on a leading L axis, as in the JAX
 package, and the ``lax.scan`` over layers becomes a Python loop over that
 axis. Remat and the sharding constraints have no meaning for serving and
-are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item 2).
+are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item
+10.3).
 """
 
 from __future__ import annotations

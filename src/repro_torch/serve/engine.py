@@ -5,8 +5,9 @@
 (prefill-as-decode: the cache fills one position a step, one code path),
 then decodes greedily with ``argmax``, which like ``jnp.argmax`` returns the
 first maximal index. Temperature sampling raises ``NotImplementedError``:
-the JAX package draws it from threefry bits, which the port does not have
-yet (ROADMAP Queue 1, LM scaffold item 3). So do encoder inputs.
+the JAX package draws it with ``jax.random.categorical`` from threefry
+bits; the port has threefry (``core/threefry.py``) but not the categorical
+step yet (ROADMAP Queue 1, LM scaffold item 10.4). So do encoder inputs.
 """
 
 from __future__ import annotations
@@ -51,8 +52,9 @@ class Engine:
         if cfg.temperature > 0:
             raise NotImplementedError(
                 "temperature > 0: the JAX package samples with threefry "
-                "(jax.random.categorical); the port has no threefry yet "
-                "(ROADMAP Queue 1, LM scaffold item 3)")
+                "(jax.random.categorical); the port has threefry but not "
+                "the categorical step yet (ROADMAP Queue 1, LM scaffold "
+                "item 10.4)")
         if enc_embeds is not None:
             raise NotImplementedError("encoder inputs: the enc-dec family is "
                                       "not ported (ROADMAP Queue 1)")

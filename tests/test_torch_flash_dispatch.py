@@ -31,6 +31,12 @@ def _qkv(sq, dh, dtype=torch.bfloat16, skv=None):
     (2048, 64, torch.bfloat16, "mma_sync"),
     (2048, 32, torch.bfloat16, "mma_sync"),
     (2048, 128, torch.float32, "mma_sync"),
+    (64, 160, torch.bfloat16, "sm90"),         # stablelm-12b's head dim
+    (63, 160, torch.bfloat16, "mma_sync"),
+    (1, 160, torch.bfloat16, "decode"),
+    (2048, 160, torch.bfloat16, "sm90"),       # stablelm-12b prefill
+    (2048, 160, torch.float32, "mma_sync"),
+    (2048, 96, torch.bfloat16, "mma_sync"),    # no kernel: mma_sync refuses it
 ])
 def test_variant_boundaries(sq, dh, dtype, want):
     assert fops._variant(*_qkv(sq, dh, dtype)) == want
@@ -44,7 +50,10 @@ def test_variant_ignores_skv():
 
 @pytest.mark.parametrize("sq,dh,dtype", [(63, 128, torch.bfloat16),
                                          (128, 64, torch.bfloat16),
-                                         (128, 128, torch.float32)])
+                                         (128, 128, torch.float32),
+                                         (63, 160, torch.bfloat16),
+                                         (128, 160, torch.float32),
+                                         (128, 96, torch.bfloat16)])
 def test_forced_sm90_on_a_shape_it_lacks_raises(sq, dh, dtype):
     with pytest.raises(ValueError, match="sm90"):
         fops.resolve_variant(*_qkv(sq, dh, dtype), variant="sm90")
@@ -76,6 +85,14 @@ def _decode_qkv(sq=1, dh=128, dtype=torch.bfloat16, h=16, kv=8, skv=256):
     (2, 128, torch.bfloat16, 16, 8, "mma_sync"),
     (63, 128, torch.bfloat16, 16, 8, "mma_sync"),
     (64, 128, torch.bfloat16, 16, 8, "sm90"),
+    (1, 160, torch.bfloat16, 32, 8, "decode"),    # stablelm-12b decode, G 4
+    (1, 160, torch.bfloat16, 16, 1, "decode"),    # d 160, G 16
+    (1, 160, torch.bfloat16, 32, 1, "mma_sync"),  # d 160, G 32
+    (1, 160, torch.float32, 32, 8, "mma_sync"),
+    (2, 160, torch.bfloat16, 32, 8, "mma_sync"),
+    (64, 160, torch.bfloat16, 32, 8, "sm90"),
+    (1, 128, torch.bfloat16, 32, 32, "decode"),   # deepseek-7b decode, G 1
+    (2048, 128, torch.bfloat16, 32, 32, "sm90"),  # deepseek-7b prefill
 ])
 def test_decode_variant_boundaries(sq, dh, dtype, h, kv, want):
     qkv = _decode_qkv(sq, dh, dtype, h, kv)
@@ -92,7 +109,11 @@ def test_decode_variant_ignores_skv():
                                            (64, 128, torch.bfloat16, 16),
                                            (1, 128, torch.float32, 16),
                                            (1, 64, torch.float32, 16),
-                                           (1, 128, torch.bfloat16, 136)])
+                                           (1, 128, torch.bfloat16, 136),
+                                           (1, 160, torch.float32, 16),
+                                           (2, 160, torch.bfloat16, 16),
+                                           (1, 160, torch.bfloat16, 136),
+                                           (1, 96, torch.bfloat16, 16)])
 def test_forced_decode_on_a_shape_it_lacks_raises(sq, dh, dtype, h):
     with pytest.raises(ValueError, match="decode"):
         fops.resolve_variant(*_decode_qkv(sq, dh, dtype, h), variant="decode")
@@ -165,6 +186,31 @@ def test_tma_geometry_of_a_cache_slice():
     assert all(s % 16 == 0 for s in strides)       # TMA's stride rule
     prefix = k_l[:, :100]
     assert fops.tma_map_geometry(prefix) == ((128, 100, 8, 2), strides)
+
+
+def test_tma_geometry_of_a_d160_cache_slice():
+    """stablelm-12b's layer slice of the (L, B, 256, 8, 160) cache: 320-byte
+    rows, every stride a multiple of TMA's 16 bytes; the sm90 kernel's
+    third 64-column box at column 128 reaches past d = 160, where TMA
+    fills zeros."""
+    cache = torch.zeros((2, 8, 256, 8, 160), dtype=torch.bfloat16)
+    dims, strides = fops.tma_map_geometry(cache[1])
+    assert dims == (160, 256, 8, 8)
+    assert strides == (8 * 160 * 2, 160 * 2, 256 * 8 * 160 * 2)
+    assert all(s % 16 == 0 for s in strides)
+
+
+def test_forced_variants_at_d160():
+    """The stablelm prefill and decode shapes may each be forced onto the
+    mma_sync kernel (tests, timings); a decode row never onto sm90."""
+    pre = _qkv(2048, 160)
+    assert fops.resolve_variant(*pre, variant="sm90") == "sm90"
+    assert fops.resolve_variant(*pre, variant="mma_sync") == "mma_sync"
+    dec = _decode_qkv(dh=160, h=32, kv=8)
+    assert fops.resolve_variant(*dec, variant="decode") == "decode"
+    assert fops.resolve_variant(*dec, variant="mma_sync") == "mma_sync"
+    with pytest.raises(ValueError, match="sm90"):
+        fops.resolve_variant(*dec, variant="sm90")
 
 
 def test_tma_geometry_of_a_head_slice():

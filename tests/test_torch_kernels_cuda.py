@@ -8,8 +8,9 @@ version's rounding), st_scan count/min/max bitwise and sum to rtol 1e-5;
 flash_attention to 2e-5 in fp32 (the same online softmax, summed in another
 order) and 1e-2 in bf16 (one bf16 ulp of outputs of order 1 is 0.0078; the
 kernel's tensor-core sums and the plain version's differ in order), for
-all three bf16 kernels (``-k "flash or sm90 or decode"`` runs these
-alone). The split-KV decode kernel is also held, at 1e-2, to its own plain
+all three bf16 kernels, at d 32, 64, 128 and 160 (``-k "flash or sm90 or
+decode"`` runs these alone; ``-k d160`` the cases at stablelm-12b's head
+dim). The split-KV decode kernel is also held, at 1e-2, to its own plain
 version (``flash_decode_split_ref``) at the splits the wrapper chose. The sm90
 kernel's layout probe is held to ``torch.matmul`` in fp32 at 1e-4 relative
 (the same bf16 products, summed in another order). ``-k repair`` runs the
@@ -505,7 +506,7 @@ def _flash_case(cuda, dtype, b, sq, skv, h, kv, dh, causal, q_offset=0,
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("h,kv", [(4, 4), (8, 4), (8, 2), (4, 1)])
-@pytest.mark.parametrize("dh", [32, 64, 128])
+@pytest.mark.parametrize("dh", [32, 64, 128, 160])
 def test_flash_kernel_matches_plain(cuda, dtype, causal, h, kv, dh):
     _flash_case(cuda, dtype, 2, 200, 200, h, kv, dh, causal, seed=dh + h)
 
@@ -617,6 +618,23 @@ def test_sm90_probe_matches_matmul(cuda):
                                rtol=1e-4, atol=1e-3)
 
 
+def test_sm90_probe_d160_matches_matmul(cuda):
+    """The d 160 layout: three 64-column slabs a row, the third read at
+    column 128 with TMA's zero fill past column 160, a 64-key tile, the
+    m64n64 S product and PV as n128 + n64; against torch.matmul in fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(8)
+    keys = fops.SM90_KEYS[160]
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(cuda, torch.bfloat16) for shape in ((64, 160), (keys, 160),
+                                                       (keys, 160)))
+    s, o = fops.sm90_probe(q, k, v)
+    assert s.shape == (64, keys) and o.shape == (64, 160)
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(o, s.to(torch.bfloat16).float() @ v.float(),
+                               rtol=1e-4, atol=1e-3)
+
+
 # (b, sq, skv, h, kv, causal, q_offset), all d 128
 SM90_CASES = [(1, 2048, 2048, 16, 8, True, 0),      # serve prefill, B 1
               (1, 64, 64, 4, 2, True, 0),
@@ -638,6 +656,25 @@ def test_flash_sm90_matches_plain(cuda, case):
     b, sq, skv, h, kv, causal, off = case
     _flash_case(cuda, torch.bfloat16, b, sq, skv, h, kv, 128, causal, off,
                 seed=sq + h, variant="sm90")
+
+
+# (b, sq, skv, h, kv, causal, q_offset), all d 160 (stablelm-12b's head dim)
+SM90_D160_CASES = [(1, 2048, 2048, 32, 8, True, 0),      # stablelm prefill, B 1
+                   (1, 64, 64, 4, 1, True, 0),
+                   (2, 77, 131, 4, 2, True, 54),         # ragged Sq and Skv
+                   (2, 77, 131, 4, 2, False, 0),
+                   (1, 100, 228, 4, 2, True, 128),       # q_offset 128
+                   (2, 200, 200, 8, 2, False, 0),        # bidirectional
+                   (2, 200, 200, 4, 4, True, 0),         # GQA group 1
+                   (2, 200, 200, 8, 2, True, 0),         # group 4
+                   (2, 333, 333, 4, 1, True, 0)]         # MQA, 6 key tiles
+
+
+@pytest.mark.parametrize("case", SM90_D160_CASES, ids=str)
+def test_flash_sm90_d160_matches_plain(cuda, case):
+    b, sq, skv, h, kv, causal, off = case
+    _flash_case(cuda, torch.bfloat16, b, sq, skv, h, kv, 160, causal, off,
+                seed=sq + h + 1, variant="sm90")
 
 
 def test_flash_sm90_cache_slice_in_place_and_repeatable(cuda):
@@ -672,9 +709,28 @@ def test_flash_sm90_matches_mma_sync(cuda):
         torch.testing.assert_close(a.float(), b.float(), rtol=1e-2, atol=1e-2)
 
 
+def test_flash_sm90_d160_matches_mma_sync(cuda):
+    """Both bf16 kernels, forced, on the same inputs at d 160, k and v a
+    cache slice read in place; two sm90 calls give the same bits."""
+    rng = np.random.default_rng(160)
+    cache = torch.from_numpy(rng.standard_normal((2, 2, 333, 2, 160)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((2, 333, 8, 160)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    k, v = cache[0], cache[1]
+    for causal in (True, False):
+        a = fops.flash_attention_cuda(q, k, v, causal=causal, variant="sm90")
+        b = fops.flash_attention_cuda(q, k, v, causal=causal,
+                                      variant="mma_sync")
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2, atol=1e-2)
+        assert torch.equal(a, fops.flash_attention_cuda(
+            q, k, v, causal=causal, variant="sm90"))
+
+
 def test_flash_sm90_refuses_shapes_it_lacks(cuda):
     for dtype, sq, dh in ((torch.float32, 128, 128), (torch.bfloat16, 63, 128),
-                          (torch.bfloat16, 128, 64)):
+                          (torch.bfloat16, 128, 64), (torch.float32, 128, 160),
+                          (torch.bfloat16, 63, 160)):
         x = torch.zeros((1, sq, 2, dh), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="sm90"):
             fops.flash_attention_cuda(x, x, x, causal=True, variant="sm90")
@@ -697,6 +753,26 @@ def test_prefill_step_sends_flash_to_sm90(cuda):
     assert torch.isfinite(logits).all()
 
 
+def test_prefill_step_d160_sends_flash_to_sm90(cuda):
+    """prefill_step of stablelm-12b narrowed with its head dim kept (d 160,
+    2 layers, 4 heads over 1 KV head) in bf16: every flash call goes to the
+    sm90 kernel, the logits are finite and two runs give the same bits."""
+    cfg = reduce_for_smoke(get_config("stablelm-12b")).replace(
+        n_layers=2, d_head=160)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    prefill_step, _ = make_serve_steps(model)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab, (2, 150)).astype(np.int32)).to(cuda)
+    before = dict(fops.launches_by_variant)
+    logits = prefill_step(params, {"tokens": toks})
+    assert fops.launches_by_variant["sm90"] == before["sm90"] + cfg.n_layers
+    assert fops.launches_by_variant["mma_sync"] == before["mma_sync"]
+    assert logits.shape == (2, cfg.vocab_padded)
+    assert torch.isfinite(logits).all()
+    assert torch.equal(logits, prefill_step(params, {"tokens": toks}))
+
+
 # ---------------------------------------------------------------------------
 # the split-KV decode kernel
 # ---------------------------------------------------------------------------
@@ -707,7 +783,7 @@ DECODE_ROWS = [(256, p) for p in (0, 1, 23, 24, 63, 64, 77, 191, 255)] \
 
 @pytest.mark.parametrize("skv,q_offset", DECODE_ROWS)
 @pytest.mark.parametrize("g", [1, 2, 5, 8])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 160])
 def test_flash_decode_matches_plain(cuda, skv, q_offset, g, dh):
     """The decode kernel, as the wrapper chooses it, against the chunked
     plain version over the populated prefix of the cache."""
@@ -739,6 +815,34 @@ def test_flash_decode_matches_its_split_ref(cuda, b, h, kv, dh, skv, q_offset):
                                    n_split=n_split)
     torch.testing.assert_close(got.float(), split.float(), rtol=1e-2, atol=1e-2)
     want = flash_attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
+
+
+# (batch, the splits decode_splits gives it at 8 KV heads and 192 keys)
+D160_SPLITS = [(32, 1), (16, 2), (11, 3), (8, 4), (7, 5), (6, 6), (5, 7), (4, 8)]
+
+
+@pytest.mark.parametrize("b,n_split", D160_SPLITS)
+def test_flash_decode_d160_every_split(cuda, b, n_split):
+    """stablelm-12b's decode rows (d 160, 32 heads over 8, q_offset 191 of
+    a 256-slot cache) at every split count 1-8, among them 3, 6 and 7,
+    which do not divide d 160's 80 column pairs: against the plain version
+    of the same partition and merge and the chunked one, and two calls
+    bitwise equal."""
+    assert fops.decode_splits(b, 8, 192) == n_split
+    rng = np.random.default_rng(b)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(cuda, torch.bfloat16)
+               for s in ((b, 1, 32, 160), (b, 256, 8, 160), (b, 256, 8, 160)))
+    before = fops.launches_by_variant["decode"]
+    got = fops.flash_attention_cuda(q, k, v, causal=True, q_offset=191)
+    assert fops.launches_by_variant["decode"] == before + 1
+    assert torch.equal(got, fops.flash_attention_cuda(q, k, v, causal=True,
+                                                      q_offset=191))
+    split = flash_decode_split_ref(q, k, v, causal=True, q_offset=191,
+                                   n_split=n_split)
+    torch.testing.assert_close(got.float(), split.float(), rtol=1e-2, atol=1e-2)
+    want = flash_attention_ref(q, k, v, causal=True, q_offset=191)
     torch.testing.assert_close(got.float(), want.float(), rtol=1e-2, atol=1e-2)
 
 
@@ -799,6 +903,25 @@ def test_generate_sends_decode_to_the_decode_kernel(cuda):
     prefill_step(engine.params, {"tokens": torch.from_numpy(prompts).to(cuda)})
     assert fops.launches_by_variant["sm90"] == after["sm90"] + cfg.n_layers
     assert fops.launches_by_variant["decode"] == after["decode"] + cfg.n_layers * (70 + 6)
+
+
+def test_generate_d160_sends_decode_to_the_decode_kernel(cuda):
+    """Engine.generate on the narrow d 160 model in bf16: every flash call
+    goes to the decode kernel, and a second run gives the same ids."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduce_for_smoke(get_config("stablelm-12b")).replace(
+        n_layers=2, d_head=160)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(1))
+    engine = Engine(model, params, ServeConfig(max_new_tokens=6, max_seq=64))
+    prompts = np.random.default_rng(7).integers(0, cfg.vocab, (3, 40)).astype(np.int32)
+    before = dict(fops.launches_by_variant)
+    ids = engine.generate(prompts)
+    after = dict(fops.launches_by_variant)
+    assert after["decode"] - before["decode"] == cfg.n_layers * (40 + 6)
+    assert after["mma_sync"] == before["mma_sync"]
+    assert after["sm90"] == before["sm90"]
+    assert np.array_equal(ids, engine.generate(prompts))
 
 
 # -- the random planner's threefry draw on the card ---------------------------

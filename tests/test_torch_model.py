@@ -38,7 +38,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
 from repro_torch.models.model import Model
 
-ARCHS = ["internlm2-1.8b", "qwen3-14b"]      # qwen3: the qk_norm branch
+ARCHS = ["internlm2-1.8b", "qwen3-14b",      # qwen3: the qk_norm branch
+         "deepseek-7b", "stablelm-12b"]     # deepseek: MHA (G 1 at smoke size)
 
 
 def _normal(rng, *shape):
@@ -64,6 +65,8 @@ def _port_flash(q, k, v, dtype=torch.float32, **kw):
     (2, 256, 8, 2, 32, 64, 128, True),     # GQA group 4
     (1, 384, 4, 1, 64, 128, 128, False),   # MQA, bidirectional
     (1, 256, 16, 8, 128, 128, 128, True),  # serve heads: the sm90 kernel's oracle
+    (1, 256, 4, 1, 160, 128, 128, True),   # stablelm-12b's head dim
+    (1, 256, 8, 2, 160, 64, 64, False),    # d 160, bidirectional, G 4
 ])
 def test_plain_flash_matches_pallas_interpret(b, s, h, kv, dh, bq, bk, causal):
     q, k, v = _qkv(s + h, b, s, s, h, kv, dh)
@@ -167,6 +170,26 @@ def test_decode_split_ref_without_causal_mask(n_split):
                                atol=2e-5)
 
 
+@pytest.mark.parametrize("n_split", [1, 3, 4, 6, 7, 8])
+def test_decode_split_ref_at_d160_matches_jax_naive(n_split):
+    """stablelm-12b's head dim (d 160, GQA group 4) through the decode
+    kernel's plain version, at splits that do and do not divide the 80
+    column pairs, against the JAX package's naive_attention at each
+    position of a 256-slot cache: fp32 to 2e-5, bf16 to 3e-2 (exact
+    attention of the same bf16 values, as above)."""
+    q, k, v = _qkv(160 + n_split, 2, 1, 256, 8, 2, 160)
+    for dtype, tol in ((torch.float32, 2e-5), (torch.bfloat16, 3e-2)):
+        tq, tk, tv = (torch.from_numpy(x).to(dtype) for x in (q, k, v))
+        jq, jk, jv = (jnp.asarray(x.float().numpy()) for x in (tq, tk, tv))
+        for off in DECODE_OFFSETS:
+            got = flash_decode_split_ref(tq, tk, tv, causal=True, q_offset=off,
+                                         n_split=n_split)
+            assert got.dtype == dtype and got.shape == (2, 1, 8, 160)
+            naive = jattn.naive_attention(jq, jk, jv, causal=True, q_offset=off)
+            np.testing.assert_allclose(got.float().numpy(), np.asarray(naive),
+                                       rtol=tol, atol=tol)
+
+
 def test_decode_split_ref_refuses_more_than_one_row():
     q, k, v = map(torch.from_numpy, _qkv(4, 1, 2, 16, 2, 2, 32))
     with pytest.raises(ValueError, match="Sq == 1"):
@@ -256,6 +279,64 @@ def test_forward_and_decode_match_jax(arch):
                                rtol=1e-4, atol=1e-4)
 
 
+def _narrow_pair():
+    """stablelm-12b's smoke config with its own head dim kept (the smoke
+    rule sets d_head 32): d_head 160, 2 layers, 4 query heads over 1 KV
+    head; (JAX model, JAX params, port model, port params), fp32."""
+    kw = dict(param_dtype_str="float32", compute_dtype_str="float32",
+              n_layers=2, n_heads=4, n_kv=1, d_head=160)
+    jm = JModel(jax_reduce(jax_get_config("stablelm-12b")).replace(**kw))
+    jp = jm.init(jax.random.key(3))
+    tm = Model(reduce_for_smoke(get_config("stablelm-12b")).replace(**kw),
+               device="cpu")
+    return jm, jp, tm, params_from_numpy(jp, device="cpu")
+
+
+def test_narrow_d160_forward_and_decode_match_jax():
+    """stablelm-12b's attention at its real head dim, d 160, through the
+    model: forward and cached decode against JAX's Model at 1e-4, decode
+    against the port's own forward at 2e-3 (as above)."""
+    jm, jp, tm, tp = _narrow_pair()
+    assert (tm.cfg.n_layers, tm.cfg.n_heads, tm.cfg.n_kv, tm.cfg.d_head) == (2, 4, 1, 160)
+    assert tp["stack"]["layers"]["attn"]["wq"].shape == (2, 128, 4 * 160)
+    b, s = 2, 12
+    toks = np.random.default_rng(12).integers(0, tm.cfg.vocab, (b, s)).astype(np.int32)
+    jh, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
+    jl = np.asarray(jm.logits(jp, jh))
+    th, _ = tm.forward(tp, {"tokens": torch.from_numpy(toks)})
+    tl = tm.logits(tp, th).numpy()
+    np.testing.assert_allclose(th.numpy(), np.asarray(jh), rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(tl, jl, rtol=1e-4, atol=1e-4)
+    jcache, tcache = jm.init_cache(b, s), tm.init_cache(b, s)
+    assert tcache["k"].shape == (2, b, s, 1, 160)
+    jstep = jax.jit(jm.decode_step)
+    for t in range(s):
+        jcache, jlg = jstep(jp, jcache, {"tokens": jnp.asarray(toks[:, t:t + 1])},
+                            jnp.int32(t))
+        tcache, tlg = tm.decode_step(tp, tcache,
+                                     {"tokens": torch.from_numpy(toks[:, t:t + 1])}, t)
+        np.testing.assert_allclose(tlg.numpy(), np.asarray(jlg), rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(tlg.numpy(), tl[:, t], rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(tcache["v"].numpy(), np.asarray(jcache["v"]),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["stablelm-12b", "deepseek-7b"])
+def test_new_configs_equal_the_reference(arch):
+    """Every field the port's ModelConfig has equals the reference's, for
+    the full config and for its smoke reduction."""
+    import dataclasses
+    names = [f.name for f in dataclasses.fields(get_config(arch))]
+    for got, want in ((get_config(arch), jax_get_config(arch)),
+                      (reduce_for_smoke(get_config(arch)),
+                       jax_reduce(jax_get_config(arch)))):
+        assert {n: getattr(got, n) for n in names} == \
+            {n: getattr(want, n) for n in names}
+        assert got.vocab_padded == want.vocab_padded
+    assert get_config(arch).family == "dense"
+
+
 def test_init_tree_matches_jax_layout():
     """Model.init draws the JAX package's tree: same keys, shapes, dtypes."""
     cfg = reduce_for_smoke(get_config("qwen3-14b"))
@@ -296,9 +377,25 @@ def test_params_round_trip_bitwise():
                                   np.asarray(w, np.float32))
 
 
+def test_params_round_trip_bitwise_d160():
+    """stablelm-12b's narrow tree at d_head 160 (wq (L, d, H*160), wk and
+    wv (L, d, KV*160)) goes into the port and back bit for bit."""
+    _, jp, _, tp = _narrow_pair()
+    assert tp["stack"]["layers"]["attn"]["wk"].shape == (2, 128, 160)
+    back = params_to_numpy(tp)
+    for path, leaf in jax.tree_util.tree_leaves_with_path(jp):
+        node = back
+        for key in path:
+            node = node[key.key]
+        assert node.dtype == np.asarray(leaf).dtype
+        np.testing.assert_array_equal(node, np.asarray(leaf))
+
+
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("deepseek-v2-236b")
+    with pytest.raises(NotImplementedError, match="10.3"):
+        get_config("grok-1-314b")
     cfg = reduce_for_smoke(get_config("internlm2-1.8b"))
     for bad in (cfg.replace(mrope=True), cfg.replace(family="moe"),
                 cfg.replace(family="ssm")):

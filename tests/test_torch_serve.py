@@ -13,6 +13,9 @@ package on the CPU, at the smoke size of internlm2-1.8b (4 layers, d 128,
 - ``prefill_step``: ``forward`` plus the last position's logits, against
   JAX's ``Model.forward`` and ``logits`` (the JAX factory needs a mesh),
   at 1e-4 in fp32.
+- stablelm-12b narrowed with its head dim kept (d_head 160; 2 layers, 4
+  query heads over 1 KV head, the smoke widths otherwise): greedy ids and
+  ``prefill_step`` as above.
 """
 
 import jax
@@ -31,6 +34,7 @@ from repro_torch.convert import params_from_numpy
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import Engine, ServeConfig
 from repro_torch.train.train_loop import make_serve_steps
+from test_torch_model import _narrow_pair
 
 ARCH = "internlm2-1.8b"
 
@@ -43,9 +47,7 @@ def _pair(compute_dtype):
     return jm, jp, tm, params_from_numpy(jp, device="cpu")
 
 
-@pytest.mark.parametrize("seed", [7, 8])
-def test_greedy_ids_match_jax_engine(seed):
-    jm, jp, tm, tp = _pair("float32")
+def _assert_greedy_ids_match(jm, jp, tm, tp, seed):
     prompts = np.random.default_rng(seed).integers(
         0, tm.cfg.vocab, (2, 6)).astype(np.int32)
     new = 8
@@ -60,6 +62,16 @@ def test_greedy_ids_match_jax_engine(seed):
     assert (top2[..., 1] - top2[..., 0]).min() >= 1e-3
     assert got.dtype == np.int32 and got.shape == (2, new)
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_greedy_ids_match_jax_engine(seed):
+    _assert_greedy_ids_match(*_pair("float32"), seed)
+
+
+@pytest.mark.parametrize("seed", [7, 8])
+def test_greedy_ids_match_jax_engine_d160(seed):
+    _assert_greedy_ids_match(*_narrow_pair(), seed)
 
 
 def test_bf16_decode_logits_match_jax():
@@ -80,7 +92,14 @@ def test_bf16_decode_logits_match_jax():
 
 
 def test_prefill_step_matches_jax_forward():
-    jm, jp, tm, tp = _pair("float32")
+    _assert_prefill_step_matches(*_pair("float32"))
+
+
+def test_prefill_step_matches_jax_forward_d160():
+    _assert_prefill_step_matches(*_narrow_pair())
+
+
+def _assert_prefill_step_matches(jm, jp, tm, tp):
     toks = np.random.default_rng(6).integers(0, tm.cfg.vocab, (3, 10)).astype(np.int32)
     hidden, _ = jm.forward(jp, {"tokens": jnp.asarray(toks)})
     want = np.asarray(jm.logits(jp, hidden[:, -1:, :]))[:, 0]
