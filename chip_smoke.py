@@ -106,7 +106,11 @@ Phases, one line each:
      deepseek-7b (d 128, GQA group 1), decode rows of 256 and 4096 slots,
      a GQA group of 5 and ragged d-128 and d-160 cases, to 1e-2, through
      the sm90, decode and mma_sync kernels, each forced and as the wrapper
-     chooses; the decode kernel also bitwise repeatable);
+     chooses; the decode kernel also bitwise repeatable); the backward
+     kernel against its plain version (``flash_bwd_vs_plain``: d 32, 64,
+     128 and 160, fp32 to 2e-5 and bf16 to 2e-2 of each gradient's largest
+     magnitude, GQA groups 1 and 2 and 16 heads over 8, causal and not,
+     Sq != Skv with a q_offset, ragged lengths, a second call bitwise);
   6. the LM serving path at full width, twice: internlm2-1.8b (24 layers,
      d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
      92544; weights drawn in fp32, the engine's copy in bf16), then
@@ -121,14 +125,35 @@ Phases, one line each:
      prompts; every prefill flash call must go to the sm90 kernel and every
      generate call (Sq 1) to the decode kernel (lines ``serve_prefill`` /
      ``serve_generate`` and ``serve_stablelm_prefill`` /
-     ``serve_stablelm_generate``);
+     ``serve_stablelm_generate``); then the training path (line ``train``):
+     internlm2-1.8b at full width (fp32 params, bf16 compute, remat
+     "full", AdamW with bf16 moments, 2 microbatches), 1 warm-up and 3
+     timed steps on batches of 8 x 4096 tokens that ``AerialPipeline``
+     draws by store queries on the card: loss, grad norm, lr, step ms,
+     tokens/s and the share of the 6 N T FLOP bound, peak memory, launches
+     by kernel against ``TRAIN_PER_STEP``; fatal: finite losses and norms,
+     every leaf changed by step 1, every layer's wq/wk/wv gradient nonzero,
+     two backward calls held to the plain version on the tensors the model
+     passed them, and a second run from the seed bitwise after 2 steps;
+     then ``train_vs_cpu``: examples/train_lm.py's lm-8m config, two steps
+     on the card in fp32 against a float64 CPU run (losses to 1e-5,
+     gradients to 1e-4 of each leaf's largest magnitude), in bf16 (losses
+     to 2e-2; gradients against the same port code in bf16 on the CPU at
+     the card's params, each leaf to ``TRAIN_GRAD_BF16_TOL`` in norm, and
+     a control with a faulty backward that must exceed it), every backward
+     call held to the plain version on the model's tensors, the pipeline's
+     batches card against CPU, and the example's restart (6 steps against
+     3 + checkpoint + restore + 3) bitwise;
   7. flash_attention timings at each serve path's prefill shape (sm90 and
      mma_sync, both forced) and at two decode shapes, 192 of 256 slots and
      4096 of 4096 (decode and mma_sync, both forced), at d 128 and at d
      160, each beside SDPA and the bytes or operations bound, the profiles
      each device time took, and the kernels' timings printed as one JSON
      line (the three flash kernels once at d 128 and once at d 160, with
-     ``_d160`` names).
+     ``_d160`` names); the backward kernel at one microbatch of the train
+     phase (4 x 4096, 16 heads over 8, d 128, causal, bf16) beside SDPA's
+     backward, its plain version and its FLOP bound (``flash_timings.bwd``,
+     the ``flash_attention_bwd`` entry of the kernels line).
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -188,6 +213,38 @@ PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 256
 LONG_SEQ = 4096                # the long-cache decode row
 FLASH_BF16_TOL = 1e-2          # bf16 outputs of order 1: ulp 0.0078
 FLASH_F32_TOL = 2e-5           # as the JAX package's kernel tests
+# The training path: internlm2-1.8b at full width, batches of 8 x 4096
+# tokens (the reference's train_4k sequence length; its 256 sequences cut
+# to 8 for one card) from the AerialDB pipeline, in 2 microbatches.
+TRAIN_ARCH = "internlm2-1.8b"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 8, 4096, 2
+TRAIN_TIMED = 3                # steps after the warm-up step
+# Launches of each kernel a step: the flash forward a layer, a microbatch,
+# and once more for the remat recompute in the backward; the backward once
+# a layer and microbatch; the pipeline's one query batch a step.
+TRAIN_PER_STEP = {"sm90": 2 * 24 * TRAIN_MICRO, "decode": 0, "mma_sync": 0,
+                  "bwd": 24 * TRAIN_MICRO, "st_scan": 1, "hash64": 2,
+                  "voronoi_assign": 1}
+# The backward kernel against its plain version (flash_vs_plain):
+# (b, sq, skv, h, kv, causal, q_offset) at every head dim, in fp32 and bf16,
+# tolerances relative to each gradient's largest magnitude.
+BWD_CASES = [(2, 200, 200, 4, 4, True, 0), (2, 200, 200, 8, 4, False, 0),
+             (1, 256, 256, 16, 8, True, 0), (2, 77, 131, 4, 2, True, 54),
+             (2, 77, 131, 4, 2, False, 0)]
+BWD_F32_TOL, BWD_BF16_TOL = 2e-5, 2e-2
+# The backward's timing shape: one microbatch of the train phase.
+BWD_TIMING = (4, TRAIN_SEQ, 16, 8, 128)
+# train_vs_cpu: the card's losses and gradients against a float64 CPU run.
+TRAIN_LOSS_F32_TOL, TRAIN_GRAD_TOL, TRAIN_LOSS_BF16_TOL = 1e-5, 1e-4, 2e-2
+# bf16 gradients on the card against the same port code in bf16 on the CPU
+# (the plain flash forward and backward) at the card's params: each leaf's
+# ||card - cpu|| / ||cpu||. The kernel rounds P and dS to bf16 where the
+# plain version keeps fp32, which alone gives 1.0e-2 on this config (a CPU
+# replay); a backward whose dk has its kv heads swapped gives 0.30-1.41.
+TRAIN_GRAD_BF16_TOL = 5e-2
+# Backward calls of the train phase held to the plain version on the very
+# tensors the model passed them: the first call and the 24th.
+TRAIN_BWD_HELD = (0, 23)
 # Engine logits after the last prompt token vs prefill_step's, bf16 through
 # 24 layers: the two round activations at different matmul shapes, so
 # they agree to a fraction of the logits' unit spread, not bitwise.
@@ -2471,7 +2528,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
 
     # prefill_step on 8 x 2048 tokens: one warm-up, then timed runs.
     fops.launches = 0
-    fops.launches_by_variant = dict.fromkeys(fops.VARIANTS, 0)
+    fops.launches_by_variant = dict.fromkeys(fops.launches_by_variant, 0)
     prefill_step(eparams, {"tokens": long_prompts})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2508,7 +2565,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     ref_logits = prefill_step(eparams, {"tokens": torch.from_numpy(prompts).to(dev)})
     torch.cuda.reset_peak_memory_stats()
     fops.launches = 0
-    fops.launches_by_variant = dict.fromkeys(fops.VARIANTS, 0)
+    fops.launches_by_variant = dict.fromkeys(fops.launches_by_variant, 0)
     w0 = time.perf_counter()
     ids = engine.generate(prompts)
     wall = time.perf_counter() - w0
@@ -2655,6 +2712,419 @@ def flash_timings(torch, dev, seed: int) -> dict:
     return out
 
 
+def flash_bwd_vs_plain(torch, dev, seed: int) -> dict:
+    """The backward kernel against ``flash_attention_bwd_ref`` at every
+    head dim in fp32 and bf16 over BWD_CASES, each gradient to its
+    tolerance relative to its largest magnitude, and a second call bitwise
+    equal. The forward's output it takes is the forward kernel's. Exits
+    non-zero on any failure; returns the largest relative errors by dtype
+    and head dim."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    rng = np.random.default_rng(seed + 29)
+    errs, calls = {}, 0
+    for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        for dh in fops.HEAD_DIMS:
+            key = f"{str(dtype).removeprefix('torch.')}_d{dh}"
+            for case in BWD_CASES:
+                b, sq, skv, h, kv, causal, off = case
+                q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                               .to(dev, dtype) for sh in ((b, sq, h, dh), (b, skv, kv, dh),
+                                                          (b, skv, kv, dh), (b, sq, h, dh)))
+                o = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+                before = fops.launches_by_variant["bwd"]
+                got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                                    q_offset=off)
+                if fops.launches_by_variant["bwd"] != before + 1:
+                    raise SystemExit(f"flash bwd {case}: no launch counted")
+                want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
+                                               q_offset=off)
+                for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                    rel = float((g.float() - w.float()).abs().max()) \
+                        / max(float(w.float().abs().max()), 1e-30)
+                    if not torch.isfinite(g).all() or rel > tol:
+                        raise SystemExit(f"flash bwd {key} {case} {name}: relative "
+                                         f"error {rel} > {tol}")
+                    errs[key] = max(errs.get(key, 0.0), rel)
+                again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                                      q_offset=off)
+                if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                    raise SystemExit(f"flash bwd {key} {case}: a second call gave "
+                                     "other bits")
+                calls += 2
+    return {"cases": len(BWD_CASES), "head_dims": list(fops.HEAD_DIMS),
+            "kernel_calls": calls, "max_rel_err": errs, "f32_tol": BWD_F32_TOL,
+            "bf16_tol": BWD_BF16_TOL, "repeat_bitwise": True}
+
+
+def _reset_counts():
+    """Every kernel's launch count to 0; returns a reader of them."""
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.hash64 import ops as hops
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.voronoi_assign import ops as vops
+    fops.launches = 0
+    fops.launches_by_variant = dict.fromkeys(fops.launches_by_variant, 0)
+    for mod in (hops, st_ops, vops):
+        mod.launches = 0
+    return lambda: {**fops.launches_by_variant, "st_scan": st_ops.launches,
+                    "hash64": hops.launches, "voronoi_assign": vops.launches}
+
+
+class _HeldBwdCalls:
+    """Within ``with``, keeps the arguments and results of the backward
+    kernel's calls numbered in ``keep`` (0 the first), as the model passed
+    them (their strides, views and dtypes); ``errors()`` then holds each
+    against ``flash_attention_bwd_ref`` on the same tensors. A ``fault``
+    (dq, dk, dv) -> (dq, dk, dv) alters every result the model receives:
+    the control of a gradient gate."""
+
+    def __init__(self, keep, fault=None):
+        self.keep, self.fault, self.calls, self.n = set(keep), fault, [], 0
+
+    def __enter__(self):
+        from repro_torch.kernels.flash_attention import ops as fops
+        self.fops, self.kernel = fops, fops.flash_attention_bwd_cuda
+
+        def held(q, k, v, o, do, *, causal, q_offset=0):
+            got = self.kernel(q, k, v, o, do, causal=causal, q_offset=q_offset)
+            if self.n in self.keep:
+                self.calls.append(((q, k, v, o, do), causal, q_offset, got))
+            self.n += 1
+            return self.fault(*got) if self.fault else got
+
+        fops.flash_attention_bwd_cuda = held
+        return self
+
+    def __exit__(self, *exc):
+        self.fops.flash_attention_bwd_cuda = self.kernel
+
+    def errors(self, tol: float) -> list:
+        import torch
+        from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+        out = []
+        for args, causal, off, got in self.calls:
+            with torch.no_grad():
+                want = flash_attention_bwd_ref(*args, causal=causal, q_offset=off)
+            rel = {n: float((g.float() - w.float()).abs().max())
+                   / max(float(w.float().abs().max()), 1e-30)
+                   for n, g, w in zip(("dq", "dk", "dv"), got, want)}
+            out.append({"shape": list(args[0].shape), "kv": args[1].shape[2],
+                        "dtype": str(args[0].dtype).removeprefix("torch."),
+                        "strides": {n: list(x.stride()) for n, x in
+                                    zip(("q", "k", "v", "o", "do"), args)},
+                        "causal": causal, "q_offset": off, "max_rel_err": rel,
+                        "ok": all(bool(torch.isfinite(g).all()) for g in got)
+                        and max(rel.values()) <= tol})
+            del want
+        self.calls.clear()
+        return out
+
+
+def train(torch, dev, seed: int, smi: str, do_profile: bool = False) -> dict:
+    """The training path at full width: internlm2-1.8b (fp32 params, bf16
+    compute, remat "full", the default OptConfig with bf16 moments,
+    n_micro 2) on batches of TRAIN_BATCH x TRAIN_SEQ tokens that the
+    port's AerialPipeline draws from its store on the card. One warm-up
+    step and TRAIN_TIMED timed steps (CUDA events around each train
+    step): loss, grad_norm, lr, wall, tokens/s and the share of the 6 N T
+    FLOP bound; launches by kernel against TRAIN_PER_STEP; then, fatal:
+    every loss and norm finite, every leaf changed by step 1, every layer's
+    wq, wk and wv gradient nonzero, and a second run from the seed giving
+    the same losses and params after 2 steps, bitwise."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.data.pipeline import AerialPipeline, PipelineConfig
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.train_loop import make_train_step, value_and_grad
+    from repro_torch.tree import tree_leaves
+
+    cfg = get_config(TRAIN_ARCH)
+    model = Model(cfg, device=dev)
+    counts = _reset_counts()
+    t0 = time.perf_counter()
+    pipe = AerialPipeline(PipelineConfig(vocab=cfg.vocab, batch=TRAIN_BATCH,
+                                         seq=TRAIN_SEQ), device=dev)
+    pipe_s, pipe_launches = time.perf_counter() - t0, counts()
+    opt_cfg = optlib.OptConfig()
+    train_step = make_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
+
+    def fresh():
+        params = model.init(torch.Generator(device=dev).manual_seed(seed))
+        return params, optlib.init_opt_state(opt_cfg, params)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, state = fresh()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = tree_leaves(params)
+    n_params = sum(x.numel() for x in leaves)
+    state_gb = sum(x.numel() * x.element_size()
+                   for x in leaves + tree_leaves(state)) / 1e9
+    before = [x.clone() for x in leaves]
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    bound_s = 6 * n_params * tokens / BF16_FLOP_PER_S
+    steps, batch_ms, snapshot = [], [], None
+    counts = _reset_counts()
+    for s in range(1 + TRAIN_TIMED):
+        if s == 1:                 # a step's own peak: step 2, nothing held
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        batch = pipe.get_batch(s)
+        torch.cuda.synchronize()
+        batch_ms.append((time.perf_counter() - t0) * 1e3)
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record()
+        params, state, m = train_step(params, state, batch)
+        e1.record()
+        e1.synchronize()
+        ms = e0.elapsed_time(e1)
+        steps.append({"step": s + 1, "loss": float(m["loss"]),
+                      "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
+                      "ms": ms, "tokens_per_s": tokens / (ms / 1e3),
+                      "flop_bound_share": bound_s / (ms / 1e3)})
+        if s == 0:
+            changed = [not torch.equal(a, b_) for a, b_ in zip(before, leaves)]
+            del before
+        if s == 1:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            snapshot = [x.clone() for x in leaves]
+    launches = counts()
+    per_step = {k: launches[k] / (1 + TRAIN_TIMED) for k in TRAIN_PER_STEP}
+    # Every layer's wq, wk and wv gradient, on batch 0 after the last step;
+    # two of its backward calls held to the plain version on their tensors.
+    with _HeldBwdCalls(TRAIN_BWD_HELD) as held:
+        _, grads = value_and_grad(model, params, pipe.get_batch(0), TRAIN_MICRO)
+    attn = grads["stack"]["layers"]["attn"]
+    qkv_norms = {n: attn[n].float().flatten(1).norm(dim=1).tolist()
+                 for n in ("wq", "wk", "wv")}
+    del grads, attn
+    torch.cuda.empty_cache()
+    bwd_on_path = held.errors(BWD_BF16_TOL)
+    if do_profile:               # one more step, traced (after the checks' window)
+        batch = pipe.get_batch(0)
+        phase("profile_train_step", **profile(
+            torch, lambda: train_step(params, state, batch), top=16))
+    del params, state, leaves, m
+    torch.cuda.empty_cache()
+    # A second run from the same seed: 2 steps, bitwise.
+    params, state = fresh()
+    again = []
+    for s in range(2):
+        params, state, m = train_step(params, state, pipe.get_batch(s))
+        again.append(float(m["loss"]))
+    repeat = again == [st["loss"] for st in steps[:2]] and all(
+        torch.equal(a, b_) for a, b_ in zip(tree_leaves(params), snapshot))
+    del params, state, snapshot, m
+    torch.cuda.empty_cache()
+    timed = steps[1:]
+    step_ms = float(np.median([st["ms"] for st in timed]))
+    out = {"arch": TRAIN_ARCH, "nvidia_smi": smi, "params": n_params,
+           "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "d_head": cfg.d_head,
+           "vocab": cfg.vocab, "remat": cfg.remat, "param_dtype": cfg.param_dtype_str,
+           "compute_dtype": cfg.compute_dtype_str,
+           "moment_dtype": opt_cfg.moment_dtype_str, "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "tokens_per_step": tokens,
+           "pipeline_build_s": pipe_s, "pipeline_launches": pipe_launches,
+           "init_s": init_s, "state_gb": state_gb, "steps": steps,
+           "get_batch_ms": batch_ms, "step_p50_ms": step_ms,
+           "tokens_per_s": tokens / (step_ms / 1e3),
+           "flop_bound_s": bound_s, "flop_bound_share": bound_s / (step_ms / 1e3),
+           "peak_mem_gb": peak_gb, "launches": launches,
+           "launches_per_step": per_step, "predicted_per_step": TRAIN_PER_STEP,
+           "leaves_changed_by_step_1": f"{sum(changed)} of {len(changed)}",
+           "qkv_grad_norm_min": {n: min(v) for n, v in qkv_norms.items()},
+           "bwd_on_path": bwd_on_path, "bwd_on_path_tol": BWD_BF16_TOL,
+           "repeat_losses": again, "repeat_bitwise": repeat}
+    phase("train", **out)
+    finite = all(np.isfinite([st["loss"], st["grad_norm"]]).all() for st in steps)
+    held_ok = len(bwd_on_path) == len(TRAIN_BWD_HELD) and all(
+        c["ok"] for c in bwd_on_path)
+    if not finite or not all(changed) or not repeat or not held_ok \
+            or min(min(v) for v in qkv_norms.values()) <= 0 \
+            or per_step != {k: float(v) for k, v in TRAIN_PER_STEP.items()}:
+        raise SystemExit(f"train: finite={finite}, leaves changed "
+                         f"{out['leaves_changed_by_step_1']}, repeat={repeat}, "
+                         f"qkv norms {out['qkv_grad_norm_min']}, backward on "
+                         f"the path {bwd_on_path}, launches a step "
+                         f"{per_step} (predicted {TRAIN_PER_STEP})")
+    return launches
+
+
+def train_vs_cpu(torch, dev, seed: int) -> dict:
+    """examples/train_lm.py's lm-8m config on the card against the same port
+    code on the CPU: two steps in fp32 compute against a float64 run on one
+    CPU thread (after a forward thrown away, as the smoke-model card test)
+    — the losses within TRAIN_LOSS_F32_TOL relative and each gradient leaf
+    within TRAIN_GRAD_TOL of its largest magnitude — then the same in bf16
+    compute (losses within TRAIN_LOSS_BF16_TOL; each gradient leaf within
+    TRAIN_GRAD_BF16_TOL in norm of the port's bf16 CPU gradient at the
+    card's params, and step 1 with dk's kv heads swapped in every backward
+    outside it); every backward call of both held to the plain version on
+    the tensors the model passed it; the pipeline's batches
+    card against CPU, bitwise; then the example's restart on the card: 6
+    steps straight against 3, a checkpoint, a restore into fresh objects
+    and 3 more, params and optimizer state bitwise."""
+    import tempfile
+    from repro_torch.data.pipeline import AerialPipeline, PipelineConfig
+    from repro_torch.examples import train_lm
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+
+    cfg = train_lm.LM_8M
+    counts = _reset_counts()
+    pipe = AerialPipeline(PipelineConfig(vocab=cfg.vocab, batch=8, seq=64), device=dev)
+    cpu_pipe = AerialPipeline(PipelineConfig(vocab=cfg.vocab, batch=8, seq=64),
+                              device="cpu")
+    batches = [pipe.get_batch(s) for s in range(2)]
+    cpu_batches = [cpu_pipe.get_batch(s) for s in range(2)]
+    pipe_bitwise = all(torch.equal(a[k].cpu(), b_[k]) for a, b_ in
+                       zip(batches, cpu_batches) for k in a)
+    opt = optlib.OptConfig(lr=3e-3, warmup_steps=20, total_steps=200)
+    ref_model = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    init = ref_model.init(torch.Generator().manual_seed(seed))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with torch.no_grad():
+            ref_model.loss(init, cpu_batches[0])      # thrown away
+        p, st, ref = tree_map(torch.clone, init), None, []
+        st = optlib.init_opt_state(opt, p)
+        for b in cpu_batches:
+            loss, g = value_and_grad(ref_model, p, b)
+            ref.append((float(loss), g))
+            p, st, _ = optlib.adamw_update(opt, g, st, p)
+    finally:
+        torch.set_num_threads(threads)
+    def l2_err(g, want):          # the largest ||g - want|| / ||want|| of a leaf
+        return max(float((a.float().cpu() - w.float()).norm())
+                   / max(float(w.float().norm()), 1e-30)
+                   for a, w in zip(tree_leaves(g), tree_leaves(want)))
+
+    out = {"pipeline_bitwise": pipe_bitwise}
+    cpu_bf16 = Model(cfg.replace(compute_dtype_str="bfloat16"), device="cpu")
+    for compute in ("float32", "bfloat16"):
+        model = Model(cfg.replace(compute_dtype_str=compute), device=dev)
+        p = tree_map(lambda a: a.to(dev, copy=True), init)
+        st = optlib.init_opt_state(opt, p)
+        losses, grad_err, grad_l2, held = [], [], [], []
+        tol = BWD_F32_TOL if compute == "float32" else BWD_BF16_TOL
+        for b, cb, (ref_loss, ref_g) in zip(batches, cpu_batches, ref):
+            with _HeldBwdCalls(range(cfg.n_layers)) as calls:
+                loss, g = value_and_grad(model, p, b)
+            held += calls.errors(tol)
+            losses.append(float(loss))
+            grad_err.append(max(
+                float((a.float().cpu() - r.float()).abs().max())
+                / max(float(r.float().abs().max()), 1e-30)
+                for a, r in zip(tree_leaves(g), tree_leaves(ref_g))))
+            if compute == "bfloat16":     # the same params, bf16 on the CPU
+                _, want = value_and_grad(cpu_bf16, tree_map(torch.Tensor.cpu, p), cb)
+                grad_l2.append(l2_err(g, want))
+                if len(grad_l2) == 1:     # step 1's, for the control below
+                    first = (tree_map(torch.clone, p), want)
+            p, st, _ = optlib.adamw_update(opt, g, st, p)
+        rel = [abs(a - r) / abs(r) for a, (r, _) in zip(losses, ref)]
+        out[compute] = {"losses": losses, "cpu_float64_losses": [r for r, _ in ref],
+                        "loss_rel_err": rel, "grad_rel_err": grad_err,
+                        "bwd_on_path_max_rel_err": max(
+                            (max(c["max_rel_err"].values()) for c in held),
+                            default=None),
+                        "bwd_on_path_calls": len(held),
+                        "bwd_on_path_ok": len(held) == 2 * cfg.n_layers
+                        and all(c["ok"] for c in held)}
+    # The control: step 1 again with dk's kv heads swapped in every backward.
+    with _HeldBwdCalls((), fault=lambda dq, dk, dv: (dq, dk.roll(1, 2), dv)):
+        _, g = value_and_grad(model, first[0], batches[0])
+    out["bfloat16"].update(grad_l2_err_vs_cpu_bf16=grad_l2,
+                           control_dk_heads_swapped=l2_err(g, first[1]),
+                           grad_l2_tol=TRAIN_GRAD_BF16_TOL)
+    with tempfile.TemporaryDirectory() as tmp:
+        log = lambda *_: None
+        straight = train_lm.run(6, None, 50, dev, log=log)
+        first = train_lm.run(6, tmp, 3, dev, stop=3, log=log)
+        second = train_lm.run(6, tmp, 3, dev, log=log)
+        restart = second["start"] == 3 and all(
+            torch.equal(a, b_) for a, b_ in zip(
+                tree_leaves((second["params"], second["opt"])),
+                tree_leaves((straight["params"], straight["opt"]))))
+        restart_losses = first["losses"] + second["losses"] == straight["losses"]
+    out.update(restart_bitwise=restart, restart_losses_equal=restart_losses,
+               restart_losses=straight["losses"], launches=counts())
+    phase("train_vs_cpu", **out)
+    f32, bf16 = out["float32"], out["bfloat16"]
+    if not pipe_bitwise or not restart or not restart_losses \
+            or not f32["bwd_on_path_ok"] or not bf16["bwd_on_path_ok"] \
+            or max(f32["loss_rel_err"]) > TRAIN_LOSS_F32_TOL \
+            or max(f32["grad_rel_err"]) > TRAIN_GRAD_TOL \
+            or max(bf16["loss_rel_err"]) > TRAIN_LOSS_BF16_TOL \
+            or max(bf16["grad_l2_err_vs_cpu_bf16"]) > TRAIN_GRAD_BF16_TOL \
+            or not bf16["control_dk_heads_swapped"] > TRAIN_GRAD_BF16_TOL:
+        raise SystemExit(f"train_vs_cpu: pipeline bitwise {pipe_bitwise}, "
+                         f"restart {restart}/{restart_losses}, fp32 losses "
+                         f"{f32['loss_rel_err']} grads {f32['grad_rel_err']}, "
+                         f"bf16 losses {bf16['loss_rel_err']} grads against "
+                         f"the CPU's bf16 {bf16['grad_l2_err_vs_cpu_bf16']} "
+                         f"(control {bf16['control_dk_heads_swapped']}), "
+                         f"backward on the path {f32['bwd_on_path_ok']}/"
+                         f"{bf16['bwd_on_path_ok']}")
+    return out["launches"]
+
+
+def flash_bwd_timing(torch, dev, seed: int) -> dict:
+    """The backward kernel at one microbatch of the train phase (BWD_TIMING,
+    causal, bf16): call ms and device ms (both launches, and each alone),
+    its plain version's ms, SDPA's backward (``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention(..., is_causal=True,
+    enable_gqa=True)``, the yardstick only), the largest relative error
+    against the plain version and the bound: the backward's five products,
+    2.5 x the causal forward's FLOP, at the bf16 tensor-core rate."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    rng = np.random.default_rng(seed + 31)
+    b, s, h, kv, d = BWD_TIMING
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                   .to(dev, torch.bfloat16) for sh in ((b, s, h, d), (b, s, kv, d),
+                                                       (b, s, kv, d), (b, s, h, d)))
+    o = fops.flash_attention_cuda(q, k, v, causal=True)
+    kernel = lambda: fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    got = kernel()
+    want = flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+    abs_err = [float((g.float() - w.float()).abs().max()) for g, w in zip(got, want)]
+    err = max(e / float(w.float().abs().max()) for e, w in zip(abs_err, want))
+    repeat = all(torch.equal(a, b_) for a, b_ in zip(got, kernel()))
+    del got, want
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
+    fwd_flops = 4 * b * h * d * s * (s + 1) / 2
+    flops = 2.5 * fwd_flops
+    nbytes = 2 * 4 * (q.numel() + k.numel())    # q o dO dQ, k v dK dV
+    res = {"shape": [b, s, h, kv, d, "causal", "bf16"],
+           "ms": cuda_ms(torch, kernel, 10),
+           "device_ms": device_ms(torch, kernel, 5),
+           "dq_device_ms": device_ms(torch, kernel, 5, "flash_bwd_dq"),
+           "dkdv_device_ms": device_ms(torch, kernel, 5, "flash_bwd_dkdv"),
+           "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_ref(
+               q, k, v, o, do, causal=True), 2),
+           "library_ms": cuda_ms(torch, sdpa_bwd, 10),
+           "library_device_ms": device_ms(torch, sdpa_bwd, 5),
+           "max_abs_err": max(abs_err), "max_rel_err": err, "repeat_bitwise": repeat,
+           "forward_flops": fwd_flops, "flops": flops, "bytes": nbytes,
+           **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+    if err > BWD_BF16_TOL or not repeat:
+        raise SystemExit(f"flash bwd at the train shape: relative error {err}, "
+                         f"repeat {repeat}")
+    return res
+
+
 def _bound(ops_s: float, bytes_s: float) -> dict:
     return {"bound_ms": max(ops_s, bytes_s) * 1e3,
             "bound_by": "operations" if ops_s > bytes_s else "bytes"}
@@ -2679,8 +3149,8 @@ def main(argv=None) -> int:
                     help="after each main path, print the device-time "
                          "breakdown (torch.profiler) of one ingest chunk "
                          "(into the main and the cached store), one "
-                         "4-channel query batch, one prefill and one "
-                         "decode step")
+                         "4-channel query batch, one prefill, one "
+                         "decode step and one train step")
     args = ap.parse_args(argv)
 
     import torch
@@ -3036,12 +3506,18 @@ def main(argv=None) -> int:
 
     # -- 5-7. flash_attention and the LM serving path ----------------------
     flash_err = flash_vs_plain(torch, dev, args.seed)
+    phase("flash_bwd_vs_plain", **flash_bwd_vs_plain(torch, dev, args.seed))
     served = serve(torch, dev, args.seed, args.profile)
     torch.cuda.empty_cache()        # internlm2's engine is gone
     served_d160 = serve(torch, dev, args.seed, args.profile, arch=SERVE_D160_ARCH,
                         param_dtype="bfloat16", tag="serve_stablelm")
     torch.cuda.empty_cache()
+    trained = train(torch, dev, args.seed, smi, args.profile)
+    torch.cuda.empty_cache()
+    trained_small = train_vs_cpu(torch, dev, args.seed)
+    torch.cuda.empty_cache()
     ft = flash_timings(torch, dev, args.seed)
+    ft["bwd"] = flash_bwd_timing(torch, dev, args.seed)
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
     for sfx, launched in (("", served), ("_d160", served_d160)):
         pre, dec, long = ft["prefill" + sfx], ft["decode" + sfx], ft["decode_long" + sfx]
@@ -3087,6 +3563,27 @@ def main(argv=None) -> int:
             "long_ms": long["ms"], "long_device_ms": long["device_ms"],
             "long_plain_ms": long["plain_ms"], "long_bound_ms": long["bound_ms"],
             "long_library_device_ms": long["library_device_ms"]})
+    bwd = ft["bwd"]
+    kernels.append({
+        "name": "flash_attention_bwd", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:52",
+        "replaces_note": "no Pallas kernel: the JAX package takes this gradient "
+                         "by autodiff of its jnp flash_attention",
+        "launches": trained["bwd"], "train_vs_cpu_launches": trained_small["bwd"],
+        "kernel_launches_per_call": 2, "max_abs_err": bwd["max_abs_err"],
+        "max_rel_err": bwd["max_rel_err"], "ms": bwd["ms"],
+        "device_ms": bwd["device_ms"], "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
+        "library_ms": bwd["library_ms"],
+        "library_device_ms": bwd["library_device_ms"]})
+    for k in kernels:               # the training paths' launches
+        name = {"flash_attention": "mma_sync", "flash_attention_sm90": "sm90",
+                "flash_attention_decode": "decode",
+                "flash_attention_bwd": "bwd"}.get(k["name"], k["name"])
+        if not k["name"].endswith("_d160"):
+            k["train_launches"] = trained[name]
+            k["train_vs_cpu_launches"] = trained_small[name]
     phase("flash_timings", **ft)
     phase("device_ms_profiles", calls=len(DEVICE_MS_PROFILES),
           profiles=sum(DEVICE_MS_PROFILES),

@@ -1,7 +1,8 @@
 """Model configuration and registry (port of ``repro.configs.base``).
 
 The dataclass keeps the fields of the JAX package's ``ModelConfig`` that a
-dense GQA decoder reads, under the same names and defaults;
+dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``),
+under the same names and defaults;
 ``param_dtype`` and ``compute_dtype`` return ``torch`` dtypes. The port
 registers only the configurations it can serve (``ARCH_MODULES``): dense
 decoders with GQA attention. Asking for another one raises ``NotImplementedError`` naming the
@@ -44,9 +45,11 @@ class ModelConfig:
     # padded logits are masked.
     vocab_pad_multiple: int = 256
 
-    # numerics
+    # numerics / memory
     param_dtype_str: str = "float32"
     compute_dtype_str: str = "bfloat16"
+    remat: str = "full"           # full | dots | none (training only)
+    loss_chunk: int = 2048        # CE vocab-chunking (tokens per block)
 
     @property
     def param_dtype(self) -> torch.dtype:
@@ -94,7 +97,8 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     the dense fields the port has)."""
     return cfg.replace(
         name=cfg.name + "-smoke", n_layers=min(cfg.n_layers, 4), d_model=128,
-        d_ff=256 if cfg.d_ff else 0, vocab=512, attn_chunk_kv=64, n_heads=4,
+        d_ff=256 if cfg.d_ff else 0, vocab=512, loss_chunk=128,
+        attn_chunk_kv=64, n_heads=4,
         n_kv=min(max(cfg.n_kv * 4 // cfg.n_heads, 1), 4), d_head=32)
 
 

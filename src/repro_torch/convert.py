@@ -15,6 +15,13 @@ leaves (numpy's ``bfloat16`` extension dtype, as JAX hands them out) are
 read bit for bit; ``params_to_numpy`` widens bfloat16 to float32, which
 keeps every value.
 
+``opt_state_from_numpy(state, device)`` builds the port's AdamW
+``OptState`` from the JAX package's (or from ``opt_state_to_numpy``'s
+dict): the step a 0-d int32 tensor, the moment and master trees through
+``params_from_numpy`` (bf16 moments bit for bit). ``opt_state_to_numpy``
+gives the dict back (``step``, ``mu``, ``nu``, ``master`` or None), its
+trees as ``params_to_numpy`` gives them.
+
 ``key_from_numpy(words)`` reads a PRNG key from its uint32 words
 (``np.asarray(jax.random.key_data(k))``): a ``(2,)`` array gives one key of
 the port (a pair of ints on the host), a ``(..., 2)`` array a batch of keys
@@ -33,6 +40,7 @@ from repro_torch.core import threefry
 from repro_torch.core.datastore import StoreState
 from repro_torch.core.index import IndexState
 from repro_torch.device import resolve_device
+from repro_torch.train.optimizer import OptState
 
 
 def _leaves(tree: Any, fields) -> Dict[str, Any]:
@@ -82,6 +90,25 @@ def params_to_numpy(params: Dict[str, Any]) -> Dict[str, Any]:
     if params.dtype == torch.bfloat16:
         params = params.to(torch.float32)
     return params.detach().cpu().numpy()
+
+
+def opt_state_from_numpy(state: Any, device="cuda") -> OptState:
+    """The port's OptState on ``device`` from numpy-readable leaves."""
+    top = _leaves(state, OptState._fields)
+    dev = resolve_device(device)
+    step = torch.from_numpy(np.array(top["step"], dtype=np.int32)).to(dev)
+    return OptState(step=step, mu=params_from_numpy(top["mu"], dev),
+                    nu=params_from_numpy(top["nu"], dev),
+                    master=None if top["master"] is None
+                    else params_from_numpy(top["master"], dev))
+
+
+def opt_state_to_numpy(state: OptState) -> Dict[str, Any]:
+    """Dict of the state's fields as numpy (trees as ``params_to_numpy``)."""
+    return {"step": state.step.detach().cpu().numpy(),
+            "mu": params_to_numpy(state.mu), "nu": params_to_numpy(state.nu),
+            "master": None if state.master is None
+            else params_to_numpy(state.master)}
 
 
 def key_from_numpy(words, device="cuda") -> Union[threefry.Key, torch.Tensor]:

@@ -27,6 +27,18 @@ failure:
 ``flash_attention_cuda(..., variant=...)`` forces one of them, for tests
 and timing only; forcing ``"sm90"`` or ``"decode"`` on a shape it does not
 take raises.
+
+Under grad (grad enabled and any input requiring it, on either device)
+``flash_attention`` goes through ``FlashAttentionFn``, a
+``torch.autograd.Function`` that saves q, k, v and the output. Its
+backward launches the backward kernel (``csrc/flash_attention_bwd.cu``,
+``flash_attention_bwd_cuda``: two launches a call, counted once a call in
+``launches_by_variant["bwd"]``; ``launches`` counts forward launches only)
+on CUDA tensors and runs its plain version (``ref.flash_attention_bwd_ref``)
+on CPU tensors. A CUDA call under grad therefore never returns an output
+cut off from the graph, and a failure to build or launch raises. Under
+``no_grad`` the wrapper takes the forward path above, with its launch
+counts, and builds no graph.
 """
 
 from __future__ import annotations
@@ -37,11 +49,12 @@ import functools
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                     flash_attention_ref)
 
 VARIANTS = ("sm90", "decode", "mma_sync")
 launches = 0
-launches_by_variant = dict.fromkeys(VARIANTS, 0)
+launches_by_variant = dict.fromkeys(VARIANTS + ("bwd",), 0)
 HEAD_DIMS = (32, 64, 128, 160)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q_TILES = 65535          # the grid's y extent
@@ -102,13 +115,52 @@ def decode_splits(b: int, kv: int, n_keys: int) -> int:
     return max(1, min(DECODE_MAX_SPLITS, want, n_keys))
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool, q_offset: int = 0,
-                    chunk_kv: int = 1024) -> torch.Tensor:
+@functools.cache
+def _bwd_fn():
+    fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _forward(q, k, v, causal: bool, q_offset: int, chunk_kv: int):
     if not q.is_cuda:
         return flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    chunk_kv=chunk_kv)
     return flash_attention_cuda(q, k, v, causal=causal, q_offset=q_offset)
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The forward kernel (or its plain version on the CPU) with the
+    backward kernel (or ``flash_attention_bwd_ref``) as its gradient. Saves
+    only tensors; ``causal``, ``q_offset`` and ``chunk_kv`` are constants of
+    the call, so a remat recompute sees the same ones."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, q_offset: int, chunk_kv: int):
+        o = _forward(q, k, v, causal, q_offset, chunk_kv)
+        ctx.save_for_backward(q, k, v, o)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o = ctx.saved_tensors
+        bwd = flash_attention_bwd_cuda if q.is_cuda else flash_attention_bwd_ref
+        dq, dk, dv = bwd(q, k, v, o, do, causal=ctx.causal,
+                         q_offset=ctx.q_offset)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool, q_offset: int = 0,
+                    chunk_kv: int = 1024) -> torch.Tensor:
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, int(q_offset), chunk_kv)
+    return _forward(q, k, v, causal, q_offset, chunk_kv)
 
 
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -234,6 +286,54 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     launches += 1
     launches_by_variant[variant] += 1
     return out
+
+
+def _aligned(x: torch.Tensor) -> torch.Tensor:
+    """``x`` where the kernels can read it through its strides (head dim
+    contiguous, the other strides whole 16-byte vectors, the data 16-byte
+    aligned), else a contiguous copy."""
+    vec = 16 // x.element_size()
+    if x.stride(3) == 1 and not any(s % vec for s in x.stride()[:3]) \
+            and x.data_ptr() % 16 == 0:
+        return x
+    return x.contiguous()
+
+
+def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, o: torch.Tensor,
+                             do: torch.Tensor, *, causal: bool,
+                             q_offset: int = 0
+                             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernel (CUDA tensors only): (dq, dk, dv) of the
+    forward's output ``o`` given its gradient ``do``, in the inputs' dtype.
+    Two launches on the current stream, the dq pass (which also writes the
+    row statistics) and then the dk/dv pass; ``launches_by_variant["bwd"]``
+    grows by one."""
+    q_offset = int(q_offset)
+    _check(q, k, v, q_offset)
+    if o.shape != q.shape or do.shape != q.shape or o.device != q.device \
+            or do.device != q.device:
+        raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
+                         f"have q's shape {tuple(q.shape)} and device")
+    o, do = _aligned(o.to(q.dtype)), _aligned(do.to(q.dtype))
+    b, sq, h, dh = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    dq = torch.empty_like(q, memory_format=torch.contiguous_format)
+    dk = torch.empty((b, skv, kv, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, skv, kv, dh), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, o, do, dq, dk, dv)
+                                         for s in x.stride()[:3]))
+    err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                    lse.data_ptr(), dsum.data_ptr(),
+                    int(q.dtype == torch.bfloat16), dh, b, h, kv, sq, skv,
+                    strides, int(causal), q_offset, dh ** -0.5,
+                    torch.cuda.current_stream(q.device).cuda_stream)
+    build.check("flash_attention_bwd", err)
+    launches_by_variant["bwd"] += 1
+    return dq, dk, dv
 
 
 def sm90_probe(q: torch.Tensor, k: torch.Tensor,

@@ -20,6 +20,18 @@ prefix cut into ``n_split`` contiguous ranges (``decode_partition``), each
 range an online softmax over tiles of ``DECODE_TILE`` keys, and the
 ranges' partial (m, l, acc) merged in rank order. The CPU tests hold it to
 ``flash_attention_ref`` and to the JAX package; it is not on any path.
+
+``flash_attention_bwd_ref`` is the plain version of the backward kernel
+(``csrc/flash_attention_bwd.cu``): the gradient of the function above with
+respect to q, k and v, by the FlashAttention-2 backward formula. It
+recomputes the row statistics (``LSE = logsumexp`` of the masked scores),
+forms ``D = rowsum(dO * O)`` with O as the forward stored it, and then
+``P = exp(S - LSE)``, ``dV = P^T dO``, ``dP = dO V^T``, ``dS = P * (dP -
+D)``, ``dQ = scale * dS K``, ``dK = scale * dS^T Q``, dK and dV summed over
+the GQA group's query heads. Arithmetic in fp32 (float64 inputs in
+float64), outputs in the inputs' dtype. Query rows go in chunks of
+``chunk_q``, so no score matrix larger than ``chunk_q`` x Skv a head is
+held. On the CPU it is the autograd backward of ``flash_attention``.
 """
 
 from __future__ import annotations
@@ -113,3 +125,40 @@ def flash_decode_split_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = m_new
     out = acc / torch.clamp(l, min=1e-30)[..., None]
     return out.to(q.dtype).reshape(b, 1, h, dv)
+
+
+def flash_attention_bwd_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            o: torch.Tensor, do: torch.Tensor, *,
+                            causal: bool, q_offset: int = 0,
+                            chunk_q: int = 1024
+                            ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    b, sq, h, dh = q.shape
+    skv, kv = k.shape[1], k.shape[2]
+    g, dv_ = h // kv, v.shape[-1]
+    ct = torch.promote_types(q.dtype, torch.float32)
+    scale = dh ** -0.5
+    kf, vf = k.to(ct), v.to(ct)
+    dk = torch.zeros((b, skv, kv, dh), dtype=ct, device=q.device)
+    dv = torch.zeros((b, skv, kv, dv_), dtype=ct, device=q.device)
+    dq = torch.empty((b, sq, kv, g, dh), dtype=ct, device=q.device)
+    k_pos = torch.arange(skv, device=q.device)
+    for r0 in range(0, sq, chunk_q):
+        r1 = min(r0 + chunk_q, sq)
+        qc = q[:, r0:r1].reshape(b, r1 - r0, kv, g, dh).to(ct)
+        doc = do[:, r0:r1].reshape(b, r1 - r0, kv, g, dv_).to(ct)
+        oc = o[:, r0:r1].reshape(b, r1 - r0, kv, g, dv_).to(ct)
+        s = torch.einsum("bqkgd,bckd->bqkgc", qc, kf) * scale
+        if causal:
+            q_pos = q_offset + torch.arange(r0, r1, device=q.device)
+            mask = q_pos[:, None] >= k_pos[None, :]               # (rows, Skv)
+            s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+        lse = torch.logsumexp(s, dim=-1)
+        p = torch.exp(s - lse[..., None])
+        d_row = (doc * oc).sum(dim=-1)
+        dv += torch.einsum("bqkgc,bqkgd->bckd", p, doc)
+        dp = torch.einsum("bqkgd,bckd->bqkgc", doc, vf)
+        ds = p * (dp - d_row[..., None])
+        dq[:, r0:r1] = torch.einsum("bqkgc,bckd->bqkgd", ds, kf) * scale
+        dk += torch.einsum("bqkgc,bqkgd->bckd", ds, qc) * scale
+    return (dq.reshape(b, sq, h, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

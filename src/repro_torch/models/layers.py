@@ -84,4 +84,7 @@ def init_embed(gen: torch.Generator, vocab: int, d: int, dtype: torch.dtype):
 def embed_apply(p, tokens: torch.Tensor, compute_dtype: torch.dtype):
     # Gather, then cast: the same bits as casting the table first (the cast
     # is elementwise), without converting the whole table on every call.
-    return p["tok"][tokens].to(compute_dtype)
+    # ``F.embedding`` gathers the rows ``p["tok"][tokens]`` does; its
+    # gradient sums a token's rows in a fixed order on either device (the
+    # indexing gradient accumulates in threads on the CPU).
+    return F.embedding(tokens, p["tok"]).to(compute_dtype)

@@ -1,4 +1,4 @@
-"""Top-level model API for serving a dense decoder (port of
+"""Top-level model API for serving and training a dense decoder (port of
 ``repro.models.model``).
 
 ``Model(cfg, device="cuda")`` wraps a ModelConfig with plain functions on
@@ -6,6 +6,7 @@ tensors:
   init(generator) -> params                 (nested dict, JAX tree layout)
   forward(params, batch) -> (hidden, aux_loss)
   logits(params, hidden) -> (B, S, V_padded), padded vocab masked
+  loss(params, batch) -> scalar             (chunked-vocab CE)
   init_cache(batch_size, max_seq) -> {"k", "v"}: (L, B, max_seq, KV, dh)
   decode_step(params, cache, inputs, pos) -> (cache, logits (B, V_padded))
 
@@ -14,19 +15,20 @@ stacked on a leading L axis), so weights move between the packages by
 copying leaves (``repro_torch.convert``). Unlike the JAX package,
 ``decode_step`` writes the new K/V row into ``cache`` in place (where JAX
 uses ``dynamic_update_slice`` on a new array) and returns the same dict.
-Only the dense GQA family is ported; ``loss`` and the other families wait
-(ROADMAP Queue 1, LM scaffold).
+Only the dense GQA family is ported; the other families wait (ROADMAP
+Queue 1, LM scaffold item 10.3).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers
 from repro_torch.models.transformer import (apply_decoder_stack,
-                                            init_decoder_stack, tree_map)
+                                            init_decoder_stack, unbind_layers)
 
 
 def _attn_decode_layer(lp, x, cfg, pos: int, pos_arr, cache_slices):
@@ -103,6 +105,43 @@ class Model:
     def logits(self, params, hidden):
         return self._mask_pad_vocab(hidden @ self._unembed(params))
 
+    def _ce_block(self, hc, lc, w):
+        """Summed CE of one block of tokens: hc (chunk, D), lc (chunk,)."""
+        logits = self._mask_pad_vocab((hc @ w).to(torch.float32))
+        logz = torch.logsumexp(logits, dim=-1)
+        mask = lc >= 0
+        # A masked label reads column 0 (the reference reads a wrapped
+        # column); either is multiplied by 0.
+        gold = torch.gather(logits, 1, torch.where(mask, lc, 0).long()[:, None])[:, 0]
+        return torch.sum((logz - gold) * mask)
+
+    def loss(self, params, batch):
+        """Chunked-vocab causal-LM cross entropy: the (T, V) logits are
+        never built; blocks of ``loss_chunk`` tokens go in turn, each
+        recomputed in the backward when grad is enabled (the reference's
+        ``jax.checkpoint`` over its ``lax.scan``). As the reference, tokens
+        past the last whole block are dropped while the mean divides by
+        every label >= 0, and labels < 0 are masked."""
+        cfg = self.cfg
+        hidden, _ = self.forward(params, batch)
+        labels = batch["labels"]
+        b, s, d = hidden.shape
+        t = b * s
+        h2 = hidden.reshape(t, d)
+        l2 = labels.reshape(t)
+        w = self._unembed(params)
+        chunk = min(cfg.loss_chunk, t)
+        n_chunks = max(t // chunk, 1)
+        remat = torch.is_grad_enabled()
+        total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+        for i in range(n_chunks):
+            hc, lc = h2[i * chunk:(i + 1) * chunk], l2[i * chunk:(i + 1) * chunk]
+            total = total + (checkpoint(self._ce_block, hc, lc, w,
+                                        use_reentrant=False)
+                             if remat else self._ce_block(hc, lc, w))
+        n_tok = torch.clamp(torch.sum(l2 >= 0), min=1)
+        return total / n_tok
+
     # -- serving -----------------------------------------------------------
     def init_cache(self, b: int, max_seq: int):
         cfg = self.cfg
@@ -127,9 +166,7 @@ class Model:
         return cache, self.logits(params, h)[:, 0]
 
     def _decode_attn_stack(self, params, cache, x, pos: int, pos_arr):
-        stack = params["stack"]["layers"]
-        for i in range(self.cfg.n_layers):
-            lp = tree_map(lambda a: a[i], stack)
+        for i, lp in enumerate(unbind_layers(params["stack"]["layers"])):
             x = _attn_decode_layer(lp, x, self.cfg, pos, pos_arr,
                                    (cache["k"][i], cache["v"][i]))
         return x

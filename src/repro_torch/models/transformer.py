@@ -2,24 +2,34 @@
 
 Per-layer parameters are stacked on a leading L axis, as in the JAX
 package, and the ``lax.scan`` over layers becomes a Python loop over that
-axis. Remat and the sharding constraints have no meaning for serving and
-are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item
+axis; the stack is cut into its layers once a call (``unbind_layers``), so
+the gradient of each stacked leaf is one stack-sized tensor and not one a
+layer. Remat: when grad is enabled and ``cfg.remat != "none"`` each layer
+runs under ``torch.utils.checkpoint.checkpoint(..., use_reentrant=False)``
+and is recomputed in the backward. ``"dots"`` (the JAX package's
+``checkpoint_dots`` policy, which saves the matmul outputs) recomputes the
+whole layer like ``"full"`` here; the values are the same, only the memory
+and time differ. The sharding constraints have no meaning on one device
+and are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item
 10.3).
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED
 from repro_torch.models import attention, layers
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every tensor leaf of a nested dict."""
+def unbind_layers(tree) -> list:
+    """The per-layer trees of a stacked tree, one ``unbind(0)`` a leaf."""
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
+        parts = {k: unbind_layers(v) for k, v in tree.items()}
+        n = len(next(iter(parts.values())))
+        return [{k: v[i] for k, v in parts.items()} for i in range(n)]
+    return list(tree.unbind(0))
 
 
 def _stack(trees):
@@ -57,9 +67,13 @@ def init_decoder_stack(gen: torch.Generator, cfg):
 
 def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
     """-> (x, aux_loss) after every layer of ``p["layers"]`` in turn."""
-    stack = p["layers"]
-    for i in range(cfg.n_layers):
-        lp = tree_map(lambda a: a[i], stack)
-        x, _ = apply_decoder_layer(lp, x, cfg, positions, use_moe=False,
-                                   causal=causal)
+    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    for lp in unbind_layers(p["layers"]):
+        if remat:
+            x, _ = checkpoint(apply_decoder_layer, lp, x, cfg, positions,
+                              use_moe=False, causal=causal,
+                              use_reentrant=False)
+        else:
+            x, _ = apply_decoder_layer(lp, x, cfg, positions, use_moe=False,
+                                       causal=causal)
     return x, 0.0

@@ -18,7 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_map
 
 
 @dataclasses.dataclass

@@ -53,7 +53,7 @@ from repro_torch.kernels.st_scan import ops as st_ops
 from repro_torch.kernels.st_scan import ref as st_ref
 from repro_torch.kernels.voronoi_assign import ops as vops
 from repro_torch.models.model import Model
-from repro_torch.models.transformer import tree_map
+from repro_torch.tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.train.train_loop import make_serve_steps
 
 
@@ -1623,3 +1623,155 @@ def test_fleet_two_process_smoke_on_card(cuda):
         assert w["device"].startswith("cuda") and w["answers_checked"] == 5
         assert w["host_syncs"] == w["gloo_exchanges"] > 0
         assert min(w["launches"].values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The flash-attention backward kernel and the training path
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, h, kv, causal, q_offset): chip_smoke.py's flash_vs_plain
+# backward cases: GQA groups 1 and 2 and 16 heads over 8, causal and not,
+# Sq != Skv with a q_offset, lengths that are no tile's multiple.
+BWD_CASES = [(2, 200, 200, 4, 4, True, 0), (2, 200, 200, 8, 4, False, 0),
+             (1, 256, 256, 16, 8, True, 0), (2, 77, 131, 4, 2, True, 54),
+             (2, 77, 131, 4, 2, False, 0)]
+# Relative to each gradient's largest magnitude: fp32 is the same formula
+# summed in another order; bf16 rounds P and dS to bf16 before the products.
+BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+def _bwd_case(cuda, dtype, case, dh, seed):
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    b, sq, skv, h, kv, causal, off = case
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                   .to(cuda, dtype) for s in ((b, sq, h, dh), (b, skv, kv, dh),
+                                              (b, skv, kv, dh), (b, sq, h, dh)))
+    o = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+    before = fops.launches_by_variant["bwd"]
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
+    assert fops.launches_by_variant["bwd"] == before + 1
+    want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, q_offset=off)
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        err = float((g.float() - w.float()).abs().max())
+        scale = float(w.float().abs().max())
+        assert err <= BWD_TOL[dtype] * scale, (name, err, scale)
+    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", [32, 64, 128, 160])
+@pytest.mark.parametrize("case", BWD_CASES, ids=str)
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, dh, case):
+    _bwd_case(cuda, dtype, case, dh, seed=dh + case[1])
+
+
+def test_flash_bwd_reads_strided_inputs(cuda):
+    """q, k, v as views of a fused projection (strided heads) and a
+    non-contiguous dO: the same gradients as contiguous copies."""
+    rng = np.random.default_rng(3)
+    qkv = torch.from_numpy(rng.standard_normal((2, 96, 8, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    do = torch.from_numpy(rng.standard_normal((2, 4, 96, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+    o = fops.flash_attention_cuda(q, k, v, causal=True)
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    want = fops.flash_attention_bwd_cuda(*(x.contiguous() for x in (q, k, v, o, do)),
+                                         causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("d_head", [32, 128])
+def test_attention_under_grad_reaches_the_weights(cuda, d_head):
+    """A CUDA flash_attention under grad returns an output with a grad_fn,
+    and the loss's gradient reaches every layer's wq, wk and wv through the
+    backward kernel (one call a layer; remat adds forward launches only)."""
+    from repro_torch.train.train_loop import loss_with_microbatch
+    cfg = reduce_for_smoke(get_config("internlm2-1.8b")).replace(d_head=d_head)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    tracked = tree_map(lambda a: a.detach().requires_grad_(), params)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (2, 97)).astype(np.int32)).to(cuda)
+    q = torch.zeros((1, 64, 2, d_head), device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    assert fops.flash_attention(q, q, q, causal=True).grad_fn is not None
+    before = dict(fops.launches_by_variant)
+    loss = loss_with_microbatch(model, tracked, {"tokens": toks[:, :-1],
+                                                 "labels": toks[:, 1:]}, 2)
+    grads = torch.autograd.grad(loss, tree_leaves(tracked))
+    g = tree_unflatten(params, grads)["stack"]["layers"]["attn"]
+    for name in ("wq", "wk", "wv"):
+        norms = g[name].float().flatten(1).norm(dim=1)
+        assert bool((norms > 0).all()) and bool(torch.isfinite(norms).all()), name
+    assert fops.launches_by_variant["bwd"] == before["bwd"] + 2 * cfg.n_layers
+    want = "sm90" if d_head == 128 else "mma_sync"
+    assert fops.launches_by_variant[want] == before[want] + 4 * cfg.n_layers
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """Two AdamW steps of the lm-8m example config in fp32 on the card,
+    against the same steps in float64 compute on one CPU thread: the losses
+    within 1e-5 relative, each gradient leaf within 1e-4 of its largest
+    magnitude."""
+    from repro_torch.examples.train_lm import LM_8M
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.train_loop import value_and_grad
+    opt = optlib.OptConfig(lr=3e-3, warmup_steps=20, total_steps=200)
+    cpu_m = Model(LM_8M.replace(compute_dtype_str="float64"), device="cpu")
+    card_m = Model(LM_8M.replace(compute_dtype_str="float32"), device=cuda)
+    p_cpu = cpu_m.init(torch.Generator().manual_seed(0))
+    p_card = tree_map(lambda a: a.to(cuda), p_cpu)
+    s_cpu, s_card = optlib.init_opt_state(opt, p_cpu), optlib.init_opt_state(opt, p_card)
+    rng = np.random.default_rng(4)
+    threads, tf32 = torch.get_num_threads(), torch.backends.cuda.matmul.allow_tf32
+    torch.set_num_threads(1)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for _ in range(2):
+            toks = torch.from_numpy(rng.integers(0, 512, (8, 65)).astype(np.int32))
+            batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+            lc, gc = value_and_grad(card_m, p_card, {k: v.to(cuda) for k, v in batch.items()})
+            lr_, gr = value_and_grad(cpu_m, p_cpu, batch)
+            assert abs(float(lc) - float(lr_)) <= 1e-5 * abs(float(lr_))
+            for a, b in zip(tree_leaves(gc), tree_leaves(gr)):
+                assert float((a.cpu() - b).abs().max()) <= 1e-4 * float(b.abs().max())
+            p_card, s_card, _ = optlib.adamw_update(opt, gc, s_card, p_card)
+            p_cpu, s_cpu, _ = optlib.adamw_update(opt, gr, s_cpu, p_cpu)
+    finally:
+        torch.set_num_threads(threads)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+
+
+@pytest.mark.parametrize("d_head", [32, 128])
+def test_flash_bwd_on_the_model_tensors_matches_plain(cuda, d_head, monkeypatch):
+    """Every backward call of a bf16 train step, held to the plain version
+    on the very q, k, v, o and dO the model passed it (their views and
+    strides), each gradient within 2e-2 of its largest magnitude."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    from repro_torch.train.train_loop import value_and_grad
+    cfg = reduce_for_smoke(get_config("internlm2-1.8b")).replace(d_head=d_head)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, (4, 129)).astype(np.int32)).to(cuda)
+    calls, kernel = [], fops.flash_attention_bwd_cuda
+
+    def held(q, k, v, o, do, *, causal, q_offset=0):
+        got = kernel(q, k, v, o, do, causal=causal, q_offset=q_offset)
+        calls.append(((q, k, v, o, do), causal, q_offset, got))
+        return got
+
+    monkeypatch.setattr(fops, "flash_attention_bwd_cuda", held)
+    value_and_grad(model, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 2)
+    assert len(calls) == 2 * cfg.n_layers
+    with torch.no_grad():
+        for args, causal, off, got in calls:
+            want = flash_attention_bwd_ref(*args, causal=causal, q_offset=off)
+            for g, w in zip(got, want):
+                assert bool(torch.isfinite(g).all())
+                err = float((g.float() - w.float()).abs().max())
+                assert err <= BWD_TOL[torch.bfloat16] * float(w.float().abs().max())

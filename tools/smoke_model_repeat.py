@@ -47,7 +47,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "src"))
 from repro_torch.configs.base import get_config, reduce_for_smoke  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.model import Model  # noqa: E402
-from repro_torch.models.transformer import tree_map  # noqa: E402
+from repro_torch.tree import tree_map  # noqa: E402
 
 TOL = 1e-4          # the card test's rtol and atol
 
