@@ -28,7 +28,7 @@ from typing import Dict, Iterable, Optional
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 KERNELS = ("st_scan", "hash64", "voronoi_assign", "flash_attention",
            "flash_attention_sm90", "flash_attention_decode",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "flash_attention_bwd_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

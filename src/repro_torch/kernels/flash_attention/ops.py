@@ -31,14 +31,27 @@ take raises.
 Under grad (grad enabled and any input requiring it, on either device)
 ``flash_attention`` goes through ``FlashAttentionFn``, a
 ``torch.autograd.Function`` that saves q, k, v and the output. Its
-backward launches the backward kernel (``csrc/flash_attention_bwd.cu``,
-``flash_attention_bwd_cuda``: two launches a call, counted once a call in
-``launches_by_variant["bwd"]``; ``launches`` counts forward launches only)
-on CUDA tensors and runs its plain version (``ref.flash_attention_bwd_ref``)
-on CPU tensors. A CUDA call under grad therefore never returns an output
-cut off from the graph, and a failure to build or launch raises. Under
-``no_grad`` the wrapper takes the forward path above, with its launch
-counts, and builds no graph.
+backward calls ``flash_attention_bwd_cuda`` on CUDA tensors and runs its
+plain version (``ref.flash_attention_bwd_ref``) on CPU tensors. A CUDA call
+under grad therefore never returns an output cut off from the graph, and a
+failure to build or launch raises. Under ``no_grad`` the wrapper takes the
+forward path above, with its launch counts, and builds no graph.
+
+Two backward kernels, each two launches a call (the dq pass, then the
+dk/dv pass), chosen by shape and dtype alone (``_bwd_variant``):
+
+- ``"sm90"`` (``csrc/flash_attention_bwd_sm90.cu``): wgmma fed by TMA, for
+  bf16 with d == ``SM90_BWD_HEAD_DIM`` (128) and at least
+  ``SM90_BWD_MIN_LEN`` (64) query rows and keys (every training call of
+  internlm2-1.8b);
+- ``"mma_sync"`` (``csrc/flash_attention_bwd.cu``): every other shape
+  (fp32, d 32, 64 and 160, shorter calls).
+
+``flash_attention_bwd_cuda(..., variant=...)`` forces one, for tests and
+timing only; forcing ``"sm90"`` on a shape it lacks raises. A call adds one
+to ``launches_by_variant["bwd"]`` and to
+``bwd_launches_by_variant[variant]``; ``launches`` counts forward launches
+only.
 """
 
 from __future__ import annotations
@@ -70,6 +83,14 @@ DECODE_MAX_SPLITS = 8        # blocks of a cluster (the portable limit)
 # best on the card at 192 and at 4096 keys, 3 to 8 within 13 %, 2 and 1
 # far slower (PERF.md, H100 80GB HBM3 at 700 W).
 DECODE_TARGET_BLOCKS = 256
+BWD_VARIANTS = ("sm90", "mma_sync")
+bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
+SM90_BWD_HEAD_DIM = 128
+# The sm90 backward's least query rows and keys: one warpgroup's 64 rows
+# and one streamed 64-key tile. Shorter calls would be mostly TMA's zero
+# fill, so they stay on the mma_sync kernel.
+SM90_BWD_MIN_LEN = 64
+SM90_BWD_BLOCK_ROWS = 128    # a dq block's query rows; the scratch rows' padding
 
 
 def _lib():
@@ -121,6 +142,16 @@ def _bwd_fn():
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@functools.cache
+def _bwd_sm90_fn():
+    fn = build.load("flash_attention_bwd_sm90").flash_attention_bwd_sm90_launch
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -195,6 +226,34 @@ def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             f"the decode kernel takes bf16 with Sq == 1, d in {HEAD_DIMS} and "
             f"H / KV <= {DECODE_MAX_GROUP}; got {q.dtype}, q "
             f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    return variant
+
+
+def _bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The backward kernel for these inputs, from their shapes and dtype
+    only: ``"sm90"`` for bf16 with d == ``SM90_BWD_HEAD_DIM`` and Sq, Skv
+    >= ``SM90_BWD_MIN_LEN``; else ``"mma_sync"``."""
+    if q.dtype == k.dtype == v.dtype == torch.bfloat16 \
+            and q.shape[-1] == SM90_BWD_HEAD_DIM \
+            and q.shape[1] >= SM90_BWD_MIN_LEN and k.shape[1] >= SM90_BWD_MIN_LEN:
+        return "sm90"
+    return "mma_sync"
+
+
+def resolve_bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        variant: str | None = None) -> str:
+    """``_bwd_variant(q, k, v)``, or the forced ``variant`` where that
+    kernel takes these inputs; raises ``ValueError`` otherwise."""
+    chosen = _bwd_variant(q, k, v)
+    if variant is None:
+        return chosen
+    if variant not in BWD_VARIANTS:
+        raise ValueError(f"backward variant {variant!r} not in {BWD_VARIANTS}")
+    if variant == "sm90" and chosen != "sm90":
+        raise ValueError(
+            f"the sm90 backward takes bf16 with d {SM90_BWD_HEAD_DIM} and Sq, "
+            f"Skv >= {SM90_BWD_MIN_LEN}; got {q.dtype}, q {tuple(q.shape)}, "
+            f"k {tuple(k.shape)}")
     return variant
 
 
@@ -302,37 +361,54 @@ def _aligned(x: torch.Tensor) -> torch.Tensor:
 def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, o: torch.Tensor,
                              do: torch.Tensor, *, causal: bool,
-                             q_offset: int = 0
+                             q_offset: int = 0, variant: str | None = None
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernel (CUDA tensors only): (dq, dk, dv) of the
-    forward's output ``o`` given its gradient ``do``, in the inputs' dtype.
-    Two launches on the current stream, the dq pass (which also writes the
-    row statistics) and then the dk/dv pass; ``launches_by_variant["bwd"]``
-    grows by one."""
+    """The backward kernel ``_bwd_variant`` names, or the forced
+    ``variant`` (CUDA tensors only): (dq, dk, dv) of the forward's output
+    ``o`` given its gradient ``do``, in the inputs' dtype. Two launches on
+    the current stream, the dq pass (which also writes the row statistics)
+    and then the dk/dv pass; ``launches_by_variant["bwd"]`` and
+    ``bwd_launches_by_variant[variant]`` grow by one."""
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
     if o.shape != q.shape or do.shape != q.shape or o.device != q.device \
             or do.device != q.device:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
                          f"have q's shape {tuple(q.shape)} and device")
+    variant = resolve_bwd_variant(q, k, v, variant)
     o, do = _aligned(o.to(q.dtype)), _aligned(do.to(q.dtype))
     b, sq, h, dh = q.shape
     skv, kv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, skv, kv, dh), dtype=q.dtype, device=q.device)
     dv = torch.empty((b, skv, kv, dh), dtype=q.dtype, device=q.device)
-    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    dsum = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, o, do, dq, dk, dv)
-                                         for s in x.stride()[:3]))
-    err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                    lse.data_ptr(), dsum.data_ptr(),
-                    int(q.dtype == torch.bfloat16), dh, b, h, kv, sq, skv,
-                    strides, int(causal), q_offset, dh ** -0.5,
-                    torch.cuda.current_stream(q.device).cuda_stream)
-    build.check("flash_attention_bwd", err)
+    # Scratch for the row statistics (LSE, D); the sm90 kernel's rows are
+    # padded to whole dq blocks.
+    rows = -(-sq // SM90_BWD_BLOCK_ROWS) * SM90_BWD_BLOCK_ROWS if variant == "sm90" else sq
+    lse = torch.empty((b, h, rows), dtype=torch.float32, device=q.device)
+    dsum = torch.empty((b, h, rows), dtype=torch.float32, device=q.device)
+    stream = torch._C._cuda_getCurrentRawStream(q.device.index)
+    if variant == "sm90":
+        geo = (ctypes.c_longlong * 43)(
+            *_geometry(q, k, v, do),
+            *(s for x in (o, do, dq, dk, dv) for s in x.stride()[:3]))
+        err = _bwd_sm90_fn()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            lse.data_ptr(), dsum.data_ptr(), geo, int(causal), q_offset, rows,
+            dh ** -0.5, stream)
+        build.check("flash_attention_bwd_sm90", err)
+    else:
+        strides = (ctypes.c_longlong * 24)(*(s for x in (q, k, v, o, do, dq, dk, dv)
+                                             for s in x.stride()[:3]))
+        err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                        do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                        lse.data_ptr(), dsum.data_ptr(),
+                        int(q.dtype == torch.bfloat16), dh, b, h, kv, sq, skv,
+                        strides, int(causal), q_offset, dh ** -0.5, stream)
+        build.check("flash_attention_bwd", err)
     launches_by_variant["bwd"] += 1
+    bwd_launches_by_variant[variant] += 1
     return dq, dk, dv
 
 

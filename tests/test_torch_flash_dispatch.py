@@ -224,3 +224,74 @@ def test_tma_geometry_of_a_head_slice():
 def test_cuda_wrapper_refuses_cpu_tensors_before_choosing():
     with pytest.raises(ValueError, match="CUDA"):
         fops.flash_attention_cuda(*_qkv(128, 128), causal=True, variant="sm90")
+
+
+# -- the backward's two kernels ----------------------------------------------
+
+def _bwd_qkv(sq, skv, dh, dtype=torch.bfloat16, h=16, kv=8):
+    q = torch.zeros((1, sq, h, dh), dtype=dtype)
+    k = torch.zeros((1, skv, kv, dh), dtype=dtype)
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("sq,skv,dh,dtype,want", [
+    (4096, 4096, 128, torch.bfloat16, "sm90"),     # internlm2-1.8b's train call
+    (64, 64, 128, torch.bfloat16, "sm90"),         # the least rows and keys
+    (63, 64, 128, torch.bfloat16, "mma_sync"),     # fewer rows than a warpgroup
+    (64, 63, 128, torch.bfloat16, "mma_sync"),     # fewer keys than a tile
+    (77, 131, 128, torch.bfloat16, "sm90"),        # ragged, Sq < Skv
+    (1, 4096, 128, torch.bfloat16, "mma_sync"),
+    (4096, 4096, 128, torch.float32, "mma_sync"),
+    (4096, 4096, 32, torch.bfloat16, "mma_sync"),  # the lm-8m example's d
+    (4096, 4096, 64, torch.bfloat16, "mma_sync"),
+    (4096, 4096, 160, torch.bfloat16, "mma_sync"), # stablelm-12b's d
+    (4096, 4096, 96, torch.bfloat16, "mma_sync"),  # no kernel: the check refuses it
+])
+def test_bwd_variant_boundaries(sq, skv, dh, dtype, want):
+    qkv = _bwd_qkv(sq, skv, dh, dtype)
+    assert fops._bwd_variant(*qkv) == want
+    assert fops.resolve_bwd_variant(*qkv) == want
+
+
+def test_bwd_variant_ignores_the_group():
+    for h, kv in ((16, 16), (16, 8), (16, 2), (16, 1), (40, 8)):
+        assert fops._bwd_variant(*_bwd_qkv(256, 256, 128, h=h, kv=kv)) == "sm90"
+
+
+@pytest.mark.parametrize("sq,skv,dh,dtype", [
+    (4096, 4096, 128, torch.float32),
+    (4096, 4096, 32, torch.bfloat16),
+    (4096, 4096, 64, torch.bfloat16),
+    (4096, 4096, 160, torch.bfloat16),
+    (63, 4096, 128, torch.bfloat16),
+    (4096, 63, 128, torch.bfloat16),
+    (1, 1, 128, torch.bfloat16),
+])
+def test_forced_sm90_bwd_on_a_shape_it_lacks_raises(sq, skv, dh, dtype):
+    with pytest.raises(ValueError, match="sm90 backward"):
+        fops.resolve_bwd_variant(*_bwd_qkv(sq, skv, dh, dtype), variant="sm90")
+
+
+def test_forced_bwd_variants():
+    qkv = _bwd_qkv(4096, 4096, 128)
+    assert fops.resolve_bwd_variant(*qkv, variant="sm90") == "sm90"
+    assert fops.resolve_bwd_variant(*qkv, variant="mma_sync") == "mma_sync"
+    small = _bwd_qkv(32, 32, 32, torch.float32)
+    assert fops.resolve_bwd_variant(*small, variant="mma_sync") == "mma_sync"
+    for bad in ("decode", "wgmma", "bwd"):
+        with pytest.raises(ValueError, match="backward variant"):
+            fops.resolve_bwd_variant(*qkv, variant=bad)
+
+
+def test_bwd_counters_keys():
+    """Every backward call counts once in ``launches_by_variant["bwd"]`` and
+    once under the kernel that took it."""
+    assert set(fops.bwd_launches_by_variant) == set(fops.BWD_VARIANTS) \
+        == {"sm90", "mma_sync"}
+    assert set(fops.launches_by_variant) == set(fops.VARIANTS) | {"bwd"}
+
+
+def test_bwd_wrapper_refuses_cpu_tensors_before_choosing():
+    q, k, v = _bwd_qkv(128, 128, 128)
+    with pytest.raises(ValueError, match="CUDA"):
+        fops.flash_attention_bwd_cuda(q, k, v, q, q, causal=True, variant="sm90")

@@ -1640,25 +1640,38 @@ BWD_CASES = [(2, 200, 200, 4, 4, True, 0), (2, 200, 200, 8, 4, False, 0),
 BWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 
 
-def _bwd_case(cuda, dtype, case, dh, seed):
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+def _bwd_inputs(cuda, dtype, case, dh, seed):
     b, sq, skv, h, kv, causal, off = case
     rng = np.random.default_rng(seed)
     q, k, v, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                    .to(cuda, dtype) for s in ((b, sq, h, dh), (b, skv, kv, dh),
                                               (b, skv, kv, dh), (b, sq, h, dh)))
-    o = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
-    before = fops.launches_by_variant["bwd"]
-    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
-    assert fops.launches_by_variant["bwd"] == before + 1
+    return q, k, v, fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off), do
+
+
+def _bwd_case(cuda, dtype, case, dh, seed, variant=None):
+    """The backward kernel the wrapper picks (or the forced ``variant``)
+    against the plain version, each gradient within BWD_TOL of its largest
+    magnitude; a second call bitwise equal. Returns the kernel that ran."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    *_, causal, off = case
+    q, k, v, o, do = _bwd_inputs(cuda, dtype, case, dh, seed)
+    ran = fops.resolve_bwd_variant(q, k, v, variant)
+    before = fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off,
+                                        variant=variant)
+    assert (fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]) \
+        == (before[0] + 1, before[1] + 1)
     want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, q_offset=off)
     for name, g, w in zip("qkv", got, want):
         assert g.dtype == dtype and g.shape == w.shape
         err = float((g.float() - w.float()).abs().max())
         scale = float(w.float().abs().max())
         assert err <= BWD_TOL[dtype] * scale, (name, err, scale)
-    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
+    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off,
+                                          variant=variant)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+    return ran
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -1766,8 +1779,13 @@ def test_flash_bwd_on_the_model_tensors_matches_plain(cuda, d_head, monkeypatch)
         return got
 
     monkeypatch.setattr(fops, "flash_attention_bwd_cuda", held)
+    before = dict(fops.bwd_launches_by_variant)
     value_and_grad(model, params, {"tokens": toks[:, :-1], "labels": toks[:, 1:]}, 2)
     assert len(calls) == 2 * cfg.n_layers
+    # d 128 goes through the sm90 backward, d 32 through the mma_sync one.
+    want_kernel = "sm90" if d_head == 128 else "mma_sync"
+    assert {n: fops.bwd_launches_by_variant[n] - before[n] for n in before} == {
+        n: 2 * cfg.n_layers if n == want_kernel else 0 for n in before}
     with torch.no_grad():
         for args, causal, off, got in calls:
             want = flash_attention_bwd_ref(*args, causal=causal, q_offset=off)
@@ -1775,3 +1793,56 @@ def test_flash_bwd_on_the_model_tensors_matches_plain(cuda, d_head, monkeypatch)
                 assert bool(torch.isfinite(g).all())
                 err = float((g.float() - w.float()).abs().max())
                 assert err <= BWD_TOL[torch.bfloat16] * float(w.float().abs().max())
+
+
+# The sm90 backward (bf16, d 128, Sq and Skv >= 64) across tiles in both
+# directions: (b, sq, skv, h, kv, causal, q_offset). GQA groups 1, 2 and 8,
+# causal and not, 1024 and 4096 rows and keys, q_offset > 0 with Sq < Skv
+# (keys no row sees), ragged lengths and the least rows and keys.
+BWD_SM90_CASES = [(1, 1024, 1024, 8, 8, True, 0), (1, 1024, 1024, 8, 4, False, 0),
+                  (1, 1024, 1024, 16, 2, True, 0), (1, 4096, 4096, 16, 8, True, 0),
+                  (1, 4096, 4096, 8, 1, False, 0), (2, 512, 1536, 4, 2, True, 1024),
+                  (2, 256, 1024, 4, 2, True, 256), (2, 200, 200, 4, 4, True, 0),
+                  (2, 77, 131, 4, 2, True, 54), (2, 77, 131, 4, 2, False, 0),
+                  (2, 64, 64, 4, 2, True, 0), (1, 64, 200, 2, 1, False, 0)]
+
+
+@pytest.mark.parametrize("case", BWD_SM90_CASES, ids=str)
+def test_flash_bwd_sm90_matches_plain(cuda, case):
+    assert _bwd_case(cuda, torch.bfloat16, case, 128, seed=7 + case[1]) == "sm90"
+
+
+@pytest.mark.parametrize("case", BWD_SM90_CASES[:3] + BWD_SM90_CASES[5:], ids=str)
+def test_flash_bwd_forced_variants_match_plain(cuda, case):
+    """The sm90 and mma_sync backwards forced on the same inputs, each
+    within BWD_TOL of the plain version."""
+    for variant in ("sm90", "mma_sync"):
+        assert _bwd_case(cuda, torch.bfloat16, case, 128, seed=11 + case[2],
+                         variant=variant) == variant
+
+
+def test_flash_bwd_sm90_reads_strided_inputs(cuda):
+    """q, k, v as views of a fused projection (strided heads: the TMA maps'
+    strides) and a non-contiguous dO at d 128: the same gradients, bitwise,
+    as contiguous copies, both through the sm90 backward."""
+    rng = np.random.default_rng(4)
+    qkv = torch.from_numpy(rng.standard_normal((2, 320, 8, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q, k, v = qkv[:, :, :4], qkv[:, :, 4:6], qkv[:, :, 6:]
+    do = torch.from_numpy(rng.standard_normal((2, 4, 320, 128)).astype(
+        np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+    o = fops.flash_attention_cuda(q, k, v, causal=True)
+    before = fops.bwd_launches_by_variant["sm90"]
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    want = fops.flash_attention_bwd_cuda(*(x.contiguous() for x in (q, k, v, o, do)),
+                                         causal=True)
+    assert fops.bwd_launches_by_variant["sm90"] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_flash_bwd_forced_sm90_refuses_a_shape_it_lacks(cuda):
+    q = torch.zeros((1, 128, 2, 64), device=cuda, dtype=torch.bfloat16)
+    before = dict(fops.bwd_launches_by_variant)
+    with pytest.raises(ValueError, match="sm90 backward"):
+        fops.flash_attention_bwd_cuda(q, q, q, q, q, causal=True, variant="sm90")
+    assert fops.bwd_launches_by_variant == before

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Hold this tree's flash kernels to another checkout's, at the d 128 serve
-shapes, on one card.
+and train shapes, on one card.
 
     python tools/flash_parent_compare.py --parent DIR [--rounds 5] [--iters 20]
 
@@ -16,6 +16,16 @@ kernel's call time (CUDA events around ``--iters`` back-to-back calls; a
 decode call's is the host's) and device time (``chip_smoke.device_ms``,
 torch.profiler), taken in turns (parent, this, this, parent) for
 ``--rounds`` rounds, with the card's name and power limit.
+
+The backward too: the other checkout's ``csrc/flash_attention_bwd.cu``
+(the mma_sync backward; forced onto the train shape through this tree's
+wrapper with its library swapped) against this tree's sm90 backward, at one
+microbatch of the train phase (4 x 4096, 16 heads over 8, d 128, causal),
+on the same inputs. Their gradients are held to the plain version within
+``chip_smoke.BWD_BF16_TOL`` of each one's largest magnitude, not bitwise
+(the two kernels round P and dS in different places); device time is the
+sum of each one's two launches by their kernel names. Exits 1 unless every
+forward pair is bitwise equal and both backwards are within tolerance.
 """
 
 from __future__ import annotations
@@ -34,6 +44,7 @@ sys.path.insert(0, str(ROOT / "src"))
 sys.path.insert(0, str(ROOT))
 
 KERNELS = ("flash_attention_sm90", "flash_attention_decode")
+BWD = "flash_attention_bwd"
 
 
 def build_parent(parent: Path) -> dict:
@@ -42,7 +53,7 @@ def build_parent(parent: Path) -> dict:
     out_dir = ROOT / "build" / "parent_kernels"
     out_dir.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in KERNELS:
+    for name in KERNELS + (BWD,):
         src = parent / "src" / "repro_torch" / "csrc" / f"{name}.cu"
         procs[name] = subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-o",
@@ -52,7 +63,7 @@ def build_parent(parent: Path) -> dict:
         _, err = proc.communicate()
         if proc.returncode:
             raise SystemExit(f"nvcc failed on the parent's {name}.cu:\n{err}")
-    return {name: ctypes.CDLL(str(out_dir / f"lib{name}.so")) for name in KERNELS}
+    return {name: ctypes.CDLL(str(out_dir / f"lib{name}.so")) for name in KERNELS + (BWD,)}
 
 
 def main(argv=None) -> int:
@@ -64,7 +75,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
 
     import torch
-    from chip_smoke import device_ms
+    from chip_smoke import BWD_BF16_TOL, BWD_KERNEL_NAMES, device_ms
     if not torch.cuda.is_available():
         print("flash_parent_compare: needs a CUDA card", file=sys.stderr)
         return 1
@@ -75,13 +86,14 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    libs = {"this": {n: build.load(n) for n in KERNELS},
+    libs = {"this": {n: build.load(n) for n in KERNELS + (BWD,)},
             "parent": build_parent(args.parent)}
 
     def use(side: str) -> None:
-        for name in KERNELS:
+        for name in KERNELS + (BWD,):
             build._LIBS[name] = libs[side][name]
         fops._decode_fn.cache_clear()
+        fops._bwd_fn.cache_clear()
 
     rng = np.random.default_rng(args.seed)
 
@@ -101,16 +113,16 @@ def main(argv=None) -> int:
         return fops.flash_attention_cuda(*qkv, causal=True, q_offset=pos,
                                          variant=variant)
 
-    def timed(variant, qkv, pos) -> float:
-        call(variant, qkv, pos)
+    def timed(fn, iters) -> float:
+        fn()
         torch.cuda.synchronize()
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
         e0.record()
-        for _ in range(args.iters):
-            call(variant, qkv, pos)
+        for _ in range(iters):
+            fn()
         e1.record()
         e1.synchronize()
-        return e0.elapsed_time(e1) / args.iters
+        return e0.elapsed_time(e1) / iters
 
     out = {"card": smi, "iters": args.iters, "rounds": args.rounds}
     for key, (variant, qkv, pos) in cases.items():
@@ -124,7 +136,7 @@ def main(argv=None) -> int:
         for _ in range(args.rounds):
             for side in ("parent", "this", "this", "parent"):
                 use(side)
-                ms[side].append(timed(variant, qkv, pos))
+                ms[side].append(timed(lambda: call(variant, qkv, pos), args.iters))
                 dev_ms[side].append(device_ms(
                     torch, lambda: call(variant, qkv, pos), args.iters, kernel))
         out[key] = {"bitwise_equal": bool(torch.equal(got["parent"], got["this"])),
@@ -134,9 +146,50 @@ def main(argv=None) -> int:
                     **{f"{side}_median_{what}": float(np.median(vals[side]))
                        for what, vals in (("ms", ms), ("device_ms", dev_ms))
                        for side in ("parent", "this")}}
+    def backward() -> dict:
+        """The parent's backward (its only kernel, the mma_sync one, forced)
+        against this tree's sm90 backward at one train microbatch, in turns,
+        each held to the plain version within ``BWD_BF16_TOL``."""
+        from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+        b, s, h, kv, d = 4, 4096, 16, 8, 128
+        q, k, v, do = rand(b, s, h, d), rand(b, s, kv, d), rand(b, s, kv, d), rand(b, s, h, d)
+        use("this")
+        o = fops.flash_attention_cuda(q, k, v, causal=True)
+        variant = {"parent": "mma_sync", "this": "sm90"}
+        calls = {side: (lambda side=side: fops.flash_attention_bwd_cuda(
+            q, k, v, o, do, causal=True, variant=variant[side])) for side in variant}
+        want = flash_attention_bwd_ref(q, k, v, o, do, causal=True)
+        rel = {}
+        for side, fn in calls.items():
+            use(side)
+            got = fn()
+            rel[side] = max(float((g.float() - w.float()).abs().max())
+                            / float(w.float().abs().max()) for g, w in zip(got, want))
+            del got
+        del want
+        ms = {side: [] for side in calls}
+        dev_ms = {side: [] for side in calls}
+        for _ in range(args.rounds):
+            for side in ("parent", "this", "this", "parent"):
+                use(side)
+                ms[side].append(timed(calls[side], 5))
+                dev_ms[side].append(sum(device_ms(torch, calls[side], 3, name)
+                                        for name in BWD_KERNEL_NAMES[variant[side]]))
+        med = {side: float(np.median(dev_ms[side])) for side in calls}
+        return {"shape": [b, s, h, kv, d, "causal", "bf16"], "variants": variant,
+                "max_rel_err": rel, "tol": BWD_BF16_TOL,
+                "within_tol": all(r <= BWD_BF16_TOL for r in rel.values()),
+                **{f"{side}_ms": ms[side] for side in calls},
+                **{f"{side}_device_ms": dev_ms[side] for side in calls},
+                **{f"{side}_median_ms": float(np.median(ms[side])) for side in calls},
+                **{f"{side}_median_device_ms": med[side] for side in calls},
+                "this_faster": med["this"] < med["parent"]}
+
+    out["bwd_train"] = backward()
     use("this")
     print(json.dumps(out), flush=True)
-    return 0 if all(out[k]["bitwise_equal"] for k in cases) else 1
+    ok = all(out[k]["bitwise_equal"] for k in cases) and out["bwd_train"]["within_tol"]
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":
