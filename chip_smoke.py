@@ -148,7 +148,20 @@ Phases, one line each:
      call held to the plain version on the model's tensors and taken by
      the mma_sync backward (d 32), the pipeline's batches card against
      CPU, and the example's restart (6 steps against 3 + checkpoint +
-     restore + 3) bitwise;
+     restore + 3) bitwise; then the examples line: the six ported datastore
+     and serving examples (``repro_torch.examples``: quickstart, query API
+     tour, disaster analytics, federated quickstart, streaming ingest,
+     serve_lm) at the reference's own sizes on the card, each held to its
+     own run on the CPU (integers, ids and audits bitwise, means and sums
+     to rtol 1e-5; serve_lm's logits, the CPU run fed the card's ids,
+     within 0.1, by ``serve_lm.compare``), every flash call of a card run
+     held to its plain version on its own tensors, the launches by kernel
+     and flash variant from the counts reset around each example (st_scan,
+     hash64 and voronoi_assign in every datastore example but the
+     streaming one, whose only query reads the latest cache; a flash
+     kernel in serve_lm), each card and CPU wall, the control (serve_lm
+     with its decode results' heads swapped must be refused by both
+     holds) and a profile of the disaster and serve_lm card runs;
   7. flash_attention timings at each serve path's prefill shape (sm90 and
      mma_sync, both forced) and at two decode shapes, 192 of 256 slots and
      4096 of 4096 (decode and mma_sync, both forced), at d 128 and at d
@@ -347,16 +360,19 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
     raise SystemExit(f"device_ms: no device time for kernel {match!r}")
 
 
-def profile(torch, fn, top: int = 12, host_top: int = 0) -> dict:
-    """Wall time of one ``fn()`` (synchronised) and its device time by
-    kernel name (torch.profiler), with the device's busy share; with
-    ``host_top``, also the operators that took the most host time (self
-    CPU µs, calls)."""
+def profile(torch, fn, top: int = 12, host_top: int = 0, kernels=()) -> dict:
+    """Wall time of one ``fn()`` (synchronised, after a warm-up call) and its
+    device time by kernel name (torch.profiler), with the device's busy
+    share; with ``host_top``, also the operators that took the most host
+    time (self CPU µs, calls), the only use of the host's activity, which
+    is recorded for it alone; for each name in ``kernels``, the device ms
+    and launches of the kernels whose name holds it, and the ms a
+    launch."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    with tprofile(activities=[ProfilerActivity.CPU,
-                              ProfilerActivity.CUDA]) as prof:
+    with tprofile(activities=[ProfilerActivity.CUDA]
+                  + ([ProfilerActivity.CPU] if host_top else [])) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -370,6 +386,12 @@ def profile(torch, fn, top: int = 12, host_top: int = 0) -> dict:
            "device_idle_share": 1.0 - busy_ms / wall_ms if wall_ms else None,
            "device_launches": sum(r[1] for r in rows),
            "top": [{"ms": ms, "calls": n, "name": k} for ms, n, k in rows[:top]]}
+    if kernels:
+        out["kernels"] = {}
+        for name in kernels:
+            ms, n = (sum(r[i] for r in rows if name in r[2]) for i in (0, 1))
+            out["kernels"][name] = {"ms": ms, "launches": n,
+                                    "ms_per_launch": ms / n if n else None}
     if host_top:
         ops = sorted(((ev.self_cpu_time_total, ev.count, ev.key)
                       for ev in prof.key_averages()
@@ -2433,6 +2455,7 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                   (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 191),
                   (SERVE_BATCH, 1, MAX_SEQ, 16, 8, 128, True, 0),
                   (SERVE_BATCH, 1, LONG_SEQ, 16, 8, 128, True, LONG_SEQ - 1),
+                  (8, 1, 128, 4, 2, 32, True, 35),      # the lm-serve example's last step
                   (2, 1, MAX_SEQ, 40, 8, 128, True, 100),   # qwen3-14b heads
                   # stablelm-12b: 32 heads over 8, d 160
                   (SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 32, 8, 160, True, 0),
@@ -3106,6 +3129,77 @@ def train_vs_cpu(torch, dev, seed: int) -> dict:
     return out["launches"]
 
 
+# The examples whose card run is profiled: the two that bring a kernel a
+# case no other phase runs (st_scan over 20 edges with 256-shard lists;
+# the decode kernel at d 32, 4 heads over 2). A profile costs seconds.
+EXAMPLES_PROFILED = ("disaster_analytics", "serve_lm")
+# The port's kernels by the names the profiler gives them.
+EXAMPLE_KERNEL_NAMES = ("st_scan_kernel", "hash64_mod_kernel", "voronoi_assign_kernel",
+                        "flash_decode", "flash_fwd_sm90", "flash_fwd_bf16", "flash_fwd_f32")
+
+
+def examples_fault(o):
+    """The examples phase's planted fault: a decode result with its two KV
+    groups' heads swapped (lm-serve: 4 heads over 2)."""
+    return o.roll(2, 2)
+
+
+def examples_phase(torch, dev) -> dict:
+    """The six ported datastore and serving examples (``python -m
+    repro_torch.examples.<name>``), each at the reference's own sizes on the
+    card and then on the CPU (``examples._common.card_vs_cpu``): integers,
+    bools, ids and the reconcile audit bitwise, means and sums to rtol
+    1e-5; serve_lm's logits, the CPU run fed the card's ids, within
+    ``serve_lm.LOGIT_TOL`` and its ids where no such difference can part
+    them (``serve_lm.compare``); every flash kernel call of a card run
+    held to its plain version on its own tensors (``HeldFlashCalls``).
+    Every count is set to 0 just before an example's card and CPU runs and
+    read just after; every kernel of ``KERNELS[name]`` must have launched.
+    The control: serve_lm again with a fault planted in every decode
+    result (``examples_fault``), which both the per-call hold and the
+    logits must refuse. For ``EXAMPLES_PROFILED``, a profile of a card run:
+    device time by kernel name (the port's kernels' among them) and the
+    device's idle share."""
+    import importlib
+    from repro_torch.examples._common import (EXAMPLES, card_vs_cpu, launch_counts,
+                                              missing_kernels)
+    out, failed = {}, []
+    t_phase = time.perf_counter()
+    for name in EXAMPLES:
+        _reset_counts()
+        got = card_vs_cpu(name, dev)
+        counts = launch_counts()
+        got["launches"] = {k: n for k, n in counts.items() if n}
+        got["not_launched"] = missing_kernels(name, counts)
+        if got["mismatches"] or got["not_launched"]:
+            failed.append(name)
+        out[name] = got
+    totals = Counter()
+    for got in out.values():
+        totals.update(got["launches"])
+    examples_s = time.perf_counter() - t_phase
+    control = card_vs_cpu("serve_lm", dev, fault=examples_fault)
+    control = {"mismatches": len(control["mismatches"]),
+               "first_mismatches": control["mismatches"][:3],
+               "logits_max_diff": control["logits_max_diff"],
+               "flash_calls": control["flash_calls"]}
+    if not (control["flash_calls"]["bad_calls"]
+            and any(m.startswith(".logits") for m in control["first_mismatches"])):
+        failed.append("control: a planted decode fault was not refused")
+    for name in EXAMPLES_PROFILED:
+        mod = importlib.import_module(f"repro_torch.examples.{name}")
+        out[name]["profile"] = profile(
+            torch, lambda: mod.main(device=dev, log=lambda _: None), top=4,
+            kernels=EXAMPLE_KERNEL_NAMES)
+    result = {"examples": out, "launches": dict(totals), "failed": failed,
+              "control_decode_heads_swapped": control, "examples_s": examples_s,
+              "phase_s": time.perf_counter() - t_phase}
+    phase("examples", **result)
+    if failed:
+        raise SystemExit(f"examples disagree with the CPU or missed a kernel: {failed}")
+    return result
+
+
 # Each backward kernel's two launches, by the names the profiler gives them.
 BWD_KERNEL_NAMES = {"sm90": ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"),
                     "mma_sync": ("flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16")}
@@ -3571,6 +3665,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     trained_small = train_vs_cpu(torch, dev, args.seed)
     torch.cuda.empty_cache()
+    examples = examples_phase(torch, dev)["launches"]
     ft = flash_timings(torch, dev, args.seed)
     ft["bwd"] = flash_bwd_timing(torch, dev, args.seed)
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
@@ -3646,6 +3741,9 @@ def main(argv=None) -> int:
         if not k["name"].endswith("_d160"):
             k["train_launches"] = trained[name]
             k["train_vs_cpu_launches"] = trained_small[name]
+            k["examples_launches"] = examples.get(
+                name if name in ("st_scan", "hash64", "voronoi_assign")
+                else "flash_" + name, 0)
     phase("flash_timings", **ft)
     phase("device_ms_profiles", calls=len(DEVICE_MS_PROFILES),
           profiles=sum(DEVICE_MS_PROFILES),

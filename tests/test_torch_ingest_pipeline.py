@@ -594,13 +594,21 @@ def test_latest_cache_identical_on_meshes(mesh_name):
 
 def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch.ingest``, the session, ``repro_torch.chaos``, the
-    federated runtime and the two-process smoke, imported in a fresh
-    interpreter, bring in no module of JAX or of the JAX package."""
+    federated runtime, the two-process smoke and every example under
+    ``repro_torch.examples``, imported in a fresh interpreter, bring in no
+    module of JAX or of the JAX package."""
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "src")
     code = ("import sys; import repro_torch.ingest, repro_torch.api.session, "
             "repro_torch.chaos, repro_torch.distributed.federation, "
-            "repro_torch.launch.mesh, repro_torch.launch.multihost_smoke; "
+            "repro_torch.launch.mesh, repro_torch.launch.multihost_smoke, "
+            "pkgutil, importlib, repro_torch.examples; "
+            "names = [m.name for m in pkgutil.iter_modules("
+            "repro_torch.examples.__path__)]; "
+            "assert {'quickstart', 'query_api_tour', 'disaster_analytics', "
+            "'federated_quickstart', 'streaming_ingest_demo', 'serve_lm', "
+            "'train_lm'} <= set(names), names; "
+            "[importlib.import_module('repro_torch.examples.' + n) for n in names]; "
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')); print(repr(bad))")
     env = dict(os.environ, PYTHONPATH=src)

@@ -34,7 +34,8 @@ the same scenario on the one-process ``(2, 2)`` fleet mesh on the card
 against the CPU and against the single store on the card, st_scan launched
 once per tile and block (2 x 4 a batch), and the two-process smoke
 (``repro_torch.launch.multihost_smoke``) with both gloo workers on the
-card.
+card. ``-k examples`` runs the six ported datastore and serving examples
+(``repro_torch.examples``) on the card against their CPU runs.
 """
 
 import numpy as np
@@ -45,6 +46,8 @@ from repro_torch.core import hashing, voronoi
 from repro_torch.core.datastore import make_pred
 from repro_torch.data.synthetic import CityConfig, make_sites
 from repro_torch.configs.base import get_config, reduce_for_smoke
+from repro_torch.examples._common import (EXAMPLES, card_vs_cpu, launch_counts,
+                                          launches_since, missing_kernels)
 from repro_torch.kernels.flash_attention import ops as fops
 from repro_torch.kernels.flash_attention.ref import (flash_attention_ref,
                                                      flash_decode_split_ref)
@@ -798,6 +801,7 @@ def test_flash_decode_matches_plain(cuda, skv, q_offset, g, dh):
     (8, 16, 8, 128, 4096, 4095),    # long cache
     (2, 40, 8, 128, 256, 100),      # qwen3-14b heads, G 5
     (1, 16, 1, 32, 50, 7),          # G 16, d 32, 8 splits of one key
+    (8, 4, 2, 32, 128, 35),         # the lm-serve example's last decode step
     (3, 4, 2, 64, 33, 32),          # a prefix one key past a tile
     (1, 2, 1, 128, 1, 0),           # one key
 ])
@@ -1846,3 +1850,29 @@ def test_flash_bwd_forced_sm90_refuses_a_shape_it_lacks(cuda):
     with pytest.raises(ValueError, match="sm90 backward"):
         fops.flash_attention_bwd_cuda(q, q, q, q, q, causal=True, variant="sm90")
     assert fops.bwd_launches_by_variant == before
+
+
+@pytest.mark.parametrize("name", EXAMPLES)
+def test_examples_on_card_match_cpu(cuda, name):
+    """Each ported example (``python -m repro_torch.examples.<name>``) at
+    the reference's sizes on the card, against its run on the CPU
+    (``examples._common.card_vs_cpu``): integers, bools, ids and the
+    reconcile audit bitwise, means and sums to rtol 1e-5, serve_lm's logits
+    along the card's ids within ``serve_lm.LOGIT_TOL``, every flash call
+    held to its plain version on its own tensors; and every kernel the
+    example runs launched at least once."""
+    before = launch_counts()
+    got = card_vs_cpu(name, cuda)
+    launched = launches_since(before)
+    assert not got["mismatches"], got
+    assert not missing_kernels(name, launched), launched
+    if name == "serve_lm":
+        assert got["flash_calls"]["calls"] == {"decode": 144}, got["flash_calls"]
+
+
+def test_examples_refuse_a_planted_decode_fault(cuda):
+    """serve_lm on the card with every decode result's two KV groups
+    swapped: both the per-call hold and the logits refuse it."""
+    got = card_vs_cpu("serve_lm", cuda, fault=lambda o: o.roll(2, 2))
+    assert got["flash_calls"]["bad_calls"] == 144, got["flash_calls"]
+    assert got["mismatches"][0].startswith(".logits"), got["mismatches"][:3]
