@@ -82,7 +82,17 @@ Phases, one line each:
      ``python -m repro_torch.launch.multihost_smoke --device cuda --width
      d400``, 2 gloo processes on the card, one a fleet, each held to its
      own single store; the wall, the exchanges, their syncs and host
-     seconds);
+     seconds); then the analysis line (``repro_torch.analysis``): the
+     port's lint, clean; the canonical workload's budget on the card
+     (single store, (4,) and (2, 2) meshes, cold then warm: syncs by a
+     TorchFunctionMode count and by ``set_sync_debug_mode``'s warnings side
+     by side, host->card copies, launches by kernel held to the TOML); two
+     child processes over an empty build directory (the first builds and
+     loads st_scan, hash64 and voronoi_assign once each, the second builds
+     nothing); the collective contract on the card's meshes; at D400 width
+     the (4,) mesh's cross-block multiset identical at 2^18 and 2^19 slots
+     and a 24-round ingest in place, its peak memory growth below one
+     ``tup_f`` leaf;
   4. st_scan against its plain version on the main path's own scan inputs
      (the three batches, 1 and 4 channels), on a copy of the day's log with
      NaN in a channel of matched slots and on a copy rolled by a third of
@@ -161,7 +171,12 @@ Phases, one line each:
      streaming one, whose only query reads the latest cache; a flash
      kernel in serve_lm), each card and CPU wall, the control (serve_lm
      with its decode results' heads swapped must be refused by both
-     holds) and a profile of the disaster and serve_lm card runs;
+     holds) and a profile of the disaster and serve_lm card runs; then
+     the small_case_timings line: st_scan on the disaster example's own
+     scan inputs, the decode kernel at serve_lm's last step, and
+     flash_attention.cu and flash_attention_bwd.cu at lm-8m's shape (fp32
+     and bf16), each beside its bound, its plain version and SDPA where it
+     computes the same function (also in the kernels line);
   7. flash_attention timings at each serve path's prefill shape (sm90 and
      mma_sync, both forced) and at two decode shapes, 192 of 256 slots and
      4096 of 4096 (decode and mma_sync, both forced), at d 128 and at d
@@ -3200,6 +3215,263 @@ def examples_phase(torch, dev) -> dict:
     return result
 
 
+# The analysis phase's D400 capacities: the collective multiset must not
+# move between them (the second holds about 1.5 GB more log).
+CONTRACT_D400_CAPACITIES = (1 << 18, 1 << 19)
+
+
+def analysis_phase(torch, dev, cfg, payloads, metas, chunk, batches, specs,
+                   seed: int, n_drones: int = 400) -> dict:
+    """The static-analysis contracts on the card (``repro_torch.analysis``):
+    the lint, clean; the canonical workload's budget (``retrace``) on the
+    single store and the (4,) and (2, 2) meshes, cold then warm, each entry
+    point's syncs by both counters (the TorchFunctionMode count and
+    ``torch.cuda.set_sync_debug_mode``'s warnings) and its launches held to
+    the TOML; the kernel builds in two child processes over an empty build
+    directory (the first builds and loads st_scan, hash64 and
+    voronoi_assign once each, the second builds nothing); the collective
+    contract on the card's meshes; at the D400 day's config, the (4,)
+    mesh's collective multiset at 2^18 and 2^19 slots (identical, kinds as
+    contracted) and a ``chunk``-round ingest in place (every leaf keeps its
+    storage; ``max_memory_allocated`` grows by less than one ``tup_f``
+    leaf). Exits non-zero when a check fails, after the line."""
+    import dataclasses
+    import tempfile
+    from repro_torch.analysis import collective_contract as cc
+    from repro_torch.analysis import retrace
+    from repro_torch.analysis.config import load_config
+    from repro_torch.analysis.lint import run_lint
+    from repro_torch.api.session import AerialDB
+    from repro_torch.core.datastore import make_pred
+    from repro_torch.data.synthetic import DroneFleet
+    from repro_torch.launch.mesh import make_edge_mesh
+    acfg = load_config()
+    failed = []
+    t_phase = time.perf_counter()
+
+    lint = run_lint()
+    if not lint["ok"]:
+        failed.append(f"lint: {lint['open']} open finding(s)")
+
+    rep = retrace.run_retrace(dev, acfg)
+    failed += [v["message"] for v in rep["violations"]]
+    counts = {}
+    for run in rep["runs"]:
+        for ph in ("cold", "warm"):
+            for entry, c in run[ph].items():
+                counts.setdefault(run["leg"], {}).setdefault(entry, {})[ph] = {
+                    "calls": c["calls"], "syncs": c["syncs"],
+                    "sync_debug": c["sync_debug"], "h2d": c["h2d"],
+                    "ops": c["ops"], "launches": c["launches"],
+                    "builds": c["builds"], "loads": c["loads"]}
+    with tempfile.TemporaryDirectory() as tmp:
+        builds = retrace.build_check(tmp)
+    failed += builds["violations"]
+
+    contract = cc.run_collective_contract(dev, acfg)
+    failed += contract["violations"]
+
+    # D400: the (4,) mesh's traffic at two capacities, 8 rounds of the fleet
+    # (two sweep steps) and the main path's 5 km batch at 1 and 4 channels.
+    pred = make_pred(q=64, **batches[2][3], has_spatial=True,
+                     has_temporal=True, is_and=True, device=dev)
+    mesh = make_edge_mesh(4, n_edges=cfg.n_edges, device=dev)
+    d400 = {}
+    for cap in CONTRACT_D400_CAPACITIES:
+        c_cfg = dataclasses.replace(cfg, tuple_capacity=cap)
+        db = AerialDB.open(c_cfg, mesh, seed=seed)
+        fleet = DroneFleet(n_drones, records_per_shard=cfg.records_per_shard,
+                           n_values=cfg.n_values, seed=seed + 7)
+        d400[cap] = cc.contract_workload(db, fleet, pred, specs)
+        del db
+        torch.cuda.empty_cache()
+    a, b = (d400[c] for c in CONTRACT_D400_CAPACITIES)
+    d400_v = (cc.check_kinds(a, mesh, cfg.n_edges, 64, acfg, "d400")
+              + cc.check_capacity_independence(a, b, "d400",
+                                               CONTRACT_D400_CAPACITIES)
+              + cc.check_in_place(a, "d400 mesh"))
+    failed += d400_v
+
+    # D400: one chunk of the day into a fresh single store, in place.
+    db = AerialDB.open(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    before = cc.leaf_ptrs(db.blocks)
+    db.ingest_rounds(payloads[chunk], type(metas)(*(f[chunk] for f in metas)))
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    moved = [n for (_, n, p), (_, _, q) in zip(before, cc.leaf_ptrs(db.blocks))
+             if p != q]
+    tup_f_bytes = db.blocks[0].tup_f.numel() * 4
+    if moved or growth >= tup_f_bytes:
+        failed.append(f"d400 ingest: leaves moved {moved}, peak growth "
+                      f"{growth} B (one tup_f leaf {tup_f_bytes} B)")
+    del db
+    torch.cuda.empty_cache()
+    out = {
+        "lint": {k: lint[k] for k in ("files_scanned", "open", "disabled",
+                                      "allowlisted", "ok")},
+        "retrace_ok": rep["ok"], "counts": counts,
+        "builds": builds, "contract_ok": contract["ok"],
+        "contract": {r["leg"]: r["traffic"] for r in contract["runs"]},
+        "d400_capacities": list(CONTRACT_D400_CAPACITIES),
+        "d400_traffic": {p: cc.jsonable(t) for p, t in a["traffic"].items()},
+        "d400_sweeps": a["sweeps"],
+        "d400_traffic_identical": not cc.check_capacity_independence(
+            a, b, "d400", CONTRACT_D400_CAPACITIES),
+        "d400_ingest_rounds": chunk.stop - chunk.start,
+        "d400_ingest_in_place": not moved,
+        "d400_ingest_peak_growth_bytes": growth,
+        "d400_tup_f_bytes": tup_f_bytes,
+        "failed": failed, "phase_s": time.perf_counter() - t_phase}
+    phase("analysis", **out)
+    if failed:
+        raise SystemExit(f"analysis: {len(failed)} check(s) failed: "
+                         f"{failed[:5]}")
+    return out
+
+
+def small_case_timings(torch, dev, seed: int) -> dict:
+    """The kernel cases that only the examples and ``train_vs_cpu`` launch,
+    each beside its bound and, where one exists, one PyTorch call that
+    computes the same function: st_scan on the disaster example's own scan
+    inputs (20 edges, 256-shard lists; the last of its card run's calls
+    with the largest batch, captured), the decode kernel at serve_lm's last
+    step (8 × 1 query of 4 heads over 2, d 32, 36 of 128 keys, bf16), and
+    flash_attention.cu and flash_attention_bwd.cu at lm-8m's shape (8 × 64
+    tokens, 4 heads over 2, d 32, causal) in fp32 and bf16. ``ms`` is the
+    call (CUDA events),
+    ``device_ms`` the kernel's device time a launch (the backward's two
+    launches summed), ``plain_ms`` the plain version, ``library_*`` SDPA
+    (forward, or ``torch.autograd.grad`` through it)."""
+    import torch.nn.functional as F
+    from repro_torch.examples import disaster_analytics
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import (
+        flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.kernels.st_scan import ops as st_ops
+    from repro_torch.kernels.st_scan.ref import matched_slots, st_scan_ref
+    out = {}
+    kernel, calls = st_ops.st_scan_cuda, []
+
+    def capture(*a, **kw):
+        calls.append((a, kw))
+        return kernel(*a, **kw)
+    st_ops.st_scan_cuda = capture
+    try:
+        disaster_analytics.main(device=dev, log=lambda _: None)
+    finally:
+        st_ops.st_scan_cuda = kernel
+    # the last of the calls with the largest batch (a round's 8 queries)
+    q_max = max(a[4].shape[0] for a, _ in calls)
+    (f, sid, cnt, pred, subl, slen, rows, cap), _ = [
+        c for c in calls if c[0][4].shape[0] == q_max][-1]
+    k = len(rows)
+    selected = (slen != 0).any(dim=0)
+    live = float((torch.clamp(cnt, max=cap).double() * selected).sum())
+    matched = int(matched_slots(f, sid, cnt, pred, subl, slen,
+                                valid_c=cap).sum())
+    listed = int(slen.clamp(0, subl.shape[2]).sum())
+    q = slen.shape[0]
+    nbytes = (live * 5 + matched * k) * 4 + listed * 8 + slen.numel() * 4 \
+        + q * 16 * 4 + slen.numel() * 4 * (1 + 3 * k)
+    scan = lambda: kernel(f, sid, cnt, pred, subl, slen, rows, cap)
+    out["st_scan_disaster"] = {
+        "shape": {"E": int(f.shape[0]), "C": int(f.shape[2]), "Q": q,
+                  "L": int(subl.shape[2]), "K": k},
+        "calls_captured": len(calls), "selected_edges": int(selected.sum()),
+        "live_slots": live, "matched_slots": matched, "listed_entries": listed,
+        "ms": cuda_ms(torch, scan, 50),
+        "device_ms": device_ms(torch, scan, 20, "st_scan_kernel"),
+        "plain_ms": cuda_ms(torch, lambda: st_scan_ref(
+            f, sid, cnt, pred, subl, slen,
+            channels=tuple(r - 3 for r in rows), valid_c=cap), 3),
+        "bytes": nbytes, **_bound(0.0, nbytes / HBM_BYTES_PER_S),
+        "library_ms": None}
+
+    rng = np.random.default_rng(seed + 41)
+
+    def rand(dt, *shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                                ).to(dev, dt)
+    # serve_lm's last decode step: 12 + 24 tokens, the 36th at position 35
+    b, h, kv, d, slots, pos = 8, 4, 2, 32, 128, 35
+    qd, kd, vd = rand(torch.bfloat16, b, 1, h, d), rand(torch.bfloat16, b, slots, kv, d), \
+        rand(torch.bfloat16, b, slots, kv, d)
+    qt = qd.transpose(1, 2).contiguous()
+    kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (kd, vd))
+    dec = lambda: fops.flash_attention_cuda(qd, kd, vd, causal=True, q_offset=pos)
+    sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
+    flops = 4 * b * h * d * (pos + 1)
+    nbytes = 2 * (2 * qd.numel() + 2 * b * (pos + 1) * kv * d)
+    if fops.resolve_variant(qd, kd, vd) != "decode":
+        raise SystemExit("small cases: serve_lm's step is not the decode kernel's")
+    out["decode_serve_lm"] = {
+        "shape": [b, 1, h, kv, d, "q_offset", pos, "Skv", slots, "bf16"],
+        "ms": cuda_ms(torch, dec, 200),
+        "device_ms": device_ms(torch, dec, 50, "flash_decode"),
+        "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+            qd, kd, vd, causal=True, q_offset=pos), 20),
+        "library_ms": cuda_ms(torch, sdpa, 200),
+        "library_device_ms": device_ms(torch, sdpa, 50),
+        "flops": flops, "bytes": nbytes,
+        **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+
+    # lm-8m (examples/train_lm.py): 8 sequences of 64 tokens, causal
+    b, s, h, kv, d = 8, 64, 4, 2, 32
+    fwd_flops = 4 * b * h * d * s * (s + 1) / 2
+    for dt, name, rate in ((torch.float32, "f32", FP32_FLOP_PER_S),
+                           (torch.bfloat16, "bf16", BF16_FLOP_PER_S)):
+        q, k_, v, do = (rand(dt, *sh) for sh in ((b, s, h, d), (b, s, kv, d),
+                                                 (b, s, kv, d), (b, s, h, d)))
+        if fops.resolve_variant(q, k_, v) != "mma_sync":
+            raise SystemExit(f"small cases: lm-8m's {name} forward is not "
+                             "flash_attention.cu's")
+        fwd = lambda: fops.flash_attention_cuda(q, k_, v, causal=True)
+        o = fwd()
+        bwd = lambda: fops.flash_attention_bwd_cuda(q, k_, v, o, do, causal=True)
+        if fops.resolve_bwd_variant(q, k_, v) != "mma_sync":
+            raise SystemExit(f"small cases: lm-8m's {name} backward is not "
+                             "flash_attention_bwd.cu's")
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (q, k_, v))
+        dot = do.transpose(1, 2).contiguous()
+        ref_o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               enable_gqa=True)
+        sdpa = lambda: F.scaled_dot_product_attention(
+            qt.detach(), kt.detach(), vt.detach(), is_causal=True, enable_gqa=True)
+        sdpa_bwd = lambda: torch.autograd.grad(ref_o, (qt, kt, vt), dot,
+                                               retain_graph=True)
+        fwd_bytes = q.element_size() * (2 * q.numel() + k_.numel() + v.numel())
+        bwd_bytes = q.element_size() * 4 * (q.numel() + k_.numel())
+        out[f"flash_lm8m_{name}"] = {
+            "shape": [b, s, h, kv, d, "causal", name],
+            "ms": cuda_ms(torch, fwd, 200),
+            "device_ms": device_ms(torch, fwd, 50, f"flash_fwd_{name}"),
+            "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
+                q, k_, v, causal=True), 20),
+            "library_ms": cuda_ms(torch, sdpa, 200),
+            "library_device_ms": device_ms(torch, sdpa, 50),
+            "flops": fwd_flops, "bytes": fwd_bytes,
+            **_bound(fwd_flops / rate, fwd_bytes / HBM_BYTES_PER_S)}
+        out[f"flash_bwd_lm8m_{name}"] = {
+            "shape": [b, s, h, kv, d, "causal", name],
+            "ms": cuda_ms(torch, bwd, 100),
+            "dq_device_ms": device_ms(torch, bwd, 20, f"flash_bwd_dq_{name}"),
+            "dkdv_device_ms": device_ms(torch, bwd, 20, f"flash_bwd_dkdv_{name}"),
+            "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_ref(
+                q, k_, v, o, do, causal=True), 10),
+            "library_ms": cuda_ms(torch, sdpa_bwd, 100),
+            "library_device_ms": device_ms(torch, sdpa_bwd, 20),
+            "flops": 2.5 * fwd_flops, "bytes": bwd_bytes,
+            **_bound(2.5 * fwd_flops / rate, bwd_bytes / HBM_BYTES_PER_S)}
+        r = out[f"flash_bwd_lm8m_{name}"]
+        r["device_ms"] = r["dq_device_ms"] + r["dkdv_device_ms"]
+    phase("small_case_timings", **out)
+    return out
+
+
 # Each backward kernel's two launches, by the names the profiler gives them.
 BWD_KERNEL_NAMES = {"sm90": ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"),
                     "mma_sync": ("flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16")}
@@ -3500,6 +3772,9 @@ def main(argv=None) -> int:
                         specs, args.seed, smi, args.profile)
     phase("fleet", **fleet)
     torch.cuda.empty_cache()
+    analysis_phase(torch, dev, cfg, payloads, metas, chunks[0], batches, specs,
+                   args.seed)
+    torch.cuda.empty_cache()
 
     # -- 4. st_scan vs plain on the main path's inputs; kernel timings -------
     scan = st_scan_phase(torch, dev, cfg, st, db.alive, batches, specs)
@@ -3666,6 +3941,7 @@ def main(argv=None) -> int:
     trained_small = train_vs_cpu(torch, dev, args.seed)
     torch.cuda.empty_cache()
     examples = examples_phase(torch, dev)["launches"]
+    small = small_case_timings(torch, dev, args.seed)
     ft = flash_timings(torch, dev, args.seed)
     ft["bwd"] = flash_bwd_timing(torch, dev, args.seed)
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
@@ -3744,6 +4020,16 @@ def main(argv=None) -> int:
             k["examples_launches"] = examples.get(
                 name if name in ("st_scan", "hash64", "voronoi_assign")
                 else "flash_" + name, 0)
+    # The cases only the examples and train_vs_cpu launch, beside the
+    # kernel's main-path figures.
+    by_name = {k["name"]: k for k in kernels}
+    for name, cases in (("st_scan", ("st_scan_disaster",)),
+                        ("flash_attention_decode", ("decode_serve_lm",)),
+                        ("flash_attention", ("flash_lm8m_f32", "flash_lm8m_bf16")),
+                        ("flash_attention_bwd", ("flash_bwd_lm8m_f32",
+                                                 "flash_bwd_lm8m_bf16"))):
+        for case in cases:
+            by_name[name][case] = small[case]
     phase("flash_timings", **ft)
     phase("device_ms_profiles", calls=len(DEVICE_MS_PROFILES),
           profiles=sum(DEVICE_MS_PROFILES),

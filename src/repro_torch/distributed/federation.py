@@ -34,6 +34,9 @@ rank (fleet) order: the watermark, the fleets' S-wide lists, and at the
 final combine the (Q, E_fleet) and (Q, K, E_fleet) partials, so that every
 process computes the same answer. No tuple crosses a process; each
 exchange is staged through one host buffer (``exchanges`` counts them).
+``traffic`` records what every exchange moves, by kind, dtype and shape:
+the collective contract (``repro_torch.analysis.collective_contract``)
+holds it to its kinds and to independence from ``tuple_capacity``.
 ``tests/test_torch_federation.py`` holds this bitwise to the JAX package's
 4-device ``("edge",)`` and ``(2, 2) ("fleet", "edge")`` meshes and to the
 port's single-device path; ``tests/test_torch_multihost.py`` holds two gloo
@@ -43,6 +46,7 @@ processes to the JAX package's ``(2, 2)`` mesh.
 from __future__ import annotations
 
 import time
+from collections import Counter
 from typing import Optional, Sequence, Tuple
 
 import torch
@@ -69,6 +73,14 @@ __all__ = ["check_edge_mesh", "exchanges", "federated_insert_step",
 #: the host) and the host ``seconds`` spent from that copy to the result's
 #: return to the device. Callers zero the entries to start a count.
 exchanges = {"calls": 0, "syncs": 0, "seconds": 0.0}
+
+#: What crosses blocks in this process, one count an exchange, keyed by
+#: (kind, ((dtype, shape), ...) of the tensors it gathers). Kinds:
+#: "watermark" (an insert's sweep step), "merge1" and "merge2" (a candidate
+#: merge over a fleet's blocks and over the fleets), "combine" (a query's
+#: per-edge partials) and "world" (a gloo exchange's byte buffer). Callers
+#: clear it to start a record.
+traffic: Counter = Counter()
 
 Blocks = Tuple[StoreState, ...]
 
@@ -97,10 +109,17 @@ def check_edge_mesh(cfg: StoreConfig, mesh) -> int:
     return n_dev
 
 
+def _record(kind: str, tensors: Sequence[torch.Tensor]) -> None:
+    traffic[(kind, tuple((str(t.dtype).removeprefix("torch."), tuple(t.shape))
+                         for t in tensors))] += 1
+
+
 def _gather_watermark(parts: Sequence[torch.Tensor]) -> torch.Tensor:
     """[(E_loc,)] -> (E_loc * n,) in block order, on block 0's device."""
     dev = parts[0].device
-    return torch.cat([w.to(dev) for w in parts])
+    out = torch.cat([w.to(dev) for w in parts])
+    _record("watermark", (out,))
+    return out
 
 
 def _world_gather(tensors: Sequence[torch.Tensor]) -> list:
@@ -115,6 +134,7 @@ def _world_gather(tensors: Sequence[torch.Tensor]) -> list:
     dev = tensors[0].device
     flat = [t.contiguous().reshape(-1).view(torch.uint8) for t in tensors]
     host = torch.cat(flat).cpu()
+    _record("world", (host,))
     got = [torch.empty_like(host) for _ in range(dist.get_world_size())]
     dist.all_gather(got, host)
     every = torch.stack(got).to(dev)
@@ -129,22 +149,24 @@ def _world_gather(tensors: Sequence[torch.Tensor]) -> list:
     return out
 
 
-def _merge_level(parts: Sequence[MatchedShards],
-                 max_shards: int) -> MatchedShards:
+def _merge_level(parts: Sequence[MatchedShards], max_shards: int,
+                 level: int = 1) -> MatchedShards:
     """One merge level: concatenate the participants' top-S candidate lists
     along S in their order and re-deduplicate to the S smallest distinct
     sids; overflow is the OR of the participants' and the merged count test
     (``federation._merge_axis`` of the reference). Exact: a sid missing
     from a participant's list is preceded by >= S smaller sids on that
-    participant alone."""
+    participant alone. ``level`` names the exchange in ``traffic`` (1 a
+    fleet's blocks, 2 the fleets)."""
     dev = parts[0].valid.device
 
     def cat(name):
         return torch.cat([getattr(p, name).to(dev) for p in parts], dim=1)
-    merged = dedup_matched(cat("valid"), cat("sid_hi"), cat("sid_lo"),
-                           cat("replicas"), max_shards)
-    any_ovf = torch.stack([p.overflow.to(dev) for p in parts]).any(dim=0)
-    return merged._replace(overflow=merged.overflow | any_ovf)
+    lists = [cat(f) for f in ("valid", "sid_hi", "sid_lo", "replicas")]
+    ovf = torch.stack([p.overflow.to(dev) for p in parts])
+    _record(f"merge{level}", (*lists, ovf))
+    merged = dedup_matched(*lists, max_shards)
+    return merged._replace(overflow=merged.overflow | ovf.any(dim=0))
 
 
 def make_collectives(mesh=None) -> EdgeCollectives:
@@ -175,7 +197,7 @@ def make_collectives(mesh=None) -> EdgeCollectives:
             got = _world_gather(fleets[0])
             fleets = [MatchedShards(*(x[r] for x in got))
                       for r in range(len(got[0]))]
-        return _merge_level(fleets, max_shards)
+        return _merge_level(fleets, max_shards, level=2)
     return EdgeCollectives(gather_watermark=gather_watermark,
                            combine_matched=combine_matched)
 
@@ -275,6 +297,7 @@ def federated_query_step(cfg: StoreConfig, blocks: Sequence[StoreState],
         return torch.cat([x.to(dev) for x in xs], dim=-1)
     per_edge = [cat([o[0][i] for o in outs]) for i in range(4)]
     per_edge.append(cat([o[1] for o in outs]))
+    _record("combine", per_edge)
     if mesh.multi_process:
         per_edge = [torch.cat(list(x), dim=-1)
                     for x in _world_gather(per_edge)]

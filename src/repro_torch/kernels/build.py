@@ -12,6 +12,10 @@ toolkit are all a build needs.
 them; ``load(name)`` builds on first use. Each C entry point launches on the
 stream it is given and returns ``cudaGetLastError()``; ``check`` raises on a
 non-zero code.
+
+``builds`` and ``loads`` count, by kernel name, the ``nvcc`` processes
+started and the libraries loaded with ``ctypes`` in this process: a warm
+process builds and loads nothing (``repro_torch.analysis.retrace``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
@@ -33,6 +38,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+builds: Counter = Counter()
+loads: Counter = Counter()
 
 
 def build_dir() -> Path:
@@ -68,11 +75,13 @@ def _start(name: str) -> Optional[subprocess.Popen]:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     log = open(out.with_suffix(".log"), "w")
     try:
-        return subprocess.Popen(
+        proc = subprocess.Popen(
             [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
             stdout=log, stderr=subprocess.STDOUT)
     finally:
         log.close()
+    builds[name] += 1
+    return proc
 
 
 def _finish(name: str, proc: Optional[subprocess.Popen]) -> None:
@@ -112,6 +121,7 @@ def load(name: str) -> ctypes.CDLL:
     if lib is None:
         build_all((name,))
         lib = ctypes.CDLL(str(lib_path(name)))
+        loads[name] += 1
         _LIBS[name] = lib
     return lib
 

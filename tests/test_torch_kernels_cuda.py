@@ -35,7 +35,10 @@ against the CPU and against the single store on the card, st_scan launched
 once per tile and block (2 x 4 a batch), and the two-process smoke
 (``repro_torch.launch.multihost_smoke``) with both gloo workers on the
 card. ``-k examples`` runs the six ported datastore and serving examples
-(``repro_torch.examples``) on the card against their CPU runs.
+(``repro_torch.examples``) on the card against their CPU runs. ``-k
+analysis`` runs the static-analysis counters on the card: the kernel
+builds of two child processes over one empty build directory, and the two
+sync counters side by side with a planted ``.item()``.
 """
 
 import numpy as np
@@ -1876,3 +1879,51 @@ def test_examples_refuse_a_planted_decode_fault(cuda):
     got = card_vs_cpu("serve_lm", cuda, fault=lambda o: o.roll(2, 2))
     assert got["flash_calls"]["bad_calls"] == 144, got["flash_calls"]
     assert got["mismatches"][0].startswith(".logits"), got["mismatches"][:3]
+
+
+def test_analysis_builds_once_then_never(cuda, tmp_path):
+    """``repro_torch.analysis.retrace.build_check``: a child process over
+    an empty build directory builds and loads st_scan, hash64 and
+    voronoi_assign exactly once each in its cold run and nothing warm; a
+    second child over the same directory builds nothing."""
+    from repro_torch.analysis import retrace
+    got = retrace.build_check(str(tmp_path))
+    assert got["ok"], got
+    first = got["children"]["first"]
+    assert first["single"]["cold"]["builds"] == {
+        "st_scan": 1, "hash64": 1, "voronoi_assign": 1}, first
+    assert all(not leg["cold"]["builds"]
+               for leg in got["children"]["second"].values()
+               if isinstance(leg, dict) and "cold" in leg)
+
+
+def test_analysis_sync_counters_side_by_side(cuda):
+    """The canonical workload on the card under both sync counters: every
+    read the TorchFunctionMode counts is a synchronisation that
+    ``set_sync_debug_mode`` also reports, so per entry point the second
+    count is at least the first; a planted ``.item()`` in every insert
+    raises both by one a call, and the launches do not move."""
+    from repro_torch.analysis import retrace
+    from repro_torch.api.session import AerialDB
+    cfg = retrace.canonical_config(tuple_capacity=384 + 128 * 7)
+    base = retrace.Meter(cuda)
+    retrace.canonical_workload(cfg, None, cuda, retrace.Meter(cuda))   # fills
+    retrace.canonical_workload(cfg, None, cuda, base)
+    for entry, c in base.report().items():
+        assert c["sync_debug"] >= c["syncs"], (entry, c)
+    real = AerialDB.insert
+
+    def insert(self, payload, meta):
+        info = real(self, payload, meta)
+        info["intake_per_edge"].sum().item()
+        return info
+    planted = retrace.Meter(cuda)
+    AerialDB.insert = insert
+    try:
+        retrace.canonical_workload(cfg, None, cuda, planted)
+    finally:
+        AerialDB.insert = real
+    a, b = base.report()["insert"], planted.report()["insert"]
+    assert b["syncs"] == a["syncs"] + 2 and b["ops"]["item"] == 2, (a, b)
+    assert b["sync_debug"] >= a["sync_debug"] + 2, (a, b)
+    assert b["launches"] == a["launches"] and sum(a["launches"].values()) > 0
