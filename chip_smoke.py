@@ -124,13 +124,14 @@ Phases, one line each:
      lengths; at bf16 d 128 also the sm90 and the mma_sync backward forced,
      with 1024-row cases of groups 1 and 8 and a q_offset of 1024 over
      1536 keys; a second call bitwise);
-  6. the LM serving path at full width, twice: internlm2-1.8b (24 layers,
+  6. the LM serving path at full width, three times: internlm2-1.8b (24 layers,
      d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
      92544; weights drawn in fp32, the engine's copy in bf16), then
      stablelm-12b (40 layers, d_model 5120, 32 query heads over 8 KV
      heads, d_head 160, d_ff 13824, vocab 100352: 12.14 B parameters,
      drawn in bf16 so that the engine copies nothing; internlm2's engine
-     freed first), random weights from a seeded generator on the card, bf16
+     freed first), then falcon-mamba-7b (below), random weights from a
+     seeded generator on the card, bf16
      compute: ``prefill_step`` on 8 prompts of 2048 tokens, then
      ``Engine.generate`` for 8 requests (128-token prompts, 64 new tokens,
      max_seq 256), twice (identical ids), with the engine's logits after
@@ -138,7 +139,22 @@ Phases, one line each:
      prompts; every prefill flash call must go to the sm90 kernel and every
      generate call (Sq 1) to the decode kernel (lines ``serve_prefill`` /
      ``serve_generate`` and ``serve_stablelm_prefill`` /
-     ``serve_stablelm_generate``); then the training path (line ``train``):
+     ``serve_stablelm_generate``); internlm2-1.8b's engine also samples at
+     temperature 0.7 (line ``serve_sampled``): twice with seed 0 (equal
+     ids) and once with seed 1 (other ids), each with the greedy run's
+     decode launches, every pick drawn again from the engine's logits on
+     the card (bitwise) and on the CPU (equal wherever the perturbed top-2
+     gap exceeds 2 ulps; the rows within it counted), and the device ms
+     and host µs a pick adds over argmax; then the ssm family:
+     falcon-mamba-7b (Mamba1, attention-free: 64 layers, d_model 4096,
+     d_inner 8192, state 16, vocab 65024; 7.27 B parameters drawn in bf16,
+     ``a_log`` float32) through the same ``serve`` with no flash launch:
+     ``prefill_step`` on 8 x 2048 tokens (with the plain scan's time at
+     one layer's shape and its share of the prefill), ``Engine.generate``
+     greedy twice and sampled once (lines ``serve_falcon_prefill`` /
+     ``serve_falcon_generate``); then ``ssm_vs_cpu``: its smoke model in
+     fp32 on the card (forward bitwise twice, 40 decode steps) against
+     float64 on the CPU to 2e-5; then the training path (line ``train``):
      internlm2-1.8b at full width (fp32 params, bf16 compute, remat
      "full", AdamW with bf16 moments, 2 microbatches), 1 warm-up and 3
      timed steps on batches of 8 x 4096 tokens that ``AerialPipeline``
@@ -289,6 +305,36 @@ TRAIN_BWD_HELD = (0, 23)
 # 24 layers: the two round activations at different matmul shapes, so
 # they agree to a fraction of the logits' unit spread, not bitwise.
 PREFILL_DECODE_TOL = 0.5
+# The ssm family's serve path: falcon-mamba-7b (Mamba1, attention-free) at
+# full width, bf16 weights.
+SERVE_SSM_ARCH = "falcon-mamba-7b"
+# Its bf16 run cannot be held to PREFILL_DECODE_TOL at the largest logit:
+# 64 random Mamba1 layers amplify the rounding in which the chunked scan
+# and the step-by-step decode differ, in the JAX package itself
+# (tests/test_torch_mamba.py::test_bf16_deep_stack_parts_at_the_largest_logit:
+# its forward against its decode at d_model 128 x 64 layers in bf16, up to
+# 1.14 on logits of unit spread). The mean gap holds it there (at most
+# 0.128, against 0.93 and more for a decode that zeroes its scan state in
+# its last 16 steps), so the check is the mean, beside that control run on
+# the card (SSM_CONTROL_STEPS steps again from the engine's cache with the
+# state zeroed before each, which must exceed it). The full-width shapes
+# are held tightly in fp32, the depth cut to SSM_F32_CUT_LAYERS:
+# prefill_step against decode_step over the prompt.
+SSM_PREFILL_DECODE_MEAN_TOL = 0.5
+SSM_CONTROL_STEPS = 16
+SSM_F32_CUT_LAYERS = 2
+SSM_F32_PREFILL_DECODE_TOL = 1e-3
+# Temperature sampling: serve_sampled draws internlm2-1.8b's continuation
+# at this temperature with these seeds (twice seed 0: equal ids; seed 1:
+# other ids); falcon-mamba-7b's generate line samples once with seed 0.
+SAMPLE_TEMPERATURE = 0.7
+SAMPLE_SEEDS = (0, 0, 1)
+# ssm_vs_cpu: falcon-mamba-7b's smoke model in fp32 on the card against
+# its float64 CPU run (the scan in float32 on both, as the reference pins
+# it), forward on 2 x 64 tokens and SSM_DECODE_STEPS decode steps, to
+# SSM_F64_TOL (test_smoke_model_on_card_matches_cpu's bound).
+SSM_DECODE_STEPS = 40
+SSM_F64_TOL = 2e-5
 # A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
 # `visit`): FMUL, FMUL, FADD, FMUL by 2, FADD, then FSETP, FSEL, SEL. A
 # static count, read by hand in the kernel's SASS, not measured in a run.
@@ -2525,13 +2571,20 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
 
 
 def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
-          param_dtype: str = "float32", tag: str = "serve") -> dict:
+          param_dtype: str = "float32", tag: str = "serve",
+          sample_seeds: tuple = ()) -> dict:
     """The LM serving path of ``arch`` at full width: prefill_step, then
     Engine.generate twice, as the lines ``<tag>_prefill`` and
-    ``<tag>_generate``. ``param_dtype`` is the dtype the weights are drawn
-    in: "float32" (the engine casts a bf16 copy) or "bfloat16" (the
-    engine's cast copies nothing). Returns the flash launch counts of these
-    runs by kernel; the model and its weights are freed on return."""
+    ``<tag>_generate``, then sampled at SAMPLE_TEMPERATURE once per seed of
+    ``sample_seeds`` (``sampled_runs``; for internlm2-1.8b its own line
+    ``serve_sampled``, else under ``sampled`` in the generate line).
+    ``param_dtype`` is the dtype the weights are drawn in: "float32" (the
+    engine casts a bf16 copy) or "bfloat16" (the engine's cast copies
+    nothing). An attention model launches the sm90 kernel at every prefill
+    layer and the decode kernel at every decode layer; the ssm family none
+    (its prefill line also times the plain scan at one layer's shape).
+    Returns the flash launch counts of these runs by kernel; the model and
+    its weights are freed on return."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models.model import Model
@@ -2539,13 +2592,19 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     from repro_torch.train.train_loop import make_serve_steps
 
     class TimedEngine(Engine):
-        """Records CUDA events around every decode step and keeps the logits
-        after the last prompt token."""
-        def __init__(self, *a, **kw):
+        """Records CUDA events around every decode step, keeps the logits
+        after the last prompt token, with ``keep_picks`` the logits every
+        pick was made from and with ``snapshot_at`` a copy of the cache
+        before that position's step."""
+        def __init__(self, *a, keep_picks=False, snapshot_at=None, **kw):
             super().__init__(*a, **kw)
             self.events, self.prompt_logits = [], None
+            self.picks = [] if keep_picks else None
+            self.snapshot_at, self.snapshot = snapshot_at, None
 
         def _step(self, cache, tokens, pos):
+            if pos == self.snapshot_at:
+                self.snapshot = {k: v.clone() for k, v in cache.items()}
             e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
             e0.record()
             cache, logits = super()._step(cache, tokens, pos)
@@ -2555,6 +2614,11 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
                 self.prompt_logits = logits.clone()
             return cache, logits
 
+        def _sample(self, logits, key, i):
+            if self.picks is not None:
+                self.picks.append(logits.clone())
+            return super()._sample(logits, key, i)
+
     phase_t0 = time.perf_counter()
     cfg = get_config(arch).replace(param_dtype_str=param_dtype)
     model = Model(cfg, device=dev)
@@ -2562,8 +2626,10 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     n_params = sum(int(x.numel()) for x in _leaves(params))
+    attn = cfg.family != "ssm"        # the ssm family launches no flash kernel
     engine = TimedEngine(model, params, ServeConfig(
-        max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ))
+        max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ),
+        snapshot_at=None if attn else PROMPT_LEN - SSM_CONTROL_STEPS)
     del params                      # the engine keeps the bf16 weights
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2592,14 +2658,19 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
         times.append(a.elapsed_time(b))
     prefill_launches = fops.launches
     prefill_by_variant = dict(fops.launches_by_variant)
-    if prefill_launches != 4 * cfg.n_layers or not torch.isfinite(lg).all() \
+    if prefill_launches != 4 * cfg.n_layers * attn or not torch.isfinite(lg).all() \
             or lg.shape != (SERVE_BATCH, cfg.vocab_padded) \
             or prefill_by_variant["sm90"] != prefill_launches:
         raise SystemExit(f"{tag} prefill: {prefill_launches} flash launches "
                          f"({prefill_by_variant}), logits {tuple(lg.shape)} "
                          f"finite={bool(torch.isfinite(lg).all())}")
     ms = float(np.median(times))
-    phase(f"{tag}_prefill", arch=arch, params=n_params,
+    family = {"family": cfg.family}
+    if not attn:
+        family.update(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                      ssm_chunk=cfg.ssm_chunk, ssm_scan=cfg.ssm_scan,
+                      **scan_share(torch, model, eparams, long_prompts, ms))
+    phase(f"{tag}_prefill", arch=arch, params=n_params, **family,
           n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
           n_kv=cfg.n_kv, d_head=cfg.d_head, param_dtype=param_dtype,
           weight_gb=weight_bytes / 1e9,
@@ -2621,7 +2692,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     wall = time.perf_counter() - w0
     gen_launches = fops.launches
     gen_by_variant = dict(fops.launches_by_variant)
-    want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS)
+    want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS) * attn
     if gen_launches != want_launches or gen_by_variant["decode"] != want_launches:
         raise SystemExit(f"{tag} generate: {gen_launches} flash launches "
                          f"({gen_by_variant}), expected {want_launches} "
@@ -2638,8 +2709,35 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     max_diff = float(diff[:, :cfg.vocab].max())
     agree = int((engine.prompt_logits.argmax(-1) == ref_logits.argmax(-1)).sum())
     peak = torch.cuda.max_memory_allocated() / 2**30
+    if attn:
+        held = {"prefill_vs_decode_tol": PREFILL_DECODE_TOL}
+        ok = max_diff <= PREFILL_DECODE_TOL
+    else:
+        held = {"prefill_vs_decode_tol": None,
+                "prefill_vs_decode_mean_abs_diff": float(diff[:, :cfg.vocab].mean()),
+                "prefill_vs_decode_mean_tol": SSM_PREFILL_DECODE_MEAN_TOL,
+                "control_mean_abs_diff": ssm_control(
+                    torch, model, eparams, engine.snapshot, prompts, ref_logits),
+                "fp32_cut": ssm_fp32_cut(torch, dev, seed, arch, prompts)}
+        ok = held["prefill_vs_decode_mean_abs_diff"] <= SSM_PREFILL_DECODE_MEAN_TOL \
+            < held["control_mean_abs_diff"] \
+            and held["fp32_cut"]["max_abs_diff"] <= SSM_F32_PREFILL_DECODE_TOL
     again = engine.generate(prompts)
     deterministic = bool(np.array_equal(ids, again))
+    sampled, sampled_decode = {}, 0
+    if sample_seeds:
+        sampled = sampled_runs(
+            torch, lambda s, **kw: TimedEngine(model, eparams, ServeConfig(
+                max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ,
+                temperature=SAMPLE_TEMPERATURE, seed=s), **kw),
+            prompts, sample_seeds, ids, wall, want_launches, cfg.vocab, tag,
+            cpu_check=tag == "serve")
+        sampled_decode = sum(sampled["decode_launches"])
+        if tag == "serve":
+            phase("serve_sampled", arch=arch, **sampled)
+            sampled = {}
+        else:
+            sampled = {"sampled": sampled}
     phase(f"{tag}_generate", arch=arch, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
           new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, wall_s=wall,
           prompt_phase_ms=prompt_ms,
@@ -2652,15 +2750,14 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
           flash_by_variant=gen_by_variant,
           deterministic=deterministic, prompt_logits_finite=finite,
           prompt_logits_shape=list(engine.prompt_logits.shape),
-          prefill_vs_decode_max_abs_diff=max_diff,
-          prefill_vs_decode_tol=PREFILL_DECODE_TOL,
-          first_tokens_agree=agree, first_ids=ids[:, 0].tolist(),
+          prefill_vs_decode_max_abs_diff=max_diff, **held,
+          first_tokens_agree=agree, first_ids=ids[:, 0].tolist(), **sampled,
           phase_wall_s=time.perf_counter() - phase_t0)
     if not deterministic:
         raise SystemExit(f"{tag} generate: a second run gave other ids")
-    if not finite or not np.isfinite(max_diff) or max_diff > PREFILL_DECODE_TOL:
+    if not finite or not np.isfinite(max_diff) or not ok:
         raise SystemExit(f"{tag} generate: logits after the prompt differ from "
-                         f"prefill_step's by {max_diff} > {PREFILL_DECODE_TOL}")
+                         f"prefill_step's by {max_diff} at the largest ({held})")
 
     if do_profile:
         batch = {"tokens": long_prompts}
@@ -2672,7 +2769,215 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
         phase(f"{name}_decode_step", **profile(
             torch, lambda: model.decode_step(eparams, cache, {"tokens": tok},
                                              PROMPT_LEN + NEW_TOKENS // 2)))
-    return {v: prefill_by_variant[v] + gen_by_variant[v] for v in fops.VARIANTS}
+    out = {v: prefill_by_variant[v] + gen_by_variant[v] for v in fops.VARIANTS}
+    out["sampled_decode"] = sampled_decode
+    return out
+
+
+def ssm_control(torch, model, eparams, snapshot, prompts, ref_logits) -> float:
+    """The ssm check's control: the engine's last SSM_CONTROL_STEPS prompt
+    steps again from its cache before them (``snapshot``), the scan state
+    zeroed before each step; the mean gap of the logits after the prompt
+    to ``prefill_step``'s."""
+    toks = torch.from_numpy(prompts).to(ref_logits.device)
+    cache = snapshot
+    for pos in range(PROMPT_LEN - SSM_CONTROL_STEPS, PROMPT_LEN):
+        cache["h"].zero_()
+        cache, lg = model.decode_step(eparams, cache,
+                                      {"tokens": toks[:, pos:pos + 1]}, pos)
+    vocab = model.cfg.vocab
+    return float((lg.float() - ref_logits.float())[:, :vocab].abs().mean())
+
+
+def ssm_fp32_cut(torch, dev, seed: int, arch: str, prompts) -> dict:
+    """``arch`` at full width in fp32 with SSM_F32_CUT_LAYERS layers (random
+    weights from ``seed``): ``prefill_step`` on the prompts against
+    ``decode_step`` over them, the largest logit gap after the last token."""
+    from repro_torch.configs.base import get_config
+    from repro_torch.models.model import Model
+    from repro_torch.train.train_loop import make_serve_steps
+    cfg = get_config(arch).replace(n_layers=SSM_F32_CUT_LAYERS,
+                                   compute_dtype_str="float32")
+    model = Model(cfg, device=dev)
+    params = model.init(torch.Generator(device=dev).manual_seed(seed))
+    toks = torch.from_numpy(prompts).to(dev)
+    ref = make_serve_steps(model)[0](params, {"tokens": toks})
+    cache = model.init_cache(toks.shape[0], PROMPT_LEN)
+    for pos in range(PROMPT_LEN):
+        cache, lg = model.decode_step(params, cache, {"tokens": toks[:, pos:pos + 1]}, pos)
+    return {"layers": SSM_F32_CUT_LAYERS, "tol": SSM_F32_PREFILL_DECODE_TOL,
+            "max_abs_diff": float((lg - ref)[:, :cfg.vocab].abs().max()),
+            "logits_std": float(ref[:, :cfg.vocab].std())}
+
+
+def scan_share(torch, model, eparams, tokens, prefill_ms: float) -> dict:
+    """The plain selective scan at one layer of the ssm prefill: its time
+    (CUDA events, 3 calls) on layer 0's own inputs for ``tokens``, the
+    prefill's share of it over all layers, and its bytes bound (dt, B, C
+    and x read once, y written once)."""
+    from repro_torch.models import layers, mamba
+    cfg = model.cfg
+    lp = {k: v[0] for k, v in eparams["stack"]["layers"]["mamba"].items()}
+    x = layers.embed_apply(eparams["embed"], tokens, cfg.compute_dtype)
+    h = layers.rms_norm(x, eparams["stack"]["layers"]["ln"][0])
+    xin = (h @ lp["in_proj"].to(cfg.compute_dtype))[..., :cfg.d_inner]
+    xc, _ = mamba._causal_conv(xin, lp["conv_w"], lp["conv_b"])
+    dt, b_mat, c_mat = mamba._ssm_params(lp, xc, cfg)
+    del x, h, xin
+    ms = cuda_ms(torch, lambda: mamba.selective_scan(
+        dt, b_mat, c_mat, xc, lp["a_log"], chunk=cfg.ssm_chunk,
+        mode=cfg.ssm_scan), 3)
+    nbytes = sum(t.numel() * t.element_size() for t in (dt, b_mat, c_mat, xc)) \
+        + dt.numel() * 4
+    return {"scan_ms_per_layer": ms,
+            "scan_share_of_prefill": cfg.n_layers * ms / prefill_ms,
+            "scan_bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "scan_shape": list(dt.shape) + [cfg.ssm_state]}
+
+
+def sampled_runs(torch, make_engine, prompts, seeds, greedy_ids, greedy_wall_s,
+                 want_launches, vocab, tag, cpu_check: bool) -> dict:
+    """``Engine.generate`` at SAMPLE_TEMPERATURE once per seed of ``seeds``
+    (``make_engine(seed, keep_picks=)`` builds an engine on the serve
+    path's weights), each run's flash launches equal to the greedy run's
+    (``want_launches``, all on the decode kernel): a run with the first
+    run's seed gives its ids, another seed other ids. The first run keeps
+    the logits of every pick: each pick is drawn again from them
+    (``categorical`` of ``fold_in(key(seed), i)`` and the logits over T in
+    their dtype) on the card, bitwise the engine's ids, and with
+    ``cpu_check`` on the CPU from the same tensor: equal in every row
+    whose perturbed top-2 gap (the CPU's gumbels plus logits / T) exceeds
+    2 ulps of its top value; the rows within it are counted. Also the
+    device ms and host µs of one pick, sampled and greedy (argmax), and
+    each run's wall beside the greedy run's."""
+    from repro_torch.core import threefry
+    from repro_torch.kernels.flash_attention import ops as fops
+    runs, walls, decode, first = [], [], [], None
+    for sd in seeds:
+        fops.launches = 0
+        fops.launches_by_variant = dict.fromkeys(fops.launches_by_variant, 0)
+        eng = make_engine(sd, keep_picks=first is None)
+        w0 = time.perf_counter()
+        ids = eng.generate(prompts)
+        walls.append(time.perf_counter() - w0)
+        decode.append(fops.launches_by_variant["decode"])
+        if fops.launches != want_launches or decode[-1] != want_launches:
+            raise SystemExit(f"{tag} sampled (seed {sd}): {fops.launches} flash "
+                             f"launches ({fops.launches_by_variant}), expected "
+                             f"{want_launches}, as the greedy run")
+        if ids.shape != greedy_ids.shape or ids.min() < 0 or ids.max() >= vocab:
+            raise SystemExit(f"{tag} sampled: ids {ids.shape} in "
+                             f"[{ids.min()}, {ids.max()}]")
+        first = first or eng
+        runs.append(ids)
+    repeat = [bool(np.array_equal(r, runs[0])) == (sd == seeds[0])
+              for sd, r in zip(seeds[1:], runs[1:])]
+    if not all(repeat):
+        raise SystemExit(f"{tag} sampled: seeds {seeds} gave ids equal or "
+                         f"apart against the first run's as {repeat} (all True wanted)")
+
+    key, picks = threefry.key(seeds[0]), first.picks
+    first.picks = None
+    dtype = picks[0].dtype
+
+    def draw(lg, i):
+        temp = torch.full((), SAMPLE_TEMPERATURE, dtype=dtype, device=lg.device)
+        return threefry.categorical(threefry.fold_in(key, i), lg / temp)
+    again = torch.stack([draw(lg, i) for i, lg in enumerate(picks[:-1])], 1)
+    if not np.array_equal(again.cpu().numpy(), runs[0]):
+        raise SystemExit(f"{tag} sampled: the picks drawn again from the "
+                         "engine's logits differ from its ids")
+    out = {"temperature": SAMPLE_TEMPERATURE, "seeds": list(seeds),
+           "batch": SERVE_BATCH, "new_tokens": NEW_TOKENS,
+           "logits_dtype": str(dtype).removeprefix("torch."),
+           "repeat_as_seeded": repeat, "redrawn_equal": True,
+           "ids_equal_greedy": int((runs[0] == greedy_ids).sum()),
+           "first_ids": runs[0][:, 0].tolist(), "decode_launches": decode,
+           "wall_s": walls, "greedy_wall_s": greedy_wall_s,
+           "wall_added_per_pick_ms": (float(np.median(walls)) - greedy_wall_s)
+           / (NEW_TOKENS + 1) * 1e3}
+    if cpu_check:
+        rows = held = bad = equal = 0
+        for i, lg in enumerate(picks):
+            card = draw(lg, i).cpu()
+            lc = lg.cpu()
+            cpu = draw(lc, i)
+            scaled = lc / torch.full((), SAMPLE_TEMPERATURE, dtype=dtype)
+            p = (threefry.gumbel(threefry.fold_in(key, i), lc.shape, "cpu", dtype)
+                 + scaled).float()
+            top2 = torch.topk(p, 2, dim=-1).values
+            ulp = torch.finfo(dtype).eps * torch.exp2(torch.floor(torch.log2(top2[:, 0].abs())))
+            ok = (top2[:, 0] - top2[:, 1]) > 2 * ulp
+            rows += ok.numel()
+            held += int(ok.sum())
+            bad += int((card != cpu)[ok].sum())
+            equal += int((card == cpu).sum())
+        out["card_vs_cpu"] = {"picks": len(picks), "rows": rows,
+                              "rows_within_2_ulps": rows - held,
+                              "held_rows_apart": bad, "rows_equal": equal}
+        if bad:
+            raise SystemExit(f"{tag} sampled: card and CPU categorical differ in "
+                             f"{bad} of {held} rows beyond 2 ulps of a tie")
+    lg = picks[0]
+    out["pick_ms"] = {"sampled": cuda_ms(torch, lambda: first._sample(lg, key, 1), 20),
+                      "greedy": cuda_ms(torch, lambda: torch.argmax(lg, -1).to(torch.int32), 20)}
+    out["pick_host_us"] = host_us(torch, {
+        "sampled": lambda: first._sample(lg, key, 1),
+        "greedy": lambda: torch.argmax(lg, -1).to(torch.int32)}, calls=20, rounds=3)
+    out["pick_added_ms"] = out["pick_ms"]["sampled"] - out["pick_ms"]["greedy"]
+    return out
+
+
+def ssm_vs_cpu(torch, dev, seed: int) -> dict:
+    """falcon-mamba-7b's smoke model (4 layers, d_model 128, d_inner 256,
+    state 8, chunk 16) in fp32 on the card, forward on 2 x 64 tokens (four
+    chunks) twice (bitwise) and SSM_DECODE_STEPS decode steps, against the
+    same weights in float64 on one CPU thread (the scan in float32, as the
+    reference pins it), to SSM_F64_TOL; no flash launch."""
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+    cfg = reduce_for_smoke(get_config(SERVE_SSM_ARCH)).replace(
+        compute_dtype_str="float32")
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(seed))
+    card = Model(cfg, device=dev)
+    cparams = tree_map(lambda a: a.to(dev), params)
+    toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    before = fops.launches
+    h_card, _ = card.forward(cparams, {"tokens": toks.to(dev)})
+    bitwise = bool(torch.equal(h_card, card.forward(cparams, {"tokens": toks.to(dev)})[0]))
+    cg = card.init_cache(2, 64)
+    for t in range(SSM_DECODE_STEPS):
+        cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(dev)}, t)
+    launches = fops.launches - before
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        h_ref, _ = f64.forward(params, {"tokens": toks})
+        cr = f64.init_cache(2, 64)
+        for t in range(SSM_DECODE_STEPS):
+            cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+    finally:
+        torch.set_num_threads(threads)
+
+    def gap(got, want):     # the largest excess over atol + rtol |want|
+        got, want = got.cpu().double(), want
+        return float(((got - want).abs() - SSM_F64_TOL * want.abs()).max())
+    out = {"config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+           "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
+           "ssm_chunk": cfg.ssm_chunk, "tokens": list(toks.shape),
+           "decode_steps": SSM_DECODE_STEPS, "tol": SSM_F64_TOL,
+           "forward_bitwise": bitwise, "flash_launches": launches,
+           "hidden_max_abs_diff": float((h_card.cpu().double() - h_ref).abs().max()),
+           "decode_logits_max_abs_diff": float((lg.cpu().double() - lr).abs().max()),
+           "h_state_max_abs_diff": float((cg["h"].cpu().double() - cr["h"].double()).abs().max()),
+           "hidden_excess": gap(h_card, h_ref), "decode_excess": gap(lg, lr)}
+    if not bitwise or launches or max(out["hidden_excess"], out["decode_excess"]) > SSM_F64_TOL:
+        raise SystemExit(f"ssm_vs_cpu: {out}")
+    return out
 
 
 # The serve shapes flash_timings times, by head dim: (query heads, kv heads)
@@ -3570,8 +3875,9 @@ def main(argv=None) -> int:
                     help="after each main path, print the device-time "
                          "breakdown (torch.profiler) of one ingest chunk "
                          "(into the main and the cached store), one "
-                         "4-channel query batch, one prefill, one "
-                         "decode step and one train step")
+                         "4-channel query batch, one prefill and one "
+                         "decode step of each served model, and one "
+                         "train step")
     args = ap.parse_args(argv)
 
     import torch
@@ -3931,11 +4237,15 @@ def main(argv=None) -> int:
     # -- 5-7. flash_attention and the LM serving path ----------------------
     flash_err = flash_vs_plain(torch, dev, args.seed)
     phase("flash_bwd_vs_plain", **flash_bwd_vs_plain(torch, dev, args.seed))
-    served = serve(torch, dev, args.seed, args.profile)
+    served = serve(torch, dev, args.seed, args.profile, sample_seeds=SAMPLE_SEEDS)
     torch.cuda.empty_cache()        # internlm2's engine is gone
     served_d160 = serve(torch, dev, args.seed, args.profile, arch=SERVE_D160_ARCH,
                         param_dtype="bfloat16", tag="serve_stablelm")
     torch.cuda.empty_cache()
+    served_ssm = serve(torch, dev, args.seed, args.profile, arch=SERVE_SSM_ARCH,
+                       param_dtype="bfloat16", tag="serve_falcon", sample_seeds=(0,))
+    torch.cuda.empty_cache()
+    phase("ssm_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed))
     trained = train(torch, dev, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     trained_small = train_vs_cpu(torch, dev, args.seed)
@@ -4014,6 +4324,10 @@ def main(argv=None) -> int:
                 "flash_attention_decode": "decode",
                 "flash_attention_bwd": "bwd_mma_sync",
                 "flash_attention_bwd_sm90": "bwd_sm90"}.get(k["name"], k["name"])
+        if name in ("mma_sync", "sm90", "decode"):
+            k["ssm_serve_launches"] = served_ssm[name]     # falcon-mamba-7b: none
+        if k["name"] == "flash_attention_decode":
+            k["sampled_launches"] = served["sampled_decode"]
         if not k["name"].endswith("_d160"):
             k["train_launches"] = trained[name]
             k["train_vs_cpu_launches"] = trained_small[name]

@@ -1,12 +1,13 @@
 """Model configuration and registry (port of ``repro.configs.base``).
 
 The dataclass keeps the fields of the JAX package's ``ModelConfig`` that a
-dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``),
-under the same names and defaults;
-``param_dtype`` and ``compute_dtype`` return ``torch`` dtypes. The port
-registers only the configurations it can serve (``ARCH_MODULES``): dense
-decoders with GQA attention. Asking for another one raises ``NotImplementedError`` naming the
-ROADMAP item that ports its family.
+dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``)
+and that a Mamba1 stack reads (``ssm_*``, ``d_conv``, ``expand``), under
+the same names and defaults; ``param_dtype`` and ``compute_dtype`` return
+``torch`` dtypes. The port registers only the configurations it can serve
+(``ARCH_MODULES``): dense decoders with GQA attention and the Mamba1
+``ssm`` family. Asking for another one raises ``NotImplementedError``
+naming the ROADMAP item that ports its family.
 """
 
 from __future__ import annotations
@@ -17,7 +18,7 @@ import torch
 
 # Families and features the port does not serve yet, with the ROADMAP item
 # (Queue 1, item 10, "LM scaffold") that brings them.
-NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba1/2 and the hybrid and enc-dec "
+NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba2 and the hybrid and enc-dec "
               "families are not ported yet (ROADMAP Queue 1, LM scaffold "
               "item 10.3)")
 
@@ -25,7 +26,7 @@ NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba1/2 and the hybrid and enc-dec "
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # the port serves "dense" only
+    family: str = "dense"        # the port serves "dense" and "ssm"
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -40,6 +41,14 @@ class ModelConfig:
     mrope: bool = False          # not ported: Model raises
     attn_chunk_kv: int = 1024    # key chunk of the plain flash version
     tie_embeddings: bool = False
+
+    # SSM (Mamba1; ssm_version 2 is not ported)
+    ssm_state: int = 0
+    ssm_version: int = 1
+    d_conv: int = 4
+    expand: int = 2
+    ssm_chunk: int = 128          # scan chunk: bounds the (B, Q, Di, N) set
+    ssm_scan: str = "associative"  # associative | sequential
 
     # vocab padding: embeddings/unembeddings allocate the padded size;
     # padded logits are masked.
@@ -60,6 +69,10 @@ class ModelConfig:
         return getattr(torch, self.compute_dtype_str)
 
     @property
+    def d_inner(self) -> int:
+        return self.expand * self.d_model
+
+    @property
     def vocab_padded(self) -> int:
         m = self.vocab_pad_multiple
         return (self.vocab + m - 1) // m * m
@@ -77,7 +90,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 ARCH_MODULES = ["internlm2_1_8b", "qwen3_14b", "deepseek_7b",
-                "stablelm_12b"]
+                "stablelm_12b", "falcon_mamba_7b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -94,15 +107,22 @@ def get_config(name: str) -> ModelConfig:
 def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     """Shrink a full config to a CPU-runnable config of the same family:
     same block structure and flags, tiny dims (the JAX package's rule for
-    the dense fields the port has)."""
-    return cfg.replace(
-        name=cfg.name + "-smoke", n_layers=min(cfg.n_layers, 4), d_model=128,
-        d_ff=256 if cfg.d_ff else 0, vocab=512, loss_chunk=128,
-        attn_chunk_kv=64, n_heads=4,
-        n_kv=min(max(cfg.n_kv * 4 // cfg.n_heads, 1), 4), d_head=32)
+    the fields the port has)."""
+    kw = dict(n_layers=min(cfg.n_layers, 4), d_model=128,
+              d_ff=256 if cfg.d_ff else 0, vocab=512, loss_chunk=128,
+              attn_chunk_kv=64, ssm_chunk=16)
+    if cfg.n_heads:
+        kw.update(n_heads=4, n_kv=min(max(cfg.n_kv * 4 // cfg.n_heads, 1), 4),
+                  d_head=32)
+    if cfg.ssm_state:
+        kw.update(ssm_state=8)
+    return cfg.replace(name=cfg.name + "-smoke", **kw)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder."""
-    if cfg.family != "dense" or cfg.mrope:
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder
+    or a Mamba1 stack."""
+    dense = cfg.family == "dense" and not cfg.mrope
+    mamba1 = cfg.family == "ssm" and cfg.ssm_version == 1
+    if not (dense or mamba1):
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")

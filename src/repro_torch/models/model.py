@@ -1,5 +1,5 @@
-"""Top-level model API for serving and training a dense decoder (port of
-``repro.models.model``).
+"""Top-level model API for serving and training a dense decoder or a Mamba1
+stack (port of ``repro.models.model``).
 
 ``Model(cfg, device="cuda")`` wraps a ModelConfig with plain functions on
 tensors:
@@ -7,16 +7,19 @@ tensors:
   forward(params, batch) -> (hidden, aux_loss)
   logits(params, hidden) -> (B, S, V_padded), padded vocab masked
   loss(params, batch) -> scalar             (chunked-vocab CE)
-  init_cache(batch_size, max_seq) -> {"k", "v"}: (L, B, max_seq, KV, dh)
+  init_cache(batch_size, max_seq) -> dense {"k", "v"}: (L, B, max_seq, KV,
+      dh); ssm {"conv": (L, B, d_conv-1, Di) in the compute dtype, "h":
+      (L, B, Di, N) float32}, O(1) in the sequence length
   decode_step(params, cache, inputs, pos) -> (cache, logits (B, V_padded))
 
 The params tree is the JAX package's, leaf for leaf (per-layer leaves
 stacked on a leading L axis), so weights move between the packages by
 copying leaves (``repro_torch.convert``). Unlike the JAX package,
-``decode_step`` writes the new K/V row into ``cache`` in place (where JAX
-uses ``dynamic_update_slice`` on a new array) and returns the same dict.
-Only the dense GQA family is ported; the other families wait (ROADMAP
-Queue 1, LM scaffold item 10.3).
+``decode_step`` writes the new K/V row (or the ssm family's new conv and
+scan state) into ``cache`` in place (where JAX uses
+``dynamic_update_slice`` or a scan's new arrays) and returns the same dict.
+The dense GQA and the Mamba1 ``ssm`` families are ported; the others wait
+(ROADMAP Queue 1, LM scaffold item 10.3).
 """
 
 from __future__ import annotations
@@ -26,9 +29,14 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba
 from repro_torch.models.transformer import (apply_decoder_stack,
-                                            init_decoder_stack, unbind_layers)
+                                            apply_ssm_stack,
+                                            init_decoder_stack,
+                                            init_ssm_stack, unbind_layers)
+
+STACKS = {"dense": (init_decoder_stack, apply_decoder_stack),
+          "ssm": (init_ssm_stack, apply_ssm_stack)}
 
 
 def _attn_decode_layer(lp, x, cfg, pos: int, pos_arr, cache_slices):
@@ -62,7 +70,7 @@ class Model:
         if generator.device.type != self.device.type:
             raise ValueError(f"generator on {generator.device}, model on "
                              f"{self.device}")
-        p = {"stack": init_decoder_stack(generator, cfg),
+        p = {"stack": STACKS[cfg.family][0](generator, cfg),
              "final_ln": layers.init_rms(generator, cfg.d_model,
                                          cfg.param_dtype)}
         p["embed"] = layers.init_embed(generator, cfg.vocab_padded,
@@ -86,8 +94,8 @@ class Model:
         """batch {"tokens": (B, S) int} -> (hidden (B, S, D), aux_loss)."""
         x = self._embed_in(params, batch)
         b, s = x.shape[:2]
-        h, aux = apply_decoder_stack(params["stack"], x, self.cfg,
-                                     self._positions(b, s))
+        h, aux = STACKS[self.cfg.family][1](params["stack"], x, self.cfg,
+                                            self._positions(b, s))
         return layers.rms_norm(h, params["final_ln"]), aux
 
     def _unembed(self, params):
@@ -145,6 +153,13 @@ class Model:
     # -- serving -----------------------------------------------------------
     def init_cache(self, b: int, max_seq: int):
         cfg = self.cfg
+        if cfg.family == "ssm":
+            l, di = cfg.n_layers, cfg.d_inner
+            return {"conv": torch.zeros((l, b, cfg.d_conv - 1, di),
+                                        dtype=cfg.compute_dtype,
+                                        device=self.device),
+                    "h": torch.zeros((l, b, di, cfg.ssm_state),
+                                     dtype=torch.float32, device=self.device)}
         shape = (cfg.n_layers, b, max_seq, cfg.n_kv, cfg.d_head)
         return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
                                  device=self.device),
@@ -153,15 +168,19 @@ class Model:
 
     def decode_step(self, params, cache, inputs, pos: int):
         """inputs {"tokens": (B, 1)}; ``pos``: the current absolute position
-        (a Python int). Writes the token's K/V into ``cache`` in place and
-        returns (cache, logits (B, V_padded))."""
-        if not 0 <= pos < cache["k"].shape[2]:
-            raise ValueError(f"pos {pos} outside the cache's "
-                             f"{cache['k'].shape[2]} positions")
+        (a Python int). Writes the token's K/V (or the ssm state) into
+        ``cache`` in place and returns (cache, logits (B, V_padded)). A KV
+        cache holds ``max_seq`` positions; the ssm state any number."""
+        slots = cache["k"].shape[2] if "k" in cache else None
+        if pos < 0 or (slots is not None and pos >= slots):
+            raise ValueError(f"pos {pos} outside the cache's {slots} positions")
         x = self._embed_in(params, inputs)
-        pos_arr = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
-                             device=x.device)
-        x = self._decode_attn_stack(params, cache, x, pos, pos_arr)
+        if self.cfg.family == "ssm":
+            x = self._decode_ssm_stack(params, cache, x)
+        else:
+            pos_arr = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
+                                 device=x.device)
+            x = self._decode_attn_stack(params, cache, x, pos, pos_arr)
         h = layers.rms_norm(x, params["final_ln"])
         return cache, self.logits(params, h)[:, 0]
 
@@ -169,4 +188,14 @@ class Model:
         for i, lp in enumerate(unbind_layers(params["stack"]["layers"])):
             x = _attn_decode_layer(lp, x, self.cfg, pos, pos_arr,
                                    (cache["k"][i], cache["v"][i]))
+        return x
+
+    def _decode_ssm_stack(self, params, cache, x):
+        for i, lp in enumerate(unbind_layers(params["stack"]["layers"])):
+            h = layers.rms_norm(x, lp["ln"])
+            y, (conv_n, h_n) = mamba.mamba1_apply(
+                lp["mamba"], h, self.cfg, state=(cache["conv"][i], cache["h"][i]))
+            cache["conv"][i].copy_(conv_n)
+            cache["h"][i].copy_(h_n)
+            x = x + y
         return x

@@ -1,4 +1,5 @@
-"""Decoder-only layer stack, dense (port of ``repro.models.transformer``).
+"""Decoder-only layer stacks, dense and Mamba1 (port of
+``repro.models.transformer``).
 
 Per-layer parameters are stacked on a leading L axis, as in the JAX
 package, and the ``lax.scan`` over layers becomes a Python loop over that
@@ -11,7 +12,8 @@ and is recomputed in the backward. ``"dots"`` (the JAX package's
 whole layer like ``"full"`` here; the values are the same, only the memory
 and time differ. The sharding constraints have no meaning on one device
 and are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item
-10.3).
+10.3). The ssm stack (falcon-mamba) is a pre-norm residual Mamba1 block a
+layer, under the same remat.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import NOT_PORTED
-from repro_torch.models import attention, layers
+from repro_torch.models import attention, layers, mamba
 
 
 def unbind_layers(tree) -> list:
@@ -65,9 +67,13 @@ def init_decoder_stack(gen: torch.Generator, cfg):
                               for _ in range(cfg.n_layers)])}
 
 
+def _remat(cfg) -> bool:
+    return torch.is_grad_enabled() and cfg.remat != "none"
+
+
 def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
     """-> (x, aux_loss) after every layer of ``p["layers"]`` in turn."""
-    remat = torch.is_grad_enabled() and cfg.remat != "none"
+    remat = _remat(cfg)
     for lp in unbind_layers(p["layers"]):
         if remat:
             x, _ = checkpoint(apply_decoder_layer, lp, x, cfg, positions,
@@ -76,4 +82,30 @@ def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
         else:
             x, _ = apply_decoder_layer(lp, x, cfg, positions, use_moe=False,
                                        causal=causal)
+    return x, 0.0
+
+
+# ---------------------------------------------------------------------------
+# SSM stack (falcon-mamba)
+# ---------------------------------------------------------------------------
+
+def init_ssm_stack(gen: torch.Generator, cfg):
+    return {"layers": _stack([
+        {"ln": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
+         "mamba": mamba.init_mamba1(gen, cfg)} for _ in range(cfg.n_layers)])}
+
+
+def apply_ssm_layer(lp, x, cfg):
+    h = layers.rms_norm(x, lp["ln"])
+    y, _ = mamba.mamba1_apply(lp["mamba"], h, cfg)
+    return x + y
+
+
+def apply_ssm_stack(p, x, cfg, positions=None):
+    """-> (x, aux_loss 0.0) after every Mamba1 layer in turn; ``positions``
+    is unused (the reference's signature)."""
+    remat = _remat(cfg)
+    for lp in unbind_layers(p["layers"]):
+        x = (checkpoint(apply_ssm_layer, lp, x, cfg, use_reentrant=False)
+             if remat else apply_ssm_layer(lp, x, cfg))
     return x, 0.0

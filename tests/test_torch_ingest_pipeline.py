@@ -595,9 +595,10 @@ def test_latest_cache_identical_on_meshes(mesh_name):
 def test_port_imports_neither_jax_nor_the_reference():
     """``repro_torch.ingest``, the session, ``repro_torch.chaos``, the
     federated runtime, the two-process smoke, every example under
-    ``repro_torch.examples`` and the static-analysis package
-    ``repro_torch.analysis`` (its three layers), imported in a fresh
-    interpreter, bring in no module of JAX or of the JAX package."""
+    ``repro_torch.examples``, the static-analysis package
+    ``repro_torch.analysis`` (its three layers), the Mamba1 blocks
+    ``repro_torch.models.mamba`` and falcon-mamba-7b's config, imported in
+    a fresh interpreter, bring in no module of JAX or of the JAX package."""
     src = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                        "src")
     code = ("import sys; import repro_torch.ingest, repro_torch.api.session, "
@@ -605,6 +606,7 @@ def test_port_imports_neither_jax_nor_the_reference():
             "repro_torch.launch.mesh, repro_torch.launch.multihost_smoke, "
             "repro_torch.analysis.lint, repro_torch.analysis.retrace, "
             "repro_torch.analysis.collective_contract, "
+            "repro_torch.models.mamba, repro_torch.configs.falcon_mamba_7b, "
             "pkgutil, importlib, repro_torch.examples; "
             "names = [m.name for m in pkgutil.iter_modules("
             "repro_torch.examples.__path__)]; "

@@ -38,7 +38,11 @@ card. ``-k examples`` runs the six ported datastore and serving examples
 (``repro_torch.examples``) on the card against their CPU runs. ``-k
 analysis`` runs the static-analysis counters on the card: the kernel
 builds of two child processes over one empty build directory, and the two
-sync counters side by side with a planted ``.item()``.
+sync counters side by side with a planted ``.item()``. ``-k ssm`` runs
+falcon-mamba-7b's smoke model (plain torch ops, no kernel) in fp32 on the
+card against float64 on the CPU; ``-k sampling`` the threefry draws and
+``categorical`` on the card against the CPU (bf16 bitwise) and the sampled
+Engine's ids per seed.
 """
 
 import numpy as np
@@ -1927,3 +1931,113 @@ def test_analysis_sync_counters_side_by_side(cuda):
     assert b["syncs"] == a["syncs"] + 2 and b["ops"]["item"] == 2, (a, b)
     assert b["sync_debug"] >= a["sync_debug"] + 2, (a, b)
     assert b["launches"] == a["launches"] and sum(a["launches"].values()) > 0
+
+
+# ---------------------------------------------------------------------------
+# The Mamba1 family and temperature sampling (plain torch ops on the card,
+# held to the CPU): ``-k ssm``, ``-k sampling``.
+# ---------------------------------------------------------------------------
+
+def test_ssm_smoke_model_on_card_matches_cpu(cuda):
+    """falcon-mamba-7b's smoke model (4 layers, d_inner 256, state 8, chunk
+    16) in fp32 on the card, forward on 2 x 64 tokens bitwise the same twice
+    and 40 decode steps, within SMOKE_F64_TOL of the same weights in
+    float64 on one CPU thread (the scan in float32, as the reference pins
+    it); no flash launch."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("falcon-mamba-7b")).replace(
+        compute_dtype_str="float32")
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    cparams = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    before = fops.launches
+    h_card, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    again, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    assert torch.equal(h_card, again)
+    cg = card.init_cache(2, 64)
+    for t in range(40):
+        cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(cuda)}, t)
+    assert fops.launches == before
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        h_ref, _ = f64.forward(params, {"tokens": toks})
+        cr = f64.init_cache(2, 64)
+        for t in range(40):
+            cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+    finally:
+        torch.set_num_threads(threads)
+    tol = dict(rtol=SMOKE_F64_TOL, atol=SMOKE_F64_TOL)
+    torch.testing.assert_close(h_card.cpu().double(), h_ref, **tol)
+    torch.testing.assert_close(lg.cpu().double(), lr, **tol)
+    assert cg["h"].dtype == torch.float32 and cg["conv"].dtype == torch.float32
+
+
+def test_sampling_draws_on_card_match_cpu(cuda):
+    """8- and 16-bit bits and bf16 uniforms bitwise; bf16 gumbels bitwise
+    over 2^20 draws (each bf16 ``log`` lies far from a rounding midpoint);
+    float32 gumbels within 1e-5 (``log`` in ulps)."""
+    from repro_torch.core import threefry
+    key = threefry.fold_in(threefry.key(0), 3)
+    for width in (8, 16):
+        got = threefry.random_bits(key, (1 << 20,), device=cuda, width=width)
+        assert torch.equal(got.cpu(), threefry.random_bits(key, (1 << 20,), "cpu", width))
+    for fn in (threefry.uniform, threefry.gumbel):
+        got = fn(key, (1 << 20,), device=cuda, dtype=torch.bfloat16)
+        want = fn(key, (1 << 20,), device="cpu", dtype=torch.bfloat16)
+        assert torch.equal(got.cpu().view(torch.int16), want.view(torch.int16)), fn
+    torch.testing.assert_close(threefry.gumbel(key, (1 << 20,), device=cuda).cpu(),
+                               threefry.gumbel(key, (1 << 20,), device="cpu"),
+                               rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_sampling_categorical_on_card_matches_cpu(cuda, dtype):
+    """``categorical`` on the same logits (8 x 92672, internlm2-1.8b's
+    padded vocab) on the card and the CPU: every row equal in bf16
+    (bitwise gumbels); in float32 every row whose perturbed top-2 gap
+    exceeds 1e-5."""
+    from repro_torch.core import threefry
+    rng = np.random.default_rng(11)
+    for step in range(4):
+        logits = torch.from_numpy(rng.standard_normal((8, 92672)).astype(np.float32) * 3
+                                  ).to(dtype)
+        key = threefry.fold_in(threefry.key(step), step)
+        got = threefry.categorical(key, logits.to(cuda))
+        assert got.device.type == cuda.type and got.dtype == torch.int32
+        want = threefry.categorical(key, logits)
+        if dtype == torch.bfloat16:
+            assert torch.equal(got.cpu(), want)
+            continue
+        p = threefry.gumbel(key, logits.shape, "cpu") + logits
+        top2 = torch.topk(p, 2, dim=-1).values
+        held = (top2[:, 0] - top2[:, 1]) > 1e-5
+        assert torch.equal(got.cpu()[held], want[held])
+
+
+@pytest.mark.parametrize("arch", ["internlm2-1.8b", "falcon-mamba-7b"])
+def test_sampling_ids_repeat_per_seed(cuda, arch):
+    """The sampled Engine on the card (smoke size, bf16 compute): the same
+    seed gives the same ids, another seed other ids, and the decode kernel
+    launches as often as in the greedy run (none for the ssm family)."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduce_for_smoke(get_config(arch))
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab, (4, 12)).astype(np.int32)
+
+    def run(**kw):
+        before = fops.launches_by_variant["decode"]
+        ids = Engine(model, params, ServeConfig(max_new_tokens=24, max_seq=64, **kw)
+                     ).generate(prompts)
+        return ids, fops.launches_by_variant["decode"] - before
+    greedy, n_greedy = run()
+    a, n_a = run(temperature=0.7, seed=0)
+    b, _ = run(temperature=0.7, seed=0)
+    c, _ = run(temperature=0.7, seed=1)
+    assert np.array_equal(a, b) and not np.array_equal(a, c)
+    assert not np.array_equal(a, greedy)
+    assert n_a == n_greedy == (cfg.n_layers * 36 if cfg.family == "dense" else 0)

@@ -397,7 +397,8 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="10.3"):
         get_config("grok-1-314b")
     cfg = reduce_for_smoke(get_config("internlm2-1.8b"))
+    mamba = reduce_for_smoke(get_config("falcon-mamba-7b"))
     for bad in (cfg.replace(mrope=True), cfg.replace(family="moe"),
-                cfg.replace(family="ssm")):
+                cfg.replace(family="hybrid"), mamba.replace(ssm_version=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(bad, device="cpu")
