@@ -112,11 +112,12 @@ Phases, one line each:
   5. flash_attention's three kernels against their plain version (fp32 at
      the JAX package's test shapes, decode rows and ragged sizes, at d 128
      and 160, to 2e-5, through the mma_sync kernel; bf16 at the serve
-     shapes of internlm2-1.8b (d 128), stablelm-12b (d 160) and
-     deepseek-7b (d 128, GQA group 1), decode rows of 256 and 4096 slots,
-     a GQA group of 5 and ragged d-128 and d-160 cases, to 1e-2, through
-     the sm90, decode and mma_sync kernels, each forced and as the wrapper
-     chooses; the decode kernel also bitwise repeatable); both backward
+     shapes of internlm2-1.8b (d 128), stablelm-12b (d 160), zamba2-1.2b
+     (d 64, GQA group 1) and deepseek-7b (d 128, GQA group 1), decode rows
+     of 256 and 4096 slots, a GQA group of 5 and ragged d-64, d-128 and
+     d-160 cases, to 1e-2, through the sm90, decode and mma_sync kernels,
+     each forced and as the wrapper chooses; the sm90 and decode kernels
+     also bitwise repeatable); both backward
      kernels against their plain version (``flash_bwd_vs_plain``: the one
      the wrapper picks at d 32, 64, 128 and 160, fp32 to 2e-5 and bf16 to
      2e-2 of each gradient's largest magnitude, GQA groups 1 and 2 and 16
@@ -124,11 +125,12 @@ Phases, one line each:
      lengths; at bf16 d 128 also the sm90 and the mma_sync backward forced,
      with 1024-row cases of groups 1 and 8 and a q_offset of 1024 over
      1536 keys; a second call bitwise);
-  6. the LM serving path at full width, three times: internlm2-1.8b (24 layers,
-     d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
-     92544; weights drawn in fp32, the engine's copy in bf16), then
-     stablelm-12b (40 layers, d_model 5120, 32 query heads over 8 KV
-     heads, d_head 160, d_ff 13824, vocab 100352: 12.14 B parameters,
+  6. the LM serving path at full width, four times: internlm2-1.8b
+     (d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
+     92544, the depth cut to 12 of its 24 layers; weights drawn in fp32,
+     the engine's copy in bf16), then
+     stablelm-12b (d_model 5120, 32 query heads over 8 KV heads, d_head
+     160, d_ff 13824, vocab 100352, the depth cut to 10 of its 40 layers;
      drawn in bf16 so that the engine copies nothing; internlm2's engine
      freed first), then falcon-mamba-7b (below), random weights from a
      seeded generator on the card, bf16
@@ -146,15 +148,24 @@ Phases, one line each:
      the card (bitwise) and on the CPU (equal wherever the perturbed top-2
      gap exceeds 2 ulps; the rows within it counted), and the device ms
      and host µs a pick adds over argmax; then the ssm family:
-     falcon-mamba-7b (Mamba1, attention-free: 64 layers, d_model 4096,
-     d_inner 8192, state 16, vocab 65024; 7.27 B parameters drawn in bf16,
-     ``a_log`` float32) through the same ``serve`` with no flash launch:
+     falcon-mamba-7b (Mamba1, attention-free: d_model 4096, d_inner 8192,
+     state 16, vocab 65024, the depth cut to 16 of its 64 layers; drawn
+     in bf16, ``a_log`` float32) through the same
+     ``serve`` with no flash launch:
      ``prefill_step`` on 8 x 2048 tokens (with the plain scan's time at
      one layer's shape and its share of the prefill), ``Engine.generate``
      greedy twice and sampled once (lines ``serve_falcon_prefill`` /
-     ``serve_falcon_generate``); then ``ssm_vs_cpu``: its smoke model in
-     fp32 on the card (forward bitwise twice, 40 decode steps) against
-     float64 on the CPU to 2e-5; then the training path (line ``train``):
+     ``serve_falcon_generate``); then the hybrid family: zamba2-1.2b
+     (38 Mamba2 layers and one shared attention + MLP block after every
+     6th, d_model 2048, 32 heads over 32 at d 64, vocab 32000; 1.2 B
+     parameters drawn in bf16) through the same ``serve``: 6 sm90
+     launches a prefill, 6 decode launches a step, the plain SSD's time at
+     one layer's shape and its share of the prefill, the prefill's FLOP
+     bound from the model's matmuls (lines ``serve_zamba_prefill`` /
+     ``serve_zamba_generate``); then ``ssm_vs_cpu`` and ``hybrid_vs_cpu``:
+     each family's smoke model in fp32 on the card (forward bitwise twice,
+     40 decode steps; the hybrid's shared block on the mma_sync kernel)
+     against float64 on the CPU to 2e-5; then the training path (line ``train``):
      internlm2-1.8b at full width (fp32 params, bf16 compute, remat
      "full", AdamW with bf16 moments, 2 microbatches), 1 warm-up and 3
      timed steps on batches of 8 x 4096 tokens that ``AerialPipeline``
@@ -195,11 +206,12 @@ Phases, one line each:
      computes the same function (also in the kernels line);
   7. flash_attention timings at each serve path's prefill shape (sm90 and
      mma_sync, both forced) and at two decode shapes, 192 of 256 slots and
-     4096 of 4096 (decode and mma_sync, both forced), at d 128 and at d
-     160, each beside SDPA and the bytes or operations bound, the profiles
-     each device time took, and the kernels' timings printed as one JSON
-     line (the three flash kernels once at d 128 and once at d 160, with
-     ``_d160`` names); both backward kernels, forced and in turns, at one
+     4096 of 4096 (decode and mma_sync, both forced), at d 128, at d 160
+     and at d 64 (zamba2-1.2b's 32 heads over 32), each beside SDPA and the
+     bytes or operations bound, the profiles each device time took, and the
+     kernels' timings printed as one JSON line (the three flash kernels
+     once at each head dim, with ``_d160`` and ``_d64`` names); both
+     backward kernels, forced and in turns, at one
      microbatch of the train phase (4 x 4096, 16 heads over 8, d 128,
      causal, bf16), each by its own kernels' names, beside SDPA's backward,
      the plain version and the FLOP bound (``flash_timings.bwd``, the
@@ -258,6 +270,14 @@ CHAOS_SMOKE = ((0, "fail_edges", ((6,),)),
                (3, "recover_edges", ((6,),)))
 SERVE_ARCH = "internlm2-1.8b"
 SERVE_D160_ARCH = "stablelm-12b"   # the serve path at head dim 160
+# Depth cuts that keep the script within its time as paths were added,
+# each model at full width: internlm2-1.8b is served with 12 of its 24
+# layers, stablelm-12b with 10 of its 40 and falcon-mamba-7b with 16 of
+# its 64 (a serve's prefill, decode steps and generates take time in
+# proportion to its layers). The training path keeps internlm2's 24.
+SERVE_LAYERS = 12
+SERVE_D160_LAYERS = 10
+SERVE_SSM_LAYERS = 16
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 256
@@ -302,14 +322,15 @@ TRAIN_GRAD_BF16_TOL = 5e-2
 # tensors the model passed them: the first call and the 24th.
 TRAIN_BWD_HELD = (0, 23)
 # Engine logits after the last prompt token vs prefill_step's, bf16 through
-# 24 layers: the two round activations at different matmul shapes, so
+# a dense serve's layers: the two round activations at different matmul shapes, so
 # they agree to a fraction of the logits' unit spread, not bitwise.
 PREFILL_DECODE_TOL = 0.5
 # The ssm family's serve path: falcon-mamba-7b (Mamba1, attention-free) at
 # full width, bf16 weights.
 SERVE_SSM_ARCH = "falcon-mamba-7b"
 # Its bf16 run cannot be held to PREFILL_DECODE_TOL at the largest logit:
-# 64 random Mamba1 layers amplify the rounding in which the chunked scan
+# deep stacks of random Mamba1 layers (64 in its config, SERVE_SSM_LAYERS
+# served here) amplify the rounding in which the chunked scan
 # and the step-by-step decode differ, in the JAX package itself
 # (tests/test_torch_mamba.py::test_bf16_deep_stack_parts_at_the_largest_logit:
 # its forward against its decode at d_model 128 x 64 layers in bf16, up to
@@ -335,11 +356,39 @@ SAMPLE_SEEDS = (0, 0, 1)
 # SSM_F64_TOL (test_smoke_model_on_card_matches_cpu's bound).
 SSM_DECODE_STEPS = 40
 SSM_F64_TOL = 2e-5
+# The hybrid family's serve path: zamba2-1.2b at full width, bf16 weights;
+# its shared attention block is the sm90 kernel's d 64 case. Its bf16 run
+# parts at the largest logit too: 1.04 from prefill_step's through 38
+# Mamba2 layers and 6 shared-block sites on an H100, and in the JAX
+# package's own bf16 forward against its decode
+# (tests/test_torch_hybrid.py::test_bf16_deep_hybrid_parts_at_the_largest_logit),
+# so it is held as the ssm family is, to its own mean limit
+# HYBRID_PREFILL_DECODE_MEAN_TOL: the sound run's mean gap read 0.169 on an
+# H100 80GB HBM3 at 700 W, and a decode that loses only its scan state `h`
+# in its last SSM_CONTROL_STEPS steps 1.002, which must exceed the limit
+# (so must the control that zeroes every cache leaf, K/V slots too: 1.127);
+# and
+# fp32 at full width with the depth cut to HYBRID_F32_CUT_LAYERS: one group
+# of six Mamba2 layers, the shared block, and a last layer after it (the
+# trailing group the full stack ends with).
+SERVE_HYBRID_ARCH = "zamba2-1.2b"
+HYBRID_PREFILL_DECODE_MEAN_TOL = 0.25
+HYBRID_F32_CUT_LAYERS = 7
 # A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
 # `visit`): FMUL, FMUL, FADD, FMUL by 2, FADD, then FSETP, FSEL, SEL. A
 # static count, read by hand in the kernel's SASS, not measured in a run.
 VISIT_INSTRUCTIONS = 8
 VORONOI_SOURCE = Path(__file__).resolve().parent / "src/repro_torch/csrc/voronoi_assign.cu"
+# Profiles a device_ms call takes before it gives up on the profiler. Late
+# in a run the card's profiles record no device activity at all more often
+# (calls 35-56 of a run needed a second or third; a d 64 timing found none
+# in three, SDPA's at d 64 none in six, on an H100 80GB HBM3 at 700 W). A
+# call whose profiles all recorded nothing on the device times ``fn`` with
+# CUDA events instead (DEVICE_MS_EVENTS); one whose profiles saw the
+# device but not its kernel fails.
+DEVICE_MS_TRIES = 3
+# Indices of the device_ms calls timed by CUDA events.
+DEVICE_MS_EVENTS: list[int] = []
 # Profiles taken by each device_ms call, in call order (more than one: a
 # profile recorded no device time for the kernel and was taken again).
 DEVICE_MS_PROFILES: list[int] = []
@@ -396,19 +445,24 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
     mean time a launch times its launches a call. Means are taken over the
     launches the profile recorded, which may be fewer than were made (a
     profile can drop records); the shortfall is kept in
-    DEVICE_MS_RECORDED. Exits non-zero when no such kernel ran in three
-    profiles; appends the profiles it took to DEVICE_MS_PROFILES."""
+    DEVICE_MS_RECORDED. When none of DEVICE_MS_TRIES profiles recorded any
+    device time, the mean time of a call on the stream (CUDA events;
+    every kernel of ``fn``), and its index goes to DEVICE_MS_EVENTS. Exits
+    non-zero when the profiles saw the device but no such kernel; appends
+    the profiles it took to DEVICE_MS_PROFILES."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     fn()
     torch.cuda.synchronize()
-    for taken in range(1, 4):   # now and then a profile records no device activity
+    seen = False
+    for taken in range(1, DEVICE_MS_TRIES + 1):   # a profile may record no device activity
         with tprofile(activities=[ProfilerActivity.CPU,
                                   ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        rows = [(t, n) for t, n, key in _device_rows(torch, prof)
-                if n and (match is None or match in key)]
+        every = [(t, n, key) for t, n, key in _device_rows(torch, prof) if n and t > 0]
+        seen = seen or bool(every)
+        rows = [(t, n) for t, n, key in every if match is None or match in key]
         us = sum(t for t, _ in rows)
         if us > 0:
             DEVICE_MS_PROFILES.append(taken)
@@ -418,7 +472,12 @@ def device_ms(torch, fn, iters: int, match: str | None = None) -> float:
                 return us / n / 1e3
             DEVICE_MS_RECORDED.append((min(n for _, n in rows), iters))
             return sum(t / n * max(1, round(n / iters)) for t, n in rows) / 1e3
-    raise SystemExit(f"device_ms: no device time for kernel {match!r}")
+    if seen:
+        raise SystemExit(f"device_ms: no device time for kernel {match!r}")
+    DEVICE_MS_EVENTS.append(len(DEVICE_MS_PROFILES))
+    DEVICE_MS_PROFILES.append(DEVICE_MS_TRIES)
+    DEVICE_MS_RECORDED.append((iters, iters))
+    return cuda_ms(torch, fn, iters)
 
 
 def profile(torch, fn, top: int = 12, host_top: int = 0, kernels=()) -> dict:
@@ -488,8 +547,13 @@ def voronoi_visits(torch, vor_ops, lat, lon, sites) -> dict:
             "issued": float((warp * real.sum(1)).sum() / n), "ahead": ahead}
 
 
+START_S = time.perf_counter()
+
+
 def phase(name: str, **fields) -> None:
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    """One result line; ``t_s`` is the script's wall seconds when it ends."""
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": time.perf_counter() - START_S}), flush=True)
 
 
 def exact_checks(results, batches, specs, flat) -> tuple:
@@ -2487,10 +2551,11 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
     """flash_attention's kernels against their plain version on the card:
     fp32 at the JAX package's kernel-test shapes, decode rows and a ragged
     size (to FLASH_F32_TOL), bf16 at the serve shapes of internlm2-1.8b
-    (d 128), stablelm-12b (d 160) and deepseek-7b (d 128, GQA group 1),
-    decode rows and ragged cases (to FLASH_BF16_TOL), each bf16 case
-    through the kernel the wrapper chooses and through every kernel that
-    takes it, forced; the decode kernel twice, bitwise. Exits non-zero on
+    (d 128), stablelm-12b (d 160), zamba2-1.2b (d 64, GQA group 1) and
+    deepseek-7b (d 128, GQA group 1), decode rows and ragged cases (to
+    FLASH_BF16_TOL), each bf16 case through the kernel the wrapper chooses
+    and through every kernel that takes it, forced; the sm90 and decode
+    kernels twice, bitwise. Exits non-zero on
     any mismatch or on a call that went to another kernel than expected;
     returns the largest errors by dtype, by bf16 kernel, and by bf16
     kernel and head dim (``bfloat16_<kernel>_d<d>``)."""
@@ -2526,7 +2591,11 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                   (SERVE_BATCH, 1, LONG_SEQ, 32, 8, 160, True, LONG_SEQ - 1),
                   # deepseek-7b: 32 heads over 32 (GQA group 1), d 128
                   (2, 1, MAX_SEQ, 32, 32, 128, True, 191),
-                  (1, PREFILL_LEN, PREFILL_LEN, 32, 32, 128, True, 0)]
+                  (1, PREFILL_LEN, PREFILL_LEN, 32, 32, 128, True, 0),
+                  # zamba2-1.2b's shared block: 32 heads over 32, d 64
+                  (SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 32, 32, 64, True, 0),
+                  (2, 77, 131, 4, 2, 64, True, 54),     # ragged, d 64
+                  (SERVE_BATCH, 1, MAX_SEQ, 32, 32, 64, True, 191)]
     errs = {}
     n_calls = 0
     for dtype, cases, tol in ((torch.float32, f32_cases, FLASH_F32_TOL),
@@ -2554,9 +2623,10 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                 if bad or not torch.isfinite(got).all():
                     raise SystemExit(f"flash_attention {dtype} {ran} {case}: {bad} "
                                      f"elements beyond {tol}, max err {float(err.max())}")
-                if ran == "decode" and not torch.equal(got, fops.flash_attention_cuda(
-                        q, k, v, causal=causal, q_offset=off, variant="decode")):
-                    raise SystemExit(f"flash_attention decode {case}: a second "
+                if ran in ("decode", "sm90") and not torch.equal(
+                        got, fops.flash_attention_cuda(q, k, v, causal=causal,
+                                                       q_offset=off, variant=ran)):
+                    raise SystemExit(f"flash_attention {ran} {case}: a second "
                                      "call gave other bits")
                 worst = max(worst, float(err.max()))
                 if dtype == torch.bfloat16:
@@ -2572,7 +2642,7 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
 
 def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
           param_dtype: str = "float32", tag: str = "serve",
-          sample_seeds: tuple = ()) -> dict:
+          sample_seeds: tuple = (), layers: int | None = None) -> dict:
     """The LM serving path of ``arch`` at full width: prefill_step, then
     Engine.generate twice, as the lines ``<tag>_prefill`` and
     ``<tag>_generate``, then sampled at SAMPLE_TEMPERATURE once per seed of
@@ -2580,14 +2650,17 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     ``serve_sampled``, else under ``sampled`` in the generate line).
     ``param_dtype`` is the dtype the weights are drawn in: "float32" (the
     engine casts a bf16 copy) or "bfloat16" (the engine's cast copies
-    nothing). An attention model launches the sm90 kernel at every prefill
-    layer and the decode kernel at every decode layer; the ssm family none
-    (its prefill line also times the plain scan at one layer's shape).
-    Returns the flash launch counts of these runs by kernel; the model and
-    its weights are freed on return."""
+    nothing). ``layers`` cuts the depth (None: the config's own). A dense
+    model launches the sm90 kernel at every prefill
+    layer and the decode kernel at every decode layer; the hybrid family at
+    every site of its shared block; the ssm family none (its prefill line
+    also times the plain scan at one layer's shape, the hybrid's the plain
+    SSD). Returns the flash launch counts of these runs by kernel; the
+    model and its weights are freed on return."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models.model import Model
+    from repro_torch.models.transformer import hybrid_attn_sites
     from repro_torch.serve.engine import Engine, ServeConfig
     from repro_torch.train.train_loop import make_serve_steps
 
@@ -2621,15 +2694,21 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
 
     phase_t0 = time.perf_counter()
     cfg = get_config(arch).replace(param_dtype_str=param_dtype)
+    full_layers = cfg.n_layers
+    if layers is not None:
+        cfg = cfg.replace(n_layers=layers)
     model = Model(cfg, device=dev)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     n_params = sum(int(x.numel()) for x in _leaves(params))
-    attn = cfg.family != "ssm"        # the ssm family launches no flash kernel
+    # flash calls a forward: one a layer, one a site of the hybrid's shared
+    # block, none in the ssm family
+    attn = {"dense": cfg.n_layers, "hybrid": len(hybrid_attn_sites(cfg))}.get(cfg.family, 0)
+    recurrent = cfg.family != "dense"  # a scan state the control can lose
     engine = TimedEngine(model, params, ServeConfig(
         max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ),
-        snapshot_at=None if attn else PROMPT_LEN - SSM_CONTROL_STEPS)
+        snapshot_at=PROMPT_LEN - SSM_CONTROL_STEPS if recurrent else None)
     del params                      # the engine keeps the bf16 weights
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2658,7 +2737,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
         times.append(a.elapsed_time(b))
     prefill_launches = fops.launches
     prefill_by_variant = dict(fops.launches_by_variant)
-    if prefill_launches != 4 * cfg.n_layers * attn or not torch.isfinite(lg).all() \
+    if prefill_launches != 4 * attn or not torch.isfinite(lg).all() \
             or lg.shape != (SERVE_BATCH, cfg.vocab_padded) \
             or prefill_by_variant["sm90"] != prefill_launches:
         raise SystemExit(f"{tag} prefill: {prefill_launches} flash launches "
@@ -2666,12 +2745,25 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
                          f"finite={bool(torch.isfinite(lg).all())}")
     ms = float(np.median(times))
     family = {"family": cfg.family}
-    if not attn:
+    if cfg.family == "ssm":
         family.update(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
                       ssm_chunk=cfg.ssm_chunk, ssm_scan=cfg.ssm_scan,
                       **scan_share(torch, model, eparams, long_prompts, ms))
+    if cfg.family == "hybrid":
+        # the bound: the bf16 products at the tensor cores' peak, the SSD's
+        # float32 ones (the reference pins them to float32) at float32's
+        flops = hybrid_prefill_flops(cfg, SERVE_BATCH, PREFILL_LEN)
+        bound_s = (flops["total"] - flops["ssd_fp32"]) / BF16_FLOP_PER_S \
+            + flops["ssd_fp32"] / FP32_FLOP_PER_S
+        family.update(d_inner=cfg.d_inner, ssm_state=cfg.ssm_state,
+                      ssm_headdim=cfg.ssm_headdim, ssm_chunk=cfg.ssm_chunk,
+                      attn_sites=hybrid_attn_sites(cfg), prefill_flops=flops,
+                      prefill_bound_ms=bound_s * 1e3,
+                      prefill_bound_tokens_per_s=SERVE_BATCH * PREFILL_LEN / bound_s,
+                      **ssd_share(torch, model, eparams, long_prompts, ms))
     phase(f"{tag}_prefill", arch=arch, params=n_params, **family,
-          n_layers=cfg.n_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
+          n_layers=cfg.n_layers, config_n_layers=full_layers,
+          d_model=cfg.d_model, n_heads=cfg.n_heads,
           n_kv=cfg.n_kv, d_head=cfg.d_head, param_dtype=param_dtype,
           weight_gb=weight_bytes / 1e9,
           batch=SERVE_BATCH, seq=PREFILL_LEN, init_s=init_s,
@@ -2692,7 +2784,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     wall = time.perf_counter() - w0
     gen_launches = fops.launches
     gen_by_variant = dict(fops.launches_by_variant)
-    want_launches = cfg.n_layers * (PROMPT_LEN + NEW_TOKENS) * attn
+    want_launches = attn * (PROMPT_LEN + NEW_TOKENS)
     if gen_launches != want_launches or gen_by_variant["decode"] != want_launches:
         raise SystemExit(f"{tag} generate: {gen_launches} flash launches "
                          f"({gen_by_variant}), expected {want_launches} "
@@ -2709,18 +2801,33 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     max_diff = float(diff[:, :cfg.vocab].max())
     agree = int((engine.prompt_logits.argmax(-1) == ref_logits.argmax(-1)).sum())
     peak = torch.cuda.max_memory_allocated() / 2**30
-    if attn:
+    state_bytes = {}
+    if recurrent:     # the scan state a decode step reads and writes
+        state_bytes = {"decode_step_state_bytes": 2 * sum(
+            int(engine.snapshot[k].numel()) * engine.snapshot[k].element_size()
+            for k in ("conv", "h"))}
+        state_bytes["decode_step_bytes_bound_with_state_ms"] = \
+            (weight_bytes + state_bytes["decode_step_state_bytes"]) / HBM_BYTES_PER_S * 1e3
+    if cfg.family == "dense":
         held = {"prefill_vs_decode_tol": PREFILL_DECODE_TOL}
         ok = max_diff <= PREFILL_DECODE_TOL
     else:
+        ssm = cfg.family == "ssm"
+        tol = SSM_PREFILL_DECODE_MEAN_TOL if ssm else HYBRID_PREFILL_DECODE_MEAN_TOL
+        # the controls: the scan state lost, and for the hybrid also every
+        # cache leaf (its K/V slots carry the prompt past a lost state)
+        controls = [ssm_control(torch, model, eparams, engine.snapshot, prompts,
+                                ref_logits, lost)
+                    for lost in ((("h",),) if ssm else (("h",), tuple(engine.snapshot)))]
         held = {"prefill_vs_decode_tol": None,
                 "prefill_vs_decode_mean_abs_diff": float(diff[:, :cfg.vocab].mean()),
-                "prefill_vs_decode_mean_tol": SSM_PREFILL_DECODE_MEAN_TOL,
-                "control_mean_abs_diff": ssm_control(
-                    torch, model, eparams, engine.snapshot, prompts, ref_logits),
-                "fp32_cut": ssm_fp32_cut(torch, dev, seed, arch, prompts)}
-        ok = held["prefill_vs_decode_mean_abs_diff"] <= SSM_PREFILL_DECODE_MEAN_TOL \
-            < held["control_mean_abs_diff"] \
+                "prefill_vs_decode_mean_tol": tol,
+                "control_mean_abs_diff": controls[0],
+                "fp32_cut": ssm_fp32_cut(torch, dev, seed, arch, prompts,
+                                         SSM_F32_CUT_LAYERS if ssm else HYBRID_F32_CUT_LAYERS)}
+        if not ssm:
+            held["control_all_leaves_mean_abs_diff"] = controls[1]
+        ok = held["prefill_vs_decode_mean_abs_diff"] <= tol < min(controls) \
             and held["fp32_cut"]["max_abs_diff"] <= SSM_F32_PREFILL_DECODE_TOL
     again = engine.generate(prompts)
     deterministic = bool(np.array_equal(ids, again))
@@ -2745,6 +2852,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
           decode_step_ms_min_max=[float(min(step_ms[PROMPT_LEN:])),
                                   float(max(step_ms[PROMPT_LEN:]))],
           decode_step_bytes_bound_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+          **state_bytes,
           generated_tokens_per_s=SERVE_BATCH * NEW_TOKENS / (decode_ms / 1e3),
           peak_mem_gb=peak, flash_launches=gen_launches,
           flash_by_variant=gen_by_variant,
@@ -2774,30 +2882,32 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     return out
 
 
-def ssm_control(torch, model, eparams, snapshot, prompts, ref_logits) -> float:
+def ssm_control(torch, model, eparams, snapshot, prompts, ref_logits,
+                lost=("h",)) -> float:
     """The ssm check's control: the engine's last SSM_CONTROL_STEPS prompt
-    steps again from its cache before them (``snapshot``), the scan state
-    zeroed before each step; the mean gap of the logits after the prompt
-    to ``prefill_step``'s."""
+    steps again from its cache before them (``snapshot``, left as it is),
+    the cache leaves ``lost`` zeroed before each step; the mean gap of the
+    logits after the prompt to ``prefill_step``'s."""
     toks = torch.from_numpy(prompts).to(ref_logits.device)
-    cache = snapshot
+    cache = {k: v.clone() for k, v in snapshot.items()}
     for pos in range(PROMPT_LEN - SSM_CONTROL_STEPS, PROMPT_LEN):
-        cache["h"].zero_()
+        for leaf in lost:
+            cache[leaf].zero_()
         cache, lg = model.decode_step(eparams, cache,
                                       {"tokens": toks[:, pos:pos + 1]}, pos)
     vocab = model.cfg.vocab
     return float((lg.float() - ref_logits.float())[:, :vocab].abs().mean())
 
 
-def ssm_fp32_cut(torch, dev, seed: int, arch: str, prompts) -> dict:
-    """``arch`` at full width in fp32 with SSM_F32_CUT_LAYERS layers (random
-    weights from ``seed``): ``prefill_step`` on the prompts against
-    ``decode_step`` over them, the largest logit gap after the last token."""
+def ssm_fp32_cut(torch, dev, seed: int, arch: str, prompts,
+                 layers: int = SSM_F32_CUT_LAYERS) -> dict:
+    """``arch`` at full width in fp32 with ``layers`` layers (random weights
+    from ``seed``): ``prefill_step`` on the prompts against ``decode_step``
+    over them, the largest logit gap after the last token."""
     from repro_torch.configs.base import get_config
     from repro_torch.models.model import Model
     from repro_torch.train.train_loop import make_serve_steps
-    cfg = get_config(arch).replace(n_layers=SSM_F32_CUT_LAYERS,
-                                   compute_dtype_str="float32")
+    cfg = get_config(arch).replace(n_layers=layers, compute_dtype_str="float32")
     model = Model(cfg, device=dev)
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     toks = torch.from_numpy(prompts).to(dev)
@@ -2805,7 +2915,7 @@ def ssm_fp32_cut(torch, dev, seed: int, arch: str, prompts) -> dict:
     cache = model.init_cache(toks.shape[0], PROMPT_LEN)
     for pos in range(PROMPT_LEN):
         cache, lg = model.decode_step(params, cache, {"tokens": toks[:, pos:pos + 1]}, pos)
-    return {"layers": SSM_F32_CUT_LAYERS, "tol": SSM_F32_PREFILL_DECODE_TOL,
+    return {"layers": layers, "tol": SSM_F32_PREFILL_DECODE_TOL,
             "max_abs_diff": float((lg - ref)[:, :cfg.vocab].abs().max()),
             "logits_std": float(ref[:, :cfg.vocab].std())}
 
@@ -2833,6 +2943,64 @@ def scan_share(torch, model, eparams, tokens, prefill_ms: float) -> dict:
             "scan_share_of_prefill": cfg.n_layers * ms / prefill_ms,
             "scan_bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
             "scan_shape": list(dt.shape) + [cfg.ssm_state]}
+
+
+def hybrid_prefill_flops(cfg, b: int, s: int) -> dict:
+    """FLOP of a hybrid ``prefill_step`` on b x s tokens, from the model's
+    products: each Mamba2 layer's in_proj and out_proj (bf16) and its SSD's
+    four chunked products (float32: C B^T and its product with x dt, both
+    over the causal half of a chunk's q x q scores, as attention's are
+    counted; the chunk's state gain and the carried state's read-out); the
+    shared
+    block's projections, MLP and causal attention once a site; the
+    unembedding of the last position."""
+    from repro_torch.models.transformer import hybrid_attn_sites
+    t, d, di = b * s, cfg.d_model, cfg.d_inner
+    n, g, p = cfg.ssm_state, cfg.n_groups, cfg.ssm_headdim
+    nh = di // p
+    q = s // max(s // cfg.ssm_chunk, 1)
+    sites = len(hybrid_attn_sites(cfg))
+    mamba = 2 * t * d * (2 * di + 2 * g * n + nh) + 2 * t * di * d
+    ssd = 2 * t * nh * (q + 1) / 2 * (n + p) + 2 * 2 * t * nh * n * p
+    hd = cfg.n_heads * cfg.d_head
+    block = 2 * t * d * (hd + 2 * cfg.n_kv * cfg.d_head) + 2 * t * hd * d \
+        + 3 * 2 * t * d * cfg.d_ff
+    attention = 4 * b * cfg.n_heads * cfg.d_head * s * (s + 1) / 2
+    out = {"mamba_matmuls": cfg.n_layers * mamba, "ssd_fp32": cfg.n_layers * ssd,
+           "shared_block_matmuls": sites * block, "attention": sites * attention,
+           "unembed": 2 * b * d * cfg.vocab_padded}
+    out["total"] = sum(out.values())
+    return out
+
+
+def ssd_share(torch, model, eparams, tokens, prefill_ms: float) -> dict:
+    """The plain SSD at one layer of the hybrid prefill: its time (CUDA
+    events, 3 calls) on layer 0's own inputs for ``tokens``, the prefill's
+    share of it over all layers, and its bytes bound (x, dt, B and C read
+    once, y and the state written once)."""
+    from repro_torch.models import layers, mamba
+    cfg = model.cfg
+    lp = {k: v[0] for k, v in eparams["stack"]["layers"]["mamba"].items()}
+    di, g, n, hd = cfg.d_inner, cfg.n_groups, cfg.ssm_state, cfg.ssm_headdim
+    x = layers.embed_apply(eparams["embed"], tokens, cfg.compute_dtype)
+    h = layers.rms_norm(x, eparams["stack"]["layers"]["ln"][0])
+    xbc = (h @ lp["in_proj"].to(cfg.compute_dtype))
+    dt_in = xbc[..., -(di // hd):].float()
+    xbc, _ = mamba._causal_conv(xbc[..., di:2 * di + 2 * g * n], lp["conv_w"], lp["conv_b"])
+    b, s = tokens.shape
+    xh = xbc[..., :di].reshape(b, s, di // hd, hd).float()
+    bm = xbc[..., di:di + g * n].reshape(b, s, g, n).float()
+    cm = xbc[..., di + g * n:].reshape(b, s, g, n).float()
+    dt = mamba._softplus(dt_in + lp["dt_bias"].float())
+    a = -torch.exp(lp["a_log"])
+    h0 = torch.zeros((b, di // hd, n, hd), dtype=torch.float32, device=tokens.device)
+    del x, h, xbc
+    ms = cuda_ms(torch, lambda: mamba.ssd_chunked(xh, dt, a, bm, cm, h0, cfg.ssm_chunk), 3)
+    nbytes = 4 * (2 * xh.numel() + dt.numel() + bm.numel() + cm.numel() + h0.numel())
+    return {"ssd_ms_per_layer": ms,
+            "ssd_share_of_prefill": cfg.n_layers * ms / prefill_ms,
+            "ssd_bytes_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3,
+            "ssd_shape": list(xh.shape) + [n]}
 
 
 def sampled_runs(torch, make_engine, prompts, seeds, greedy_ids, greedy_wall_s,
@@ -2928,17 +3096,21 @@ def sampled_runs(torch, make_engine, prompts, seeds, greedy_ids, greedy_wall_s,
     return out
 
 
-def ssm_vs_cpu(torch, dev, seed: int) -> dict:
-    """falcon-mamba-7b's smoke model (4 layers, d_model 128, d_inner 256,
-    state 8, chunk 16) in fp32 on the card, forward on 2 x 64 tokens (four
-    chunks) twice (bitwise) and SSM_DECODE_STEPS decode steps, against the
-    same weights in float64 on one CPU thread (the scan in float32, as the
-    reference pins it), to SSM_F64_TOL; no flash launch."""
+def ssm_vs_cpu(torch, dev, seed: int, arch: str = SERVE_SSM_ARCH) -> dict:
+    """``arch``'s smoke model in fp32 on the card, forward on 2 x 64 tokens
+    (four chunks) twice (bitwise) and SSM_DECODE_STEPS decode steps,
+    against the same weights in float64 on one CPU thread (the scan in
+    float32, as the reference pins it), to SSM_F64_TOL. falcon-mamba-7b's
+    (4 layers, d_model 128, d_inner 256, state 8, chunk 16) launches no
+    flash kernel; zamba2-1.2b's (the same widths, 16 heads of 16, its
+    shared block after layers 1 and 3, d_head 32) launches the mma_sync
+    kernel (fp32) once a site and call."""
     from repro_torch.configs.base import get_config, reduce_for_smoke
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models.model import Model
+    from repro_torch.models.transformer import hybrid_attn_sites
     from repro_torch.tree import tree_map
-    cfg = reduce_for_smoke(get_config(SERVE_SSM_ARCH)).replace(
+    cfg = reduce_for_smoke(get_config(arch)).replace(
         compute_dtype_str="float32")
     f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
     params = f64.init(torch.Generator().manual_seed(seed))
@@ -2946,13 +3118,16 @@ def ssm_vs_cpu(torch, dev, seed: int) -> dict:
     cparams = tree_map(lambda a: a.to(dev), params)
     toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
         0, cfg.vocab, (2, 64)).astype(np.int32))
-    before = fops.launches
+    before = dict(fops.launches_by_variant)
     h_card, _ = card.forward(cparams, {"tokens": toks.to(dev)})
     bitwise = bool(torch.equal(h_card, card.forward(cparams, {"tokens": toks.to(dev)})[0]))
     cg = card.init_cache(2, 64)
     for t in range(SSM_DECODE_STEPS):
         cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(dev)}, t)
-    launches = fops.launches - before
+    launches = {k: v - before[k] for k, v in fops.launches_by_variant.items()}
+    sites = len(hybrid_attn_sites(cfg))
+    want = dict.fromkeys(launches, 0)
+    want["mma_sync"] = sites * (2 + SSM_DECODE_STEPS)
     threads = torch.get_num_threads()
     torch.set_num_threads(1)
     try:
@@ -2968,21 +3143,24 @@ def ssm_vs_cpu(torch, dev, seed: int) -> dict:
         return float(((got - want).abs() - SSM_F64_TOL * want.abs()).max())
     out = {"config": cfg.name, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "d_inner": cfg.d_inner, "ssm_state": cfg.ssm_state,
-           "ssm_chunk": cfg.ssm_chunk, "tokens": list(toks.shape),
+           "ssm_chunk": cfg.ssm_chunk, "attn_sites": sites,
+           "tokens": list(toks.shape),
            "decode_steps": SSM_DECODE_STEPS, "tol": SSM_F64_TOL,
            "forward_bitwise": bitwise, "flash_launches": launches,
            "hidden_max_abs_diff": float((h_card.cpu().double() - h_ref).abs().max()),
            "decode_logits_max_abs_diff": float((lg.cpu().double() - lr).abs().max()),
            "h_state_max_abs_diff": float((cg["h"].cpu().double() - cr["h"].double()).abs().max()),
            "hidden_excess": gap(h_card, h_ref), "decode_excess": gap(lg, lr)}
-    if not bitwise or launches or max(out["hidden_excess"], out["decode_excess"]) > SSM_F64_TOL:
-        raise SystemExit(f"ssm_vs_cpu: {out}")
+    if not bitwise or launches != want \
+            or max(out["hidden_excess"], out["decode_excess"]) > SSM_F64_TOL:
+        raise SystemExit(f"{cfg.family}_vs_cpu: {out}, launches wanted {want}")
     return out
 
 
 # The serve shapes flash_timings times, by head dim: (query heads, kv heads)
-# of internlm2-1.8b at d 128 and of stablelm-12b at d 160.
-FLASH_TIMING_HEADS = {128: (16, 8), 160: (32, 8)}
+# of internlm2-1.8b at d 128, of stablelm-12b at d 160 and of zamba2-1.2b's
+# shared block at d 64.
+FLASH_TIMING_HEADS = {128: (16, 8), 160: (32, 8), 64: (32, 32)}
 
 
 def flash_timings(torch, dev, seed: int) -> dict:
@@ -2995,7 +3173,8 @@ def flash_timings(torch, dev, seed: int) -> dict:
     and at d 160 with stablelm-12b's (the same keys with ``_d160``).
     ``*ms`` is the call time, wrapper included; ``*device_ms`` the kernel's
     own device time a launch; ``*bound_ms`` the bound of the work at each
-    shape, for whichever kernel runs it."""
+    shape, for whichever kernel runs it. The same at d 64 with zamba2-1.2b's
+    heads (keys ``_d64``)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -4237,15 +4416,22 @@ def main(argv=None) -> int:
     # -- 5-7. flash_attention and the LM serving path ----------------------
     flash_err = flash_vs_plain(torch, dev, args.seed)
     phase("flash_bwd_vs_plain", **flash_bwd_vs_plain(torch, dev, args.seed))
-    served = serve(torch, dev, args.seed, args.profile, sample_seeds=SAMPLE_SEEDS)
+    served = serve(torch, dev, args.seed, args.profile, sample_seeds=SAMPLE_SEEDS,
+                   layers=SERVE_LAYERS)
     torch.cuda.empty_cache()        # internlm2's engine is gone
     served_d160 = serve(torch, dev, args.seed, args.profile, arch=SERVE_D160_ARCH,
-                        param_dtype="bfloat16", tag="serve_stablelm")
+                        param_dtype="bfloat16", tag="serve_stablelm",
+                        layers=SERVE_D160_LAYERS)
     torch.cuda.empty_cache()
     served_ssm = serve(torch, dev, args.seed, args.profile, arch=SERVE_SSM_ARCH,
-                       param_dtype="bfloat16", tag="serve_falcon", sample_seeds=(0,))
+                       param_dtype="bfloat16", tag="serve_falcon", sample_seeds=(0,),
+                       layers=SERVE_SSM_LAYERS)
+    torch.cuda.empty_cache()
+    served_d64 = serve(torch, dev, args.seed, args.profile, arch=SERVE_HYBRID_ARCH,
+                       param_dtype="bfloat16", tag="serve_zamba", sample_seeds=(0,))
     torch.cuda.empty_cache()
     phase("ssm_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed))
+    phase("hybrid_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed, SERVE_HYBRID_ARCH))
     trained = train(torch, dev, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     trained_small = train_vs_cpu(torch, dev, args.seed)
@@ -4255,9 +4441,9 @@ def main(argv=None) -> int:
     ft = flash_timings(torch, dev, args.seed)
     ft["bwd"] = flash_bwd_timing(torch, dev, args.seed)
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
-    for sfx, launched in (("", served), ("_d160", served_d160)):
+    for sfx, launched in (("", served), ("_d160", served_d160), ("_d64", served_d64)):
         pre, dec, long = ft["prefill" + sfx], ft["decode" + sfx], ft["decode_long" + sfx]
-        # The mma_sync kernel is on no main path (fp32, d 32/64, and bf16
+        # The mma_sync kernel is on no main path (fp32, bf16 d 32, and bf16
         # with 1 < Sq < 64): its entry gives its forced decode-shape times,
         # with the bound of each shape it was timed at.
         kernels.append({
@@ -4328,7 +4514,7 @@ def main(argv=None) -> int:
             k["ssm_serve_launches"] = served_ssm[name]     # falcon-mamba-7b: none
         if k["name"] == "flash_attention_decode":
             k["sampled_launches"] = served["sampled_decode"]
-        if not k["name"].endswith("_d160"):
+        if not k["name"].endswith(("_d160", "_d64")):
             k["train_launches"] = trained[name]
             k["train_vs_cpu_launches"] = trained_small[name]
             k["examples_launches"] = examples.get(
@@ -4348,6 +4534,7 @@ def main(argv=None) -> int:
     phase("device_ms_profiles", calls=len(DEVICE_MS_PROFILES),
           profiles=sum(DEVICE_MS_PROFILES),
           retried=[i for i, k in enumerate(DEVICE_MS_PROFILES) if k > 1],
+          timed_by_events=DEVICE_MS_EVENTS,
           records_short={i: list(r) for i, r in enumerate(DEVICE_MS_RECORDED)
                          if r[0] < r[1]})
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,13 +1,15 @@
 """Model configuration and registry (port of ``repro.configs.base``).
 
 The dataclass keeps the fields of the JAX package's ``ModelConfig`` that a
-dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``)
-and that a Mamba1 stack reads (``ssm_*``, ``d_conv``, ``expand``), under
+dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``),
+that a Mamba1 stack reads (``ssm_*``, ``d_conv``, ``expand``) and that the
+Mamba2 hybrid reads (``n_groups``, ``ssm_headdim``, ``attn_every``), under
 the same names and defaults; ``param_dtype`` and ``compute_dtype`` return
 ``torch`` dtypes. The port registers only the configurations it can serve
-(``ARCH_MODULES``): dense decoders with GQA attention and the Mamba1
-``ssm`` family. Asking for another one raises ``NotImplementedError``
-naming the ROADMAP item that ports its family.
+(``ARCH_MODULES``): dense decoders with GQA attention, the Mamba1 ``ssm``
+family and the Mamba2 ``hybrid`` family (zamba2). Asking for another one
+raises ``NotImplementedError`` naming the ROADMAP item that ports its
+family.
 """
 
 from __future__ import annotations
@@ -18,15 +20,15 @@ import torch
 
 # Families and features the port does not serve yet, with the ROADMAP item
 # (Queue 1, item 10, "LM scaffold") that brings them.
-NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba2 and the hybrid and enc-dec "
-              "families are not ported yet (ROADMAP Queue 1, LM scaffold "
-              "item 10.3)")
+NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba2 outside the hybrid family, and the "
+              "enc-dec family are not ported yet (ROADMAP Queue 1, LM "
+              "scaffold item 10.3)")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # the port serves "dense" and "ssm"
+    family: str = "dense"        # the port serves "dense", "ssm", "hybrid"
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -42,13 +44,19 @@ class ModelConfig:
     attn_chunk_kv: int = 1024    # key chunk of the plain flash version
     tie_embeddings: bool = False
 
-    # SSM (Mamba1; ssm_version 2 is not ported)
+    # SSM (Mamba1 in the ssm family, Mamba2 in the hybrid one)
     ssm_state: int = 0
     ssm_version: int = 1
     d_conv: int = 4
     expand: int = 2
+    n_groups: int = 1
+    ssm_headdim: int = 64
     ssm_chunk: int = 128          # scan chunk: bounds the (B, Q, Di, N) set
     ssm_scan: str = "associative"  # associative | sequential
+
+    # hybrid (zamba2): one shared attention block applied every attn_every
+    # mamba layers
+    attn_every: int = 0
 
     # vocab padding: embeddings/unembeddings allocate the padded size;
     # padded logits are masked.
@@ -90,7 +98,7 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 ARCH_MODULES = ["internlm2_1_8b", "qwen3_14b", "deepseek_7b",
-                "stablelm_12b", "falcon_mamba_7b"]
+                "stablelm_12b", "zamba2_1_2b", "falcon_mamba_7b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -115,14 +123,17 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
         kw.update(n_heads=4, n_kv=min(max(cfg.n_kv * 4 // cfg.n_heads, 1), 4),
                   d_head=32)
     if cfg.ssm_state:
-        kw.update(ssm_state=8)
+        kw.update(ssm_state=8, ssm_headdim=16)
+    if cfg.attn_every:
+        kw.update(attn_every=2)
     return cfg.replace(name=cfg.name + "-smoke", **kw)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder
-    or a Mamba1 stack."""
+    """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
+    a Mamba1 stack or a Mamba2 hybrid."""
     dense = cfg.family == "dense" and not cfg.mrope
     mamba1 = cfg.family == "ssm" and cfg.ssm_version == 1
-    if not (dense or mamba1):
+    hybrid = cfg.family == "hybrid" and cfg.ssm_version == 2 and not cfg.mrope
+    if not (dense or mamba1 or hybrid):
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")

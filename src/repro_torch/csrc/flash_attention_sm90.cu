@@ -1,10 +1,11 @@
-// FlashAttention-2 forward for Hopper (sm_90a): the bf16 prefill, d 128 and 160.
+// FlashAttention-2 forward for Hopper (sm_90a): the bf16 prefill, d 64, 128
+// and 160.
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel`
 // (src/repro/kernels/flash_attention/flash_attention.py:66) for bf16
-// inputs with d = 128 or 160 and at least 64 query rows;
-// csrc/flash_attention.cu keeps every other shape (fp32, d 32 and 64, bf16
-// with 1 < Sq < 64) and csrc/flash_attention_decode.cu the decode rows. It
+// inputs with d = 64, 128 or 160 and at least 64 query rows;
+// csrc/flash_attention.cu keeps every other shape (fp32, d 32, bf16 with
+// 1 < Sq < 64) and csrc/flash_attention_decode.cu the decode rows. It
 // computes the same function: s = (q . k^T) * d^-0.5 in fp32; s = -1e30
 // where causal and q_offset + row < col, and where col >= Skv; a running
 // max m and sum l in fp32; p cast to bf16 before the PV product; out = acc
@@ -15,14 +16,16 @@
 // Bound: the operations, 4*B*H*d*S(S+1)/2 FLOP for a causal S x S call
 // (d 128 at B 8, H 16, S 2048: 1.37e11, 0.139 ms at the card's 989 TFLOP/s
 // bf16 peak, against 0.2 GB of q, k, v and o; d 160 at B 8, H 32: 3.44e11,
-// 0.348 ms). The design spends its effort on the tensor cores:
+// 0.348 ms; d 64 at B 8, H 32 (zamba2-1.2b's shared block): 1.37e11, 0.139
+// ms). The design spends its effort on the tensor cores:
 // - both products are warpgroup MMAs (wgmma.mma_async, fp32 accumulators):
 //   S = Q K^T reads Q and K from shared memory through K-major 128B-swizzle
 //   descriptors; O += P V takes P from registers (the S accumulator
 //   converted to bf16 pairs is already the A fragment) and V as an
 //   MN-major operand (transpose bit), so no thread transposes V;
 // - K and V arrive by TMA (cp.async.bulk.tensor, 128B swizzle, zero fill
-//   past Sq and Skv) into a three-stage ring: one thread issues tile j+1's
+//   past Sq and Skv) into a three-stage ring (two at d 64, where a second
+//   block on the SM takes the third stage's part): one thread issues tile j+1's
 //   loads on a "full" mbarrier before its warpgroup computes tile j, and an
 //   "empty" mbarrier (all 256 threads arrive) guards the reuse of a stage.
 //   With two stages that thread waits, before tile j, for the other
@@ -36,6 +39,11 @@
 //
 // The head dim is a template parameter (`Layout<D>`); each row of Q, K and
 // V lies in slabs of 64 columns, one 128-byte swizzled row a slab:
+// - d 64: one slab. QK^T runs d/16 = 4 k-steps, PV one n64 product (the
+//   building block of d 160's third slab); O is 32 fp32 a thread. A slab
+//   is half d 128's bytes, so the tile and stages are a choice, not forced:
+//   D64_BK below records the one timing chose (128-key tiles, two stages,
+//   two blocks an SM: 80 KB each) and what it was chosen from.
 // - d 128: two slabs, 128-key tiles. Shared memory: Q 32 KB + 3 x (K 32 KB
 //   + V 32 KB) = 224 KB, one block an SM. S is m64n128 (64 fp32 a thread),
 //   O one m64n128 accumulator (64).
@@ -62,7 +70,7 @@
 //
 // C entries (each launches on `stream` and returns a cudaError_t code, or
 // 10000 + the CUresult of a failed cuTensorMapEncodeTiled;
-// cudaErrorInvalidValue for a head dim other than 128 and 160):
+// cudaErrorInvalidValue for a head dim other than 64, 128 and 160):
 //   flash_attention_sm90_launch(q, k, v, o, geo, causal, q_offset, scale,
 //       stream): `geo` holds 24 host int64: for each of q, k and v the
 //       tensor map's dims (d, seq, heads, batch) and byte strides (seq,
@@ -83,7 +91,6 @@ namespace {
 constexpr int SLAB = 64;                  // bf16 columns in one 128-byte swizzled row
 constexpr int BQ = 128;                   // query rows a block (two warpgroups x 64)
 constexpr int THREADS = 256;
-constexpr int STAGES = 3;
 constexpr uint32_t ROW_BYTES = 128;       // one slab row
 constexpr uint32_t ATOM_BYTES = 8 * ROW_BYTES;   // 8 rows: one swizzle atom
 constexpr uint32_t SLAB_Q = BQ * ROW_BYTES;      // 16 KB
@@ -92,20 +99,43 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int ENCODE_ERROR = 10000;
 constexpr long long WAIT_LIMIT_CYCLES = 1ll << 34;
 
-// The layout of one head dim: 64-column slabs a row, keys a K/V tile.
+// d 64's key tile, ring stages and blocks an SM (the register cap
+// __launch_bounds__ asks for): 128 keys, 2 stages, 2 blocks an SM, Q 16 KB
+// + 2 x 32 KB = 80 KB a block. Chosen by timing four candidates at
+// zamba2-1.2b's prefill (8 x 2048, 32 heads over 32, causal; device ms a
+// launch on an H100 80GB HBM3 at 700 W, median of 4 in turns; registers a
+// thread from ptxas, no spills in any):
+//   128 keys, 3 stages, 1 block an SM: Q 16 KB + 3 x 32 KB = 112 KB;
+//      0.600 ms, 149 registers;
+//   128 keys, 2 stages, 2 blocks: 16 + 2 x 32 = 80 KB a block;
+//      0.491 ms, 127 registers: the one kept;
+//   64 keys, 4 stages, 2 blocks: 16 + 4 x 16 = 80 KB; 0.546 ms, 102;
+//   64 keys, 3 stages, 2 blocks: 16 + 3 x 16 = 64 KB; 0.548 ms, 100.
+// Two blocks an SM let one block's softmax overlap the other's products,
+// which a third stage within one block did less well. (128 keys at 3
+// stages and 2 blocks would need 2 x 113 KB with the alignment pad and the
+// runtime's 1 KB a block: 112 bytes over the SM's 228 KB.)
+constexpr int D64_BK = 128, D64_STAGES = 2, D64_MIN_BLOCKS = 2;
+
+// The layout of one head dim: 64-column slabs a row, keys a K/V tile,
+// stages of the K/V ring, blocks an SM.
 template <int D>
 struct Layout {
-  static_assert(D == 128 || D == 160, "head dims 128 and 160");
-  static constexpr int SLABS = D == 128 ? 2 : 3;
-  static constexpr int BK = D == 128 ? 128 : 64;
+  static_assert(D == 64 || D == 128 || D == 160, "head dims 64, 128 and 160");
+  static constexpr int SLABS = D == 64 ? 1 : D == 128 ? 2 : 3;
+  static constexpr int BK = D == 64 ? D64_BK : D == 128 ? 128 : 64;
+  static constexpr int STAGES = D == 64 ? D64_STAGES : 3;
+  static constexpr int MIN_BLOCKS = D == 64 ? D64_MIN_BLOCKS : 1;
   static constexpr uint32_t SLAB_KV = BK * ROW_BYTES;          // 16 KB or 8 KB
   static constexpr uint32_t Q_BYTES = SLABS * SLAB_Q;
   static constexpr uint32_t STAGE_BYTES = 2 * SLABS * SLAB_KV; // K slabs, then V slabs
   static constexpr size_t SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + alignment
-  static constexpr int HI_COLS = D - 128;  // columns past the n128 product: 0 or 32
+  static constexpr int O_COLS = D < 128 ? D : 128;  // the main PV product's n: 64 or 128
+  static constexpr int HI_COLS = D > 128 ? D - 128 : 0;  // columns past it: 0 or 32
 };
 
-static_assert(Layout<128>::SMEM_BYTES <= 232448 && Layout<160>::SMEM_BYTES <= 232448,
+static_assert(Layout<64>::SMEM_BYTES * Layout<64>::MIN_BLOCKS <= 232448 &&
+              Layout<128>::SMEM_BYTES <= 232448 && Layout<160>::SMEM_BYTES <= 232448,
               "a block takes at most 227 KB of shared memory");
 
 struct Geo {
@@ -306,10 +336,10 @@ __device__ __forceinline__ void qk_product(float (&s)[Layout<D>::BK / 2], uint32
 // O (64 rows x d) += P (64 x BK keys, bf16 pairs in registers) V. V's
 // tile is MN-major: d is contiguous, 64 columns a slab. A k-step is 16
 // keys = two 8-row atoms (SBO 1024 bytes apart); columns 64-127 are the
-// next slab (LBO = SLAB_KV). `o` takes columns 0-127; at d 160 `hi` takes
-// slab 2's 64 (128-191, of which 160-191 are TMA's zeros).
+// next slab (LBO = SLAB_KV). `o` takes columns 0-127 (0-63 at d 64); at
+// d 160 `hi` takes slab 2's 64 (128-191, of which 160-191 are TMA's zeros).
 template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[64], float (&hi)[32],
+__device__ __forceinline__ void pv_product(float (&o)[Layout<D>::O_COLS / 2], float (&hi)[32],
                                            uint32_t (&p)[Layout<D>::BK / 4],
                                            uint32_t v) {
   using L = Layout<D>;
@@ -354,7 +384,7 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, uint32_t kv_s,
                                         uint32_t full0, int t, int kvh, int b) {
   using L = Layout<D>;
-  const int s = t % STAGES;
+  const int s = t % L::STAGES;
   const uint32_t dst = kv_s + s * L::STAGE_BYTES, bar = full0 + 8 * s;
   mbar_expect_tx(bar, L::STAGE_BYTES);
 #pragma unroll
@@ -364,11 +394,11 @@ __device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
   }
 }
 
-// The epilogue of one thread's two rows: columns 0-127 from `o`, then, at
-// d 160, columns 128-159 from `hi`.
+// The epilogue of one thread's two rows: columns 0-127 (0-63 at d 64)
+// from `o`, then, at d 160, columns 128-159 from `hi`.
 template <int D>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, const Geo& g, int row0,
-                                           int t4, const float (&o)[64],
+                                           int t4, const float (&o)[Layout<D>::O_COLS / 2],
                                            const float (&hi)[32], const float (&l)[2]) {
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
@@ -377,7 +407,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, const Geo& g, int 
     const float den = fmaxf(l[hr], 1e-30f);
     __nv_bfloat16* orow = ob + (long long)row * g.os[1] + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < 16; ++c) {
+    for (int c = 0; c < Layout<D>::O_COLS / 8; ++c) {
       *reinterpret_cast<uint32_t*>(orow + 8 * c) =
           pack_bf16(o[4 * c + 2 * hr] / den, o[4 * c + 2 * hr + 1] / den);
     }
@@ -390,7 +420,7 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, const Geo& g, int 
 }
 
 template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, Layout<D>::MIN_BLOCKS)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
@@ -398,6 +428,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   using L = Layout<D>;
   constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
+  constexpr int STAGES = L::STAGES;
   __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];   // q, full[], empty[]
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t q_s = base, kv_s = base + L::Q_BYTES;
@@ -434,9 +465,10 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   const int wg_last = wg_first + 63;                          // warpgroup's rows
   const uint32_t q_wg = q_s + 64 * wg * ROW_BYTES;
 
-  float acc[64], acc_hi[32];
+  constexpr int O_REGS = L::O_COLS / 2;
+  float acc[O_REGS], acc_hi[32];
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < O_REGS; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_hi[i] = 0.f;
   float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
@@ -500,7 +532,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
         l[hr] = l[hr] * corr[hr] + rs[hr];
       }
 #pragma unroll
-      for (int i = 0; i < 64; ++i) acc[i] *= corr[(i >> 1) & 1];
+      for (int i = 0; i < O_REGS; ++i) acc[i] *= corr[(i >> 1) & 1];
       if constexpr (L::HI_COLS > 0) {
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc_hi[i] *= corr[(i >> 1) & 1];
@@ -554,13 +586,14 @@ probe_sm90(const __grid_constant__ CUtensorMap qmap,
   __syncwarp();
   mbar_wait(bar, 0);
 
-  float s[BK / 2], acc[64], acc_hi[32];
+  constexpr int O_REGS = L::O_COLS / 2;
+  float s[BK / 2], acc[O_REGS], acc_hi[32];
   qk_product<D>(s, q_s, PROBE_Q_SLAB, k_s);
   uint32_t p[BK / 4];
 #pragma unroll
   for (int i = 0; i < BK / 2; i += 2) p[i >> 1] = pack_bf16(s[i], s[i + 1]);
 #pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  for (int i = 0; i < O_REGS; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_hi[i] = 0.f;
   pv_product<D>(acc, acc_hi, p, k_s + L::SLABS * L::SLAB_KV);
@@ -570,7 +603,7 @@ probe_sm90(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < BK / 2; ++i)
     s_out[(r + 8 * ((i >> 1) & 1)) * BK + 8 * (i >> 2) + c0 + (i & 1)] = s[i];
 #pragma unroll
-  for (int i = 0; i < 64; ++i)
+  for (int i = 0; i < O_REGS; ++i)
     o_out[(r + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c0 + (i & 1)] = acc[i];
 #pragma unroll
   for (int i = 0; i < 4 * L::HI_COLS / 8; ++i)
@@ -624,11 +657,17 @@ int encode_map(CUtensorMap* map, const void* ptr, const long long* g, int rows) 
   return r == CUDA_SUCCESS ? 0 : ENCODE_ERROR + (int)r;
 }
 
+// Dynamic shared memory past 48 KB, and the whole 228 KB of an SM as
+// shared memory (a hint the CUDA runtime may ignore), so that d 64's two blocks
+// an SM fit beside each other.
 template <typename Kernel>
 int opt_in_smem(Kernel kernel, bool& done, size_t bytes) {
   if (done) return 0;
-  const cudaError_t err = cudaFuncSetAttribute(
+  cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return (int)err;
   done = true;
   return 0;
@@ -686,6 +725,7 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
   if (geo[7] != geo[0] || geo[14] != geo[0]) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (geo[0]) {
+    case 64: return launch_d<64>(q, k, v, o, geo, causal, q_offset, scale, st);
     case 128: return launch_d<128>(q, k, v, o, geo, causal, q_offset, scale, st);
     case 160: return launch_d<160>(q, k, v, o, geo, causal, q_offset, scale, st);
     default: return (int)cudaErrorInvalidValue;
@@ -699,6 +739,7 @@ extern "C" int flash_attention_sm90_probe(const void* q, const void* k,
   if (geo[7] != geo[0] || geo[14] != geo[0]) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (geo[0]) {
+    case 64: return probe_d<64>(q, k, v, s_out, o_out, geo, st);
     case 128: return probe_d<128>(q, k, v, s_out, o_out, geo, st);
     case 160: return probe_d<160>(q, k, v, s_out, o_out, geo, st);
     default: return (int)cudaErrorInvalidValue;

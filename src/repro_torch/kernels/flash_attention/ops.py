@@ -13,16 +13,16 @@ Three kernels, chosen by shape and dtype alone (``_variant``), never on a
 failure:
 
 - ``"sm90"`` (``csrc/flash_attention_sm90.cu``): wgmma fed by a TMA K/V
-  ring, for bf16 with d in ``SM90_HEAD_DIMS`` (128 and 160) and Sq >= 64
-  (the prefill);
+  ring, for bf16 with d in ``SM90_HEAD_DIMS`` (64, 128 and 160) and Sq >=
+  64 (the prefill; zamba2-1.2b's shared block at d 64);
 - ``"decode"`` (``csrc/flash_attention_decode.cu``): split-KV decoding for
   bf16 with Sq == 1 and a GQA group H / KV of at most 16 (every decode
   step); one one-warp block per (batch, kv head, key split) with the
   group's query heads as its rows, the ``decode_splits`` splits of a kv
   head merged in a fixed order inside a thread-block cluster;
 - ``"mma_sync"`` (``csrc/flash_attention.cu``): every other shape (fp32,
-  d 32 and 64 at Sq > 1, bf16 with 1 < Sq < 64, and Sq 1 with a group
-  over 16).
+  bf16 d 32 at Sq > 1, bf16 with 1 < Sq < 64, and Sq 1 with a group over
+  16).
 
 ``flash_attention_cuda(..., variant=...)`` forces one of them, for tests
 and timing only; forcing ``"sm90"`` or ``"decode"`` on a shape it does not
@@ -71,10 +71,11 @@ launches_by_variant = dict.fromkeys(VARIANTS + ("bwd",), 0)
 HEAD_DIMS = (32, 64, 128, 160)
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_Q_TILES = 65535          # the grid's y extent
-SM90_HEAD_DIMS = (128, 160)
+SM90_HEAD_DIMS = (64, 128, 160)
 # Keys a K/V tile of the sm90 kernel (and its probe's k, v rows), by head
-# dim: d 160 takes three 64-column slabs a row, so 64-key tiles fit.
-SM90_KEYS = {128: 128, 160: 64}
+# dim: d 160 takes three 64-column slabs a row, so 64-key tiles fit; d 64's
+# tile is the one timing chose (the kernel's D64_BK).
+SM90_KEYS = {64: 128, 128: 128, 160: 64}
 SM90_MIN_SQ = 64             # one warpgroup's rows
 DECODE_MAX_GROUP = 16        # query heads a block's rows
 DECODE_MAX_SPLITS = 8        # blocks of a cluster (the portable limit)

@@ -1,5 +1,5 @@
-"""Top-level model API for serving and training a dense decoder or a Mamba1
-stack (port of ``repro.models.model``).
+"""Top-level model API for serving and training a dense decoder, a Mamba1
+stack or a Mamba2 hybrid (port of ``repro.models.model``).
 
 ``Model(cfg, device="cuda")`` wraps a ModelConfig with plain functions on
 tensors:
@@ -9,7 +9,10 @@ tensors:
   loss(params, batch) -> scalar             (chunked-vocab CE)
   init_cache(batch_size, max_seq) -> dense {"k", "v"}: (L, B, max_seq, KV,
       dh); ssm {"conv": (L, B, d_conv-1, Di) in the compute dtype, "h":
-      (L, B, Di, N) float32}, O(1) in the sequence length
+      (L, B, Di, N) float32}, O(1) in the sequence length; hybrid {"conv":
+      (L, B, d_conv-1, Di + 2 G N) in the compute dtype, "h": (L, B, H,
+      N, P) float32, "k", "v": (n_sites, B, max_seq, KV, dh)}, one K/V slot
+      for each application of the shared attention block
   decode_step(params, cache, inputs, pos) -> (cache, logits (B, V_padded))
 
 The params tree is the JAX package's, leaf for leaf (per-layer leaves
@@ -18,8 +21,11 @@ copying leaves (``repro_torch.convert``). Unlike the JAX package,
 ``decode_step`` writes the new K/V row (or the ssm family's new conv and
 scan state) into ``cache`` in place (where JAX uses
 ``dynamic_update_slice`` or a scan's new arrays) and returns the same dict.
-The dense GQA and the Mamba1 ``ssm`` families are ported; the others wait
-(ROADMAP Queue 1, LM scaffold item 10.3).
+The dense GQA, the Mamba1 ``ssm`` and the Mamba2 ``hybrid`` families are
+ported; the others wait (ROADMAP Queue 1, LM scaffold item 10.3). In the
+hybrid family each site ``gi`` of the shared block writes its own K/V slot
+``cache["k"][gi]`` with the shared weights and attends through the flash
+wrapper, as a dense layer does.
 """
 
 from __future__ import annotations
@@ -31,11 +37,15 @@ from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mamba
 from repro_torch.models.transformer import (apply_decoder_stack,
+                                            apply_hybrid_stack,
                                             apply_ssm_stack,
+                                            hybrid_attn_sites, hybrid_groups,
                                             init_decoder_stack,
+                                            init_hybrid_stack,
                                             init_ssm_stack, unbind_layers)
 
 STACKS = {"dense": (init_decoder_stack, apply_decoder_stack),
+          "hybrid": (init_hybrid_stack, apply_hybrid_stack),
           "ssm": (init_ssm_stack, apply_ssm_stack)}
 
 
@@ -153,18 +163,25 @@ class Model:
     # -- serving -----------------------------------------------------------
     def init_cache(self, b: int, max_seq: int):
         cfg = self.cfg
+        cd, dev, l, di = cfg.compute_dtype, self.device, cfg.n_layers, cfg.d_inner
         if cfg.family == "ssm":
-            l, di = cfg.n_layers, cfg.d_inner
-            return {"conv": torch.zeros((l, b, cfg.d_conv - 1, di),
-                                        dtype=cfg.compute_dtype,
-                                        device=self.device),
+            return {"conv": torch.zeros((l, b, cfg.d_conv - 1, di), dtype=cd,
+                                        device=dev),
                     "h": torch.zeros((l, b, di, cfg.ssm_state),
-                                     dtype=torch.float32, device=self.device)}
-        shape = (cfg.n_layers, b, max_seq, cfg.n_kv, cfg.d_head)
-        return {"k": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=self.device),
-                "v": torch.zeros(shape, dtype=cfg.compute_dtype,
-                                 device=self.device)}
+                                     dtype=torch.float32, device=dev)}
+        kv_shape = (cfg.n_layers, b, max_seq, cfg.n_kv, cfg.d_head)
+        out = {}
+        if cfg.family == "hybrid":
+            cw = di + 2 * cfg.n_groups * cfg.ssm_state
+            out = {"conv": torch.zeros((l, b, cfg.d_conv - 1, cw), dtype=cd,
+                                       device=dev),
+                   "h": torch.zeros((l, b, di // cfg.ssm_headdim, cfg.ssm_state,
+                                     cfg.ssm_headdim), dtype=torch.float32,
+                                    device=dev)}
+            kv_shape = (len(hybrid_attn_sites(cfg)),) + kv_shape[1:]
+        out["k"] = torch.zeros(kv_shape, dtype=cd, device=dev)
+        out["v"] = torch.zeros(kv_shape, dtype=cd, device=dev)
+        return out
 
     def decode_step(self, params, cache, inputs, pos: int):
         """inputs {"tokens": (B, 1)}; ``pos``: the current absolute position
@@ -180,7 +197,9 @@ class Model:
         else:
             pos_arr = torch.full((x.shape[0], 1), pos, dtype=torch.int32,
                                  device=x.device)
-            x = self._decode_attn_stack(params, cache, x, pos, pos_arr)
+            stack = (self._decode_hybrid_stack if self.cfg.family == "hybrid"
+                     else self._decode_attn_stack)
+            x = stack(params, cache, x, pos, pos_arr)
         h = layers.rms_norm(x, params["final_ln"])
         return cache, self.logits(params, h)[:, 0]
 
@@ -190,12 +209,35 @@ class Model:
                                    (cache["k"][i], cache["v"][i]))
         return x
 
+    def _decode_mamba_layer(self, apply, lp, cache, i: int, x):
+        """One pre-norm Mamba layer ``i`` at decode time through ``apply``
+        (``mamba1_apply`` or ``mamba2_apply``): its conv and scan state read
+        from ``cache`` and written back in place. Returns x."""
+        h = layers.rms_norm(x, lp["ln"])
+        y, (conv_n, h_n) = apply(lp["mamba"], h, self.cfg,
+                                 state=(cache["conv"][i], cache["h"][i]))
+        cache["conv"][i].copy_(conv_n)
+        cache["h"][i].copy_(h_n)
+        return x + y
+
     def _decode_ssm_stack(self, params, cache, x):
         for i, lp in enumerate(unbind_layers(params["stack"]["layers"])):
-            h = layers.rms_norm(x, lp["ln"])
-            y, (conv_n, h_n) = mamba.mamba1_apply(
-                lp["mamba"], h, self.cfg, state=(cache["conv"][i], cache["h"][i]))
-            cache["conv"][i].copy_(conv_n)
-            cache["h"][i].copy_(h_n)
-            x = x + y
+            x = self._decode_mamba_layer(mamba.mamba1_apply, lp, cache, i, x)
+        return x
+
+    def _decode_hybrid_stack(self, params, cache, x, pos: int, pos_arr):
+        """Each group's Mamba2 layers, then the shared block at site ``gi``
+        with its own K/V slot ``cache["k"][gi]``."""
+        groups, n_sites = hybrid_groups(self.cfg)
+        sh = params["stack"]["shared_attn"]
+        shared = {"ln1": sh["ln"], "attn": sh["attn"], "ln2": sh["ln2"],
+                  "mlp": sh["mlp"]}
+        lps = unbind_layers(params["stack"]["layers"])
+        for gi, (lo, hi) in enumerate(groups):
+            for i in range(lo, hi):
+                x = self._decode_mamba_layer(mamba.mamba2_apply, lps[i], cache,
+                                             i, x)
+            if gi < n_sites:
+                x = _attn_decode_layer(shared, x, self.cfg, pos, pos_arr,
+                                       (cache["k"][gi], cache["v"][gi]))
         return x

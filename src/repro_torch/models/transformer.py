@@ -1,5 +1,5 @@
-"""Decoder-only layer stacks, dense and Mamba1 (port of
-``repro.models.transformer``).
+"""Decoder-only layer stacks: dense, hybrid (Mamba2 with a shared attention
+block) and Mamba1 (port of ``repro.models.transformer``).
 
 Per-layer parameters are stacked on a leading L axis, as in the JAX
 package, and the ``lax.scan`` over layers becomes a Python loop over that
@@ -13,7 +13,11 @@ whole layer like ``"full"`` here; the values are the same, only the memory
 and time differ. The sharding constraints have no meaning on one device
 and are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item
 10.3). The ssm stack (falcon-mamba) is a pre-norm residual Mamba1 block a
-layer, under the same remat.
+layer, under the same remat. The hybrid stack (zamba2) is a pre-norm
+residual Mamba2 block a layer, with one shared attention + MLP block, its
+weights unstacked beside the stacked ``layers``, applied after every
+``attn_every``-th layer (``hybrid_groups``); each Mamba2 layer and each
+application of the shared block is one remat unit.
 """
 
 from __future__ import annotations
@@ -82,6 +86,75 @@ def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
         else:
             x, _ = apply_decoder_layer(lp, x, cfg, positions, use_moe=False,
                                        causal=causal)
+    return x, 0.0
+
+
+# ---------------------------------------------------------------------------
+# Hybrid stack (zamba2): Mamba2 layers + one shared attention block applied
+# every ``attn_every`` layers (weights shared across applications).
+# ---------------------------------------------------------------------------
+
+def init_hybrid_stack(gen: torch.Generator, cfg):
+    return {"layers": _stack([
+                {"ln": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
+                 "mamba": mamba.init_mamba2(gen, cfg)}
+                for _ in range(cfg.n_layers)]),
+            "shared_attn": {
+                "ln": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
+                "attn": attention.init_gqa(gen, cfg),
+                "ln2": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
+                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff,
+                                       cfg.param_dtype)}}
+
+
+def hybrid_attn_sites(cfg) -> list:
+    """Layer indices after which the shared attention block runs."""
+    if not cfg.attn_every:
+        return []
+    return [l for l in range(cfg.n_layers) if (l + 1) % cfg.attn_every == 0]
+
+
+def hybrid_groups(cfg):
+    """``(groups, n_sites)``: ``n_layers`` cut into contiguous ``(lo, hi)``
+    groups, each of the first ``n_sites`` followed by one application of
+    the shared block; a trailing remainder group has none (zamba2-1.2b: 38
+    layers at ``attn_every`` 6 give sites 5, 11, ..., 35 and a last group
+    of layers 36-37)."""
+    sites = hybrid_attn_sites(cfg)
+    bounds = [0] + [s + 1 for s in sites]
+    if bounds[-1] != cfg.n_layers:
+        bounds.append(cfg.n_layers)
+    return list(zip(bounds[:-1], bounds[1:])), len(sites)
+
+
+def _shared_attn_block(shared, x, cfg, positions):
+    h = layers.rms_norm(x, shared["ln"])
+    x = x + attention.gqa_apply(shared["attn"], h, cfg, positions, causal=True)
+    h = layers.rms_norm(x, shared["ln2"])
+    return x + layers.mlp_apply(shared["mlp"], h, cfg.compute_dtype)
+
+
+def apply_hybrid_layer(lp, x, cfg):
+    h = layers.rms_norm(x, lp["ln"])
+    y, _ = mamba.mamba2_apply(lp["mamba"], h, cfg)
+    return x + y
+
+
+def apply_hybrid_stack(p, x, cfg, positions):
+    """-> (x, aux_loss 0.0): each group's Mamba2 layers in turn, then the
+    shared block after each of the first ``n_sites`` groups."""
+    groups, n_sites = hybrid_groups(cfg)
+    shared = p["shared_attn"]
+    lps = unbind_layers(p["layers"])
+    remat = _remat(cfg)
+    for gi, (lo, hi) in enumerate(groups):
+        for lp in lps[lo:hi]:
+            x = (checkpoint(apply_hybrid_layer, lp, x, cfg, use_reentrant=False)
+                 if remat else apply_hybrid_layer(lp, x, cfg))
+        if gi < n_sites:
+            x = (checkpoint(_shared_attn_block, shared, x, cfg, positions,
+                            use_reentrant=False)
+                 if remat else _shared_attn_block(shared, x, cfg, positions))
     return x, 0.0
 
 

@@ -24,10 +24,11 @@ import torch
 from repro_torch.core import threefry
 from repro_torch.models.model import Model
 
-# Leaves the reference reads in float32 (``mamba.py``'s ``a_log`` and
-# ``dt_bias``); the engine keeps them so instead of casting them to the
-# compute dtype.
-FLOAT32_LEAVES = ("a_log", "dt_bias")
+# Leaves the reference reads in float32 (``mamba.py``'s ``a_log``,
+# ``dt_bias`` and Mamba2's ``d_skip``); the engine keeps them so instead of
+# casting them to the compute dtype. Mamba1 casts ``d_skip`` to the compute
+# dtype where it reads it, which gives the same values either way.
+FLOAT32_LEAVES = ("a_log", "dt_bias", "d_skip")
 
 
 @dataclasses.dataclass

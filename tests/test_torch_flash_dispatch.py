@@ -28,7 +28,7 @@ def _qkv(sq, dh, dtype=torch.bfloat16, skv=None):
     (63, 128, torch.bfloat16, "mma_sync"),     # fewer rows than a warpgroup
     (1, 128, torch.bfloat16, "decode"),        # decode
     (2048, 128, torch.bfloat16, "sm90"),       # serve prefill
-    (2048, 64, torch.bfloat16, "mma_sync"),
+    (2048, 64, torch.bfloat16, "sm90"),        # zamba2-1.2b's shared block
     (2048, 32, torch.bfloat16, "mma_sync"),
     (2048, 128, torch.float32, "mma_sync"),
     (64, 160, torch.bfloat16, "sm90"),         # stablelm-12b's head dim
@@ -49,7 +49,7 @@ def test_variant_ignores_skv():
 
 
 @pytest.mark.parametrize("sq,dh,dtype", [(63, 128, torch.bfloat16),
-                                         (128, 64, torch.bfloat16),
+                                         (63, 64, torch.bfloat16),
                                          (128, 128, torch.float32),
                                          (63, 160, torch.bfloat16),
                                          (128, 160, torch.float32),
@@ -211,6 +211,49 @@ def test_forced_variants_at_d160():
     assert fops.resolve_variant(*dec, variant="mma_sync") == "mma_sync"
     with pytest.raises(ValueError, match="sm90"):
         fops.resolve_variant(*dec, variant="sm90")
+
+
+@pytest.mark.parametrize("sq,dtype,want", [
+    (2048, torch.bfloat16, "sm90"),      # zamba2-1.2b's prefill
+    (64, torch.bfloat16, "sm90"),        # one warpgroup's rows
+    (63, torch.bfloat16, "mma_sync"),
+    (2, torch.bfloat16, "mma_sync"),
+    (2048, torch.float32, "mma_sync"),
+    (64, torch.float32, "mma_sync"),
+    (1, torch.bfloat16, "decode"),       # zamba2-1.2b's decode, G 1
+    (1, torch.float32, "mma_sync"),
+])
+def test_variant_boundaries_d64(sq, dtype, want):
+    """zamba2-1.2b's shared block, 32 heads over 32 at d 64: bf16 with Sq
+    >= 64 goes to the sm90 kernel, fp32 and 1 < Sq < 64 to mma_sync, Sq 1
+    to the decode kernel."""
+    qkv = _decode_qkv(sq, 64, dtype, h=32, kv=32)
+    assert fops._variant(*qkv) == want
+    assert fops.resolve_variant(*qkv) == want
+    if want != "decode":
+        assert fops.resolve_variant(*qkv, variant="mma_sync") == "mma_sync"
+
+
+def test_sm90_keys_cover_its_head_dims():
+    """The probe's key rows are a tile of the kernel at each head dim it
+    takes: whole 8-row swizzle atoms, 64 or 128 keys."""
+    assert sorted(fops.SM90_KEYS) == sorted(fops.SM90_HEAD_DIMS) == [64, 128, 160]
+    assert all(k in (64, 128) for k in fops.SM90_KEYS.values())
+
+
+def test_tma_geometry_of_a_d64_cache_slice():
+    """zamba2-1.2b's site slice of the (n_sites, B, 256, 32, 64) cache:
+    128-byte rows, exactly one 64-column box of the sm90 kernel, every
+    stride a multiple of TMA's 16 bytes."""
+    cache = torch.zeros((6, 8, 256, 32, 64), dtype=torch.bfloat16)
+    dims, strides = fops.tma_map_geometry(cache[5])
+    assert dims == (64, 256, 32, 8)
+    assert strides == (32 * 64 * 2, 64 * 2, 256 * 32 * 64 * 2)
+    assert all(s % 16 == 0 for s in strides)
+    q = torch.zeros((8, 2048, 3, 32, 64), dtype=torch.bfloat16)[:, :, 0]
+    assert fops.tma_map_geometry(q) == ((64, 2048, 32, 8),
+                                        (3 * 32 * 64 * 2, 64 * 2,
+                                         2048 * 3 * 32 * 64 * 2))
 
 
 def test_tma_geometry_of_a_head_slice():

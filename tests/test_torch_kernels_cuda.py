@@ -10,7 +10,7 @@ order) and 1e-2 in bf16 (one bf16 ulp of outputs of order 1 is 0.0078; the
 kernel's tensor-core sums and the plain version's differ in order), for
 all three bf16 kernels, at d 32, 64, 128 and 160 (``-k "flash or sm90 or
 decode"`` runs these alone; ``-k d160`` the cases at stablelm-12b's head
-dim). The split-KV decode kernel is also held, at 1e-2, to its own plain
+dim, ``-k d64`` those at zamba2-1.2b's). The split-KV decode kernel is also held, at 1e-2, to its own plain
 version (``flash_decode_split_ref``) at the splits the wrapper chose. The sm90
 kernel's layout probe is held to ``torch.matmul`` in fp32 at 1e-4 relative
 (the same bf16 products, summed in another order). ``-k repair`` runs the
@@ -40,7 +40,10 @@ analysis`` runs the static-analysis counters on the card: the kernel
 builds of two child processes over one empty build directory, and the two
 sync counters side by side with a planted ``.item()``. ``-k ssm`` runs
 falcon-mamba-7b's smoke model (plain torch ops, no kernel) in fp32 on the
-card against float64 on the CPU; ``-k sampling`` the threefry draws and
+card against float64 on the CPU; ``-k hybrid`` zamba2-1.2b's smoke model
+the same way (its shared block through the mma_sync kernel in fp32) and
+at d 64 in bf16 (every prefill site on the sm90 kernel, every decode site
+on the decode kernel); ``-k sampling`` the threefry draws and
 ``categorical`` on the card against the CPU (bf16 bitwise) and the sampled
 Engine's ids per seed.
 """
@@ -687,6 +690,59 @@ def test_flash_sm90_d160_matches_plain(cuda, case):
                 seed=sq + h + 1, variant="sm90")
 
 
+# (b, sq, skv, h, kv, causal, q_offset), all d 64 (zamba2-1.2b's head dim)
+SM90_D64_CASES = [(1, 2048, 2048, 32, 32, True, 0),     # zamba2 prefill, B 1
+                  (1, 64, 64, 4, 4, True, 0),
+                  (2, 77, 131, 4, 2, True, 54),         # ragged Sq and Skv, G 2
+                  (2, 77, 131, 4, 2, False, 0),
+                  (1, 100, 228, 4, 4, True, 128),       # q_offset 128
+                  (2, 200, 200, 8, 8, False, 0),        # bidirectional
+                  (2, 200, 200, 8, 4, True, 0),         # group 2
+                  (2, 333, 333, 4, 4, True, 0),         # 3 query and key tiles
+                  (1040, 64, 64, 64, 32, True, 0)]      # B x H = 66,560 blocks
+
+
+@pytest.mark.parametrize("case", SM90_D64_CASES, ids=str)
+def test_flash_sm90_d64_matches_plain(cuda, case):
+    b, sq, skv, h, kv, causal, off = case
+    _flash_case(cuda, torch.bfloat16, b, sq, skv, h, kv, 64, causal, off,
+                seed=sq + h + 2, variant="sm90")
+
+
+def test_sm90_probe_d64_matches_matmul(cuda):
+    """The d 64 layout: one 64-column slab a row, QK^T in 4 k-steps and PV
+    one n64 product; against torch.matmul in fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(64)
+    keys = fops.SM90_KEYS[64]
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(cuda, torch.bfloat16) for shape in ((64, 64), (keys, 64),
+                                                       (keys, 64)))
+    s, o = fops.sm90_probe(q, k, v)
+    assert s.shape == (64, keys) and o.shape == (64, 64)
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(o, s.to(torch.bfloat16).float() @ v.float(),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_flash_sm90_d64_matches_mma_sync_and_repeats(cuda):
+    """Both bf16 kernels, forced, on the same inputs at d 64, k and v a
+    cache slice read in place; two sm90 calls give the same bits."""
+    rng = np.random.default_rng(640)
+    cache = torch.from_numpy(rng.standard_normal((2, 2, 333, 4, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    q = torch.from_numpy(rng.standard_normal((2, 333, 8, 64)).astype(
+        np.float32)).to(cuda, torch.bfloat16)
+    k, v = cache[0], cache[1]
+    for causal in (True, False):
+        a = fops.flash_attention_cuda(q, k, v, causal=causal, variant="sm90")
+        b = fops.flash_attention_cuda(q, k, v, causal=causal,
+                                      variant="mma_sync")
+        torch.testing.assert_close(a.float(), b.float(), rtol=1e-2, atol=1e-2)
+        assert torch.equal(a, fops.flash_attention_cuda(
+            q, k, v, causal=causal, variant="sm90"))
+
+
 def test_flash_sm90_cache_slice_in_place_and_repeatable(cuda):
     """A layer's slice of the (L, B, S, KV, d) cache goes in through its
     strides, and two calls give the same bits."""
@@ -739,7 +795,7 @@ def test_flash_sm90_d160_matches_mma_sync(cuda):
 
 def test_flash_sm90_refuses_shapes_it_lacks(cuda):
     for dtype, sq, dh in ((torch.float32, 128, 128), (torch.bfloat16, 63, 128),
-                          (torch.bfloat16, 128, 64), (torch.float32, 128, 160),
+                          (torch.bfloat16, 63, 64), (torch.float32, 128, 160),
                           (torch.bfloat16, 63, 160)):
         x = torch.zeros((1, sq, 2, dh), device=cuda, dtype=dtype)
         with pytest.raises(ValueError, match="sm90"):
@@ -2041,3 +2097,70 @@ def test_sampling_ids_repeat_per_seed(cuda, arch):
     assert np.array_equal(a, b) and not np.array_equal(a, c)
     assert not np.array_equal(a, greedy)
     assert n_a == n_greedy == (cfg.n_layers * 36 if cfg.family == "dense" else 0)
+
+
+# ---------------------------------------------------------------------------
+# The Mamba2 hybrid family (zamba2-1.2b): ``-k hybrid``.
+# ---------------------------------------------------------------------------
+
+def test_hybrid_smoke_model_on_card_matches_cpu(cuda):
+    """zamba2-1.2b's smoke model (4 Mamba2 layers, the shared block after
+    layers 1 and 3, d_head 32) in fp32 on the card, forward on 2 x 64
+    tokens (four SSD chunks) bitwise the same twice and 40 decode steps,
+    within SMOKE_F64_TOL of the same weights in float64 on one CPU thread
+    (the SSD in float32, as the reference pins it); the shared block's
+    attention goes to the mma_sync kernel in fp32, once a site and call."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("zamba2-1.2b")).replace(
+        compute_dtype_str="float32")
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    cparams = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    before = fops.launches_by_variant["mma_sync"]
+    h_card, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    again, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    assert torch.equal(h_card, again)
+    cg = card.init_cache(2, 64)
+    for t in range(40):
+        cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(cuda)}, t)
+    assert fops.launches_by_variant["mma_sync"] == before + 2 * 2 + 2 * 40
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        h_ref, _ = f64.forward(params, {"tokens": toks})
+        cr = f64.init_cache(2, 64)
+        for t in range(40):
+            cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+    finally:
+        torch.set_num_threads(threads)
+    tol = dict(rtol=SMOKE_F64_TOL, atol=SMOKE_F64_TOL)
+    torch.testing.assert_close(h_card.cpu().double(), h_ref, **tol)
+    torch.testing.assert_close(lg.cpu().double(), lr, **tol)
+    assert cg["h"].dtype == torch.float32 and cg["k"].dtype == torch.float32
+
+
+def test_hybrid_d64_prefill_and_generate_send_flash_to_their_kernels(cuda):
+    """The smoke hybrid at zamba2-1.2b's head dim (d 64, 4 heads over 4) in
+    bf16: prefill_step's two sites on the sm90 kernel, every decode site
+    (prompt and new tokens) on the decode kernel, none on mma_sync; finite
+    logits and the same ids twice."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduce_for_smoke(get_config("zamba2-1.2b")).replace(d_head=64)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    engine = Engine(model, params, ServeConfig(max_new_tokens=6, max_seq=96))
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 80)).astype(np.int32)
+    prefill_step, _ = make_serve_steps(model)
+    before = dict(fops.launches_by_variant)
+    logits = prefill_step(engine.params, {"tokens": torch.from_numpy(prompts).to(cuda)})
+    after = dict(fops.launches_by_variant)
+    assert after["sm90"] == before["sm90"] + 2 and after["mma_sync"] == before["mma_sync"]
+    assert logits.shape == (2, cfg.vocab_padded) and torch.isfinite(logits).all()
+    ids = engine.generate(prompts)
+    done = dict(fops.launches_by_variant)
+    assert done["decode"] - after["decode"] == 2 * (80 + 6)
+    assert done["mma_sync"] == after["mma_sync"] and done["sm90"] == after["sm90"]
+    assert np.array_equal(ids, engine.generate(prompts))

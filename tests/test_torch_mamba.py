@@ -233,8 +233,9 @@ def test_greedy_ids_match_jax_engine(seed):
 
 def test_engine_keeps_a_log_and_dt_bias_in_float32():
     """Under bf16 params and compute the engine casts every leaf to bf16
-    but ``a_log`` and ``dt_bias``, which the reference reads in float32;
-    the values are the params' own."""
+    but ``a_log`` and ``dt_bias``, which the reference reads in float32,
+    and ``d_skip``, which Mamba2 reads in float32 (Mamba1 casts it back at
+    use); the values are the params' own."""
     cfg = reduce_for_smoke(get_config(ARCH)).replace(param_dtype_str="bfloat16")
     tm = Model(cfg, device="cpu")
     params = tm.init(torch.Generator().manual_seed(0))
@@ -243,7 +244,7 @@ def test_engine_keeps_a_log_and_dt_bias_in_float32():
     eng = Engine(tm, params, ServeConfig())
     elay = eng.params["stack"]["layers"]["mamba"]
     for k, v in elay.items():
-        want = torch.float32 if k in ("a_log", "dt_bias") else torch.bfloat16
+        want = torch.float32 if k in ("a_log", "dt_bias", "d_skip") else torch.bfloat16
         assert v.dtype == want, k
         torch.testing.assert_close(v.float(), lay[k].float(), rtol=0, atol=0)
     assert eng.params["embed"]["tok"].dtype == torch.bfloat16

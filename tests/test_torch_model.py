@@ -399,6 +399,6 @@ def test_unported_configs_raise():
     cfg = reduce_for_smoke(get_config("internlm2-1.8b"))
     mamba = reduce_for_smoke(get_config("falcon-mamba-7b"))
     for bad in (cfg.replace(mrope=True), cfg.replace(family="moe"),
-                cfg.replace(family="hybrid"), mamba.replace(ssm_version=2)):
+                cfg.replace(family="encdec"), mamba.replace(ssm_version=2)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(bad, device="cpu")

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Hold this tree's flash kernels to another checkout's, at the d 128 serve
-and train shapes, on one card.
+and train shapes and the d 160 prefill, on one card.
 
     python tools/flash_parent_compare.py --parent DIR [--rounds 5] [--iters 20]
 
@@ -10,7 +10,8 @@ parent, unpacked). Its ``csrc/flash_attention_sm90.cu`` and
 ``build/parent_kernels/`` and called through this tree's wrapper (the
 wrapper's library is swapped), on the same inputs as this tree's kernels:
 the sm90 kernel at internlm2-1.8b's prefill (8 x 2048, 16 heads over 8,
-causal) and the decode kernel at 192 of 256 and 4096 of 4096 keys. Prints
+causal) and at stablelm-12b's (32 heads over 8, d 160), and the decode
+kernel at 192 of 256 and 4096 of 4096 keys. Prints
 one JSON line: whether each pair of outputs is bitwise equal, and each
 kernel's call time (CUDA events around ``--iters`` back-to-back calls; a
 decode call's is the host's) and device time (``chip_smoke.device_ms``,
@@ -107,7 +108,9 @@ def main(argv=None) -> int:
              "decode_192": ("decode", (rand(b, 1, h, d), rand(b, 256, kv, d),
                                        rand(b, 256, kv, d)), 191),
              "decode_4096": ("decode", (rand(b, 1, h, d), rand(b, 4096, kv, d),
-                                        rand(b, 4096, kv, d)), 4095)}
+                                        rand(b, 4096, kv, d)), 4095),
+             "sm90_prefill_d160": ("sm90", (rand(b, 2048, 32, 160), rand(b, 2048, kv, 160),
+                                            rand(b, 2048, kv, 160)), 0)}
 
     def call(variant, qkv, pos):
         return fops.flash_attention_cuda(*qkv, causal=True, q_offset=pos,
