@@ -115,7 +115,8 @@ Phases, one line each:
      shapes of internlm2-1.8b (d 128), stablelm-12b (d 160), zamba2-1.2b
      (d 64, GQA group 1) and deepseek-7b (d 128, GQA group 1), decode rows
      of 256 and 4096 slots, a GQA group of 5 and ragged d-64, d-128 and
-     d-160 cases, to 1e-2, through the sm90, decode and mma_sync kernels,
+     d-160 cases, grok-1-314b's GQA group 6 (d 128) at its prefill and
+     decode shapes, to 1e-2, through the sm90, decode and mma_sync kernels,
      each forced and as the wrapper chooses; the sm90 and decode kernels
      also bitwise repeatable); both backward
      kernels against their plain version (``flash_bwd_vs_plain``: the one
@@ -125,12 +126,12 @@ Phases, one line each:
      lengths; at bf16 d 128 also the sm90 and the mma_sync backward forced,
      with 1024-row cases of groups 1 and 8 and a q_offset of 1024 over
      1536 keys; a second call bitwise);
-  6. the LM serving path at full width, four times: internlm2-1.8b
+  6. the LM serving path at full width, five times: internlm2-1.8b
      (d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
-     92544, the depth cut to 12 of its 24 layers; weights drawn in fp32,
+     92544, the depth cut to 6 of its 24 layers; weights drawn in fp32,
      the engine's copy in bf16), then
      stablelm-12b (d_model 5120, 32 query heads over 8 KV heads, d_head
-     160, d_ff 13824, vocab 100352, the depth cut to 10 of its 40 layers;
+     160, d_ff 13824, vocab 100352, the depth cut to 5 of its 40 layers;
      drawn in bf16 so that the engine copies nothing; internlm2's engine
      freed first), then falcon-mamba-7b (below), random weights from a
      seeded generator on the card, bf16
@@ -149,23 +150,34 @@ Phases, one line each:
      gap exceeds 2 ulps; the rows within it counted), and the device ms
      and host µs a pick adds over argmax; then the ssm family:
      falcon-mamba-7b (Mamba1, attention-free: d_model 4096, d_inner 8192,
-     state 16, vocab 65024, the depth cut to 16 of its 64 layers; drawn
+     state 16, vocab 65024, the depth cut to 8 of its 64 layers; drawn
      in bf16, ``a_log`` float32) through the same
      ``serve`` with no flash launch:
      ``prefill_step`` on 8 x 2048 tokens (with the plain scan's time at
      one layer's shape and its share of the prefill), ``Engine.generate``
      greedy twice and sampled once (lines ``serve_falcon_prefill`` /
      ``serve_falcon_generate``); then the hybrid family: zamba2-1.2b
-     (38 Mamba2 layers and one shared attention + MLP block after every
-     6th, d_model 2048, 32 heads over 32 at d 64, vocab 32000; 1.2 B
-     parameters drawn in bf16) through the same ``serve``: 6 sm90
-     launches a prefill, 6 decode launches a step, the plain SSD's time at
+     (Mamba2 layers, 26 of its 38, and one shared attention + MLP block
+     after every 6th, d_model 2048, 32 heads over 32 at d 64, vocab 32000;
+     drawn in bf16) through the same ``serve``: 4 sm90
+     launches a prefill, 4 decode launches a step, the plain SSD's time at
      one layer's shape and its share of the prefill, the prefill's FLOP
      bound from the model's matmuls (lines ``serve_zamba_prefill`` /
-     ``serve_zamba_generate``); then ``ssm_vs_cpu`` and ``hybrid_vs_cpu``:
+     ``serve_zamba_generate``); then the moe family: grok-1-314b (d_model
+     6144, 48 heads over 8 at d 128, 8 experts of width 32768, top-2,
+     vocab 131072; 2 of its 64 layers, 11.45e9 parameters drawn in bf16)
+     through the same ``serve``: 2 sm90 launches a prefill, 2 decode
+     launches a step, each prefill's dropped pairs and largest expert
+     load, the FLOP bound with the capacity padding, the decode step's
+     bytes bound; the prompt logits held at PREFILL_DECODE_TOL, or where
+     routes parted by the mean beside a K/V-losing control (lines
+     ``serve_grok_prefill`` / ``serve_grok_generate``); then
+     ``ssm_vs_cpu``, ``hybrid_vs_cpu`` and ``moe_vs_cpu``:
      each family's smoke model in fp32 on the card (forward bitwise twice,
-     40 decode steps; the hybrid's shared block on the mma_sync kernel)
-     against float64 on the CPU to 2e-5; then the training path (line ``train``):
+     40 decode steps; the hybrid's shared block and the moe model's
+     attention on the mma_sync kernel) against float64 on the CPU to 2e-5
+     (moe 1e-4, at its capacity and at 8 slots an expert, its routes and
+     kept masks equal away from near ties); then the training path (line ``train``):
      internlm2-1.8b at full width (fp32 params, bf16 compute, remat
      "full", AdamW with bf16 moments, 2 microbatches), 1 warm-up and 3
      timed steps on batches of 8 x 4096 tokens that ``AerialPipeline``
@@ -208,7 +220,8 @@ Phases, one line each:
      mma_sync, both forced) and at two decode shapes, 192 of 256 slots and
      4096 of 4096 (decode and mma_sync, both forced), at d 128, at d 160
      and at d 64 (zamba2-1.2b's 32 heads over 32), each beside SDPA and the
-     bytes or operations bound, the profiles each device time took, and the
+     bytes or operations bound, and grok-1-314b's 48 heads over 8 at d 128
+     (its sm90 prefill and 192-key decode only), the profiles each device time took, and the
      kernels' timings printed as one JSON line (the three flash kernels
      once at each head dim, with ``_d160`` and ``_d64`` names); both
      backward kernels, forced and in turns, at one
@@ -271,13 +284,16 @@ CHAOS_SMOKE = ((0, "fail_edges", ((6,),)),
 SERVE_ARCH = "internlm2-1.8b"
 SERVE_D160_ARCH = "stablelm-12b"   # the serve path at head dim 160
 # Depth cuts that keep the script within its time as paths were added,
-# each model at full width: internlm2-1.8b is served with 12 of its 24
-# layers, stablelm-12b with 10 of its 40 and falcon-mamba-7b with 16 of
-# its 64 (a serve's prefill, decode steps and generates take time in
-# proportion to its layers). The training path keeps internlm2's 24.
-SERVE_LAYERS = 12
-SERVE_D160_LAYERS = 10
-SERVE_SSM_LAYERS = 16
+# each model at full width: internlm2-1.8b is served with 6 of its 24
+# layers, stablelm-12b with 5 of its 40, falcon-mamba-7b with 8 of its 64
+# and zamba2-1.2b with 26 of its 38 (four sites of its shared block and a
+# trailing group of two; SERVE_HYBRID_LAYERS) (a serve's prefill, decode
+# steps and generates take time in proportion to its layers; the last cuts
+# pay for grok-1-314b's serve and moe_vs_cpu). The training path keeps
+# internlm2's 24.
+SERVE_LAYERS = 6
+SERVE_D160_LAYERS = 5
+SERVE_SSM_LAYERS = 8
 SERVE_BATCH = 8
 PREFILL_LEN = 2048
 PROMPT_LEN, NEW_TOKENS, MAX_SEQ = 128, 64, 256
@@ -372,8 +388,37 @@ SSM_F64_TOL = 2e-5
 # of six Mamba2 layers, the shared block, and a last layer after it (the
 # trailing group the full stack ends with).
 SERVE_HYBRID_ARCH = "zamba2-1.2b"
+SERVE_HYBRID_LAYERS = 26
 HYBRID_PREFILL_DECODE_MEAN_TOL = 0.25
 HYBRID_F32_CUT_LAYERS = 7
+# The moe family's serve path: grok-1-314b at full width (d_model 6144, 48
+# query heads over 8 at d 128, 8 experts of width 32768, top-2, vocab
+# 131072), 2 of its 64 layers: a layer holds 4.92e9 parameters, 9.84 GB in
+# bf16, so 64 do not fit one card; 2 layers, the embedding and the
+# unembedding are 11.45e9 (22.9 GB), drawn in bf16. Its prefill-vs-decode
+# check is the dense one (PREFILL_DECODE_TOL at the largest logit) where
+# that holds. In bf16 a tiny difference upstream can swap a token's second
+# and third experts, which moves the logits by an expert's output, not by
+# rounding; the JAX package's own bf16 forward and decode part so, at the
+# tokens and layers where their routes part
+# (tests/test_torch_moe.py::test_bf16_moe_parts_at_the_largest_logit: 1.72
+# at d_model 128, 2 layers). So where the largest gap exceeds the limit and
+# routes parted (or the prompt's prefill dropped pairs, which a decode step
+# never does), the check is the mean gap, to MOE_PREFILL_DECODE_MEAN_TOL,
+# beside a control that zeroes the K/V cache in the last SSM_CONTROL_STEPS
+# prompt steps, which must exceed it (the JAX test: the sound mean
+# 0.011-0.160, the control 1.08-1.15).
+SERVE_MOE_ARCH = "grok-1-314b"
+GROK_SERVE_LAYERS = 2
+MOE_PREFILL_DECODE_MEAN_TOL = 0.25
+# moe_vs_cpu: grok's smoke model in fp32 on the card against float64 on the
+# CPU, to MOE_F64_TOL, at its own capacity factor and at MOE_CAP8_FACTOR,
+# which gives the forward's 128 tokens 8 slots an expert (drops); routes
+# and kept masks equal away from tokens whose k-th and (k+1)-th routing
+# probabilities lie within MOE_TIE.
+MOE_F64_TOL = 1e-4
+MOE_CAP8_FACTOR = 0.01
+MOE_TIE = 1e-5
 # A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
 # `visit`): FMUL, FMUL, FADD, FMUL by 2, FADD, then FSETP, FSEL, SEL. A
 # static count, read by hand in the kernel's SASS, not measured in a run.
@@ -2551,14 +2596,16 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
     """flash_attention's kernels against their plain version on the card:
     fp32 at the JAX package's kernel-test shapes, decode rows and a ragged
     size (to FLASH_F32_TOL), bf16 at the serve shapes of internlm2-1.8b
-    (d 128), stablelm-12b (d 160), zamba2-1.2b (d 64, GQA group 1) and
-    deepseek-7b (d 128, GQA group 1), decode rows and ragged cases (to
+    (d 128), stablelm-12b (d 160), zamba2-1.2b (d 64, GQA group 1),
+    deepseek-7b (d 128, GQA group 1) and grok-1-314b (d 128, GQA group 6),
+    decode rows and ragged cases (to
     FLASH_BF16_TOL), each bf16 case through the kernel the wrapper chooses
     and through every kernel that takes it, forced; the sm90 and decode
     kernels twice, bitwise. Exits non-zero on
     any mismatch or on a call that went to another kernel than expected;
-    returns the largest errors by dtype, by bf16 kernel, and by bf16
-    kernel and head dim (``bfloat16_<kernel>_d<d>``)."""
+    returns the largest errors by dtype, by bf16 kernel, by bf16 kernel
+    and head dim (``bfloat16_<kernel>_d<d>``) and by bf16 kernel, head dim
+    and GQA group (``bfloat16_<kernel>_d<d>_g<G>``; grok-1-314b's G 6)."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(seed)
@@ -2595,7 +2642,10 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                   # zamba2-1.2b's shared block: 32 heads over 32, d 64
                   (SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 32, 32, 64, True, 0),
                   (2, 77, 131, 4, 2, 64, True, 54),     # ragged, d 64
-                  (SERVE_BATCH, 1, MAX_SEQ, 32, 32, 64, True, 191)]
+                  (SERVE_BATCH, 1, MAX_SEQ, 32, 32, 64, True, 191),
+                  # grok-1-314b: 48 heads over 8 (GQA group 6), d 128
+                  (SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 48, 8, 128, True, 0),
+                  (SERVE_BATCH, 1, MAX_SEQ, 48, 8, 128, True, 191)]
     errs = {}
     n_calls = 0
     for dtype, cases, tol in ((torch.float32, f32_cases, FLASH_F32_TOL),
@@ -2630,7 +2680,8 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                                      "call gave other bits")
                 worst = max(worst, float(err.max()))
                 if dtype == torch.bfloat16:
-                    for key in (f"bfloat16_{ran}", f"bfloat16_{ran}_d{dh}"):
+                    for key in (f"bfloat16_{ran}", f"bfloat16_{ran}_d{dh}",
+                                f"bfloat16_{ran}_d{dh}_g{h // kv}"):
                         errs[key] = max(errs.get(key, 0.0), float(err.max()))
                 n_calls += 1
         errs[str(dtype).removeprefix("torch.")] = worst
@@ -2651,7 +2702,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     ``param_dtype`` is the dtype the weights are drawn in: "float32" (the
     engine casts a bf16 copy) or "bfloat16" (the engine's cast copies
     nothing). ``layers`` cuts the depth (None: the config's own). A dense
-    model launches the sm90 kernel at every prefill
+    or moe model launches the sm90 kernel at every prefill
     layer and the decode kernel at every decode layer; the hybrid family at
     every site of its shared block; the ssm family none (its prefill line
     also times the plain scan at one layer's shape, the hybrid's the plain
@@ -2659,6 +2710,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     model and its weights are freed on return."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import moe
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import hybrid_attn_sites
     from repro_torch.serve.engine import Engine, ServeConfig
@@ -2702,13 +2754,15 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=dev).manual_seed(seed))
     n_params = sum(int(x.numel()) for x in _leaves(params))
-    # flash calls a forward: one a layer, one a site of the hybrid's shared
-    # block, none in the ssm family
-    attn = {"dense": cfg.n_layers, "hybrid": len(hybrid_attn_sites(cfg))}.get(cfg.family, 0)
-    recurrent = cfg.family != "dense"  # a scan state the control can lose
+    # flash calls a forward: one a layer (dense, moe), one a site of the
+    # hybrid's shared block, none in the ssm family
+    attn = {"dense": cfg.n_layers, "moe": cfg.n_layers,
+            "hybrid": len(hybrid_attn_sites(cfg))}.get(cfg.family, 0)
+    recurrent = cfg.family in ("ssm", "hybrid")  # a scan state the control can lose
+    is_moe = cfg.family == "moe"
     engine = TimedEngine(model, params, ServeConfig(
         max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ),
-        snapshot_at=PROMPT_LEN - SSM_CONTROL_STEPS if recurrent else None)
+        snapshot_at=PROMPT_LEN - SSM_CONTROL_STEPS if recurrent or is_moe else None)
     del params                      # the engine keeps the bf16 weights
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -2721,10 +2775,12 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
         0, cfg.vocab, (SERVE_BATCH, PREFILL_LEN)).astype(np.int32)).to(dev)
     prompts = rng.integers(0, cfg.vocab, (SERVE_BATCH, PROMPT_LEN)).astype(np.int32)
 
-    # prefill_step on 8 x 2048 tokens: one warm-up, then timed runs.
+    # prefill_step on 8 x 2048 tokens: one warm-up (its MoE routes
+    # recorded), then timed runs.
     fops.launches = 0
     fops.launches_by_variant = dict.fromkeys(fops.launches_by_variant, 0)
-    prefill_step(eparams, {"tokens": long_prompts})
+    with RouteLog() as warm_routes:
+        prefill_step(eparams, {"tokens": long_prompts})
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     times = []
@@ -2761,6 +2817,15 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
                       prefill_bound_ms=bound_s * 1e3,
                       prefill_bound_tokens_per_s=SERVE_BATCH * PREFILL_LEN / bound_s,
                       **ssd_share(torch, model, eparams, long_prompts, ms))
+    if is_moe:
+        flops = moe_prefill_flops(cfg, SERVE_BATCH, PREFILL_LEN)
+        bound_s = flops["total"] / BF16_FLOP_PER_S
+        family.update(n_experts=cfg.n_experts, top_k=cfg.top_k,
+                      d_ff_expert=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
+                      moe_dispatch=cfg.moe_dispatch, prefill_flops=flops,
+                      prefill_bound_ms=bound_s * 1e3,
+                      prefill_bound_tokens_per_s=SERVE_BATCH * PREFILL_LEN / bound_s,
+                      routes=moe_loads(torch, warm_routes.idx, cfg, SERVE_BATCH * PREFILL_LEN))
     phase(f"{tag}_prefill", arch=arch, params=n_params, **family,
           n_layers=cfg.n_layers, config_n_layers=full_layers,
           d_model=cfg.d_model, n_heads=cfg.n_heads,
@@ -2775,7 +2840,8 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
           flash_launches=prefill_launches, flash_by_variant=prefill_by_variant)
 
     # Engine.generate: 8 requests, 128-token prompts, NEW_TOKENS new tokens.
-    ref_logits = prefill_step(eparams, {"tokens": torch.from_numpy(prompts).to(dev)})
+    with RouteLog() as prompt_routes:
+        ref_logits = prefill_step(eparams, {"tokens": torch.from_numpy(prompts).to(dev)})
     torch.cuda.reset_peak_memory_stats()
     fops.launches = 0
     fops.launches_by_variant = dict.fromkeys(fops.launches_by_variant, 0)
@@ -2808,9 +2874,30 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
             for k in ("conv", "h"))}
         state_bytes["decode_step_bytes_bound_with_state_ms"] = \
             (weight_bytes + state_bytes["decode_step_state_bytes"]) / HBM_BYTES_PER_S * 1e3
+    with RouteLog() as engine_routes:
+        again = engine.generate(prompts)
+    deterministic = bool(np.array_equal(ids, again))
     if cfg.family == "dense":
         held = {"prefill_vs_decode_tol": PREFILL_DECODE_TOL}
         ok = max_diff <= PREFILL_DECODE_TOL
+    elif is_moe:
+        # the dense check where it holds; else the mean, beside the control,
+        # where routes parted or the prompt's prefill dropped pairs
+        loads = moe_loads(torch, prompt_routes.idx, cfg, SERVE_BATCH * PROMPT_LEN)
+        flips = route_flips(torch, prompt_routes.idx + engine_routes.idx,
+                            cfg.n_layers, SERVE_BATCH, PROMPT_LEN)
+        mean = float(diff[:, :cfg.vocab].mean())
+        control = ssm_control(torch, model, eparams, engine.snapshot, prompts,
+                              ref_logits, ("k", "v"))
+        parted = flips["total"] > 0 or sum(loads["dropped_pairs"]) > 0
+        by_max = max_diff <= PREFILL_DECODE_TOL
+        held = {"prefill_vs_decode_tol": PREFILL_DECODE_TOL,
+                "prefill_vs_decode_mean_abs_diff": mean,
+                "prefill_vs_decode_mean_tol": MOE_PREFILL_DECODE_MEAN_TOL,
+                "control_kv_lost_mean_abs_diff": control,
+                "prompt_prefill_routes": loads, "route_flips": flips,
+                "held_by": "max" if by_max else "mean_and_control"}
+        ok = by_max or (parted and mean <= MOE_PREFILL_DECODE_MEAN_TOL < control)
     else:
         ssm = cfg.family == "ssm"
         tol = SSM_PREFILL_DECODE_MEAN_TOL if ssm else HYBRID_PREFILL_DECODE_MEAN_TOL
@@ -2829,8 +2916,6 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
             held["control_all_leaves_mean_abs_diff"] = controls[1]
         ok = held["prefill_vs_decode_mean_abs_diff"] <= tol < min(controls) \
             and held["fp32_cut"]["max_abs_diff"] <= SSM_F32_PREFILL_DECODE_TOL
-    again = engine.generate(prompts)
-    deterministic = bool(np.array_equal(ids, again))
     sampled, sampled_decode = {}, 0
     if sample_seeds:
         sampled = sampled_runs(
@@ -2845,6 +2930,12 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
             sampled = {}
         else:
             sampled = {"sampled": sampled}
+    if is_moe:   # a step reads every weight but the embedding table's rows
+        embed_bytes = eparams["embed"]["tok"].numel() * eparams["embed"]["tok"].element_size()
+        state_bytes = {"decode_step_bytes_without_embed": weight_bytes - embed_bytes,
+                       "decode_step_bytes_bound_without_embed_ms":
+                       (weight_bytes - embed_bytes) / HBM_BYTES_PER_S * 1e3,
+                       "decode_step_capacity": moe._capacity(SERVE_BATCH, cfg)}
     phase(f"{tag}_generate", arch=arch, batch=SERVE_BATCH, prompt_len=PROMPT_LEN,
           new_tokens=NEW_TOKENS, max_seq=MAX_SEQ, wall_s=wall,
           prompt_phase_ms=prompt_ms,
@@ -3003,6 +3094,167 @@ def ssd_share(torch, model, eparams, tokens, prefill_ms: float) -> dict:
             "ssd_shape": list(xh.shape) + [n]}
 
 
+class RouteLog:
+    """While active, records the expert indices of every MoE routing call
+    (``models/moe.py``'s functions look ``_route`` up when they run), and
+    with ``gaps`` each token's gap between its k-th and (k+1)-th routing
+    probabilities; the records stay where the call ran (no sync)."""
+
+    def __init__(self, gaps: bool = False):
+        from repro_torch.models import moe
+        self.moe, self.gaps = moe, gaps
+
+    def __enter__(self):
+        import torch
+        self.idx, self.gap, self.orig = [], [], self.moe._route
+
+        def route(p, x, cfg):
+            out = self.orig(p, x, cfg)
+            self.idx.append(out[0])
+            if self.gaps:
+                probs = torch.softmax((x @ p["gate"].to(cfg.compute_dtype)).float(), -1)
+                top = torch.sort(probs, -1, descending=True).values
+                self.gap.append(top[:, cfg.top_k - 1] - top[:, cfg.top_k])
+            return out
+        self.moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+def moe_loads(torch, idx, cfg, tokens: int) -> dict:
+    """Each recorded layer's routes of a call over ``tokens`` tokens: the
+    pairs past the capacity (dropped: a pair's slot is its rank in token
+    order, so an expert keeps its first ``capacity``) and the largest
+    per-expert load."""
+    from repro_torch.models import moe
+    cap = moe._capacity(tokens, cfg)
+    loads = [torch.bincount(i.reshape(-1), minlength=cfg.n_experts) for i in idx]
+    return {"capacity": cap, "routed_pairs": tokens * cfg.top_k,
+            "dropped_pairs": [int(torch.clamp(ld - cap, min=0).sum()) for ld in loads],
+            "max_expert_load": [int(ld.max()) for ld in loads]}
+
+
+def route_flips(torch, idx, n_layers: int, b: int, s: int) -> dict:
+    """(token, layer) pairs whose expert set differs between a forward over
+    b x s tokens (the first ``n_layers`` records, (b * s, k) each) and the
+    ``s`` decode steps over the same tokens after it (``n_layers`` records
+    of (b, k) a step); also those at each row's last token."""
+    fwd = torch.stack(idx[:n_layers]).sort(-1).values
+    dec = torch.stack(idx[n_layers:n_layers * (s + 1)])
+    dec = dec.reshape(s, n_layers, b, -1).permute(1, 2, 0, 3).reshape(n_layers, b * s, -1)
+    diff = (fwd != dec.sort(-1).values).any(-1)
+    return {"total": int(diff.sum()), "by_layer": diff.sum(1).tolist(),
+            "last_token": int(diff.view(n_layers, b, s)[:, :, -1].sum())}
+
+
+def moe_prefill_flops(cfg, b: int, s: int) -> dict:
+    """FLOP of an moe ``prefill_step`` on b x s tokens, from the model's
+    products: each layer's three expert products over every slot of the
+    (E, C) buffers (the capacity padding included), the gate, the
+    attention projections and causal attention; the unembedding of the
+    last position."""
+    from repro_torch.models import moe
+    t, d, f = b * s, cfg.d_model, cfg.d_ff_expert
+    cap = moe._capacity(t, cfg)
+    hd = cfg.n_heads * cfg.d_head
+    experts = 3 * 2 * cfg.n_experts * cap * d * f
+    out = {"expert_products": cfg.n_layers * experts,
+           "gate": cfg.n_layers * 2 * t * d * cfg.n_experts,
+           "projections": cfg.n_layers * (2 * t * d * (hd + 2 * cfg.n_kv * cfg.d_head)
+                                          + 2 * t * hd * d),
+           "attention": cfg.n_layers * 4 * b * hd * s * (s + 1) / 2,
+           "unembed": 2 * b * d * cfg.vocab_padded}
+    out["total"] = sum(out.values())
+    out["expert_slots"], out["routed_pairs"] = cfg.n_experts * cap, t * cfg.top_k
+    return out
+
+
+def moe_vs_cpu(torch, dev, seed: int) -> dict:
+    """grok-1-314b's smoke model (4 layers, d_model 128, 4 heads over 1, 4
+    experts top-2 of width 64) in fp32 on the card, forward on 2 x 64
+    tokens twice (bitwise) and SSM_DECODE_STEPS decode steps, against the
+    same weights in float64 on one CPU thread (routing in float32, as the
+    reference pins it), to MOE_F64_TOL; at its capacity factor (128 slots
+    an expert) and at MOE_CAP8_FACTOR (8 slots against a mean load of 64:
+    the forward drops pairs, a 2-token decode step never does). Each
+    forward layer's routes and kept mask equal the CPU's at every token
+    whose k-th and (k+1)-th probabilities lie more than MOE_TIE apart;
+    the tokens within it are counted. Attention goes to the mma_sync kernel
+    (fp32), once a layer and call."""
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.tree import tree_map
+    t0 = time.perf_counter()
+    base = reduce_for_smoke(get_config(SERVE_MOE_ARCH)).replace(compute_dtype_str="float32")
+    toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
+        0, base.vocab, (2, 64)).astype(np.int32))
+    out = {"config": base.name, "n_layers": base.n_layers, "d_model": base.d_model,
+           "n_experts": base.n_experts, "top_k": base.top_k,
+           "d_ff_expert": base.d_ff_expert, "tokens": list(toks.shape),
+           "decode_steps": SSM_DECODE_STEPS, "tol": MOE_F64_TOL, "tie": MOE_TIE}
+    bad = []
+    for factor in (base.capacity_factor, MOE_CAP8_FACTOR):
+        cfg = base.replace(capacity_factor=factor)
+        f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+        params = f64.init(torch.Generator().manual_seed(seed))
+        card = Model(cfg, device=dev)
+        cparams = tree_map(lambda a: a.to(dev), params)
+        before = dict(fops.launches_by_variant)
+        with RouteLog() as rc:
+            h_card, _ = card.forward(cparams, {"tokens": toks.to(dev)})
+        bitwise = bool(torch.equal(h_card, card.forward(cparams, {"tokens": toks.to(dev)})[0]))
+        cg = card.init_cache(2, 64)
+        for t in range(SSM_DECODE_STEPS):
+            cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(dev)}, t)
+        launches = {k: v - before[k] for k, v in fops.launches_by_variant.items()}
+        want = dict.fromkeys(launches, 0)
+        want["mma_sync"] = cfg.n_layers * (2 + SSM_DECODE_STEPS)
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            with RouteLog(gaps=True) as rr:
+                h_ref, _ = f64.forward(params, {"tokens": toks})
+            cr = f64.init_cache(2, 64)
+            for t in range(SSM_DECODE_STEPS):
+                cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+        finally:
+            torch.set_num_threads(threads)
+        cap = moe._capacity(toks.numel(), cfg)
+        near = route_apart = keep_apart = dropped = 0
+        for ic, ir, gap in zip(rc.idx, rr.idx, rr.gap):
+            held = gap > MOE_TIE
+            near += int((~held).sum())
+            ic = ic.cpu()
+            route_apart += int((ic != ir).any(-1)[held].sum())
+            kc, kr = moe.slots(ic, cfg.n_experts, cap)[1], moe.slots(ir, cfg.n_experts, cap)[1]
+            keep_apart += int((kc != kr).any(-1)[held].sum())
+            dropped += int((~kr).sum())
+
+        def gap(got, want):     # the largest excess over atol + rtol |want|
+            got = got.cpu().double()
+            return float(((got - want).abs() - MOE_F64_TOL * want.abs()).max())
+        run = {"capacity_factor": factor, "capacity": cap, "dropped_pairs": dropped,
+               "near_tie_tokens": near, "route_mismatch_tokens": route_apart,
+               "keep_mismatch_tokens": keep_apart, "forward_bitwise": bitwise,
+               "flash_launches": launches,
+               "hidden_max_abs_diff": float((h_card.cpu().double() - h_ref).abs().max()),
+               "decode_logits_max_abs_diff": float((lg.cpu().double() - lr).abs().max()),
+               "hidden_excess": gap(h_card, h_ref), "decode_excess": gap(lg, lr)}
+        out["cap8" if factor == MOE_CAP8_FACTOR else "full"] = run
+        if not bitwise or launches != want or route_apart or keep_apart \
+                or (dropped > 0) != (factor == MOE_CAP8_FACTOR) \
+                or max(run["hidden_excess"], run["decode_excess"]) > MOE_F64_TOL:
+            bad.append((factor, run, want))
+    out["phase_wall_s"] = time.perf_counter() - t0
+    if bad:
+        raise SystemExit(f"moe_vs_cpu: {bad}")
+    return out
+
+
 def sampled_runs(torch, make_engine, prompts, seeds, greedy_ids, greedy_wall_s,
                  want_launches, vocab, tag, cpu_check: bool) -> dict:
     """``Engine.generate`` at SAMPLE_TEMPERATURE once per seed of ``seeds``
@@ -3157,10 +3409,13 @@ def ssm_vs_cpu(torch, dev, seed: int, arch: str = SERVE_SSM_ARCH) -> dict:
     return out
 
 
-# The serve shapes flash_timings times, by head dim: (query heads, kv heads)
-# of internlm2-1.8b at d 128, of stablelm-12b at d 160 and of zamba2-1.2b's
-# shared block at d 64.
-FLASH_TIMING_HEADS = {128: (16, 8), 160: (32, 8), 64: (32, 32)}
+# The serve shapes flash_timings times, by key suffix: (head dim, query
+# heads, kv heads, whether the mma_sync kernel and the 4096-key decode row
+# are timed too) of internlm2-1.8b at d 128, of stablelm-12b at d 160, of
+# zamba2-1.2b's shared block at d 64 and of grok-1-314b (d 128, GQA group
+# 6: its prefill and 192-key decode on the kernels that take them).
+FLASH_TIMING_HEADS = {"": (128, 16, 8, True), "_d160": (160, 32, 8, True),
+                      "_d64": (64, 32, 32, True), "_grok": (128, 48, 8, False)}
 
 
 def flash_timings(torch, dev, seed: int) -> dict:
@@ -3174,7 +3429,9 @@ def flash_timings(torch, dev, seed: int) -> dict:
     ``*ms`` is the call time, wrapper included; ``*device_ms`` the kernel's
     own device time a launch; ``*bound_ms`` the bound of the work at each
     shape, for whichever kernel runs it. The same at d 64 with zamba2-1.2b's
-    heads (keys ``_d64``)."""
+    heads (keys ``_d64``), and with grok-1-314b's 48 heads over 8 at d 128
+    (keys ``_grok``: the sm90 prefill and the 192-key decode, beside their
+    plain version and SDPA)."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -3190,8 +3447,7 @@ def flash_timings(torch, dev, seed: int) -> dict:
                                                  variant=variant, **kw)
 
     out = {}
-    for d, (h, kv) in FLASH_TIMING_HEADS.items():
-        sfx = "" if d == 128 else f"_d{d}"
+    for sfx, (d, h, kv, every) in FLASH_TIMING_HEADS.items():
         # prefill: S = 2048, causal
         q, k, v = rand(b, PREFILL_LEN, h, d), rand(b, PREFILL_LEN, kv, d), rand(b, PREFILL_LEN, kv, d)
         qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
@@ -3204,45 +3460,51 @@ def flash_timings(torch, dev, seed: int) -> dict:
             "shape": [b, s, h, kv, d, "causal", "bf16"],
             "ms": cuda_ms(torch, kernel("sm90", q, k, v), 20),
             "device_ms": device_ms(torch, kernel("sm90", q, k, v), 10, "flash_fwd_sm90"),
-            "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v), 20),
-            "mma_sync_device_ms": device_ms(torch, kernel("mma_sync", q, k, v), 10,
-                                            "flash_fwd_bf16"),
             "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
             "library_ms": cuda_ms(torch, sdpa, 20),
             "library_device_ms": device_ms(torch, sdpa, 10),
             "flops": flops, "bytes": nbytes,
             **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+        if every:
+            out["prefill" + sfx].update(
+                mma_sync_ms=cuda_ms(torch, kernel("mma_sync", q, k, v), 20),
+                mma_sync_device_ms=device_ms(torch, kernel("mma_sync", q, k, v), 10,
+                                             "flash_fwd_bf16"))
         del q, k, v, qt, kt, vt
         # decode: Sq = 1 at the last position of the generate run (191 of a
         # 256-slot cache), and at the last of a 4096-slot cache
-        for name, slots, pos in (("decode", MAX_SEQ, PROMPT_LEN + NEW_TOKENS - 1),
-                                 ("decode_long", LONG_SEQ, LONG_SEQ - 1)):
+        rows = (("decode", MAX_SEQ, PROMPT_LEN + NEW_TOKENS - 1),
+                ("decode_long", LONG_SEQ, LONG_SEQ - 1))
+        for name, slots, pos in rows[:2 if every else 1]:
             q, k, v = rand(b, 1, h, d), rand(b, slots, kv, d), rand(b, slots, kv, d)
             qt = q.transpose(1, 2).contiguous()
             kt, vt = (x[:, :pos + 1].transpose(1, 2).contiguous() for x in (k, v))
             flops = 4 * b * h * d * (pos + 1)
             nbytes = 2 * (2 * q.numel() + 2 * b * (pos + 1) * kv * d)
             sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, enable_gqa=True)
-            host = host_us(torch, {
-                "decode": kernel("decode", q, k, v, q_offset=pos),
-                "mma_sync": kernel("mma_sync", q, k, v, q_offset=pos)})
+            calls = {"decode": kernel("decode", q, k, v, q_offset=pos)}
+            if every:
+                calls["mma_sync"] = kernel("mma_sync", q, k, v, q_offset=pos)
+            host = host_us(torch, calls)
             out[name + sfx] = {
                 "shape": [b, 1, h, kv, d, "q_offset", pos, "Skv", slots],
-                "host_us": host["decode"], "mma_sync_host_us": host["mma_sync"],
+                "host_us": host["decode"],
                 "keys": pos + 1, "slots": slots,
                 "n_split": fops.decode_splits(b, kv, pos + 1),
-                "ms": cuda_ms(torch, kernel("decode", q, k, v, q_offset=pos), 200),
-                "device_ms": device_ms(torch, kernel("decode", q, k, v, q_offset=pos),
-                                       50, "flash_decode"),
-                "mma_sync_ms": cuda_ms(torch, kernel("mma_sync", q, k, v, q_offset=pos), 200),
-                "mma_sync_device_ms": device_ms(
-                    torch, kernel("mma_sync", q, k, v, q_offset=pos), 50, "flash_fwd_bf16"),
+                "ms": cuda_ms(torch, calls["decode"], 200),
+                "device_ms": device_ms(torch, calls["decode"], 50, "flash_decode"),
                 "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(
                     q, k, v, causal=True, q_offset=pos), 20),
                 "library_ms": cuda_ms(torch, sdpa, 200),
                 "library_device_ms": device_ms(torch, sdpa, 50),
                 "flops": flops, "bytes": nbytes,
                 **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)}
+            if every:
+                out[name + sfx].update(
+                    mma_sync_host_us=host["mma_sync"],
+                    mma_sync_ms=cuda_ms(torch, calls["mma_sync"], 200),
+                    mma_sync_device_ms=device_ms(torch, calls["mma_sync"], 50,
+                                                 "flash_fwd_bf16"))
     return out
 
 
@@ -4428,10 +4690,16 @@ def main(argv=None) -> int:
                        layers=SERVE_SSM_LAYERS)
     torch.cuda.empty_cache()
     served_d64 = serve(torch, dev, args.seed, args.profile, arch=SERVE_HYBRID_ARCH,
-                       param_dtype="bfloat16", tag="serve_zamba", sample_seeds=(0,))
+                       param_dtype="bfloat16", tag="serve_zamba", sample_seeds=(0,),
+                       layers=SERVE_HYBRID_LAYERS)
+    torch.cuda.empty_cache()
+    served_grok = serve(torch, dev, args.seed, args.profile, arch=SERVE_MOE_ARCH,
+                        param_dtype="bfloat16", tag="serve_grok",
+                        layers=GROK_SERVE_LAYERS)
     torch.cuda.empty_cache()
     phase("ssm_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed))
     phase("hybrid_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed, SERVE_HYBRID_ARCH))
+    phase("moe_vs_cpu", **moe_vs_cpu(torch, dev, args.seed))
     trained = train(torch, dev, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     trained_small = train_vs_cpu(torch, dev, args.seed)
@@ -4485,6 +4753,20 @@ def main(argv=None) -> int:
             "long_ms": long["ms"], "long_device_ms": long["device_ms"],
             "long_plain_ms": long["plain_ms"], "long_bound_ms": long["bound_ms"],
             "long_library_device_ms": long["library_device_ms"]})
+    # grok-1-314b's shapes (48 heads over 8, d 128): the sm90 prefill and
+    # the decode kernel at its serve path's own launches
+    pre, dec = ft["prefill_grok"], ft["decode_grok"]
+    for name, var, src, row in (
+            ("flash_attention_sm90_grok", "sm90", "flash_attention_sm90.cu", pre),
+            ("flash_attention_decode_grok", "decode", "flash_attention_decode.cu", dec)):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/" + src,
+            "replaces": flash, "launches": served_grok[var],
+            "max_abs_err": flash_err[f"bfloat16_{var}_d128_g6"],
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"]})
     bwd = ft["bwd"]
     for name, var, src in (("flash_attention_bwd_sm90", "sm90", "flash_attention_bwd_sm90.cu"),
                            ("flash_attention_bwd", "mma_sync", "flash_attention_bwd.cu")):
@@ -4514,7 +4796,7 @@ def main(argv=None) -> int:
             k["ssm_serve_launches"] = served_ssm[name]     # falcon-mamba-7b: none
         if k["name"] == "flash_attention_decode":
             k["sampled_launches"] = served["sampled_decode"]
-        if not k["name"].endswith(("_d160", "_d64")):
+        if not k["name"].endswith(("_d160", "_d64", "_grok")):
             k["train_launches"] = trained[name]
             k["train_vs_cpu_launches"] = trained_small[name]
             k["examples_launches"] = examples.get(

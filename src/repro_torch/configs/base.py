@@ -2,14 +2,19 @@
 
 The dataclass keeps the fields of the JAX package's ``ModelConfig`` that a
 dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``),
-that a Mamba1 stack reads (``ssm_*``, ``d_conv``, ``expand``) and that the
-Mamba2 hybrid reads (``n_groups``, ``ssm_headdim``, ``attn_every``), under
-the same names and defaults; ``param_dtype`` and ``compute_dtype`` return
-``torch`` dtypes. The port registers only the configurations it can serve
-(``ARCH_MODULES``): dense decoders with GQA attention, the Mamba1 ``ssm``
-family and the Mamba2 ``hybrid`` family (zamba2). Asking for another one
-raises ``NotImplementedError`` naming the ROADMAP item that ports its
-family.
+that a Mamba1 stack reads (``ssm_*``, ``d_conv``, ``expand``), that the
+Mamba2 hybrid reads (``n_groups``, ``ssm_headdim``, ``attn_every``) and
+that the MoE FFN reads (``n_experts`` ... ``moe_group_tokens``), under the
+same names and defaults; ``param_dtype`` and ``compute_dtype`` return
+``torch`` dtypes. The reference's mesh-only MoE fields, ``expert_shard``
+and ``moe_ff_fsdp`` (how experts shard over a model mesh), are left out:
+one card has no model mesh (ROADMAP item 11). ``mrope`` and ``mla`` are
+kept only so that a config asking for them is refused. The port registers
+only the configurations it can serve (``ARCH_MODULES``): dense decoders
+with GQA attention, the Mamba1 ``ssm`` family, the Mamba2 ``hybrid``
+family (zamba2) and the ``moe`` family with GQA attention (grok-1).
+Asking for another one raises ``NotImplementedError`` naming the ROADMAP
+item that ports its family.
 """
 
 from __future__ import annotations
@@ -20,15 +25,16 @@ import torch
 
 # Families and features the port does not serve yet, with the ROADMAP item
 # (Queue 1, item 10, "LM scaffold") that brings them.
-NOT_PORTED = ("MoE, MLA, M-RoPE, Mamba2 outside the hybrid family, and the "
-              "enc-dec family are not ported yet (ROADMAP Queue 1, LM "
-              "scaffold item 10.3)")
+NOT_PORTED = ("MLA, M-RoPE, MoE with leading dense layers or grouped "
+              "dispatch, Mamba2 outside the hybrid family, and the enc-dec "
+              "family are not ported yet (ROADMAP Queue 1, LM scaffold item "
+              "10.3)")
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
     name: str = "model"
-    family: str = "dense"        # the port serves "dense", "ssm", "hybrid"
+    family: str = "dense"        # the port serves "dense", "moe", "ssm", "hybrid"
     n_layers: int = 4
     d_model: int = 256
     n_heads: int = 4
@@ -43,6 +49,20 @@ class ModelConfig:
     mrope: bool = False          # not ported: Model raises
     attn_chunk_kv: int = 1024    # key chunk of the plain flash version
     tie_embeddings: bool = False
+
+    # MoE (the reference's names and defaults; models/moe.py)
+    n_experts: int = 0
+    top_k: int = 0
+    n_shared: int = 0
+    d_ff_expert: int = 0
+    first_dense: int = 0          # leading dense-FFN layers: not ported
+    capacity_factor: float = 1.25
+    moe_dispatch: str = "einsum"  # einsum (GShard) | scatter
+    aux_loss_weight: float = 0.01
+    moe_group_tokens: int = 0     # > 0, the grouped dispatch: not ported
+
+    # MLA: not ported, Model raises
+    mla: bool = False
 
     # SSM (Mamba1 in the ssm family, Mamba2 in the hybrid one)
     ssm_state: int = 0
@@ -98,7 +118,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 ARCH_MODULES = ["internlm2_1_8b", "qwen3_14b", "deepseek_7b",
-                "stablelm_12b", "zamba2_1_2b", "falcon_mamba_7b"]
+                "stablelm_12b", "grok_1_314b", "zamba2_1_2b",
+                "falcon_mamba_7b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -122,6 +143,9 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.n_heads:
         kw.update(n_heads=4, n_kv=min(max(cfg.n_kv * 4 // cfg.n_heads, 1), 4),
                   d_head=32)
+    if cfg.n_experts:
+        kw.update(n_experts=4, top_k=min(cfg.top_k, 2), d_ff_expert=64,
+                  n_shared=min(cfg.n_shared, 1))
     if cfg.ssm_state:
         kw.update(ssm_state=8, ssm_headdim=16)
     if cfg.attn_every:
@@ -131,9 +155,23 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
-    a Mamba1 stack or a Mamba2 hybrid."""
-    dense = cfg.family == "dense" and not cfg.mrope
+    an MoE GQA decoder (every layer MoE, ungrouped dispatch), a Mamba1
+    stack or a Mamba2 hybrid."""
+    if cfg.mla:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA attention comes with deepseek-v2-236b "
+            f"(ROADMAP Queue 1, item 10.3); {NOT_PORTED}")
+    if cfg.family == "moe" and cfg.first_dense:
+        raise NotImplementedError(
+            f"{cfg.name}: leading dense layers (first_dense) come with "
+            f"deepseek-v2-236b (ROADMAP Queue 1, item 10.3); {NOT_PORTED}")
+    if cfg.family == "moe" and cfg.moe_group_tokens:
+        raise NotImplementedError(
+            f"{cfg.name}: the grouped MoE dispatch (moe_group_tokens > 0) is "
+            f"not ported (ROADMAP Queue 1, item 10.3); {NOT_PORTED}")
+    dense = cfg.family == "dense" and not cfg.mrope and not cfg.n_experts
+    moe = cfg.family == "moe" and cfg.n_experts > 0 and not cfg.mrope
     mamba1 = cfg.family == "ssm" and cfg.ssm_version == 1
     hybrid = cfg.family == "hybrid" and cfg.ssm_version == 2 and not cfg.mrope
-    if not (dense or mamba1 or hybrid):
+    if not (dense or moe or mamba1 or hybrid):
         raise NotImplementedError(f"{cfg.name}: {NOT_PORTED}")

@@ -1,14 +1,14 @@
-"""Top-level model API for serving and training a dense decoder, a Mamba1
-stack or a Mamba2 hybrid (port of ``repro.models.model``).
+"""Top-level model API for serving and training a dense or MoE decoder, a
+Mamba1 stack or a Mamba2 hybrid (port of ``repro.models.model``).
 
 ``Model(cfg, device="cuda")`` wraps a ModelConfig with plain functions on
 tensors:
   init(generator) -> params                 (nested dict, JAX tree layout)
   forward(params, batch) -> (hidden, aux_loss)
   logits(params, hidden) -> (B, S, V_padded), padded vocab masked
-  loss(params, batch) -> scalar             (chunked-vocab CE)
-  init_cache(batch_size, max_seq) -> dense {"k", "v"}: (L, B, max_seq, KV,
-      dh); ssm {"conv": (L, B, d_conv-1, Di) in the compute dtype, "h":
+  loss(params, batch) -> scalar             (chunked-vocab CE + MoE aux)
+  init_cache(batch_size, max_seq) -> dense and moe {"k", "v"}: (L, B,
+      max_seq, KV, dh); ssm {"conv": (L, B, d_conv-1, Di) in the compute dtype, "h":
       (L, B, Di, N) float32}, O(1) in the sequence length; hybrid {"conv":
       (L, B, d_conv-1, Di + 2 G N) in the compute dtype, "h": (L, B, H,
       N, P) float32, "k", "v": (n_sites, B, max_seq, KV, dh)}, one K/V slot
@@ -21,8 +21,9 @@ copying leaves (``repro_torch.convert``). Unlike the JAX package,
 ``decode_step`` writes the new K/V row (or the ssm family's new conv and
 scan state) into ``cache`` in place (where JAX uses
 ``dynamic_update_slice`` or a scan's new arrays) and returns the same dict.
-The dense GQA, the Mamba1 ``ssm`` and the Mamba2 ``hybrid`` families are
-ported; the others wait (ROADMAP Queue 1, LM scaffold item 10.3). In the
+The dense GQA, the ``moe`` (GQA attention, every layer's FFN an MoE), the
+Mamba1 ``ssm`` and the Mamba2 ``hybrid`` families are ported; the others
+wait (ROADMAP Queue 1, LM scaffold item 10.3). In the
 hybrid family each site ``gi`` of the shared block writes its own K/V slot
 ``cache["k"][gi]`` with the shared weights and attends through the flash
 wrapper, as a dense layer does.
@@ -35,7 +36,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig, check_supported
 from repro_torch.device import resolve_device
-from repro_torch.models import attention, layers, mamba
+from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.transformer import (apply_decoder_stack,
                                             apply_hybrid_stack,
                                             apply_ssm_stack,
@@ -45,6 +46,7 @@ from repro_torch.models.transformer import (apply_decoder_stack,
                                             init_ssm_stack, unbind_layers)
 
 STACKS = {"dense": (init_decoder_stack, apply_decoder_stack),
+          "moe": (init_decoder_stack, apply_decoder_stack),
           "hybrid": (init_hybrid_stack, apply_hybrid_stack),
           "ssm": (init_ssm_stack, apply_ssm_stack)}
 
@@ -52,7 +54,8 @@ STACKS = {"dense": (init_decoder_stack, apply_decoder_stack),
 def _attn_decode_layer(lp, x, cfg, pos: int, pos_arr, cache_slices):
     """One decoder layer at decode time: write this token's K/V into the
     cache slices at ``pos`` (in place), attend over the populated prefix,
-    apply the MLP. Returns x."""
+    apply the MLP, or the MoE FFN where the layer has one (its aux loss
+    dropped, as the reference drops it). Returns x."""
     cd = cfg.compute_dtype
     k_l, v_l = cache_slices
     h = layers.rms_norm(x, lp["ln1"])
@@ -63,6 +66,8 @@ def _attn_decode_layer(lp, x, cfg, pos: int, pos_arr, cache_slices):
                                   chunk_kv=cfg.attn_chunk_kv)
     x = x + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(cd)
     h = layers.rms_norm(x, lp["ln2"])
+    if "moe" in lp:
+        return x + moe.moe_apply(lp["moe"], h, cfg)[0]
     return x + layers.mlp_apply(lp["mlp"], h, cd)
 
 
@@ -139,9 +144,10 @@ class Model:
         recomputed in the backward when grad is enabled (the reference's
         ``jax.checkpoint`` over its ``lax.scan``). As the reference, tokens
         past the last whole block are dropped while the mean divides by
-        every label >= 0, and labels < 0 are masked."""
+        every label >= 0, and labels < 0 are masked. An MoE model adds
+        ``aux_loss_weight`` times its layers' mean aux loss."""
         cfg = self.cfg
-        hidden, _ = self.forward(params, batch)
+        hidden, aux = self.forward(params, batch)
         labels = batch["labels"]
         b, s, d = hidden.shape
         t = b * s
@@ -158,7 +164,10 @@ class Model:
                                         use_reentrant=False)
                              if remat else self._ce_block(hc, lc, w))
         n_tok = torch.clamp(torch.sum(l2 >= 0), min=1)
-        return total / n_tok
+        ce = total / n_tok
+        if cfg.n_experts:
+            ce = ce + cfg.aux_loss_weight * aux / max(cfg.n_layers, 1)
+        return ce
 
     # -- serving -----------------------------------------------------------
     def init_cache(self, b: int, max_seq: int):

@@ -1,5 +1,5 @@
-"""Decoder-only layer stacks: dense, hybrid (Mamba2 with a shared attention
-block) and Mamba1 (port of ``repro.models.transformer``).
+"""Decoder-only layer stacks: dense or MoE, hybrid (Mamba2 with a shared
+attention block) and Mamba1 (port of ``repro.models.transformer``).
 
 Per-layer parameters are stacked on a leading L axis, as in the JAX
 package, and the ``lax.scan`` over layers becomes a Python loop over that
@@ -11,8 +11,11 @@ and is recomputed in the backward. ``"dots"`` (the JAX package's
 ``checkpoint_dots`` policy, which saves the matmul outputs) recomputes the
 whole layer like ``"full"`` here; the values are the same, only the memory
 and time differ. The sharding constraints have no meaning on one device
-and are left out; MoE layers raise (ROADMAP Queue 1, LM scaffold item
-10.3). The ssm stack (falcon-mamba) is a pre-norm residual Mamba1 block a
+and are left out. In the moe family (``cfg.n_experts > 0``) every layer's
+FFN is ``models/moe.py``'s (leaf ``moe`` in place of ``mlp``) and the stack
+returns the sum of the layers' load-balance aux losses, as the reference's
+``jnp.sum(auxs)``; leading dense layers (``first_dense``) are not ported.
+The ssm stack (falcon-mamba) is a pre-norm residual Mamba1 block a
 layer, under the same remat. The hybrid stack (zamba2) is a pre-norm
 residual Mamba2 block a layer, with one shared attention + MLP block, its
 weights unstacked beside the stacked ``layers``, applied after every
@@ -25,8 +28,7 @@ from __future__ import annotations
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import NOT_PORTED
-from repro_torch.models import attention, layers, mamba
+from repro_torch.models import attention, layers, mamba, moe
 
 
 def unbind_layers(tree) -> list:
@@ -44,30 +46,32 @@ def _stack(trees):
     return torch.stack(trees)
 
 
-def _no_moe(use_moe: bool) -> None:
-    if use_moe:
-        raise NotImplementedError(f"MoE decoder layers: {NOT_PORTED}")
-
-
 def init_decoder_layer(gen: torch.Generator, cfg, *, use_moe: bool):
-    _no_moe(use_moe)
-    return {"ln1": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
-            "ln2": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
-            "attn": attention.init_gqa(gen, cfg),
-            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)}
+    p = {"ln1": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
+         "ln2": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
+         "attn": attention.init_gqa(gen, cfg)}
+    if use_moe:
+        p["moe"] = moe.init_moe(gen, cfg)
+    else:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.param_dtype)
+    return p
 
 
 def apply_decoder_layer(p, x, cfg, positions, *, use_moe: bool, causal=True):
     """Returns (x, aux_loss); aux_loss is 0.0 for a dense layer."""
-    _no_moe(use_moe)
     h = layers.rms_norm(x, p["ln1"])
     x = x + attention.gqa_apply(p["attn"], h, cfg, positions, causal=causal)
     h = layers.rms_norm(x, p["ln2"])
-    return x + layers.mlp_apply(p["mlp"], h, cfg.compute_dtype), 0.0
+    if use_moe:
+        f, aux = moe.moe_apply(p["moe"], h, cfg)
+    else:
+        f, aux = layers.mlp_apply(p["mlp"], h, cfg.compute_dtype), 0.0
+    return x + f, aux
 
 
 def init_decoder_stack(gen: torch.Generator, cfg):
-    return {"layers": _stack([init_decoder_layer(gen, cfg, use_moe=False)
+    use_moe = cfg.n_experts > 0
+    return {"layers": _stack([init_decoder_layer(gen, cfg, use_moe=use_moe)
                               for _ in range(cfg.n_layers)])}
 
 
@@ -76,17 +80,21 @@ def _remat(cfg) -> bool:
 
 
 def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
-    """-> (x, aux_loss) after every layer of ``p["layers"]`` in turn."""
+    """-> (x, aux_loss) after every layer of ``p["layers"]`` in turn;
+    aux_loss is the sum of the MoE layers' (0.0 in a dense stack)."""
     remat = _remat(cfg)
+    use_moe = cfg.n_experts > 0
+    auxs = []
     for lp in unbind_layers(p["layers"]):
         if remat:
-            x, _ = checkpoint(apply_decoder_layer, lp, x, cfg, positions,
-                              use_moe=False, causal=causal,
-                              use_reentrant=False)
+            x, aux = checkpoint(apply_decoder_layer, lp, x, cfg, positions,
+                                use_moe=use_moe, causal=causal,
+                                use_reentrant=False)
         else:
-            x, _ = apply_decoder_layer(lp, x, cfg, positions, use_moe=False,
-                                       causal=causal)
-    return x, 0.0
+            x, aux = apply_decoder_layer(lp, x, cfg, positions,
+                                         use_moe=use_moe, causal=causal)
+        auxs.append(aux)
+    return x, (torch.sum(torch.stack(auxs)) if use_moe else 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -45,7 +45,11 @@ the same way (its shared block through the mma_sync kernel in fp32) and
 at d 64 in bf16 (every prefill site on the sm90 kernel, every decode site
 on the decode kernel); ``-k sampling`` the threefry draws and
 ``categorical`` on the card against the CPU (bf16 bitwise) and the sampled
-Engine's ids per seed.
+Engine's ids per seed; ``-k moe`` grok-1-314b's smoke model (the MoE FFN
+in plain torch ops) in fp32 on the card against float64 on the CPU, at
+its own capacity and at 8 slots an expert (drops), and at grok's GQA group
+6 in bf16 (every prefill layer on the sm90 kernel, every decode layer on
+the decode kernel).
 """
 
 import numpy as np
@@ -650,6 +654,7 @@ def test_sm90_probe_d160_matches_matmul(cuda):
 
 # (b, sq, skv, h, kv, causal, q_offset), all d 128
 SM90_CASES = [(1, 2048, 2048, 16, 8, True, 0),      # serve prefill, B 1
+              (1, 2048, 2048, 48, 8, True, 0),      # grok-1-314b prefill (G 6), B 1
               (1, 64, 64, 4, 2, True, 0),
               (1, 128, 128, 4, 2, True, 0),
               (2, 200, 200, 4, 2, True, 0),
@@ -863,6 +868,7 @@ def test_flash_decode_matches_plain(cuda, skv, q_offset, g, dh):
     (8, 16, 8, 128, 256, 191),      # internlm2-1.8b decode step
     (8, 16, 8, 128, 4096, 4095),    # long cache
     (2, 40, 8, 128, 256, 100),      # qwen3-14b heads, G 5
+    (8, 48, 8, 128, 256, 191),      # grok-1-314b decode step, G 6
     (1, 16, 1, 32, 50, 7),          # G 16, d 32, 8 splits of one key
     (8, 4, 2, 32, 128, 35),         # the lm-serve example's last decode step
     (3, 4, 2, 64, 33, 32),          # a prefix one key past a tile
@@ -2162,5 +2168,117 @@ def test_hybrid_d64_prefill_and_generate_send_flash_to_their_kernels(cuda):
     ids = engine.generate(prompts)
     done = dict(fops.launches_by_variant)
     assert done["decode"] - after["decode"] == 2 * (80 + 6)
+    assert done["mma_sync"] == after["mma_sync"] and done["sm90"] == after["sm90"]
+    assert np.array_equal(ids, engine.generate(prompts))
+
+
+# ---------------------------------------------------------------------------
+# The MoE family (grok-1-314b): ``-k moe``.
+# ---------------------------------------------------------------------------
+
+# The smoke model card vs float64 CPU, as chip_smoke's moe_vs_cpu holds it;
+# routes are held except at tokens whose k-th and (k+1)-th probabilities
+# lie within MOE_TIE (the two runs' probabilities differ by ulps).
+MOE_F64_TOL = 1e-4
+MOE_TIE = 1e-5
+
+
+class _Routes:
+    """Records every ``moe._route`` call's expert indices and the gap
+    between its k-th and (k+1)-th routing probabilities, on the CPU."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self.moe, self.orig, self.idx, self.gap = moe, moe._route, [], []
+
+        def route(p, x, cfg):
+            out = self.orig(p, x, cfg)
+            probs = torch.softmax((x @ p["gate"].to(cfg.compute_dtype)).float(), -1)
+            top = torch.sort(probs, -1, descending=True).values
+            self.idx.append(out[0].cpu())
+            self.gap.append((top[:, cfg.top_k - 1] - top[:, cfg.top_k]).cpu())
+            return out
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        self.moe._route = self.orig
+
+
+@pytest.mark.parametrize("factor", [1.25, 0.01], ids=["full", "cap8"])
+def test_moe_smoke_model_on_card_matches_cpu(cuda, factor):
+    """grok-1-314b's smoke model (4 layers, 4 experts top-2, expert width
+    64) in fp32 on the card, forward on 2 x 64 tokens bitwise the same
+    twice and 40 decode steps, within MOE_F64_TOL of the same weights in
+    float64 on one CPU thread; the routes and the kept mask of every
+    forward layer equal the CPU's away from MOE_TIE. At factor 0.01 the
+    forward has 8 slots an expert (int(128 * 2 / 4 * 0.01) = 0) against a
+    mean load of 64, so pairs drop; a decode step (2 tokens) never does.
+    Attention goes to the mma_sync kernel in fp32, once a layer and call."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("grok-1-314b")).replace(
+        compute_dtype_str="float32", capacity_factor=factor)
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    cparams = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    before = fops.launches_by_variant["mma_sync"]
+    with _Routes() as rc:
+        h_card, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    again, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    assert torch.equal(h_card, again)
+    cg = card.init_cache(2, 64)
+    for t in range(40):
+        cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(cuda)}, t)
+    assert fops.launches_by_variant["mma_sync"] == before + 4 * 2 + 4 * 40
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with _Routes() as rr:
+            h_ref, _ = f64.forward(params, {"tokens": toks})
+        cr = f64.init_cache(2, 64)
+        for t in range(40):
+            cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+    finally:
+        torch.set_num_threads(threads)
+    cap = moe._capacity(128, cfg)
+    assert cap == (8 if factor < 1 else 128)
+    dropped = 0
+    for ic, ir, gap in zip(rc.idx, rr.idx, rr.gap):
+        held = gap > MOE_TIE
+        assert torch.equal(ic[held], ir[held])
+        kc, kr = moe.slots(ic, cfg.n_experts, cap)[1], moe.slots(ir, cfg.n_experts, cap)[1]
+        assert torch.equal(kc[held], kr[held])
+        dropped += int((~kr).sum())
+    assert len(rc.idx) == 4 and (dropped > 0) == (factor < 1)
+    tol = dict(rtol=MOE_F64_TOL, atol=MOE_F64_TOL)
+    torch.testing.assert_close(h_card.cpu().double(), h_ref, **tol)
+    torch.testing.assert_close(lg.cpu().double(), lr, **tol)
+
+
+def test_moe_prefill_and_generate_send_flash_to_their_kernels(cuda):
+    """grok's smoke model at grok-1-314b's GQA group and head dim (12 heads
+    over 2, G 6, d 128) in bf16: prefill_step's layers on the sm90 kernel,
+    every decode layer (prompt and new tokens) on the decode kernel, none
+    on mma_sync; finite logits and the same ids twice."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduce_for_smoke(get_config("grok-1-314b")).replace(
+        n_heads=12, n_kv=2, d_head=128)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    engine = Engine(model, params, ServeConfig(max_new_tokens=6, max_seq=96))
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 80)).astype(np.int32)
+    prefill_step, _ = make_serve_steps(model)
+    before = dict(fops.launches_by_variant)
+    logits = prefill_step(engine.params, {"tokens": torch.from_numpy(prompts).to(cuda)})
+    after = dict(fops.launches_by_variant)
+    assert after["sm90"] == before["sm90"] + 4 and after["mma_sync"] == before["mma_sync"]
+    assert logits.shape == (2, cfg.vocab_padded) and torch.isfinite(logits).all()
+    ids = engine.generate(prompts)
+    done = dict(fops.launches_by_variant)
+    assert done["decode"] - after["decode"] == 4 * (80 + 6)
     assert done["mma_sync"] == after["mma_sync"] and done["sm90"] == after["sm90"]
     assert np.array_equal(ids, engine.generate(prompts))

@@ -322,7 +322,7 @@ def test_narrow_d160_forward_and_decode_match_jax():
                                rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["stablelm-12b", "deepseek-7b"])
+@pytest.mark.parametrize("arch", ["stablelm-12b", "deepseek-7b", "grok-1-314b"])
 def test_new_configs_equal_the_reference(arch):
     """Every field the port's ModelConfig has equals the reference's, for
     the full config and for its smoke reduction."""
@@ -334,7 +334,7 @@ def test_new_configs_equal_the_reference(arch):
         assert {n: getattr(got, n) for n in names} == \
             {n: getattr(want, n) for n in names}
         assert got.vocab_padded == want.vocab_padded
-    assert get_config(arch).family == "dense"
+    assert get_config(arch).family == ("moe" if arch == "grok-1-314b" else "dense")
 
 
 def test_init_tree_matches_jax_layout():
@@ -395,10 +395,19 @@ def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_config("deepseek-v2-236b")
     with pytest.raises(NotImplementedError, match="10.3"):
-        get_config("grok-1-314b")
+        get_config("qwen2-vl-72b")
     cfg = reduce_for_smoke(get_config("internlm2-1.8b"))
     mamba = reduce_for_smoke(get_config("falcon-mamba-7b"))
+    grok = reduce_for_smoke(get_config("grok-1-314b"))
     for bad in (cfg.replace(mrope=True), cfg.replace(family="moe"),
-                cfg.replace(family="encdec"), mamba.replace(ssm_version=2)):
+                cfg.replace(family="encdec"), mamba.replace(ssm_version=2),
+                grok.replace(first_dense=1), grok.replace(mla=True),
+                grok.replace(moe_group_tokens=64), cfg.replace(mla=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(bad, device="cpu")
+    for bad, what in ((grok.replace(first_dense=1), "first_dense"),
+                      (grok.replace(mla=True), "MLA"),
+                      (grok.replace(moe_group_tokens=64), "grouped")):
+        with pytest.raises(NotImplementedError, match=what):
+            Model(bad, device="cpu")
+    Model(grok, device="cpu")
