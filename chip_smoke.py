@@ -171,13 +171,24 @@ Phases, one line each:
      load, the FLOP bound with the capacity padding, the decode step's
      bytes bound; the prompt logits held at PREFILL_DECODE_TOL, or where
      routes parted by the mean beside a K/V-losing control (lines
-     ``serve_grok_prefill`` / ``serve_grok_generate``); then
-     ``ssm_vs_cpu``, ``hybrid_vs_cpu`` and ``moe_vs_cpu``:
+     ``serve_grok_prefill`` / ``serve_grok_generate``); then the MLA
+     family: deepseek-v2-236b (d_model 5120, 128 heads with q/k 192 and v
+     128 over a 512-wide latent cache, 160 experts of width 1536 top-6
+     and 2 shared, a leading dense layer at 12288, vocab 102400; 3 of its
+     60 layers, the dense one and two MoE, 9.57e9 parameters drawn in
+     bf16) through the same ``serve``: 3 sm90 launches a prefill at (192,
+     128), no flash launch a decode step (the absorbed attention is torch
+     ops), held as grok's beside a control that loses the latent cache, and
+     fp32 at full width cut to the dense layer (prefill on the mma_sync
+     kernel at (192, 128)) to 1e-3 (lines ``serve_dsv2_prefill`` /
+     ``serve_dsv2_generate``); then
+     ``ssm_vs_cpu``, ``hybrid_vs_cpu``, ``moe_vs_cpu`` and ``mla_vs_cpu``:
      each family's smoke model in fp32 on the card (forward bitwise twice,
      40 decode steps; the hybrid's shared block and the moe model's
      attention on the mma_sync kernel) against float64 on the CPU to 2e-5
-     (moe 1e-4, at its capacity and at 8 slots an expert, its routes and
-     kept masks equal away from near ties); then the training path (line ``train``):
+     (moe and mla 1e-4, at its capacity and at 8 slots an expert, its
+     routes and kept masks equal away from near ties; mla's prefill on the
+     mma_sync kernel at (48, 32), its decode none); then the training path (line ``train``):
      internlm2-1.8b at full width (fp32 params, bf16 compute, remat
      "full", AdamW with bf16 moments, 2 microbatches), 1 warm-up and 3
      timed steps on batches of 8 x 4096 tokens that ``AerialPipeline``
@@ -221,7 +232,11 @@ Phases, one line each:
      4096 of 4096 (decode and mma_sync, both forced), at d 128, at d 160
      and at d 64 (zamba2-1.2b's 32 heads over 32), each beside SDPA and the
      bytes or operations bound, and grok-1-314b's 48 heads over 8 at d 128
-     (its sm90 prefill and 192-key decode only), the profiles each device time took, and the
+     (its sm90 prefill and 192-key decode only), deepseek-v2-236b's (192,
+     128) prefill (sm90 and mma_sync, forced, beside SDPA and the backends
+     that take d_v != d_qk) and the mma_sync kernel in fp32 at the
+     dense-layer check's (192, 128) and mla_vs_cpu's (48, 32) shapes,
+     the profiles each device time took, and the
      kernels' timings printed as one JSON line (the three flash kernels
      once at each head dim, with ``_d160`` and ``_d64`` names); both
      backward kernels, forced and in turns, at one
@@ -419,6 +434,24 @@ MOE_PREFILL_DECODE_MEAN_TOL = 0.25
 MOE_F64_TOL = 1e-4
 MOE_CAP8_FACTOR = 0.01
 MOE_TIE = 1e-5
+# The MLA family's serve path: deepseek-v2-236b at full width (d_model
+# 5120, 128 heads of q/k 192 = nope 128 + rope 64 and v 128 over a
+# kv_lora 512 latent cache, 160 experts of width 1536 top-6 and 2 shared,
+# a leading dense layer at 12288, vocab 102400), 3 of its 60 layers: the
+# dense one and two MoE (9.57e9 parameters, 19.1 GB in bf16; an MoE layer
+# is 4.05e9). Its prefill attends over the expanded K/V (the sm90 kernel at
+# (192, 128)), its decode in the latent space (torch ops, no flash
+# kernel), so the two round differently; held as grok's (PREFILL_DECODE_TOL
+# at the largest logit where it holds, else the mean where routes parted
+# beside a control that zeroes the latent cache: the JAX package's own
+# bf16 deepseek-v2 parts so, tests/test_torch_mla.py::
+# test_bf16_mla_parts_at_the_largest_logit), and fp32 at full width cut
+# to MLA_F32_CUT_LAYERS, the dense layer alone (1.47e9 parameters), to
+# SSM_F32_PREFILL_DECODE_TOL (its prefill on the mma_sync kernel at (192,
+# 128)).
+SERVE_MLA_ARCH = "deepseek-v2-236b"
+DSV2_SERVE_LAYERS = 3
+MLA_F32_CUT_LAYERS = 1
 # A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
 # `visit`): FMUL, FMUL, FADD, FMUL by 2, FADD, then FSETP, FSEL, SEL. A
 # static count, read by hand in the kernel's SASS, not measured in a run.
@@ -2605,7 +2638,12 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
     any mismatch or on a call that went to another kernel than expected;
     returns the largest errors by dtype, by bf16 kernel, by bf16 kernel
     and head dim (``bfloat16_<kernel>_d<d>``) and by bf16 kernel, head dim
-    and GQA group (``bfloat16_<kernel>_d<d>_g<G>``; grok-1-314b's G 6)."""
+    and GQA group (``bfloat16_<kernel>_d<d>_g<G>``; grok-1-314b's G 6).
+    MLA's unequal head dims at the shapes its paths give them, v a strided
+    view as MLA passes it: deepseek-v2-236b's bf16 prefill (sm90, and
+    mma_sync forced), a bf16 call with 1 < Sq < 64, the fp32 dense-layer
+    check's (192, 128) and mla_vs_cpu's (48, 32), each by
+    ``<dtype>_<kernel>_mla<d_qk>``."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     rng = np.random.default_rng(seed)
@@ -2685,9 +2723,43 @@ def flash_vs_plain(torch, dev, seed: int) -> dict:
                         errs[key] = max(errs.get(key, 0.0), float(err.max()))
                 n_calls += 1
         errs[str(dtype).removeprefix("torch.")] = worst
+    # (dtype, b, sq, skv, h, kv, d_qk, d_v, causal, q_offset)
+    mla_cases = [(torch.bfloat16, SERVE_BATCH, PREFILL_LEN, PREFILL_LEN, 128, 128,
+                  192, 128, True, 0),                   # deepseek's prefill: sm90
+                 (torch.bfloat16, 2, 33, 80, 8, 8, 192, 128, True, 47),   # mma_sync
+                 (torch.float32, SERVE_BATCH, PROMPT_LEN, PROMPT_LEN, 128, 128,
+                  192, 128, True, 0),                   # the fp32 dense-layer check
+                 (torch.float32, 2, 64, 64, 4, 4, 48, 32, True, 0)]       # mla_vs_cpu
+    # drawn on the card: deepseek's prefill is 1.3e9 normals, ~20 s on the host
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for case in mla_cases:
+        dtype, b, sq, skv, h, kv, dk, dv, causal, off = case
+        q, k, kvb = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, sq, h, dk), (b, skv, kv, dk), (b, skv, kv, 2 * dv)))
+        v = kvb[..., dv:]
+        want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+        chosen = fops._variant(q, k, v)
+        tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
+        for ran in dict.fromkeys((chosen, "mma_sync")):
+            before = fops.launches_by_variant[ran]
+            got = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                            variant=ran)
+            err = (got.float() - want.float()).abs()
+            bad = int((err > tol + tol * want.float().abs()).sum())
+            if fops.launches_by_variant[ran] != before + 1 or bad \
+                    or got.shape != (b, sq, h, dv) or not torch.isfinite(got).all() \
+                    or not torch.equal(got, fops.flash_attention_cuda(
+                        q, k, v, causal=causal, q_offset=off, variant=ran)):
+                raise SystemExit(f"flash_attention MLA {case} {ran}: {bad} elements "
+                                 f"beyond {tol}, max err {float(err.max())}, "
+                                 "or another launch count, shape or bits")
+            key = f"{str(dtype).removeprefix('torch.')}_{ran}_mla{dk}"
+            errs[key] = max(errs.get(key, 0.0), float(err.max()))
+            n_calls += 2
+        del q, k, kvb, v, want
     phase("flash_vs_plain", f32_cases=len(f32_cases), bf16_cases=len(bf16_cases),
-          kernel_calls=n_calls, max_abs_err=errs, f32_tol=FLASH_F32_TOL,
-          bf16_tol=FLASH_BF16_TOL)
+          mla_cases=len(mla_cases), kernel_calls=n_calls, max_abs_err=errs,
+          f32_tol=FLASH_F32_TOL, bf16_tol=FLASH_BF16_TOL)
     return errs
 
 
@@ -2703,11 +2775,13 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     engine casts a bf16 copy) or "bfloat16" (the engine's cast copies
     nothing). ``layers`` cuts the depth (None: the config's own). A dense
     or moe model launches the sm90 kernel at every prefill
-    layer and the decode kernel at every decode layer; the hybrid family at
+    layer and the decode kernel at every decode layer (an MLA model none:
+    its decode attends in the latent space); the hybrid family at
     every site of its shared block; the ssm family none (its prefill line
     also times the plain scan at one layer's shape, the hybrid's the plain
-    SSD). Returns the flash launch counts of these runs by kernel; the
-    model and its weights are freed on return."""
+    SSD). Returns the flash launch counts of these runs by kernel (an MLA
+    model's fp32 cut's under ``fp32_cut_``); the model and its weights are
+    freed on return."""
     from repro_torch.configs.base import get_config
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import moe
@@ -2760,6 +2834,8 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
             "hybrid": len(hybrid_attn_sites(cfg))}.get(cfg.family, 0)
     recurrent = cfg.family in ("ssm", "hybrid")  # a scan state the control can lose
     is_moe = cfg.family == "moe"
+    # flash calls a decode step: none in MLA's latent-space decode
+    dec_attn = 0 if cfg.mla else attn
     engine = TimedEngine(model, params, ServeConfig(
         max_new_tokens=NEW_TOKENS, max_seq=MAX_SEQ),
         snapshot_at=PROMPT_LEN - SSM_CONTROL_STEPS if recurrent or is_moe else None)
@@ -2820,6 +2896,11 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     if is_moe:
         flops = moe_prefill_flops(cfg, SERVE_BATCH, PREFILL_LEN)
         bound_s = flops["total"] / BF16_FLOP_PER_S
+        if cfg.mla:
+            family.update(mla=True, kv_lora=cfg.kv_lora,
+                          d_qk=cfg.mla_nope_dim + cfg.mla_rope_dim,
+                          d_v=cfg.mla_v_dim, first_dense=cfg.first_dense,
+                          d_ff_dense=cfg.d_ff, n_shared=cfg.n_shared)
         family.update(n_experts=cfg.n_experts, top_k=cfg.top_k,
                       d_ff_expert=cfg.d_ff_expert, capacity_factor=cfg.capacity_factor,
                       moe_dispatch=cfg.moe_dispatch, prefill_flops=flops,
@@ -2850,7 +2931,7 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
     wall = time.perf_counter() - w0
     gen_launches = fops.launches
     gen_by_variant = dict(fops.launches_by_variant)
-    want_launches = attn * (PROMPT_LEN + NEW_TOKENS)
+    want_launches = dec_attn * (PROMPT_LEN + NEW_TOKENS)
     if gen_launches != want_launches or gen_by_variant["decode"] != want_launches:
         raise SystemExit(f"{tag} generate: {gen_launches} flash launches "
                          f"({gen_by_variant}), expected {want_launches} "
@@ -2885,19 +2966,28 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
         # where routes parted or the prompt's prefill dropped pairs
         loads = moe_loads(torch, prompt_routes.idx, cfg, SERVE_BATCH * PROMPT_LEN)
         flips = route_flips(torch, prompt_routes.idx + engine_routes.idx,
-                            cfg.n_layers, SERVE_BATCH, PROMPT_LEN)
+                            cfg.n_layers - cfg.first_dense, SERVE_BATCH, PROMPT_LEN)
         mean = float(diff[:, :cfg.vocab].mean())
         control = ssm_control(torch, model, eparams, engine.snapshot, prompts,
-                              ref_logits, ("k", "v"))
+                              ref_logits, tuple(engine.snapshot))
         parted = flips["total"] > 0 or sum(loads["dropped_pairs"]) > 0
         by_max = max_diff <= PREFILL_DECODE_TOL
         held = {"prefill_vs_decode_tol": PREFILL_DECODE_TOL,
                 "prefill_vs_decode_mean_abs_diff": mean,
                 "prefill_vs_decode_mean_tol": MOE_PREFILL_DECODE_MEAN_TOL,
-                "control_kv_lost_mean_abs_diff": control,
+                f"control_{'latent' if cfg.mla else 'kv'}_lost_mean_abs_diff": control,
                 "prompt_prefill_routes": loads, "route_flips": flips,
                 "held_by": "max" if by_max else "mean_and_control"}
         ok = by_max or (parted and mean <= MOE_PREFILL_DECODE_MEAN_TOL < control)
+        if cfg.mla:     # fp32 at full width, cut to the dense layer
+            before = dict(fops.launches_by_variant)
+            held["fp32_cut"] = ssm_fp32_cut(torch, dev, seed, arch, prompts,
+                                            MLA_F32_CUT_LAYERS)
+            cut_launches = {v: fops.launches_by_variant[v] - before[v]
+                            for v in fops.VARIANTS}
+            held["fp32_cut"]["flash_by_variant"] = cut_launches
+            ok = ok and held["fp32_cut"]["max_abs_diff"] <= SSM_F32_PREFILL_DECODE_TOL \
+                and cut_launches == dict.fromkeys(fops.VARIANTS, 0) | {"mma_sync": 1}
     else:
         ssm = cfg.family == "ssm"
         tol = SSM_PREFILL_DECODE_MEAN_TOL if ssm else HYBRID_PREFILL_DECODE_MEAN_TOL
@@ -2970,6 +3060,9 @@ def serve(torch, dev, seed: int, do_profile: bool, arch: str = SERVE_ARCH,
                                              PROMPT_LEN + NEW_TOKENS // 2)))
     out = {v: prefill_by_variant[v] + gen_by_variant[v] for v in fops.VARIANTS}
     out["sampled_decode"] = sampled_decode
+    if cfg.mla:
+        out.update({f"fp32_cut_{v}": n
+                    for v, n in held["fp32_cut"]["flash_by_variant"].items()})
     return out
 
 
@@ -3151,45 +3244,62 @@ def route_flips(torch, idx, n_layers: int, b: int, s: int) -> dict:
 
 def moe_prefill_flops(cfg, b: int, s: int) -> dict:
     """FLOP of an moe ``prefill_step`` on b x s tokens, from the model's
-    products: each layer's three expert products over every slot of the
-    (E, C) buffers (the capacity padding included), the gate, the
-    attention projections and causal attention; the unembedding of the
-    last position."""
+    products: each MoE layer's three expert products over every slot of
+    the (E, C) buffers (the capacity padding included), the gate and the
+    shared experts; each layer's attention projections and causal
+    attention (MLA: q, the latent, its expansion to K and V, the output;
+    attention at q/k d_qk and v d_v); the leading dense layers' MLP; the
+    unembedding of the last position."""
     from repro_torch.models import moe
     t, d, f = b * s, cfg.d_model, cfg.d_ff_expert
+    n_moe = cfg.n_layers - cfg.first_dense
     cap = moe._capacity(t, cfg)
-    hd = cfg.n_heads * cfg.d_head
+    if cfg.mla:
+        h, kvl = cfg.n_heads, cfg.kv_lora
+        dk, dv = cfg.mla_nope_dim + cfg.mla_rope_dim, cfg.mla_v_dim
+        proj = 2 * t * d * (h * dk + kvl + cfg.mla_rope_dim) \
+            + 2 * t * kvl * h * (cfg.mla_nope_dim + dv) + 2 * t * h * dv * d
+        attn = 2 * b * h * (dk + dv) * s * (s + 1) / 2
+    else:
+        hd = cfg.n_heads * cfg.d_head
+        proj = 2 * t * d * (hd + 2 * cfg.n_kv * cfg.d_head) + 2 * t * hd * d
+        attn = 4 * b * hd * s * (s + 1) / 2
     experts = 3 * 2 * cfg.n_experts * cap * d * f
-    out = {"expert_products": cfg.n_layers * experts,
-           "gate": cfg.n_layers * 2 * t * d * cfg.n_experts,
-           "projections": cfg.n_layers * (2 * t * d * (hd + 2 * cfg.n_kv * cfg.d_head)
-                                          + 2 * t * hd * d),
-           "attention": cfg.n_layers * 4 * b * hd * s * (s + 1) / 2,
+    out = {"expert_products": n_moe * experts,
+           "gate": n_moe * 2 * t * d * cfg.n_experts,
+           "projections": cfg.n_layers * proj,
+           "attention": cfg.n_layers * attn,
            "unembed": 2 * b * d * cfg.vocab_padded}
+    if cfg.n_shared:
+        out["shared_experts"] = n_moe * 3 * 2 * t * d * f * cfg.n_shared
+    if cfg.first_dense:
+        out["dense_ffn"] = cfg.first_dense * 3 * 2 * t * d * cfg.d_ff
     out["total"] = sum(out.values())
     out["expert_slots"], out["routed_pairs"] = cfg.n_experts * cap, t * cfg.top_k
     return out
 
 
-def moe_vs_cpu(torch, dev, seed: int) -> dict:
-    """grok-1-314b's smoke model (4 layers, d_model 128, 4 heads over 1, 4
-    experts top-2 of width 64) in fp32 on the card, forward on 2 x 64
+def moe_vs_cpu(torch, dev, seed: int, arch: str = SERVE_MOE_ARCH) -> dict:
+    """``arch``'s smoke model (grok-1-314b's: 4 layers, d_model 128, 4
+    heads over 1, 4 experts top-2 of width 64; deepseek-v2-236b's: its
+    leading dense layer and 3 MoE layers, MLA at q/k 48 and v 32, a shared
+    expert) in fp32 on the card, forward on 2 x 64
     tokens twice (bitwise) and SSM_DECODE_STEPS decode steps, against the
     same weights in float64 on one CPU thread (routing in float32, as the
     reference pins it), to MOE_F64_TOL; at its capacity factor (128 slots
     an expert) and at MOE_CAP8_FACTOR (8 slots against a mean load of 64:
     the forward drops pairs, a 2-token decode step never does). Each
-    forward layer's routes and kept mask equal the CPU's at every token
+    forward MoE layer's routes and kept mask equal the CPU's at every token
     whose k-th and (k+1)-th probabilities lie more than MOE_TIE apart;
     the tokens within it are counted. Attention goes to the mma_sync kernel
-    (fp32), once a layer and call."""
+    (fp32), once a layer and call (an MLA decode step launches none)."""
     from repro_torch.configs.base import get_config, reduce_for_smoke
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.models import moe
     from repro_torch.models.model import Model
     from repro_torch.tree import tree_map
     t0 = time.perf_counter()
-    base = reduce_for_smoke(get_config(SERVE_MOE_ARCH)).replace(compute_dtype_str="float32")
+    base = reduce_for_smoke(get_config(arch)).replace(compute_dtype_str="float32")
     toks = torch.from_numpy(np.random.default_rng(seed + 2).integers(
         0, base.vocab, (2, 64)).astype(np.int32))
     out = {"config": base.name, "n_layers": base.n_layers, "d_model": base.d_model,
@@ -3212,7 +3322,7 @@ def moe_vs_cpu(torch, dev, seed: int) -> dict:
             cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(dev)}, t)
         launches = {k: v - before[k] for k, v in fops.launches_by_variant.items()}
         want = dict.fromkeys(launches, 0)
-        want["mma_sync"] = cfg.n_layers * (2 + SSM_DECODE_STEPS)
+        want["mma_sync"] = cfg.n_layers * (2 + (0 if cfg.mla else SSM_DECODE_STEPS))
         threads = torch.get_num_threads()
         torch.set_num_threads(1)
         try:
@@ -3251,7 +3361,7 @@ def moe_vs_cpu(torch, dev, seed: int) -> dict:
             bad.append((factor, run, want))
     out["phase_wall_s"] = time.perf_counter() - t0
     if bad:
-        raise SystemExit(f"moe_vs_cpu: {bad}")
+        raise SystemExit(f"{'mla' if base.mla else 'moe'}_vs_cpu: {bad}")
     return out
 
 
@@ -3431,7 +3541,10 @@ def flash_timings(torch, dev, seed: int) -> dict:
     shape, for whichever kernel runs it. The same at d 64 with zamba2-1.2b's
     heads (keys ``_d64``), and with grok-1-314b's 48 heads over 8 at d 128
     (keys ``_grok``: the sm90 prefill and the 192-key decode, beside their
-    plain version and SDPA)."""
+    plain version and SDPA). MLA's unequal head dims (``mla_timings``):
+    deepseek-v2-236b's prefill at (192, 128) (``prefill_mla``), and the
+    mma_sync kernel in fp32 at the dense-layer check's (``mla_f32``) and
+    mla_vs_cpu's (48, 32) (``mla_smoke_f32``) shapes."""
     import torch.nn.functional as F
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -3505,6 +3618,72 @@ def flash_timings(torch, dev, seed: int) -> dict:
                     mma_sync_ms=cuda_ms(torch, calls["mma_sync"], 200),
                     mma_sync_device_ms=device_ms(torch, calls["mma_sync"], 50,
                                                  "flash_fwd_bf16"))
+    out.update(mla_timings(torch, dev, seed))
+    return out
+
+
+def sdpa_backends(torch, q, k, v) -> list:
+    """The SDPA backends that take these inputs, each tried alone (the
+    flash backend refuses v's head dim differing from q's)."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    took = []
+    for name in ("FLASH_ATTENTION", "EFFICIENT_ATTENTION", "CUDNN_ATTENTION", "MATH"):
+        try:
+            with sdpa_kernel(getattr(SDPBackend, name)):
+                F.scaled_dot_product_attention(q, k, v, is_causal=True)
+            torch.cuda.synchronize()
+            took.append(name)
+        except RuntimeError:
+            pass
+    return took
+
+
+def mla_timings(torch, dev, seed: int) -> dict:
+    """flash_attention at MLA's unequal head dims, v a strided view as MLA
+    passes it: deepseek-v2-236b's bf16 prefill (8 x 2048, 128 heads, q/k
+    192, v 128, causal) on the sm90 kernel and on mma_sync (forced), and
+    the mma_sync kernel in fp32 at the dense-layer check's prefill (8 x
+    128, the same heads) and at mla_vs_cpu's (2 x 64, 4 heads, q/k 48, v
+    32); each beside its plain version, SDPA (the backend PyTorch picks,
+    and those that take the inputs) and the operations or bytes bound."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(seed)   # drawn on the card
+    for key, dtype, (b, s, h, dk, dv), variants in (
+            ("prefill_mla", torch.bfloat16, (SERVE_BATCH, PREFILL_LEN, 128, 192, 128),
+             ("sm90", "mma_sync")),
+            ("mla_f32", torch.float32, (SERVE_BATCH, PROMPT_LEN, 128, 192, 128),
+             ("mma_sync",)),
+            ("mla_smoke_f32", torch.float32, (2, 64, 4, 48, 32), ("mma_sync",))):
+        q, k, kvb = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, s, h, dk), (b, s, h, dk), (b, s, h, 2 * dv)))
+        v = kvb[..., dv:]
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        flops = 2 * b * h * (dk + dv) * s * (s + 1) / 2
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel()
+                                     - q.numel() // dk * (dk - dv))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        peak = BF16_FLOP_PER_S if dtype == torch.bfloat16 else FP32_FLOP_PER_S
+        row = {"shape": [b, s, h, h, dk, dv, "causal", str(dtype).removeprefix("torch.")],
+               "flops": flops, "bytes": nbytes,
+               "plain_ms": cuda_ms(torch, lambda: flash_attention_ref(q, k, v, causal=True), 3),
+               "library_ms": cuda_ms(torch, sdpa, 10),
+               "library_device_ms": device_ms(torch, sdpa, 5),
+               "library_backends": sdpa_backends(torch, qt, kt, vt),
+               **_bound(flops / peak, nbytes / HBM_BYTES_PER_S)}
+        for var in variants:
+            call = (lambda var=var: fops.flash_attention_cuda(q, k, v, causal=True,
+                                                              variant=var))
+            name = "flash_fwd_sm90" if var == "sm90" else \
+                "flash_fwd_bf16" if dtype == torch.bfloat16 else "flash_fwd_f32"
+            pre = "" if var == variants[0] else f"{var}_"
+            row[pre + "ms"] = cuda_ms(torch, call, 10)
+            row[pre + "device_ms"] = device_ms(torch, call, 5, name)
+        out[key] = row
+        del q, k, kvb, v, qt, kt, vt
     return out
 
 
@@ -4697,9 +4876,15 @@ def main(argv=None) -> int:
                         param_dtype="bfloat16", tag="serve_grok",
                         layers=GROK_SERVE_LAYERS)
     torch.cuda.empty_cache()
+    served_dsv2 = serve(torch, dev, args.seed, args.profile, arch=SERVE_MLA_ARCH,
+                        param_dtype="bfloat16", tag="serve_dsv2",
+                        layers=DSV2_SERVE_LAYERS)
+    torch.cuda.empty_cache()
     phase("ssm_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed))
     phase("hybrid_vs_cpu", **ssm_vs_cpu(torch, dev, args.seed, SERVE_HYBRID_ARCH))
     phase("moe_vs_cpu", **moe_vs_cpu(torch, dev, args.seed))
+    mla_small = moe_vs_cpu(torch, dev, args.seed, SERVE_MLA_ARCH)
+    phase("mla_vs_cpu", **mla_small)
     trained = train(torch, dev, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
     trained_small = train_vs_cpu(torch, dev, args.seed)
@@ -4767,6 +4952,29 @@ def main(argv=None) -> int:
             "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
             "library_device_ms": row["library_device_ms"]})
+    # deepseek-v2-236b's MLA shapes: the sm90 kernel at its (192, 128)
+    # prefill; the mma_sync kernel in fp32 at (192, 128) (the serve's
+    # dense-layer check) and at (48, 32) (mla_vs_cpu), each with its own
+    # path's launches
+    small_launches = sum(mla_small[k]["flash_launches"]["mma_sync"] for k in ("full", "cap8"))
+    for name, src, row, launched, err in (
+            ("flash_attention_sm90_mla", "flash_attention_sm90.cu", ft["prefill_mla"],
+             served_dsv2["sm90"], flash_err["bfloat16_sm90_mla192"]),
+            ("flash_attention_mla", "flash_attention.cu", ft["mla_f32"],
+             served_dsv2["fp32_cut_mma_sync"], flash_err["float32_mma_sync_mla192"]),
+            ("flash_attention_mla_smoke", "flash_attention.cu", ft["mla_smoke_f32"],
+             small_launches, flash_err["float32_mma_sync_mla48"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": "src/repro_torch/csrc/" + src,
+            "replaces": flash, "launches": launched, "max_abs_err": err,
+            "ms": row["ms"], "device_ms": row["device_ms"], "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"], "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "library_device_ms": row["library_device_ms"],
+            "library_backends": row["library_backends"], "shape": row["shape"]})
+    kernels[-3].update(mma_sync_ms=ft["prefill_mla"]["mma_sync_ms"],
+                       mma_sync_device_ms=ft["prefill_mla"]["mma_sync_device_ms"],
+                       mma_sync_max_abs_err=flash_err["bfloat16_mma_sync_mla192"])
     bwd = ft["bwd"]
     for name, var, src in (("flash_attention_bwd_sm90", "sm90", "flash_attention_bwd_sm90.cu"),
                            ("flash_attention_bwd", "mma_sync", "flash_attention_bwd.cu")):
@@ -4796,7 +5004,7 @@ def main(argv=None) -> int:
             k["ssm_serve_launches"] = served_ssm[name]     # falcon-mamba-7b: none
         if k["name"] == "flash_attention_decode":
             k["sampled_launches"] = served["sampled_decode"]
-        if not k["name"].endswith(("_d160", "_d64", "_grok")):
+        if not k["name"].endswith(("_d160", "_d64", "_grok", "_mla", "_mla_smoke")):
             k["train_launches"] = trained[name]
             k["train_vs_cpu_launches"] = trained_small[name]
             k["examples_launches"] = examples.get(

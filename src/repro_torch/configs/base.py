@@ -4,17 +4,20 @@ The dataclass keeps the fields of the JAX package's ``ModelConfig`` that a
 dense GQA decoder reads to serve and to train (``remat``, ``loss_chunk``),
 that a Mamba1 stack reads (``ssm_*``, ``d_conv``, ``expand``), that the
 Mamba2 hybrid reads (``n_groups``, ``ssm_headdim``, ``attn_every``) and
-that the MoE FFN reads (``n_experts`` ... ``moe_group_tokens``), under the
-same names and defaults; ``param_dtype`` and ``compute_dtype`` return
-``torch`` dtypes. The reference's mesh-only MoE fields, ``expert_shard``
-and ``moe_ff_fsdp`` (how experts shard over a model mesh), are left out:
-one card has no model mesh (ROADMAP item 11). ``mrope`` and ``mla`` are
-kept only so that a config asking for them is refused. The port registers
-only the configurations it can serve (``ARCH_MODULES``): dense decoders
-with GQA attention, the Mamba1 ``ssm`` family, the Mamba2 ``hybrid``
-family (zamba2) and the ``moe`` family with GQA attention (grok-1).
-Asking for another one raises ``NotImplementedError`` naming the ROADMAP
-item that ports its family.
+that the MoE FFN reads (``n_experts`` ... ``moe_group_tokens``, with
+``first_dense`` leading dense layers) and that MLA attention reads
+(``mla``, ``kv_lora``, ``mla_nope_dim``, ``mla_rope_dim``,
+``mla_v_dim``), under the same names and defaults; ``param_dtype`` and
+``compute_dtype`` return ``torch`` dtypes. The reference's mesh-only MoE
+fields, ``expert_shard`` and ``moe_ff_fsdp`` (how experts shard over a
+model mesh), are left out: one card has no model mesh (ROADMAP item 11).
+``mrope`` is kept only so that a config asking for it is refused. The port
+registers only the configurations it can serve (``ARCH_MODULES``): dense
+decoders with GQA attention, the Mamba1 ``ssm`` family, the Mamba2
+``hybrid`` family (zamba2) and the ``moe`` family with GQA attention
+(grok-1) or with MLA and a leading dense layer (deepseek-v2). Asking for
+another one raises ``NotImplementedError`` naming the ROADMAP item that
+ports its family.
 """
 
 from __future__ import annotations
@@ -25,10 +28,9 @@ import torch
 
 # Families and features the port does not serve yet, with the ROADMAP item
 # (Queue 1, item 10, "LM scaffold") that brings them.
-NOT_PORTED = ("MLA, M-RoPE, MoE with leading dense layers or grouped "
-              "dispatch, Mamba2 outside the hybrid family, and the enc-dec "
-              "family are not ported yet (ROADMAP Queue 1, LM scaffold item "
-              "10.3)")
+NOT_PORTED = ("M-RoPE, the grouped MoE dispatch, Mamba2 outside the hybrid "
+              "family, and the enc-dec family are not ported yet (ROADMAP "
+              "Queue 1, LM scaffold item 10.3)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,14 +57,19 @@ class ModelConfig:
     top_k: int = 0
     n_shared: int = 0
     d_ff_expert: int = 0
-    first_dense: int = 0          # leading dense-FFN layers: not ported
+    first_dense: int = 0          # leading dense-FFN layers (deepseek-v2: 1)
     capacity_factor: float = 1.25
     moe_dispatch: str = "einsum"  # einsum (GShard) | scatter
     aux_loss_weight: float = 0.01
     moe_group_tokens: int = 0     # > 0, the grouped dispatch: not ported
 
-    # MLA: not ported, Model raises
+    # MLA (deepseek-v2): latent K/V of width kv_lora with a decoupled rope
+    # key; q/k heads of nope + rope, v heads of mla_v_dim
     mla: bool = False
+    kv_lora: int = 0
+    mla_nope_dim: int = 128
+    mla_rope_dim: int = 64
+    mla_v_dim: int = 128
 
     # SSM (Mamba1 in the ssm family, Mamba2 in the hybrid one)
     ssm_state: int = 0
@@ -118,8 +125,8 @@ def register(cfg: ModelConfig) -> ModelConfig:
 
 
 ARCH_MODULES = ["internlm2_1_8b", "qwen3_14b", "deepseek_7b",
-                "stablelm_12b", "grok_1_314b", "zamba2_1_2b",
-                "falcon_mamba_7b"]
+                "stablelm_12b", "grok_1_314b", "deepseek_v2_236b",
+                "zamba2_1_2b", "falcon_mamba_7b"]
 
 
 def get_config(name: str) -> ModelConfig:
@@ -146,6 +153,8 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
     if cfg.n_experts:
         kw.update(n_experts=4, top_k=min(cfg.top_k, 2), d_ff_expert=64,
                   n_shared=min(cfg.n_shared, 1))
+    if cfg.mla:
+        kw.update(kv_lora=32, mla_nope_dim=32, mla_rope_dim=16, mla_v_dim=32)
     if cfg.ssm_state:
         kw.update(ssm_state=8, ssm_headdim=16)
     if cfg.attn_every:
@@ -155,16 +164,12 @@ def reduce_for_smoke(cfg: ModelConfig) -> ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` unless ``cfg`` is a dense GQA decoder,
-    an MoE GQA decoder (every layer MoE, ungrouped dispatch), a Mamba1
-    stack or a Mamba2 hybrid."""
-    if cfg.mla:
+    an MoE decoder (GQA or MLA attention, ungrouped dispatch, any leading
+    dense layers), a Mamba1 stack or a Mamba2 hybrid."""
+    if cfg.mla and cfg.family != "moe":
         raise NotImplementedError(
-            f"{cfg.name}: MLA attention comes with deepseek-v2-236b "
-            f"(ROADMAP Queue 1, item 10.3); {NOT_PORTED}")
-    if cfg.family == "moe" and cfg.first_dense:
-        raise NotImplementedError(
-            f"{cfg.name}: leading dense layers (first_dense) come with "
-            f"deepseek-v2-236b (ROADMAP Queue 1, item 10.3); {NOT_PORTED}")
+            f"{cfg.name}: MLA attention is ported in the moe family only "
+            f"(deepseek-v2-236b); {NOT_PORTED}")
     if cfg.family == "moe" and cfg.moe_group_tokens:
         raise NotImplementedError(
             f"{cfg.name}: the grouped MoE dispatch (moe_group_tokens > 0) is "

@@ -10,7 +10,8 @@ packages can be compared leaf by leaf.
 ``params_from_numpy(tree, device)`` does the same for model weights: any
 nested dict whose leaves ``np.asarray`` reads (the JAX package's params
 tree, or ``params_to_numpy``'s output) becomes the port's params tree,
-leaf for leaf, so both packages compute with the same weights. bfloat16
+leaf for leaf (a stack's ``first`` leaf of leading dense layers and MLA's
+attention leaves alike), so both packages compute with the same weights. bfloat16
 leaves (numpy's ``bfloat16`` extension dtype, as JAX hands them out) are
 read bit for bit; ``params_to_numpy`` widens bfloat16 to float32, which
 keeps every value.

@@ -30,17 +30,23 @@
 // instances, used to hold the kernel tight to the plain version, are a
 // plain FMA loop (no TF32): one warp per query row, one key per lane.
 //
-// Instances: d 32, 64, 128 and 160. The bf16 instance's shared memory is
-// Q and K tiles of 64 x (d + 8) and V^T of d x 72 bf16: 66,048 B at d 160,
-// which launch() opts in to above the default 48 KB; its per-thread Q
-// fragments and accumulator are d/4 + d/2 registers, 40 + 80 at d 160
+// Instances: templated on q/k's head dim DK and v's DV: DK == DV at 32, 64,
+// 128 and 160, and MLA's unequal pairs (DK, DV) = (192, 128)
+// (deepseek-v2-236b: q/k heads of 128 nope + 64 rope columns, v heads of
+// 128) and (48, 32) (its smoke config). Q . K^T contracts over DK; P V and
+// the accumulator are DV wide, and so is the output. The bf16 instance's
+// shared memory is Q and K tiles of 64 x (DK + 8) and V^T of DV x 72 bf16:
+// 66,048 B at d 160 and 69,632 B at (192, 128), which launch() opts in to
+// above the default 48 KB; its per-thread Q fragments and accumulator are
+// DK/4 + DV/2 registers, 40 + 80 at d 160 and 48 + 64 at (192, 128)
 // (ptxas's report: chip_smoke.py's `environment` line).
 //
-// C entry: flash_attention_launch(q, k, v, o, is_bf16, d, B, H, KV, Sq, Skv,
-// strides, causal, q_offset, scale, stream); `strides` points to 12 host
-// int64 element strides, (batch, seq, head) of q, k, v and o in turn; the
-// head dim is contiguous. Launches on `stream` and returns
-// cudaGetLastError() (cudaErrorInvalidValue for a dtype or d it lacks).
+// C entry: flash_attention_launch(q, k, v, o, is_bf16, dk, dv, B, H, KV, Sq,
+// Skv, strides, causal, q_offset, scale, stream); `strides` points to 12
+// host int64 element strides, (batch, seq, head) of q, k, v and o in turn;
+// the head dim is contiguous. Launches on `stream` and returns
+// cudaGetLastError() (cudaErrorInvalidValue for a dtype or (dk, dv) it
+// lacks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -107,21 +113,21 @@ __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t bf16_smem_bytes() {
   return sizeof(__nv_bfloat16) *
-         ((size_t)BQ * (D + 8) + (size_t)BK * (D + 8) + (size_t)D * (BK + 8));
+         ((size_t)BQ * (DK + 8) + (size_t)BK * (DK + 8) + (size_t)DV * (BK + 8));
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
   // Rows padded by 8 elements (16 bytes): the fragment loads of a warp
   // (8 rows x 4 words) then fall on 32 distinct banks.
-  constexpr int LDQ = D + 8, LDK = D + 8, LDV = BK + 8, CH = D / 8;
+  constexpr int LDQ = DK + 8, LDK = DK + 8, LDV = BK + 8, CH = DK / 8, CHV = DV / 8;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BQ][LDQ]
   __nv_bfloat16* Ks = Qs + BQ * LDQ;                                // [BK][LDK]
-  __nv_bfloat16* Vt = Ks + BK * LDK;                                // [D][LDV]
+  __nv_bfloat16* Vt = Ks + BK * LDK;                                // [DV][LDV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -143,9 +149,9 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
 
   // This warp's 16 rows of Q as A fragments, kept in registers.
   const int r0 = warp * 16 + g;
-  uint32_t qa[D / 16][4];
+  uint32_t qa[DK / 16][4];
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const __nv_bfloat16* p0 = Qs + r0 * LDQ + kk * 16 + t * 2;
     qa[kk][0] = ld32(p0);
     qa[kk][1] = ld32(p0 + 8 * LDQ);
@@ -153,9 +159,9 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
     qa[kk][3] = ld32(p0 + 8 * LDQ + 8);
   }
 
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int dn = 0; dn < DV / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   const int row_abs[2] = {a.q_offset + q0 + r0, a.q_offset + q0 + r0 + 8};
   const int end = kv_end(a, q0, BQ);
@@ -168,7 +174,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
       if (kv0 + r < a.Skv) x = *reinterpret_cast<const uint4*>(k + (long long)(kv0 + r) * a.ks[1] + c * 8);
       *reinterpret_cast<uint4*>(Ks + r * LDK + c * 8) = x;
     }
-    for (int i = tid; i < BK * CH; i += BF_THREADS) {
+    for (int i = tid; i < BK * CHV; i += BF_THREADS) {
       const int r = i % BK, c = i / BK;  // key-major: conflict-free Vt stores
       uint4 x = zero;
       if (kv0 + r < a.Skv) x = *reinterpret_cast<const uint4*>(v + (long long)(kv0 + r) * a.vs[1] + c * 8);
@@ -185,7 +191,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
       s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
       const __nv_bfloat16* kp = Ks + (n * 8 + g) * LDK + t * 2;
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) mma_bf16(s[n], qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
+      for (int kk = 0; kk < DK / 16; ++kk) mma_bf16(s[n], qa[kk], ld32(kp + kk * 16), ld32(kp + kk * 16 + 8));
     }
 
     // Scale, mask, online softmax. Element e of a tile is row g + 8*(e>>1),
@@ -227,7 +233,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
       m_r[hr] = m_new[hr];
     }
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < DV / 8; ++dn) {
       acc[dn][0] *= corr[0];
       acc[dn][1] *= corr[0];
       acc[dn][2] *= corr[1];
@@ -243,7 +249,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
                               pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
                               pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < DV / 8; ++dn) {
         const __nv_bfloat16* vp = Vt + (dn * 8 + g) * LDV + kk * 16 + t * 2;
         mma_bf16(acc[dn], pa, ld32(vp), ld32(vp + 8));
       }
@@ -258,7 +264,7 @@ __global__ void __launch_bounds__(BF_THREADS) flash_fwd_bf16(Args a) {
     const float den = fmaxf(l_r[hr], 1e-30f);
     __nv_bfloat16* orow = o + (long long)row * a.os[1] + t * 2;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < DV / 8; ++dn) {
       *reinterpret_cast<uint32_t*>(orow + dn * 8) =
           pack_bf16(acc[dn][2 * hr] / den, acc[dn][2 * hr + 1] / den);
     }
@@ -273,18 +279,18 @@ constexpr int F_ROWS = 8;
 constexpr int F_BK = 32;
 constexpr int F_THREADS = 32 * F_ROWS;
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * ((size_t)F_ROWS * D + (size_t)F_BK * (D + 1) + (size_t)F_BK * D);
+  return sizeof(float) * ((size_t)F_ROWS * DK + (size_t)F_BK * (DK + 1) + (size_t)F_BK * DV);
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Args a) {
-  constexpr int LDK = D + 1;  // lane j reads row j: odd stride, no conflicts
+  constexpr int LDK = DK + 1;  // lane j reads row j: odd stride, no conflicts
   extern __shared__ float fsm[];
-  float* Qs = fsm;                // [F_ROWS][D]
-  float* Ks = Qs + F_ROWS * D;    // [F_BK][LDK]
-  float* Vs = Ks + F_BK * LDK;    // [F_BK][D]
+  float* Qs = fsm;                // [F_ROWS][DK]
+  float* Ks = Qs + F_ROWS * DK;   // [F_BK][LDK]
+  float* Vs = Ks + F_BK * LDK;    // [F_BK][DV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int b = blockIdx.x / a.H, h = blockIdx.x % a.H;
@@ -294,32 +300,34 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Args a) {
   const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
 
-  for (int i = tid; i < F_ROWS * D; i += F_THREADS) {
-    const int r = i / D, c = i % D;
+  for (int i = tid; i < F_ROWS * DK; i += F_THREADS) {
+    const int r = i / DK, c = i % DK;
     Qs[i] = (q0 + r < a.Sq) ? q[(long long)(q0 + r) * a.qs[1] + c] : 0.f;
   }
   const int row = q0 + warp;
   const int row_abs = a.q_offset + row;
-  float acc[D / 32];
+  float acc[DV / 32];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DV / 32; ++i) acc[i] = 0.f;
   float m = NEG_INF, l = 0.f;
   const int end = kv_end(a, q0, F_ROWS);
 
   for (int kv0 = 0; kv0 < end; kv0 += F_BK) {
     __syncthreads();
-    for (int i = tid; i < F_BK * D; i += F_THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = kv0 + r < a.Skv;
-      Ks[r * LDK + c] = in ? k[(long long)(kv0 + r) * a.ks[1] + c] : 0.f;
-      Vs[i] = in ? v[(long long)(kv0 + r) * a.vs[1] + c] : 0.f;
+    for (int i = tid; i < F_BK * DK; i += F_THREADS) {
+      const int r = i / DK, c = i % DK;
+      Ks[r * LDK + c] = kv0 + r < a.Skv ? k[(long long)(kv0 + r) * a.ks[1] + c] : 0.f;
+    }
+    for (int i = tid; i < F_BK * DV; i += F_THREADS) {
+      const int r = i / DV, c = i % DV;
+      Vs[i] = kv0 + r < a.Skv ? v[(long long)(kv0 + r) * a.vs[1] + c] : 0.f;
     }
     __syncthreads();
 
     const int col = kv0 + lane;
     float sc = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) sc = fmaf(Qs[warp * D + d], Ks[lane * LDK + d], sc);
+    for (int d = 0; d < DK; ++d) sc = fmaf(Qs[warp * DK + d], Ks[lane * LDK + d], sc);
     sc *= a.scale;
     if (col >= a.Skv || (a.causal && row_abs < col)) sc = NEG_INF;
     const float m_new = fmaxf(m, warp_max(sc));
@@ -328,11 +336,11 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Args a) {
     l = l * corr + warp_sum(p);
     m = m_new;
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) acc[i] *= corr;
+    for (int i = 0; i < DV / 32; ++i) acc[i] *= corr;
     for (int j = 0; j < F_BK; ++j) {
       const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[i] = fmaf(pj, Vs[j * D + lane + 32 * i], acc[i]);
+      for (int i = 0; i < DV / 32; ++i) acc[i] = fmaf(pj, Vs[j * DV + lane + 32 * i], acc[i]);
     }
   }
 
@@ -340,7 +348,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_fwd_f32(Args a) {
     float* orow = static_cast<float*>(a.o) + b * a.os[0] + h * a.os[2] + (long long)row * a.os[1];
     const float den = fmaxf(l, 1e-30f);
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) orow[lane + 32 * i] = acc[i] / den;
+    for (int i = 0; i < DV / 32; ++i) orow[lane + 32 * i] = acc[i] / den;
   }
 }
 
@@ -359,16 +367,16 @@ int launch(Kernel kernel, bool& smem_set, size_t smem, dim3 grid, int threads,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_d(bool is_bf16, int B, const Args& a, cudaStream_t stream) {
   static bool bf16_set = false, f32_set = false;
   if (is_bf16) {
     const dim3 grid(B * a.H, (a.Sq + BQ - 1) / BQ);
-    return launch(flash_fwd_bf16<D>, bf16_set, bf16_smem_bytes<D>(), grid,
+    return launch(flash_fwd_bf16<DK, DV>, bf16_set, bf16_smem_bytes<DK, DV>(), grid,
                   BF_THREADS, stream, a);
   }
   const dim3 grid(B * a.H, (a.Sq + F_ROWS - 1) / F_ROWS);
-  return launch(flash_fwd_f32<D>, f32_set, f32_smem_bytes<D>(), grid,
+  return launch(flash_fwd_f32<DK, DV>, f32_set, f32_smem_bytes<DK, DV>(), grid,
                 F_THREADS, stream, a);
 }
 
@@ -376,8 +384,8 @@ int launch_d(bool is_bf16, int B, const Args& a, cudaStream_t stream) {
 
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int is_bf16,
-                                      int d, int B, int H, int KVH, int Sq,
-                                      int Skv, const long long* strides,
+                                      int dk, int dv, int B, int H, int KVH,
+                                      int Sq, int Skv, const long long* strides,
                                       int causal, int q_offset, float scale,
                                       void* stream) {
   Args a;
@@ -399,11 +407,17 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     a.os[i] = strides[9 + i];
   }
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32: return launch_d<32>(is_bf16 != 0, B, a, st);
-    case 64: return launch_d<64>(is_bf16 != 0, B, a, st);
-    case 128: return launch_d<128>(is_bf16 != 0, B, a, st);
-    case 160: return launch_d<160>(is_bf16 != 0, B, a, st);
-    default: return (int)cudaErrorInvalidValue;
+  const bool bf = is_bf16 != 0;
+  if (dk == dv) {
+    switch (dk) {
+      case 32: return launch_d<32, 32>(bf, B, a, st);
+      case 64: return launch_d<64, 64>(bf, B, a, st);
+      case 128: return launch_d<128, 128>(bf, B, a, st);
+      case 160: return launch_d<160, 160>(bf, B, a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (dk == 192 && dv == 128) return launch_d<192, 128>(bf, B, a, st);
+  if (dk == 48 && dv == 32) return launch_d<48, 32>(bf, B, a, st);
+  return (int)cudaErrorInvalidValue;
 }

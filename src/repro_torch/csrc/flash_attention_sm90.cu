@@ -1,13 +1,16 @@
 // FlashAttention-2 forward for Hopper (sm_90a): the bf16 prefill, d 64, 128
-// and 160.
+// and 160, and MLA's q/k 192 with v 128.
 //
 // Replaces the Pallas TPU kernel `flash_attention_kernel`
 // (src/repro/kernels/flash_attention/flash_attention.py:66) for bf16
-// inputs with d = 64, 128 or 160 and at least 64 query rows;
-// csrc/flash_attention.cu keeps every other shape (fp32, d 32, bf16 with
-// 1 < Sq < 64) and csrc/flash_attention_decode.cu the decode rows. It
-// computes the same function: s = (q . k^T) * d^-0.5 in fp32; s = -1e30
-// where causal and q_offset + row < col, and where col >= Skv; a running
+// inputs with d = 64, 128 or 160, or q/k heads of 192 and v heads of 128
+// (deepseek-v2-236b's MLA prefill, which reaches the JAX package's jnp
+// flash_attention with dv != dh: src/repro/models/attention.py:69), and
+// at least 64 query rows; csrc/flash_attention.cu keeps every other shape
+// (fp32, d 32, bf16 with 1 < Sq < 64, MLA's smoke (48, 32)) and
+// csrc/flash_attention_decode.cu the decode rows. It computes the same
+// function: s = (q . k^T) * d^-0.5 in fp32 (d: q and k's head dim);
+// s = -1e30 where causal and q_offset + row < col, and where col >= Skv; a running
 // max m and sum l in fp32; p cast to bf16 before the PV product; out = acc
 // / max(l, 1e-30) cast to bf16. Query head h reads kv head h / (H / KV).
 // The scores are kept in the log2 domain (scale * log2(e) folded in,
@@ -17,7 +20,8 @@
 // (d 128 at B 8, H 16, S 2048: 1.37e11, 0.139 ms at the card's 989 TFLOP/s
 // bf16 peak, against 0.2 GB of q, k, v and o; d 160 at B 8, H 32: 3.44e11,
 // 0.348 ms; d 64 at B 8, H 32 (zamba2-1.2b's shared block): 1.37e11, 0.139
-// ms). The design spends its effort on the tensor cores:
+// ms; (192, 128) at B 8, H 128: 2*B*H*(192 + 128)*S(S+1)/2 = 1.375e12,
+// 1.390 ms). The design spends its effort on the tensor cores:
 // - both products are warpgroup MMAs (wgmma.mma_async, fp32 accumulators):
 //   S = Q K^T reads Q and K from shared memory through K-major 128B-swizzle
 //   descriptors; O += P V takes P from registers (the S accumulator
@@ -37,8 +41,9 @@
 //   are scheduled first and a causal block stops at the tile holding key
 //   q_offset + its last row (later tiles would add exactly 0).
 //
-// The head dim is a template parameter (`Layout<D>`); each row of Q, K and
-// V lies in slabs of 64 columns, one 128-byte swizzled row a slab:
+// The head dims are template parameters (`Layout<DK, DV>`: q and k's, v's);
+// each row of Q, K and V lies in slabs of 64 columns, one 128-byte swizzled
+// row a slab:
 // - d 64: one slab. QK^T runs d/16 = 4 k-steps, PV one n64 product (the
 //   building block of d 160's third slab); O is 32 fp32 a thread. A slab
 //   is half d 128's bytes, so the tile and stages are a choice, not forced:
@@ -64,21 +69,28 @@
 //   descriptors, 128-key tiles at two stages) needs a second swizzle mode
 //   in every operand path; this one adds only the n64 product and costs
 //   the 20 % of PV's tensor work spent on zeros.
+// - (192, 128), MLA: Q and K rows are three whole slabs, V rows two. QK^T
+//   runs 192/16 = 12 k-steps over the three slabs; PV and O are d 128's
+//   (one n128 product, 64 fp32 a thread). A 128-key stage is K 48 KB + V
+//   32 KB, so two stages and Q's 48 KB fit (209 KB with the alignment pad,
+//   one block an SM); S is m64n128 as at d 128. v may be a strided view
+//   (MLA's v is the second half of each head's 256 columns of the K/V
+//   expansion): its tensor map takes the view's own strides.
 // No atomics: two runs give the same bits. Not done yet: a producer warp
 // with setmaxnreg, overlap of softmax with the next product inside a
 // warpgroup, persistent blocks, a TMA-store epilogue.
 //
 // C entries (each launches on `stream` and returns a cudaError_t code, or
 // 10000 + the CUresult of a failed cuTensorMapEncodeTiled;
-// cudaErrorInvalidValue for a head dim other than 64, 128 and 160):
+// cudaErrorInvalidValue for head dims other than 64, 128, 160 and (192, 128)):
 //   flash_attention_sm90_launch(q, k, v, o, geo, causal, q_offset, scale,
 //       stream): `geo` holds 24 host int64: for each of q, k and v the
 //       tensor map's dims (d, seq, heads, batch) and byte strides (seq,
 //       heads, batch), then o's element strides (batch, seq, head).
 //   flash_attention_sm90_probe(q, k, v, s_out, o_out, geo, stream): one
 //       warpgroup computes S = Q K^T (64 x BK, fp32) and O = bf16(S) V
-//       (64 x d, fp32) through the same TMA maps and descriptors, for a
-//       64-row q and BK-row k and v (BK: the head dim's tile, 128 or 64;
+//       (64 x d_v, fp32) through the same TMA maps and descriptors, for a
+//       64-row q and BK-row k and v (BK: the head dims' tile, 128 or 64;
 //       `geo`: the first 21 values above).
 
 #include <cuda.h>
@@ -117,25 +129,32 @@ constexpr long long WAIT_LIMIT_CYCLES = 1ll << 34;
 // runtime's 1 KB a block: 112 bytes over the SM's 228 KB.)
 constexpr int D64_BK = 128, D64_STAGES = 2, D64_MIN_BLOCKS = 2;
 
-// The layout of one head dim: 64-column slabs a row, keys a K/V tile,
-// stages of the K/V ring, blocks an SM.
-template <int D>
+// The layout of one pair of head dims (q and k's DK, v's DV): 64-column
+// slabs a row of Q and K and of V, keys a K/V tile, stages of the K/V
+// ring, blocks an SM.
+template <int DK, int DV>
 struct Layout {
-  static_assert(D == 64 || D == 128 || D == 160, "head dims 64, 128 and 160");
-  static constexpr int SLABS = D == 64 ? 1 : D == 128 ? 2 : 3;
-  static constexpr int BK = D == 64 ? D64_BK : D == 128 ? 128 : 64;
-  static constexpr int STAGES = D == 64 ? D64_STAGES : 3;
-  static constexpr int MIN_BLOCKS = D == 64 ? D64_MIN_BLOCKS : 1;
+  static_assert((DK == DV && (DK == 64 || DK == 128 || DK == 160)) ||
+                    (DK == 192 && DV == 128),
+                "head dims 64, 128, 160 and (192, 128)");
+  static constexpr bool MLA = DK != DV;
+  static constexpr int K_SLABS = DK == 64 ? 1 : DK == 128 ? 2 : 3;
+  static constexpr int V_SLABS = DV == 64 ? 1 : DV == 128 ? 2 : 3;
+  static constexpr int BK = DK == 64 ? D64_BK : DK == 160 ? 64 : 128;
+  static constexpr int STAGES = DK == 64 ? D64_STAGES : MLA ? 2 : 3;
+  static constexpr int MIN_BLOCKS = DK == 64 ? D64_MIN_BLOCKS : 1;
   static constexpr uint32_t SLAB_KV = BK * ROW_BYTES;          // 16 KB or 8 KB
-  static constexpr uint32_t Q_BYTES = SLABS * SLAB_Q;
-  static constexpr uint32_t STAGE_BYTES = 2 * SLABS * SLAB_KV; // K slabs, then V slabs
+  static constexpr uint32_t Q_BYTES = K_SLABS * SLAB_Q;
+  static constexpr uint32_t STAGE_BYTES = (K_SLABS + V_SLABS) * SLAB_KV; // K slabs, then V slabs
   static constexpr size_t SMEM_BYTES = Q_BYTES + STAGES * STAGE_BYTES + 1024;  // + alignment
-  static constexpr int O_COLS = D < 128 ? D : 128;  // the main PV product's n: 64 or 128
-  static constexpr int HI_COLS = D > 128 ? D - 128 : 0;  // columns past it: 0 or 32
+  static constexpr int O_COLS = DV < 128 ? DV : 128;  // the main PV product's n: 64 or 128
+  static constexpr int HI_COLS = DV > 128 ? DV - 128 : 0;  // columns past it: 0 or 32
 };
 
-static_assert(Layout<64>::SMEM_BYTES * Layout<64>::MIN_BLOCKS <= 232448 &&
-              Layout<128>::SMEM_BYTES <= 232448 && Layout<160>::SMEM_BYTES <= 232448,
+static_assert(Layout<64, 64>::SMEM_BYTES * Layout<64, 64>::MIN_BLOCKS <= 232448 &&
+              Layout<128, 128>::SMEM_BYTES <= 232448 &&
+              Layout<160, 160>::SMEM_BYTES <= 232448 &&
+              Layout<192, 128>::SMEM_BYTES <= 232448,
               "a block takes at most 227 KB of shared memory");
 
 struct Geo {
@@ -311,21 +330,21 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
-// S (64 rows x BK keys) = Q K^T over d: d/16 k-steps of 16 columns. `q`:
+// S (64 rows x BK keys) = Q K^T over DK: DK/16 k-steps of 16 columns. `q`:
 // this warpgroup's first row in Q slab 0 (slab i at + i * q_slab); `k`: K
 // slab 0 (slab i at + i * SLAB_KV). Rows are 128 bytes and 8-row atoms 1024
 // bytes apart (SBO); a k-step moves 32 bytes inside a slab. At d 160 the
 // last two k-steps read the first 32 columns of slab 2.
-template <int D>
-__device__ __forceinline__ void qk_product(float (&s)[Layout<D>::BK / 2], uint32_t q,
+template <int DK, int DV>
+__device__ __forceinline__ void qk_product(float (&s)[Layout<DK, DV>::BK / 2], uint32_t q,
                                            uint32_t q_slab, uint32_t k) {
   fence_regs(s);
   wg_fence();
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
+  for (int kk = 0; kk < DK / 16; ++kk) {
     const uint32_t col = (kk % 4) * 32;
     const uint64_t da = sw128_desc(q + (kk / 4) * q_slab + col, 16, ATOM_BYTES);
-    const uint64_t db = sw128_desc(k + (kk / 4) * Layout<D>::SLAB_KV + col, 16, ATOM_BYTES);
+    const uint64_t db = sw128_desc(k + (kk / 4) * Layout<DK, DV>::SLAB_KV + col, 16, ATOM_BYTES);
     wgmma_ss(s, da, db, kk > 0);
   }
   wg_commit();
@@ -333,16 +352,16 @@ __device__ __forceinline__ void qk_product(float (&s)[Layout<D>::BK / 2], uint32
   fence_regs(s);
 }
 
-// O (64 rows x d) += P (64 x BK keys, bf16 pairs in registers) V. V's
-// tile is MN-major: d is contiguous, 64 columns a slab. A k-step is 16
+// O (64 rows x DV) += P (64 x BK keys, bf16 pairs in registers) V. V's
+// tile is MN-major: DV is contiguous, 64 columns a slab. A k-step is 16
 // keys = two 8-row atoms (SBO 1024 bytes apart); columns 64-127 are the
 // next slab (LBO = SLAB_KV). `o` takes columns 0-127 (0-63 at d 64); at
 // d 160 `hi` takes slab 2's 64 (128-191, of which 160-191 are TMA's zeros).
-template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[Layout<D>::O_COLS / 2], float (&hi)[32],
-                                           uint32_t (&p)[Layout<D>::BK / 4],
+template <int DK, int DV>
+__device__ __forceinline__ void pv_product(float (&o)[Layout<DK, DV>::O_COLS / 2], float (&hi)[32],
+                                           uint32_t (&p)[Layout<DK, DV>::BK / 4],
                                            uint32_t v) {
-  using L = Layout<D>;
+  using L = Layout<DK, DV>;
   fence_regs(o);
   if constexpr (L::HI_COLS > 0) fence_regs(hi);
   fence_regs(p);
@@ -379,27 +398,29 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 // K/V tile t (keys t*BK ...) of kv head `kvh`, batch `b`, into ring stage
 // t % STAGES: one box a slab of K, then of V, completing on that stage's
 // "full" barrier.
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void load_kv(const CUtensorMap* kmap,
                                         const CUtensorMap* vmap, uint32_t kv_s,
                                         uint32_t full0, int t, int kvh, int b) {
-  using L = Layout<D>;
+  using L = Layout<DK, DV>;
   const int s = t % L::STAGES;
   const uint32_t dst = kv_s + s * L::STAGE_BYTES, bar = full0 + 8 * s;
   mbar_expect_tx(bar, L::STAGE_BYTES);
 #pragma unroll
-  for (int sl = 0; sl < L::SLABS; ++sl) {
+  for (int sl = 0; sl < L::K_SLABS; ++sl)
     tma_load(dst + sl * L::SLAB_KV, kmap, bar, sl * SLAB, t * L::BK, kvh, b);
-    tma_load(dst + (L::SLABS + sl) * L::SLAB_KV, vmap, bar, sl * SLAB, t * L::BK, kvh, b);
-  }
+#pragma unroll
+  for (int sl = 0; sl < L::V_SLABS; ++sl)
+    tma_load(dst + (L::K_SLABS + sl) * L::SLAB_KV, vmap, bar, sl * SLAB, t * L::BK, kvh, b);
 }
 
 // The epilogue of one thread's two rows: columns 0-127 (0-63 at d 64)
 // from `o`, then, at d 160, columns 128-159 from `hi`.
-template <int D>
+template <int DK, int DV>
 __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, const Geo& g, int row0,
-                                           int t4, const float (&o)[Layout<D>::O_COLS / 2],
+                                           int t4, const float (&o)[Layout<DK, DV>::O_COLS / 2],
                                            const float (&hi)[32], const float (&l)[2]) {
+  using L = Layout<DK, DV>;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = row0 + 8 * hr;
@@ -407,25 +428,25 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* ob, const Geo& g, int 
     const float den = fmaxf(l[hr], 1e-30f);
     __nv_bfloat16* orow = ob + (long long)row * g.os[1] + 2 * t4;
 #pragma unroll
-    for (int c = 0; c < Layout<D>::O_COLS / 8; ++c) {
+    for (int c = 0; c < L::O_COLS / 8; ++c) {
       *reinterpret_cast<uint32_t*>(orow + 8 * c) =
           pack_bf16(o[4 * c + 2 * hr] / den, o[4 * c + 2 * hr + 1] / den);
     }
 #pragma unroll
-    for (int c = 0; c < Layout<D>::HI_COLS / 8; ++c) {
+    for (int c = 0; c < L::HI_COLS / 8; ++c) {
       *reinterpret_cast<uint32_t*>(orow + 128 + 8 * c) =
           pack_bf16(hi[4 * c + 2 * hr] / den, hi[4 * c + 2 * hr + 1] / den);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, Layout<D>::MIN_BLOCKS)
+template <int DK, int DV>
+__global__ void __launch_bounds__(THREADS, Layout<DK, DV>::MIN_BLOCKS)
 flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
                const __grid_constant__ CUtensorMap kmap,
                const __grid_constant__ CUtensorMap vmap,
                __nv_bfloat16* __restrict__ o, const Geo g) {
-  using L = Layout<D>;
+  using L = Layout<DK, DV>;
   constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   constexpr int STAGES = L::STAGES;
@@ -454,8 +475,8 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
   if (tid == 0) {
     mbar_expect_tx(qbar, L::Q_BYTES);
 #pragma unroll
-    for (int sl = 0; sl < L::SLABS; ++sl) tma_load(q_s + sl * SLAB_Q, &qmap, qbar, sl * SLAB, q0, h, b);
-    load_kv<D>(&kmap, &vmap, kv_s, full0, 0, kvh, b);
+    for (int sl = 0; sl < L::K_SLABS; ++sl) tma_load(q_s + sl * SLAB_Q, &qmap, qbar, sl * SLAB, q0, h, b);
+    load_kv<DK, DV>(&kmap, &vmap, kv_s, full0, 0, kvh, b);
   }
 
   const int t4 = lane & 3;
@@ -480,7 +501,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
       // Tile j+1 goes into the stage tile j+1-STAGES used, once all
       // threads are done with it.
       if (j + 1 >= STAGES) mbar_wait(empty0 + 8 * ((j + 1) % STAGES), ((j + 1) / STAGES - 1) & 1);
-      load_kv<D>(&kmap, &vmap, kv_s, full0, j + 1, kvh, b);
+      load_kv<DK, DV>(&kmap, &vmap, kv_s, full0, j + 1, kvh, b);
     }
     __syncwarp();
     mbar_wait(full0 + 8 * s, (j / STAGES) & 1);
@@ -489,7 +510,7 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
     // A tile past the warpgroup's last causal row would add exactly 0.
     if (!g.causal || kv0 <= wg_last) {
       float sc[BK / 2];
-      qk_product<D>(sc, q_wg, SLAB_Q, k_s);
+      qk_product<DK, DV>(sc, q_wg, SLAB_Q, k_s);
 
       // Mask only tiles that cross the diagonal or the Skv edge. The row
       // max is taken on the raw scores; m lives in the log2 domain
@@ -537,36 +558,36 @@ flash_fwd_sm90(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int i = 0; i < 32; ++i) acc_hi[i] *= corr[(i >> 1) & 1];
       }
-      pv_product<D>(acc, acc_hi, p, k_s + L::SLABS * L::SLAB_KV);
+      pv_product<DK, DV>(acc, acc_hi, p, k_s + L::K_SLABS * L::SLAB_KV);
     }
     mbar_arrive(empty0 + 8 * s);
   }
 
   // Epilogue: each thread writes its two rows straight to global memory.
-  store_rows<D>(o + b * g.os[0] + h * g.os[2], g, row0, t4, acc, acc_hi, l);
+  store_rows<DK, DV>(o + b * g.os[0] + h * g.os[2], g, row0, t4, acc, acc_hi, l);
 }
 
 // One warpgroup: S = Q K^T and O = bf16(S) V for a 64-row Q and BK-row K
-// and V, written out in fp32 (row-major 64 x BK and 64 x D).
+// and V, written out in fp32 (row-major 64 x BK and 64 x DV).
 constexpr uint32_t PROBE_Q_SLAB = 64 * ROW_BYTES;
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t probe_smem() {
-  return Layout<D>::SLABS * PROBE_Q_SLAB + Layout<D>::STAGE_BYTES + 1024;
+  return Layout<DK, DV>::K_SLABS * PROBE_Q_SLAB + Layout<DK, DV>::STAGE_BYTES + 1024;
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(128, 1)
 probe_sm90(const __grid_constant__ CUtensorMap qmap,
            const __grid_constant__ CUtensorMap kmap,
            const __grid_constant__ CUtensorMap vmap, float* s_out,
            float* o_out) {
-  using L = Layout<D>;
+  using L = Layout<DK, DV>;
   constexpr int BK = L::BK;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t bar_mem;
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
-  const uint32_t q_s = base, k_s = base + L::SLABS * PROBE_Q_SLAB;
+  const uint32_t q_s = base, k_s = base + L::K_SLABS * PROBE_Q_SLAB;
   const uint32_t bar = smem_u32(&bar_mem);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   if (tid == 0) {
@@ -575,20 +596,22 @@ probe_sm90(const __grid_constant__ CUtensorMap qmap,
   }
   __syncthreads();
   if (tid == 0) {
-    mbar_expect_tx(bar, L::SLABS * PROBE_Q_SLAB + L::STAGE_BYTES);
+    mbar_expect_tx(bar, L::K_SLABS * PROBE_Q_SLAB + L::STAGE_BYTES);
 #pragma unroll
-    for (int sl = 0; sl < L::SLABS; ++sl) {
+    for (int sl = 0; sl < L::K_SLABS; ++sl) {
       tma_load(q_s + sl * PROBE_Q_SLAB, &qmap, bar, sl * SLAB, 0, 0, 0);
       tma_load(k_s + sl * L::SLAB_KV, &kmap, bar, sl * SLAB, 0, 0, 0);
-      tma_load(k_s + (L::SLABS + sl) * L::SLAB_KV, &vmap, bar, sl * SLAB, 0, 0, 0);
     }
+#pragma unroll
+    for (int sl = 0; sl < L::V_SLABS; ++sl)
+      tma_load(k_s + (L::K_SLABS + sl) * L::SLAB_KV, &vmap, bar, sl * SLAB, 0, 0, 0);
   }
   __syncwarp();
   mbar_wait(bar, 0);
 
   constexpr int O_REGS = L::O_COLS / 2;
   float s[BK / 2], acc[O_REGS], acc_hi[32];
-  qk_product<D>(s, q_s, PROBE_Q_SLAB, k_s);
+  qk_product<DK, DV>(s, q_s, PROBE_Q_SLAB, k_s);
   uint32_t p[BK / 4];
 #pragma unroll
   for (int i = 0; i < BK / 2; i += 2) p[i >> 1] = pack_bf16(s[i], s[i + 1]);
@@ -596,7 +619,7 @@ probe_sm90(const __grid_constant__ CUtensorMap qmap,
   for (int i = 0; i < O_REGS; ++i) acc[i] = 0.f;
 #pragma unroll
   for (int i = 0; i < 32; ++i) acc_hi[i] = 0.f;
-  pv_product<D>(acc, acc_hi, p, k_s + L::SLABS * L::SLAB_KV);
+  pv_product<DK, DV>(acc, acc_hi, p, k_s + L::K_SLABS * L::SLAB_KV);
 
   const int r = 16 * warp + (lane >> 2), c0 = 2 * (lane & 3);
 #pragma unroll
@@ -604,10 +627,10 @@ probe_sm90(const __grid_constant__ CUtensorMap qmap,
     s_out[(r + 8 * ((i >> 1) & 1)) * BK + 8 * (i >> 2) + c0 + (i & 1)] = s[i];
 #pragma unroll
   for (int i = 0; i < O_REGS; ++i)
-    o_out[(r + 8 * ((i >> 1) & 1)) * D + 8 * (i >> 2) + c0 + (i & 1)] = acc[i];
+    o_out[(r + 8 * ((i >> 1) & 1)) * DV + 8 * (i >> 2) + c0 + (i & 1)] = acc[i];
 #pragma unroll
   for (int i = 0; i < 4 * L::HI_COLS / 8; ++i)
-    o_out[(r + 8 * ((i >> 1) & 1)) * D + 128 + 8 * (i >> 2) + c0 + (i & 1)] = acc_hi[i];
+    o_out[(r + 8 * ((i >> 1) & 1)) * DV + 128 + 8 * (i >> 2) + c0 + (i & 1)] = acc_hi[i];
 }
 
 // --- host side ---------------------------------------------------------------
@@ -673,17 +696,17 @@ int opt_in_smem(Kernel kernel, bool& done, size_t bytes) {
   return 0;
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o, const long long* geo,
              int causal, int q_offset, float scale, cudaStream_t stream) {
-  using L = Layout<D>;
+  using L = Layout<DK, DV>;
   CUtensorMap qm, km, vm;
   int err = encode_map(&qm, q, geo, BQ);
   if (err == 0) err = encode_map(&km, k, geo + 7, L::BK);
   if (err == 0) err = encode_map(&vm, v, geo + 14, L::BK);
   if (err != 0) return err;
   static bool smem_set = false;
-  err = opt_in_smem(flash_fwd_sm90<D>, smem_set, L::SMEM_BYTES);
+  err = opt_in_smem(flash_fwd_sm90<DK, DV>, smem_set, L::SMEM_BYTES);
   if (err != 0) return err;
   Geo g;
   g.Sq = (int)geo[1];
@@ -695,24 +718,32 @@ int launch_d(const void* q, const void* k, const void* v, void* o, const long lo
   for (int i = 0; i < 3; ++i) g.os[i] = geo[21 + i];
   g.scale_log2 = scale * LOG2E;
   const dim3 grid((unsigned)(geo[3] * g.H), (unsigned)((g.Sq + BQ - 1) / BQ));
-  flash_fwd_sm90<D><<<grid, THREADS, L::SMEM_BYTES, stream>>>(
+  flash_fwd_sm90<DK, DV><<<grid, THREADS, L::SMEM_BYTES, stream>>>(
       qm, km, vm, static_cast<__nv_bfloat16*>(o), g);
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int probe_d(const void* q, const void* k, const void* v, float* s_out, float* o_out,
             const long long* geo, cudaStream_t stream) {
   CUtensorMap qm, km, vm;
   int err = encode_map(&qm, q, geo, 64);
-  if (err == 0) err = encode_map(&km, k, geo + 7, Layout<D>::BK);
-  if (err == 0) err = encode_map(&vm, v, geo + 14, Layout<D>::BK);
+  if (err == 0) err = encode_map(&km, k, geo + 7, Layout<DK, DV>::BK);
+  if (err == 0) err = encode_map(&vm, v, geo + 14, Layout<DK, DV>::BK);
   if (err != 0) return err;
   static bool smem_set = false;
-  err = opt_in_smem(probe_sm90<D>, smem_set, probe_smem<D>());
+  err = opt_in_smem(probe_sm90<DK, DV>, smem_set, probe_smem<DK, DV>());
   if (err != 0) return err;
-  probe_sm90<D><<<1, 128, probe_smem<D>(), stream>>>(qm, km, vm, s_out, o_out);
+  probe_sm90<DK, DV><<<1, 128, probe_smem<DK, DV>(), stream>>>(qm, km, vm, s_out, o_out);
   return (int)cudaGetLastError();
+}
+
+// The instance of a (q/k, v) head-dim pair, `geo[0]` and `geo[14]` (q's
+// and v's d; k's, `geo[7]`, must be q's); -1 for a pair without one.
+int pair_index(const long long* geo) {
+  if (geo[7] != geo[0]) return -1;
+  if (geo[14] == geo[0]) return geo[0] == 64 ? 0 : geo[0] == 128 ? 1 : geo[0] == 160 ? 2 : -1;
+  return geo[0] == 192 && geo[14] == 128 ? 3 : -1;
 }
 
 }  // namespace
@@ -722,12 +753,12 @@ extern "C" int flash_attention_sm90_launch(const void* q, const void* k,
                                            const long long* geo, int causal,
                                            int q_offset, float scale,
                                            void* stream) {
-  if (geo[7] != geo[0] || geo[14] != geo[0]) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (geo[0]) {
-    case 64: return launch_d<64>(q, k, v, o, geo, causal, q_offset, scale, st);
-    case 128: return launch_d<128>(q, k, v, o, geo, causal, q_offset, scale, st);
-    case 160: return launch_d<160>(q, k, v, o, geo, causal, q_offset, scale, st);
+  switch (pair_index(geo)) {
+    case 0: return launch_d<64, 64>(q, k, v, o, geo, causal, q_offset, scale, st);
+    case 1: return launch_d<128, 128>(q, k, v, o, geo, causal, q_offset, scale, st);
+    case 2: return launch_d<160, 160>(q, k, v, o, geo, causal, q_offset, scale, st);
+    case 3: return launch_d<192, 128>(q, k, v, o, geo, causal, q_offset, scale, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -736,12 +767,12 @@ extern "C" int flash_attention_sm90_probe(const void* q, const void* k,
                                           const void* v, float* s_out,
                                           float* o_out, const long long* geo,
                                           void* stream) {
-  if (geo[7] != geo[0] || geo[14] != geo[0]) return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  switch (geo[0]) {
-    case 64: return probe_d<64>(q, k, v, s_out, o_out, geo, st);
-    case 128: return probe_d<128>(q, k, v, s_out, o_out, geo, st);
-    case 160: return probe_d<160>(q, k, v, s_out, o_out, geo, st);
+  switch (pair_index(geo)) {
+    case 0: return probe_d<64, 64>(q, k, v, s_out, o_out, geo, st);
+    case 1: return probe_d<128, 128>(q, k, v, s_out, o_out, geo, st);
+    case 2: return probe_d<160, 160>(q, k, v, s_out, o_out, geo, st);
+    case 3: return probe_d<192, 128>(q, k, v, s_out, o_out, geo, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

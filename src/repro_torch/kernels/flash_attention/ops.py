@@ -1,28 +1,34 @@
 """Wrapper of the ``flash_attention`` CUDA kernels.
 
 ``flash_attention(q, k, v, *, causal, q_offset=0, chunk_kv=1024)``:
-FlashAttention-2 forward over the model's own layout, q (B, Sq, H, d) and
-k, v (B, Skv, KV, d). CPU tensors take the plain version (``ref.py``,
-chunked by ``chunk_kv``); CUDA tensors launch a kernel, which adds one to
-``launches`` and to ``launches_by_variant[variant]`` per launch. The
-kernels read their inputs through their strides, so a slice of the KV
-cache is passed as it lies; they take bf16 and fp32 and d in
-``HEAD_DIMS``, and the wrapper raises on anything else.
+FlashAttention-2 forward over the model's own layout, q (B, Sq, H, d_qk),
+k (B, Skv, KV, d_qk) and v (B, Skv, KV, d_v), giving (B, Sq, H, d_v).
+CPU tensors take the plain version (``ref.py``, chunked by ``chunk_kv``);
+CUDA tensors launch a kernel, which adds one to ``launches`` and to
+``launches_by_variant[variant]`` per launch. The kernels read their inputs
+through their strides, so a slice of the KV cache (or MLA's v, a strided
+view of its K/V expansion) is passed as it lies; they take bf16 and fp32
+with d_qk == d_v in ``HEAD_DIMS`` or a (d_qk, d_v) pair of
+``MLA_HEAD_DIMS``, and the wrapper raises on anything else. The scale is
+d_qk ** -0.5.
 
 Three kernels, chosen by shape and dtype alone (``_variant``), never on a
 failure:
 
 - ``"sm90"`` (``csrc/flash_attention_sm90.cu``): wgmma fed by a TMA K/V
-  ring, for bf16 with d in ``SM90_HEAD_DIMS`` (64, 128 and 160) and Sq >=
-  64 (the prefill; zamba2-1.2b's shared block at d 64);
+  ring, for bf16 with d in ``SM90_HEAD_DIMS`` (64, 128 and 160) or (d_qk,
+  d_v) in ``SM90_MLA_KEYS`` (deepseek-v2-236b's (192, 128)) and Sq >= 64
+  (the prefill; zamba2-1.2b's shared block at d 64);
 - ``"decode"`` (``csrc/flash_attention_decode.cu``): split-KV decoding for
   bf16 with Sq == 1 and a GQA group H / KV of at most 16 (every decode
   step); one one-warp block per (batch, kv head, key split) with the
   group's query heads as its rows, the ``decode_splits`` splits of a kv
   head merged in a fixed order inside a thread-block cluster;
 - ``"mma_sync"`` (``csrc/flash_attention.cu``): every other shape (fp32,
-  bf16 d 32 at Sq > 1, bf16 with 1 < Sq < 64, and Sq 1 with a group over
-  16).
+  bf16 d 32 at Sq > 1, bf16 with 1 < Sq < 64, Sq 1 with a group over 16,
+  and every MLA pair the sm90 kernel does not take: (48, 32), and (192,
+  128) in fp32 or with Sq < 64). MLA's decode attends in the latent space
+  with torch ops and launches no flash kernel (``models/attention.py``).
 
 ``flash_attention_cuda(..., variant=...)`` forces one of them, for tests
 and timing only; forcing ``"sm90"`` or ``"decode"`` on a shape it does not
@@ -46,6 +52,9 @@ dk/dv pass), chosen by shape and dtype alone (``_bwd_variant``):
   internlm2-1.8b);
 - ``"mma_sync"`` (``csrc/flash_attention_bwd.cu``): every other shape
   (fp32, d 32, 64 and 160, shorter calls).
+
+Neither backward takes an MLA pair (d_qk != d_v): the call raises (MLA
+training on the card is not ported).
 
 ``flash_attention_bwd_cuda(..., variant=...)`` forces one, for tests and
 timing only; forcing ``"sm90"`` on a shape it lacks raises. A call adds one
@@ -76,6 +85,13 @@ SM90_HEAD_DIMS = (64, 128, 160)
 # dim: d 160 takes three 64-column slabs a row, so 64-key tiles fit; d 64's
 # tile is the one timing chose (the kernel's D64_BK).
 SM90_KEYS = {64: 128, 128: 128, 160: 64}
+# The (d_qk, d_v) pairs of MLA (deepseek-v2-236b's q/k 192 = nope 128 +
+# rope 64 and v 128; its smoke config's 48 and 32), every one on the
+# mma_sync kernel; and those the sm90 kernel takes, with its keys a K/V
+# tile: at (192, 128) a 128-key stage is K 48 KB + V 32 KB, so two stages
+# and Q's 48 KB fit.
+MLA_HEAD_DIMS = ((192, 128), (48, 32))
+SM90_MLA_KEYS = {(192, 128): 128}
 SM90_MIN_SQ = 64             # one warpgroup's rows
 DECODE_MAX_GROUP = 16        # query heads a block's rows
 DECODE_MAX_SPLITS = 8        # blocks of a cluster (the portable limit)
@@ -98,8 +114,7 @@ def _lib():
     lib = build.load("flash_attention")
     fn = lib.flash_attention_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p] + [ctypes.c_int] * 8 + [
                    ctypes.POINTER(ctypes.c_longlong), ctypes.c_int,
                    ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -197,14 +212,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def _variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel for these inputs, from their shapes and dtype only:
-    ``"decode"`` for bf16 with Sq == 1, d in ``HEAD_DIMS`` and H / KV <=
-    ``DECODE_MAX_GROUP``; ``"sm90"`` for bf16 with d in ``SM90_HEAD_DIMS``
-    and Sq >= 64; else ``"mma_sync"``."""
+    ``"decode"`` for bf16 with Sq == 1, d_qk == d_v in ``HEAD_DIMS`` and H
+    / KV <= ``DECODE_MAX_GROUP``; ``"sm90"`` for bf16 with Sq >= 64 and d
+    in ``SM90_HEAD_DIMS`` or (d_qk, d_v) in ``SM90_MLA_KEYS``; else
+    ``"mma_sync"``."""
+    dk, dv = q.shape[-1], v.shape[-1]
     if q.dtype == k.dtype == v.dtype == torch.bfloat16:
-        if (q.shape[1] == 1 and q.shape[-1] in HEAD_DIMS
+        if (dk == dv and q.shape[1] == 1 and dk in HEAD_DIMS
                 and q.shape[2] // k.shape[2] <= DECODE_MAX_GROUP):
             return "decode"
-        if q.shape[-1] in SM90_HEAD_DIMS and q.shape[1] >= SM90_MIN_SQ:
+        sm90 = dk in SM90_HEAD_DIMS if dk == dv else (dk, dv) in SM90_MLA_KEYS
+        if sm90 and q.shape[1] >= SM90_MIN_SQ:
             return "sm90"
     return "mma_sync"
 
@@ -220,13 +238,14 @@ def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"variant {variant!r} not in {VARIANTS}")
     if variant == "sm90" and chosen != "sm90":
         raise ValueError(
-            f"the sm90 kernel takes bf16 with d in {SM90_HEAD_DIMS} and Sq >= "
-            f"{SM90_MIN_SQ}; got {q.dtype}, q {tuple(q.shape)}")
+            f"the sm90 kernel takes bf16 with d in {SM90_HEAD_DIMS} or (d_qk, "
+            f"d_v) in {tuple(SM90_MLA_KEYS)} and Sq >= {SM90_MIN_SQ}; got "
+            f"{q.dtype}, q {tuple(q.shape)}, v {tuple(v.shape)}")
     if variant == "decode" and chosen != "decode":
         raise ValueError(
-            f"the decode kernel takes bf16 with Sq == 1, d in {HEAD_DIMS} and "
-            f"H / KV <= {DECODE_MAX_GROUP}; got {q.dtype}, q "
-            f"{tuple(q.shape)}, k {tuple(k.shape)}")
+            f"the decode kernel takes bf16 with Sq == 1, d_qk == d_v in "
+            f"{HEAD_DIMS} and H / KV <= {DECODE_MAX_GROUP}; got {q.dtype}, q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
     return variant
 
 
@@ -276,15 +295,21 @@ def _geometry(*xs: torch.Tensor) -> list:
     return out
 
 
+def head_dims_supported(d_qk: int, d_v: int) -> bool:
+    """Whether a forward kernel takes q/k heads of ``d_qk`` and v heads of
+    ``d_v``: equal dims in ``HEAD_DIMS``, or a pair of ``MLA_HEAD_DIMS``."""
+    return d_qk in HEAD_DIMS if d_qk == d_v else (d_qk, d_v) in MLA_HEAD_DIMS
+
+
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
            q_offset: int) -> None:
     dev = q.device
     if not q.is_cuda or k.device != dev or v.device != dev:
         raise ValueError("flash_attention_cuda takes CUDA tensors on one device")
-    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"q (B, Sq, H, d) and k, v (B, Skv, KV, d) expected, "
-                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
-                         f"{tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 or k.shape[:3] != v.shape[:3]:
+        raise ValueError(f"q (B, Sq, H, d_qk), k (B, Skv, KV, d_qk) and v (B, "
+                         f"Skv, KV, d_v) expected, got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, dh = q.shape
     if k.shape[0] != b or k.shape[3] != dh or h % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} disagree "
@@ -292,9 +317,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel "
                          "takes one of float32 and bfloat16 for all three")
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in {HEAD_DIMS}: no kernel "
-                         "takes it")
+    if not head_dims_supported(dh, v.shape[3]):
+        raise ValueError(f"head dims (q/k {dh}, v {v.shape[3]}): no kernel "
+                         f"takes them (equal dims in {HEAD_DIMS}, or (d_qk, "
+                         f"d_v) in {MLA_HEAD_DIMS})")
     if sq < 1 or k.shape[1] < 1 or q_offset < 0 or sq > MAX_Q_TILES * 8:
         raise ValueError(f"Sq={sq}, Skv={k.shape[1]}, q_offset={q_offset}: "
                          "need Sq, Skv >= 1, q_offset >= 0 and Sq <= "
@@ -318,7 +344,8 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check(q, k, v, q_offset)
     variant = resolve_variant(q, k, v, variant)
     b, sq, h, dh = q.shape
-    out = torch.empty((b, sq, h, dh), dtype=q.dtype, device=q.device)
+    dv = v.shape[3]
+    out = torch.empty((b, sq, h, dv), dtype=q.dtype, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     if variant == "sm90":
         geo = (ctypes.c_longlong * 24)(*_geometry(q, k, v), *out.stride()[:3])
@@ -339,9 +366,9 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         strides = (ctypes.c_longlong * 12)(*q.stride()[:3], *k.stride()[:3],
                                            *v.stride()[:3], *out.stride()[:3])
         err = _lib()(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                     int(q.dtype == torch.bfloat16), dh, b, h, k.shape[2], sq,
-                     k.shape[1], strides, int(causal), q_offset, dh ** -0.5,
-                     stream)
+                     int(q.dtype == torch.bfloat16), dh, dv, b, h, k.shape[2],
+                     sq, k.shape[1], strides, int(causal), q_offset,
+                     dh ** -0.5, stream)
         build.check("flash_attention", err)
     launches += 1
     launches_by_variant[variant] += 1
@@ -372,6 +399,10 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
     ``bwd_launches_by_variant[variant]`` grow by one."""
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
+    if v.shape[3] != q.shape[3]:
+        raise ValueError(f"the backward kernels take one head dim for q, k and "
+                         f"v; got q/k {q.shape[3]}, v {v.shape[3]} (MLA "
+                         "training on the card is not ported)")
     if o.shape != q.shape or do.shape != q.shape or o.device != q.device \
             or do.device != q.device:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
@@ -416,21 +447,25 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
 def sm90_probe(q: torch.Tensor, k: torch.Tensor,
                v: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """One warpgroup of the sm90 kernel's products, alone: S = q k^T and
-    O = bf16(S) v in fp32, for bf16 CUDA q (64, d) and k, v (keys, d), d in
-    ``SM90_HEAD_DIMS`` and keys its tile, ``SM90_KEYS[d]``, through the
-    same TMA maps and shared-memory descriptors. Returns S (64, keys) and
-    O (64, d). A check of the layouts, not on any path; it counts no
-    launch."""
-    d = q.shape[-1] if q.dim() == 2 else None
-    keys = SM90_KEYS.get(d)
-    if not q.is_cuda or keys is None or q.shape != (64, d) \
-            or k.shape != (keys, d) or v.shape != (keys, d) \
+    O = bf16(S) v in fp32, for bf16 CUDA q (64, d_qk), k (keys, d_qk) and v
+    (keys, d_v), d_qk == d_v in ``SM90_HEAD_DIMS`` with keys
+    ``SM90_KEYS[d]``, or (d_qk, d_v) in ``SM90_MLA_KEYS`` with keys its
+    value, through the same TMA maps and shared-memory descriptors.
+    Returns S (64, keys) and O (64, d_v). A check of the layouts, not on
+    any path; it counts no launch."""
+    dk = q.shape[-1] if q.dim() == 2 else None
+    dv = v.shape[-1] if v.dim() == 2 else None
+    keys = SM90_KEYS.get(dk) if dk == dv else SM90_MLA_KEYS.get((dk, dv))
+    if not q.is_cuda or keys is None or q.shape != (64, dk) \
+            or k.shape != (keys, dk) or v.shape != (keys, dv) \
             or {q.dtype, k.dtype, v.dtype} != {torch.bfloat16}:
-        raise ValueError("sm90_probe takes bf16 CUDA q (64, d) and k, v "
-                         f"(keys, d), (d, keys) in {sorted(SM90_KEYS.items())}")
+        raise ValueError("sm90_probe takes bf16 CUDA q (64, d_qk), k (keys, "
+                         "d_qk) and v (keys, d_v), (d, keys) in "
+                         f"{sorted(SM90_KEYS.items())} or ((d_qk, d_v), keys) "
+                         f"in {sorted(SM90_MLA_KEYS.items())}")
     q4, k4, v4 = (x.contiguous()[None, :, None, :] for x in (q, k, v))
     s = torch.empty((64, keys), dtype=torch.float32, device=q.device)
-    o = torch.empty((64, d), dtype=torch.float32, device=q.device)
+    o = torch.empty((64, dv), dtype=torch.float32, device=q.device)
     geo = (ctypes.c_longlong * 21)(*_geometry(q4, k4, v4))
     err = _sm90_lib().flash_attention_sm90_probe(
         q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), s.data_ptr(),

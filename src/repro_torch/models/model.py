@@ -8,7 +8,9 @@ tensors:
   logits(params, hidden) -> (B, S, V_padded), padded vocab masked
   loss(params, batch) -> scalar             (chunked-vocab CE + MoE aux)
   init_cache(batch_size, max_seq) -> dense and moe {"k", "v"}: (L, B,
-      max_seq, KV, dh); ssm {"conv": (L, B, d_conv-1, Di) in the compute dtype, "h":
+      max_seq, KV, dh); MLA {"c_kv": (L, B, max_seq, kv_lora), "k_rope":
+      (L, B, max_seq, 1, rope)}, the latent cache; ssm {"conv": (L, B,
+      d_conv-1, Di) in the compute dtype, "h":
       (L, B, Di, N) float32}, O(1) in the sequence length; hybrid {"conv":
       (L, B, d_conv-1, Di + 2 G N) in the compute dtype, "h": (L, B, H,
       N, P) float32, "k", "v": (n_sites, B, max_seq, KV, dh)}, one K/V slot
@@ -21,9 +23,12 @@ copying leaves (``repro_torch.convert``). Unlike the JAX package,
 ``decode_step`` writes the new K/V row (or the ssm family's new conv and
 scan state) into ``cache`` in place (where JAX uses
 ``dynamic_update_slice`` or a scan's new arrays) and returns the same dict.
-The dense GQA, the ``moe`` (GQA attention, every layer's FFN an MoE), the
-Mamba1 ``ssm`` and the Mamba2 ``hybrid`` families are ported; the others
-wait (ROADMAP Queue 1, LM scaffold item 10.3). In the
+The dense GQA, the ``moe`` (GQA or MLA attention, the FFN an MoE but in
+``first_dense`` leading dense layers), the Mamba1 ``ssm`` and the Mamba2
+``hybrid`` families are ported; the others wait (ROADMAP Queue 1, LM
+scaffold item 10.3). An MLA decode step writes the token's latent and rope
+key into the cache in place and attends in the latent space
+(``attention.mla_decode_absorbed``: no flash kernel). In the
 hybrid family each site ``gi`` of the shared block writes its own K/V slot
 ``cache["k"][gi]`` with the shared weights and attends through the flash
 wrapper, as a dense layer does.
@@ -39,7 +44,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import attention, layers, mamba, moe
 from repro_torch.models.transformer import (apply_decoder_stack,
                                             apply_hybrid_stack,
-                                            apply_ssm_stack,
+                                            apply_ssm_stack, decoder_layers,
                                             hybrid_attn_sites, hybrid_groups,
                                             init_decoder_stack,
                                             init_hybrid_stack,
@@ -52,19 +57,29 @@ STACKS = {"dense": (init_decoder_stack, apply_decoder_stack),
 
 
 def _attn_decode_layer(lp, x, cfg, pos: int, pos_arr, cache_slices):
-    """One decoder layer at decode time: write this token's K/V into the
-    cache slices at ``pos`` (in place), attend over the populated prefix,
-    apply the MLP, or the MoE FFN where the layer has one (its aux loss
-    dropped, as the reference drops it). Returns x."""
+    """One decoder layer at decode time: write this token's K/V (MLA: its
+    latent and rope key) into the cache slices at ``pos`` (in place),
+    attend over the populated prefix (MLA: the whole cache, masked past
+    ``pos``, in the latent space), apply the MLP, or the MoE FFN where the
+    layer has one (its aux loss dropped, as the reference drops it).
+    ``cache_slices``: (k, v), or (c_kv, k_rope) for MLA. Returns x."""
     cd = cfg.compute_dtype
-    k_l, v_l = cache_slices
     h = layers.rms_norm(x, lp["ln1"])
-    q, k, v = attention.gqa_project_qkv(lp["attn"], h, cfg, pos_arr)
-    k_l[:, pos:pos + 1] = k.to(k_l.dtype)
-    v_l[:, pos:pos + 1] = v.to(v_l.dtype)
-    o = attention.flash_attention(q, k_l, v_l, causal=True, q_offset=pos,
-                                  chunk_kv=cfg.attn_chunk_kv)
-    x = x + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(cd)
+    if cfg.mla:
+        c_kv_l, k_rope_l = cache_slices
+        c_new, kr_new = attention.mla_latent(lp["attn"], h, cfg, pos_arr)
+        c_kv_l[:, pos:pos + 1] = c_new.to(c_kv_l.dtype)
+        k_rope_l[:, pos:pos + 1] = kr_new.to(k_rope_l.dtype)
+        x = x + attention.mla_decode_absorbed(lp["attn"], h, cfg, pos_arr,
+                                              c_kv_l, k_rope_l, pos)
+    else:
+        k_l, v_l = cache_slices
+        q, k, v = attention.gqa_project_qkv(lp["attn"], h, cfg, pos_arr)
+        k_l[:, pos:pos + 1] = k.to(k_l.dtype)
+        v_l[:, pos:pos + 1] = v.to(v_l.dtype)
+        o = attention.flash_attention(q, k_l, v_l, causal=True, q_offset=pos,
+                                      chunk_kv=cfg.attn_chunk_kv)
+        x = x + o.reshape(*h.shape[:2], -1) @ lp["attn"]["wo"].to(cd)
     h = layers.rms_norm(x, lp["ln2"])
     if "moe" in lp:
         return x + moe.moe_apply(lp["moe"], h, cfg)[0]
@@ -178,6 +193,11 @@ class Model:
                                         device=dev),
                     "h": torch.zeros((l, b, di, cfg.ssm_state),
                                      dtype=torch.float32, device=dev)}
+        if cfg.mla:
+            return {"c_kv": torch.zeros((l, b, max_seq, cfg.kv_lora), dtype=cd,
+                                        device=dev),
+                    "k_rope": torch.zeros((l, b, max_seq, 1, cfg.mla_rope_dim),
+                                          dtype=cd, device=dev)}
         kv_shape = (cfg.n_layers, b, max_seq, cfg.n_kv, cfg.d_head)
         out = {}
         if cfg.family == "hybrid":
@@ -197,7 +217,8 @@ class Model:
         (a Python int). Writes the token's K/V (or the ssm state) into
         ``cache`` in place and returns (cache, logits (B, V_padded)). A KV
         cache holds ``max_seq`` positions; the ssm state any number."""
-        slots = cache["k"].shape[2] if "k" in cache else None
+        seq = cache.get("k", cache.get("c_kv"))         # a KV or latent cache
+        slots = seq.shape[2] if seq is not None else None
         if pos < 0 or (slots is not None and pos >= slots):
             raise ValueError(f"pos {pos} outside the cache's {slots} positions")
         x = self._embed_in(params, inputs)
@@ -213,9 +234,12 @@ class Model:
         return cache, self.logits(params, h)[:, 0]
 
     def _decode_attn_stack(self, params, cache, x, pos: int, pos_arr):
-        for i, lp in enumerate(unbind_layers(params["stack"]["layers"])):
+        """Every layer in order, ``first`` then ``layers``, layer ``i``
+        with cache slot ``i``."""
+        keys = ("c_kv", "k_rope") if self.cfg.mla else ("k", "v")
+        for i, (lp, _) in enumerate(decoder_layers(params["stack"], self.cfg)):
             x = _attn_decode_layer(lp, x, self.cfg, pos, pos_arr,
-                                   (cache["k"][i], cache["v"][i]))
+                                   tuple(cache[k][i] for k in keys))
         return x
 
     def _decode_mamba_layer(self, apply, lp, cache, i: int, x):

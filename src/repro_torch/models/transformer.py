@@ -12,9 +12,12 @@ and is recomputed in the backward. ``"dots"`` (the JAX package's
 whole layer like ``"full"`` here; the values are the same, only the memory
 and time differ. The sharding constraints have no meaning on one device
 and are left out. In the moe family (``cfg.n_experts > 0``) every layer's
-FFN is ``models/moe.py``'s (leaf ``moe`` in place of ``mlp``) and the stack
-returns the sum of the layers' load-balance aux losses, as the reference's
-``jnp.sum(auxs)``; leading dense layers (``first_dense``) are not ported.
+FFN of ``layers`` is ``models/moe.py``'s (leaf ``moe`` in place of
+``mlp``) and the stack returns the sum of those layers' load-balance aux
+losses, as the reference's ``jnp.sum(auxs)``; ``first_dense`` leading
+dense-FFN layers (deepseek-v2: 1) are their own stacked leaf ``first``,
+run ahead of ``layers`` and adding no aux loss. With ``cfg.mla`` every
+layer's attention is MLA (``attention.init_mla`` / ``mla_apply``).
 The ssm stack (falcon-mamba) is a pre-norm residual Mamba1 block a
 layer, under the same remat. The hybrid stack (zamba2) is a pre-norm
 residual Mamba2 block a layer, with one shared attention + MLP block, its
@@ -49,7 +52,7 @@ def _stack(trees):
 def init_decoder_layer(gen: torch.Generator, cfg, *, use_moe: bool):
     p = {"ln1": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
          "ln2": layers.init_rms(gen, cfg.d_model, cfg.param_dtype),
-         "attn": attention.init_gqa(gen, cfg)}
+         "attn": (attention.init_mla if cfg.mla else attention.init_gqa)(gen, cfg)}
     if use_moe:
         p["moe"] = moe.init_moe(gen, cfg)
     else:
@@ -60,7 +63,8 @@ def init_decoder_layer(gen: torch.Generator, cfg, *, use_moe: bool):
 def apply_decoder_layer(p, x, cfg, positions, *, use_moe: bool, causal=True):
     """Returns (x, aux_loss); aux_loss is 0.0 for a dense layer."""
     h = layers.rms_norm(x, p["ln1"])
-    x = x + attention.gqa_apply(p["attn"], h, cfg, positions, causal=causal)
+    attend = attention.mla_apply if cfg.mla else attention.gqa_apply
+    x = x + attend(p["attn"], h, cfg, positions, causal=causal)
     h = layers.rms_norm(x, p["ln2"])
     if use_moe:
         f, aux = moe.moe_apply(p["moe"], h, cfg)
@@ -70,9 +74,26 @@ def apply_decoder_layer(p, x, cfg, positions, *, use_moe: bool, causal=True):
 
 
 def init_decoder_stack(gen: torch.Generator, cfg):
-    use_moe = cfg.n_experts > 0
-    return {"layers": _stack([init_decoder_layer(gen, cfg, use_moe=use_moe)
-                              for _ in range(cfg.n_layers)])}
+    """``first`` (``first_dense`` dense layers, where there are any), then
+    ``layers`` (the rest: MoE in the moe family). A stack cut to its
+    leading dense layers has no ``layers`` leaf."""
+    p, n_main = {}, cfg.n_layers - cfg.first_dense
+    if cfg.first_dense:
+        p["first"] = _stack([init_decoder_layer(gen, cfg, use_moe=False)
+                             for _ in range(cfg.first_dense)])
+    if n_main:
+        p["layers"] = _stack([init_decoder_layer(gen, cfg, use_moe=cfg.n_experts > 0)
+                              for _ in range(n_main)])
+    return p
+
+
+def decoder_layers(p, cfg) -> list:
+    """``(layer params, use_moe)`` of every layer of a decoder stack in
+    order: the ``first`` leaf's, then ``layers``'."""
+    out = [(lp, False) for lp in unbind_layers(p["first"])] if cfg.first_dense else []
+    if "layers" in p:
+        out += [(lp, cfg.n_experts > 0) for lp in unbind_layers(p["layers"])]
+    return out
 
 
 def _remat(cfg) -> bool:
@@ -80,12 +101,12 @@ def _remat(cfg) -> bool:
 
 
 def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
-    """-> (x, aux_loss) after every layer of ``p["layers"]`` in turn;
-    aux_loss is the sum of the MoE layers' (0.0 in a dense stack)."""
+    """-> (x, aux_loss) after every layer of ``p["first"]`` and
+    ``p["layers"]`` in turn; aux_loss is the sum of the MoE layers' (0.0 in
+    a dense stack)."""
     remat = _remat(cfg)
-    use_moe = cfg.n_experts > 0
     auxs = []
-    for lp in unbind_layers(p["layers"]):
+    for lp, use_moe in decoder_layers(p, cfg):
         if remat:
             x, aux = checkpoint(apply_decoder_layer, lp, x, cfg, positions,
                                 use_moe=use_moe, causal=causal,
@@ -93,8 +114,9 @@ def apply_decoder_stack(p, x, cfg, positions, *, causal=True):
         else:
             x, aux = apply_decoder_layer(lp, x, cfg, positions,
                                          use_moe=use_moe, causal=causal)
-        auxs.append(aux)
-    return x, (torch.sum(torch.stack(auxs)) if use_moe else 0.0)
+        if use_moe:
+            auxs.append(aux)
+    return x, (torch.sum(torch.stack(auxs)) if auxs else 0.0)
 
 
 # ---------------------------------------------------------------------------

@@ -338,3 +338,93 @@ def test_bwd_wrapper_refuses_cpu_tensors_before_choosing():
     q, k, v = _bwd_qkv(128, 128, 128)
     with pytest.raises(ValueError, match="CUDA"):
         fops.flash_attention_bwd_cuda(q, k, v, q, q, causal=True, variant="sm90")
+
+
+# -- MLA's unequal head dims (q/k d_qk, v d_v) ------------------------------
+
+def _mla_qkv(sq, dk, dv, dtype=torch.bfloat16, h=4, kv=4, skv=None):
+    q = torch.zeros((1, sq, h, dk), dtype=dtype)
+    k = torch.zeros((1, skv or sq, kv, dk), dtype=dtype)
+    return q, k, torch.zeros((1, skv or sq, kv, dv), dtype=dtype)
+
+
+@pytest.mark.parametrize("sq,dk,dv,dtype,want", [
+    (2048, 192, 128, torch.bfloat16, "sm90"),      # deepseek-v2-236b's prefill
+    (64, 192, 128, torch.bfloat16, "sm90"),        # one warpgroup's rows
+    (63, 192, 128, torch.bfloat16, "mma_sync"),
+    (2, 192, 128, torch.bfloat16, "mma_sync"),
+    (1, 192, 128, torch.bfloat16, "mma_sync"),     # never the decode kernel
+    (2048, 192, 128, torch.float32, "mma_sync"),   # the fp32 dense-layer check
+    (1, 192, 128, torch.float32, "mma_sync"),
+    (2048, 48, 32, torch.bfloat16, "mma_sync"),    # the smoke config's dims
+    (64, 48, 32, torch.float32, "mma_sync"),       # its fp32 run on the card
+    (1, 48, 32, torch.bfloat16, "mma_sync"),
+    (2048, 128, 64, torch.bfloat16, "mma_sync"),   # unlisted: the check refuses it
+    (1, 128, 64, torch.bfloat16, "mma_sync"),
+])
+def test_variant_boundaries_mla(sq, dk, dv, dtype, want):
+    qkv = _mla_qkv(sq, dk, dv, dtype)
+    assert fops._variant(*qkv) == want
+    assert fops.resolve_variant(*qkv) == want
+    assert fops.resolve_variant(*qkv, variant="mma_sync") == "mma_sync"
+
+
+@pytest.mark.parametrize("sq,dk,dv,dtype", [(2048, 48, 32, torch.bfloat16),
+                                            (63, 192, 128, torch.bfloat16),
+                                            (2048, 192, 128, torch.float32),
+                                            (2048, 128, 64, torch.bfloat16),
+                                            (2048, 160, 128, torch.bfloat16)])
+def test_forced_sm90_on_an_mla_shape_it_lacks_raises(sq, dk, dv, dtype):
+    with pytest.raises(ValueError, match="sm90"):
+        fops.resolve_variant(*_mla_qkv(sq, dk, dv, dtype), variant="sm90")
+
+
+@pytest.mark.parametrize("dk,dv", [(192, 128), (48, 32)])
+def test_forced_decode_on_an_mla_row_raises(dk, dv):
+    with pytest.raises(ValueError, match="decode"):
+        fops.resolve_variant(*_mla_qkv(1, dk, dv), variant="decode")
+
+
+@pytest.mark.parametrize("dk,dv,want", [
+    (192, 128, True), (48, 32, True), (32, 32, True), (160, 160, True),
+    (128, 64, False), (192, 192, False), (48, 48, False), (32, 48, False),
+    (160, 128, False), (96, 96, False)])
+def test_head_dims_supported(dk, dv, want):
+    assert fops.head_dims_supported(dk, dv) is want
+    assert ((dk, dv) in fops.MLA_HEAD_DIMS) is (want and dk != dv)
+
+
+def test_sm90_mla_keys():
+    """The sm90 kernel's MLA pairs are listed pairs, and a 128-key K/V
+    stage of (192, 128) is three 64-column K slabs and two V slabs."""
+    assert set(fops.SM90_MLA_KEYS) <= set(fops.MLA_HEAD_DIMS)
+    assert fops.SM90_MLA_KEYS == {(192, 128): 128}
+    # two stages of (3 + 2) slabs of 128 rows x 128 bytes, and Q's 3 slabs
+    # of 128 rows, under the 227 KB a block may take
+    assert 3 * 128 * 128 + 2 * (3 + 2) * 128 * 128 + 1024 <= 232448
+
+
+def test_tma_geometry_of_mla_v_view():
+    """MLA's v: the second half of each head's 256 columns of the K/V
+    expansion (B, S, H, 128 + 128), read where it lies: 256-byte head
+    stride, every stride and the view's start a multiple of TMA's 16
+    bytes."""
+    kvb = torch.zeros((8, 2048, 128, 256), dtype=torch.bfloat16)
+    v = kvb[..., 128:]
+    dims, strides = fops.tma_map_geometry(v)
+    assert dims == (128, 2048, 128, 8)
+    assert strides == (128 * 256 * 2, 256 * 2, 2048 * 128 * 256 * 2)
+    assert all(s % 16 == 0 for s in strides)
+    assert (v.data_ptr() - kvb.data_ptr()) % 16 == 0
+    q = torch.zeros((8, 2048, 128, 192), dtype=torch.bfloat16)
+    assert fops.tma_map_geometry(q) == ((192, 2048, 128, 8),
+                                        (128 * 192 * 2, 192 * 2,
+                                         2048 * 128 * 192 * 2))
+
+
+def test_mla_shapes_reach_the_plain_version_on_the_cpu():
+    """On CPU tensors the wrapper takes the plain version at any listed
+    pair, the output v's head dim wide."""
+    q, k, v = (torch.randn(x.shape) for x in _mla_qkv(5, 48, 32))
+    out = fops.flash_attention(q, k, v, causal=True)
+    assert out.shape == (1, 5, 4, 32)

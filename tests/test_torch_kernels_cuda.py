@@ -49,7 +49,14 @@ Engine's ids per seed; ``-k moe`` grok-1-314b's smoke model (the MoE FFN
 in plain torch ops) in fp32 on the card against float64 on the CPU, at
 its own capacity and at 8 slots an expert (drops), and at grok's GQA group
 6 in bf16 (every prefill layer on the sm90 kernel, every decode layer on
-the decode kernel).
+the decode kernel). ``-k mla`` runs MLA's unequal head dims: q/k 192 with
+v 128 (deepseek-v2-236b) on the sm90 and mma_sync kernels in bf16 and on
+mma_sync in fp32, and q/k 48 with v 32 (its smoke config) on mma_sync, v
+a strided view as MLA passes it, each against the plain version and
+bitwise the same on a second call; the sm90 layout probe at (192, 128);
+the smoke model in fp32 on the card against float64 on the CPU; and a
+bf16 model at deepseek's head dims whose prefill goes to the sm90 kernel
+and whose decode launches no flash kernel.
 """
 
 import numpy as np
@@ -2281,4 +2288,156 @@ def test_moe_prefill_and_generate_send_flash_to_their_kernels(cuda):
     done = dict(fops.launches_by_variant)
     assert done["decode"] - after["decode"] == 4 * (80 + 6)
     assert done["mma_sync"] == after["mma_sync"] and done["sm90"] == after["sm90"]
+    assert np.array_equal(ids, engine.generate(prompts))
+
+
+# MLA's unequal head dims: q and k of d_qk, v of d_v, v the second half of
+# each head's columns of a wider tensor (as MLA's v is a view of its K/V
+# expansion). (b, sq, skv, h, kv, causal, q_offset)
+MLA_CASES = [(1, 2048, 2048, 128, 128, True, 0),   # deepseek-v2-236b's prefill, B 1
+             (2, 77, 131, 4, 4, True, 54),         # ragged Sq and Skv, q_offset
+             (2, 200, 200, 8, 8, False, 0),        # bidirectional
+             (2, 200, 200, 8, 4, True, 0)]         # GQA group 2
+MLA_SMOKE_CASES = [(2, 77, 131, 4, 2, True, 54), (2, 64, 64, 4, 4, False, 0),
+                   (2, 1, 40, 4, 4, True, 39)]
+
+
+def _mla_case(cuda, dtype, case, dk, dv, variant):
+    b, sq, skv, h, kv, causal, off = case
+    rng = np.random.default_rng(sq + h + dk)
+    q, k, kvb = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+                 .to(cuda, dtype) for shape in ((b, sq, h, dk), (b, skv, kv, dk),
+                                                (b, skv, kv, 2 * dv)))
+    v = kvb[..., dv:]
+    before = dict(fops.launches_by_variant)
+    got = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off,
+                                    variant=variant)
+    assert fops.launches_by_variant[variant] == before[variant] + 1
+    want = flash_attention_ref(q, k, v, causal=causal, q_offset=off)
+    assert got.dtype == dtype and got.shape == (b, sq, h, dv)
+    tol = FLASH_TOL[dtype]
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+    assert torch.equal(got, fops.flash_attention_cuda(q, k, v, causal=causal,
+                                                      q_offset=off, variant=variant))
+
+
+@pytest.mark.parametrize("variant,dtype", [("sm90", torch.bfloat16),
+                                           ("mma_sync", torch.bfloat16),
+                                           ("mma_sync", torch.float32)],
+                         ids=["sm90", "mma_sync_bf16", "mma_sync_f32"])
+@pytest.mark.parametrize("case", MLA_CASES, ids=str)
+def test_flash_mla_d192_matches_plain(cuda, case, variant, dtype):
+    _mla_case(cuda, dtype, case, 192, 128, variant)
+
+
+@pytest.mark.parametrize("case", MLA_SMOKE_CASES, ids=str)
+def test_flash_mla_d48_f32_matches_plain(cuda, case):
+    _mla_case(cuda, torch.float32, case, 48, 32, "mma_sync")
+
+
+def test_flash_mla_chooses_its_kernels(cuda):
+    """Unforced: deepseek's bf16 prefill shape on sm90, its fp32 and the
+    smoke dims on mma_sync; an unlisted pair raises."""
+    for (sq, dk, dv, dtype), want in (((128, 192, 128, torch.bfloat16), "sm90"),
+                                      ((128, 192, 128, torch.float32), "mma_sync"),
+                                      ((8, 192, 128, torch.bfloat16), "mma_sync"),
+                                      ((128, 48, 32, torch.bfloat16), "mma_sync")):
+        q = torch.randn((1, sq, 4, dk), device=cuda).to(dtype)
+        k = torch.randn((1, sq, 4, dk), device=cuda).to(dtype)
+        v = torch.randn((1, sq, 4, dv), device=cuda).to(dtype)
+        before = dict(fops.launches_by_variant)
+        fops.flash_attention(q, k, v, causal=True)
+        assert fops.launches_by_variant[want] == before[want] + 1
+    bad = torch.zeros((1, 8, 2, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head dims"):
+        fops.flash_attention_cuda(torch.zeros((1, 8, 2, 128), device=cuda,
+                                              dtype=torch.bfloat16),
+                                  torch.zeros((1, 8, 2, 128), device=cuda,
+                                              dtype=torch.bfloat16), bad, causal=True)
+
+
+def test_sm90_probe_mla_matches_matmul(cuda):
+    """The (192, 128) layout: Q and K rows of three 64-column slabs (QK^T in
+    12 k-steps), V rows of two (one n128 PV product), 128-key tiles;
+    against torch.matmul in fp32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(192)
+    keys = fops.SM90_MLA_KEYS[(192, 128)]
+    q, k, v = (torch.from_numpy(rng.standard_normal(shape).astype(np.float32))
+               .to(cuda, torch.bfloat16) for shape in ((64, 192), (keys, 192),
+                                                       (keys, 128)))
+    s, o = fops.sm90_probe(q, k, v)
+    assert s.shape == (64, keys) and o.shape == (64, 128)
+    torch.testing.assert_close(s, q.float() @ k.float().T, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(o, s.to(torch.bfloat16).float() @ v.float(),
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_mla_smoke_model_on_card_matches_cpu(cuda):
+    """deepseek-v2-236b's smoke model (1 dense and 3 MoE layers, MLA at q/k
+    48 and v 32) in fp32 on the card, forward on 2 x 64 tokens bitwise the
+    same twice and 40 decode steps, within MOE_F64_TOL of the same weights
+    in float64 on one CPU thread. The prefill's attention goes to the
+    mma_sync kernel at (48, 32), once a layer; the decode attends in the
+    latent space and launches none. Routes are held as in the moe test."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = reduce_for_smoke(get_config("deepseek-v2-236b")).replace(
+        compute_dtype_str="float32")
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    cparams = tree_map(lambda a: a.to(cuda), params)
+    toks = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (2, 64)).astype(np.int32))
+    before = dict(fops.launches_by_variant)
+    with _Routes() as rc:
+        h_card, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    again, _ = card.forward(cparams, {"tokens": toks.to(cuda)})
+    assert torch.equal(h_card, again)
+    cg = card.init_cache(2, 64)
+    for t in range(40):
+        cg, lg = card.decode_step(cparams, cg, {"tokens": toks[:, t:t + 1].to(cuda)}, t)
+    after = dict(fops.launches_by_variant)
+    assert {k: after[k] - before[k] for k in after} == dict(
+        dict.fromkeys(after, 0), mma_sync=4 * 2)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with _Routes() as rr:
+            h_ref, _ = f64.forward(params, {"tokens": toks})
+        cr = f64.init_cache(2, 64)
+        for t in range(40):
+            cr, lr = f64.decode_step(params, cr, {"tokens": toks[:, t:t + 1]}, t)
+    finally:
+        torch.set_num_threads(threads)
+    for ic, ir, gap in zip(rc.idx, rr.idx, rr.gap):
+        held = gap > MOE_TIE
+        assert torch.equal(ic[held], ir[held])
+    assert len(rc.idx) == 3
+    tol = dict(rtol=MOE_F64_TOL, atol=MOE_F64_TOL)
+    torch.testing.assert_close(h_card.cpu().double(), h_ref, **tol)
+    torch.testing.assert_close(lg.cpu().double(), lr, **tol)
+
+
+def test_mla_prefill_and_generate_send_flash_to_their_kernels(cuda):
+    """deepseek's smoke model at deepseek-v2-236b's MLA head dims (q/k 128
+    + 64, v 128, kv_lora 512) in bf16: prefill_step's 4 layers on the sm90
+    kernel at (192, 128), and no flash launch at all in the engine's decode
+    steps (the absorbed attention is torch ops); finite logits and the same
+    ids twice."""
+    from repro_torch.serve.engine import Engine, ServeConfig
+    cfg = reduce_for_smoke(get_config("deepseek-v2-236b")).replace(
+        kv_lora=512, mla_nope_dim=128, mla_rope_dim=64, mla_v_dim=128)
+    model = Model(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    engine = Engine(model, params, ServeConfig(max_new_tokens=6, max_seq=96))
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab, (2, 80)).astype(np.int32)
+    prefill_step, _ = make_serve_steps(model)
+    before = dict(fops.launches_by_variant)
+    logits = prefill_step(engine.params, {"tokens": torch.from_numpy(prompts).to(cuda)})
+    after = dict(fops.launches_by_variant)
+    assert after["sm90"] == before["sm90"] + 4 and after["mma_sync"] == before["mma_sync"]
+    assert logits.shape == (2, cfg.vocab_padded) and torch.isfinite(logits).all()
+    ids = engine.generate(prompts)
+    assert dict(fops.launches_by_variant) == after
     assert np.array_equal(ids, engine.generate(prompts))

@@ -393,7 +393,7 @@ def test_params_round_trip_bitwise_d160():
 
 def test_unported_configs_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_config("deepseek-v2-236b")
+        get_config("seamless-m4t-large-v2")
     with pytest.raises(NotImplementedError, match="10.3"):
         get_config("qwen2-vl-72b")
     cfg = reduce_for_smoke(get_config("internlm2-1.8b"))
@@ -401,13 +401,14 @@ def test_unported_configs_raise():
     grok = reduce_for_smoke(get_config("grok-1-314b"))
     for bad in (cfg.replace(mrope=True), cfg.replace(family="moe"),
                 cfg.replace(family="encdec"), mamba.replace(ssm_version=2),
-                grok.replace(first_dense=1), grok.replace(mla=True),
                 grok.replace(moe_group_tokens=64), cfg.replace(mla=True)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(bad, device="cpu")
-    for bad, what in ((grok.replace(first_dense=1), "first_dense"),
-                      (grok.replace(mla=True), "MLA"),
+    for bad, what in ((cfg.replace(mla=True), "MLA"),
                       (grok.replace(moe_group_tokens=64), "grouped")):
         with pytest.raises(NotImplementedError, match=what):
             Model(bad, device="cpu")
+    # MLA and leading dense layers are the moe family's since deepseek-v2
     Model(grok, device="cpu")
+    Model(grok.replace(first_dense=1), device="cpu")
+    Model(reduce_for_smoke(get_config("deepseek-v2-236b")), device="cpu")
