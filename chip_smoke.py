@@ -199,6 +199,17 @@ Phases, one line each:
      every leaf changed by step 1, every layer's wq/wk/wv gradient nonzero,
      two backward calls held to the plain version on the tensors the model
      passed them, and a second run from the seed bitwise after 2 steps;
+     then the MoE and MLA training path (line ``train_dsv2``, the same
+     function): deepseek-v2-236b at full width cut to 2 of its 60 layers
+     (its dense first layer and one MoE layer of 160 experts top-6 + 2
+     shared; 5.52e9 parameters), 1 x 4096 tokens a step in one
+     microbatch: launches against ``TRAIN_DSV2_PER_STEP`` (the sm90
+     forward at (192, 128) 4, the mma_sync backward 2 calls), the FLOP
+     bound by part (``train_flops``) beside AdamW's bytes, peak memory;
+     fatal: step 1's two backward calls held to the plain version on the
+     model's tensors, every MLA, dense-MLP, gate and shared-expert leaf's
+     gradient nonzero, each routed expert's exactly where it kept a pair,
+     and the bitwise second run;
      then ``train_vs_cpu``: examples/train_lm.py's lm-8m config, two steps
      on the card in fp32 against a float64 CPU run (losses to 1e-5,
      gradients to 1e-4 of each leaf's largest magnitude), in bf16 (losses
@@ -208,7 +219,12 @@ Phases, one line each:
      call held to the plain version on the model's tensors and taken by
      the mma_sync backward (d 32), the pipeline's batches card against
      CPU, and the example's restart (6 steps against 3 + checkpoint +
-     restore + 3) bitwise; then the examples line: the six ported datastore
+     restore + 3) bitwise; then ``moe_train_vs_cpu``: deepseek-v2's and
+     grok-1's smoke models trained two steps on the card in fp32 against
+     float64 on the CPU, in both dispatch modes and with drops (losses to
+     1e-5, gradients to 1e-4, routes equal away from near ties, every
+     backward call held), beside a control whose backward zeroes dV;
+     then the examples line: the six ported datastore
      and serving examples (``repro_torch.examples``: quickstart, query API
      tour, disaster analytics, federated quickstart, streaming ingest,
      serve_lm) at the reference's own sizes on the card, each held to its
@@ -244,7 +260,11 @@ Phases, one line each:
      causal, bf16), each by its own kernels' names, beside SDPA's backward,
      the plain version and the FLOP bound (``flash_timings.bwd``, the
      ``flash_attention_bwd_sm90`` and ``flash_attention_bwd`` entries of
-     the kernels line).
+     the kernels line); and the mma_sync backward at train_dsv2's call
+     (1 x 4096, 128 heads, q/k 192 and v 128, causal, bf16) beside SDPA's
+     memory-efficient backward, the plain version and the FLOP bound
+     (``flash_timings.bwd_mla``, the kernels line's
+     ``flash_attention_bwd_mla``).
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -252,6 +272,7 @@ before it. Imports only torch, numpy and the port (``src/repro_torch``).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 from collections import Counter
 import re
@@ -339,8 +360,9 @@ BWD_F32_TOL, BWD_BF16_TOL = 2e-5, 2e-2
 # GQA groups 1 and 8, causal and not, q_offset > 0 with Sq < Skv.
 BWD_SM90_CASES = [(1, 1024, 1024, 8, 8, True, 0), (1, 1024, 1024, 16, 2, False, 0),
                   (2, 512, 1536, 4, 2, True, 1024)]
-# The backward's timing shape: one microbatch of the train phase.
-BWD_TIMING = (4, TRAIN_SEQ, 16, 8, 128)
+# The backward's timing shape: one microbatch of the train phase, (b, s,
+# h, kv, d_qk, d_v), causal, bf16.
+BWD_TIMING = (4, TRAIN_SEQ, 16, 8, 128, 128)
 # train_vs_cpu: the card's losses and gradients against a float64 CPU run.
 TRAIN_LOSS_F32_TOL, TRAIN_GRAD_TOL, TRAIN_LOSS_BF16_TOL = 1e-5, 1e-4, 2e-2
 # bf16 gradients on the card against the same port code in bf16 on the CPU
@@ -349,9 +371,6 @@ TRAIN_LOSS_F32_TOL, TRAIN_GRAD_TOL, TRAIN_LOSS_BF16_TOL = 1e-5, 1e-4, 2e-2
 # plain version keeps fp32, which alone gives 1.0e-2 on this config (a CPU
 # replay); a backward whose dk has its kv heads swapped gives 0.30-1.41.
 TRAIN_GRAD_BF16_TOL = 5e-2
-# Backward calls of the train phase held to the plain version on the very
-# tensors the model passed them: the first call and the 24th.
-TRAIN_BWD_HELD = (0, 23)
 # Engine logits after the last prompt token vs prefill_step's, bf16 through
 # a dense serve's layers: the two round activations at different matmul shapes, so
 # they agree to a fraction of the logits' unit spread, not bitwise.
@@ -452,6 +471,24 @@ MOE_TIE = 1e-5
 SERVE_MLA_ARCH = "deepseek-v2-236b"
 DSV2_SERVE_LAYERS = 3
 MLA_F32_CUT_LAYERS = 1
+# The MoE and MLA training path (train_dsv2): deepseek-v2-236b at full
+# width cut to 2 of its 60 layers, its dense first layer and one MoE layer
+# (5.52e9 parameters: fp32 params and grads and bf16 moments, 66.2 GB), on
+# batches of 1 x 4096 tokens (train_4k's sequence, its 256 sequences cut to
+# 1 for one card) in one microbatch. A step launches the sm90 forward at
+# (192, 128) twice a layer (the forward and the remat recompute) and the
+# mma_sync backward once a layer.
+TRAIN_DSV2_LAYERS = 2
+TRAIN_DSV2_BATCH, TRAIN_DSV2_SEQ = 1, 4096
+TRAIN_DSV2_PER_STEP = {"sm90": 2 * TRAIN_DSV2_LAYERS, "decode": 0, "mma_sync": 0,
+                       "bwd": TRAIN_DSV2_LAYERS, "bwd_sm90": 0,
+                       "bwd_mma_sync": TRAIN_DSV2_LAYERS, "st_scan": 1, "hash64": 2,
+                       "voronoi_assign": 1}
+# flash_bwd_vs_plain's one long case at (192, 128): 1 x 1024, 16 heads over
+# 16, causal; and the MLA backward's timing shape, train_dsv2's call:
+# (b, s, h, kv, d_qk, d_v), causal, bf16.
+BWD_MLA_LONG = (1, 1024, 1024, 16, 16, True, 0)
+BWD_MLA_TIMING = (TRAIN_DSV2_BATCH, TRAIN_DSV2_SEQ, 128, 128, 192, 128)
 # A voronoi_assign visit as compiled for sm_90a (csrc/voronoi_assign.cu
 # `visit`): FMUL, FMUL, FADD, FMUL by 2, FADD, then FSETP, FSEL, SEL. A
 # static count, read by hand in the kernel's SASS, not measured in a run.
@@ -3691,54 +3728,68 @@ def flash_bwd_vs_plain(torch, dev, seed: int) -> dict:
     """Both backward kernels against ``flash_attention_bwd_ref``: the one
     the wrapper picks at every head dim in fp32 and bf16 over BWD_CASES,
     and at bf16 d 128 also the sm90 and the mma_sync kernels forced, over
-    BWD_CASES and BWD_SM90_CASES; each gradient to its tolerance relative
-    to its largest magnitude, and a second call bitwise equal. The
-    forward's output it takes is the forward kernel's. Exits non-zero on
-    any failure; returns the largest relative errors by dtype, head dim
-    and forced kernel, and the calls each kernel took."""
+    BWD_CASES and BWD_SM90_CASES; and the mma_sync kernel at each MLA pair
+    of ``MLA_HEAD_DIMS`` in fp32 and bf16 over BWD_CASES (plus
+    BWD_MLA_LONG at (192, 128)), v the strided half of a K/V expansion as
+    the model passes it and dv of v's shape; each gradient to its
+    tolerance relative to its largest magnitude, and a second call bitwise
+    equal. The forward's output it takes is the forward kernel's. Exits
+    non-zero on any failure; returns the largest relative errors by dtype,
+    head dims and forced kernel, and the calls each kernel took."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     rng = np.random.default_rng(seed + 29)
     errs, calls = {}, Counter()
+
+    def hold(key, case, dtype, tol, dk, dv, both):
+        b, sq, skv, h, kv, causal, off = case
+        q, k, kvb, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                         .to(dev, dtype) for sh in ((b, sq, h, dk), (b, skv, kv, dk),
+                                                    (b, skv, kv, dv if dk == dv else 2 * dv),
+                                                    (b, sq, h, dv)))
+        v = kvb if dk == dv else kvb[..., dv:]
+        o = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
+        want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, q_offset=off)
+        forced = both and fops.resolve_bwd_variant(q, k, v) == "sm90"
+        for variant in (None, "sm90", "mma_sync") if forced else (None,):
+            ran = fops.resolve_bwd_variant(q, k, v, variant)
+            if dk != dv and ran != "mma_sync":
+                raise SystemExit(f"flash bwd ({dk}, {dv}) {case}: sent to {ran}")
+            before = fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]
+            got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                                q_offset=off, variant=variant)
+            if (fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]) \
+                    != (before[0] + 1, before[1] + 1):
+                raise SystemExit(f"flash bwd {case} {ran}: no launch counted")
+            name_ = key + (f"_{variant}" if variant else "")
+            for name, g, w, x in zip(("dq", "dk", "dv"), got, want, (q, k, v)):
+                rel = float((g.float() - w.float()).abs().max()) \
+                    / max(float(w.float().abs().max()), 1e-30)
+                if not torch.isfinite(g).all() or rel > tol or g.shape != x.shape:
+                    raise SystemExit(f"flash bwd {name_} {case} {name}: relative "
+                                     f"error {rel} > {tol}, or shape {tuple(g.shape)}")
+                errs[name_] = max(errs.get(name_, 0.0), rel)
+            again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
+                                                  q_offset=off, variant=variant)
+            if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+                raise SystemExit(f"flash bwd {name_} {case}: a second call "
+                                 "gave other bits")
+            calls[ran] += 2
+
     for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
+        dt = str(dtype).removeprefix('torch.')
         for dh in fops.HEAD_DIMS:
-            key = f"{str(dtype).removeprefix('torch.')}_d{dh}"
             both = dtype == torch.bfloat16 and dh == fops.SM90_BWD_HEAD_DIM
             for case in BWD_CASES + (BWD_SM90_CASES if both else []):
-                b, sq, skv, h, kv, causal, off = case
-                q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
-                               .to(dev, dtype) for sh in ((b, sq, h, dh), (b, skv, kv, dh),
-                                                          (b, skv, kv, dh), (b, sq, h, dh)))
-                o = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
-                want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal,
-                                               q_offset=off)
-                forced = both and fops.resolve_bwd_variant(q, k, v) == "sm90"
-                for variant in (None, "sm90", "mma_sync") if forced else (None,):
-                    ran = fops.resolve_bwd_variant(q, k, v, variant)
-                    before = fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]
-                    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
-                                                        q_offset=off, variant=variant)
-                    if (fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]) \
-                            != (before[0] + 1, before[1] + 1):
-                        raise SystemExit(f"flash bwd {case} {ran}: no launch counted")
-                    name_ = key + (f"_{variant}" if variant else "")
-                    for name, g, w in zip(("dq", "dk", "dv"), got, want):
-                        rel = float((g.float() - w.float()).abs().max()) \
-                            / max(float(w.float().abs().max()), 1e-30)
-                        if not torch.isfinite(g).all() or rel > tol:
-                            raise SystemExit(f"flash bwd {name_} {case} {name}: "
-                                             f"relative error {rel} > {tol}")
-                        errs[name_] = max(errs.get(name_, 0.0), rel)
-                    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
-                                                          q_offset=off, variant=variant)
-                    if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
-                        raise SystemExit(f"flash bwd {name_} {case}: a second call "
-                                         "gave other bits")
-                    calls[ran] += 2
+                hold(f"{dt}_d{dh}", case, dtype, tol, dh, dh, both)
+        for dk, dv in fops.MLA_HEAD_DIMS:
+            for case in BWD_CASES + ([BWD_MLA_LONG] if dk == 192 else []):
+                hold(f"{dt}_mla{dk}", case, dtype, tol, dk, dv, False)
     return {"cases": len(BWD_CASES), "sm90_cases": len(BWD_SM90_CASES),
-            "head_dims": list(fops.HEAD_DIMS), "kernel_calls": dict(calls),
-            "max_rel_err": errs, "f32_tol": BWD_F32_TOL, "bf16_tol": BWD_BF16_TOL,
-            "repeat_bitwise": True}
+            "mla_long_case": list(BWD_MLA_LONG),
+            "head_dims": list(fops.HEAD_DIMS), "mla_head_dims": list(fops.MLA_HEAD_DIMS),
+            "kernel_calls": dict(calls), "max_rel_err": errs, "f32_tol": BWD_F32_TOL,
+            "bf16_tol": BWD_BF16_TOL, "repeat_bitwise": True}
 
 
 def _reset_counts():
@@ -3808,37 +3859,132 @@ class _HeldBwdCalls:
         return out
 
 
-def train(torch, dev, seed: int, smi: str, do_profile: bool = False) -> dict:
-    """The training path at full width: internlm2-1.8b (fp32 params, bf16
-    compute, remat "full", the default OptConfig with bf16 moments,
-    n_micro 2) on batches of TRAIN_BATCH x TRAIN_SEQ tokens that the
+def train_flops(cfg, b: int, s: int) -> dict:
+    """Forward FLOP of ``Model.loss`` on b x s tokens, by part, from the
+    model's products (moe_prefill_flops's count with the unembedding over
+    every token); a training step under remat "full" runs the forward, its
+    recompute and a backward of twice its products: 4 x the total."""
+    out = moe_prefill_flops(cfg, b, s)
+    slots, pairs = out.pop("expert_slots"), out.pop("routed_pairs")
+    out.pop("total")
+    out["unembed"] = 2 * b * s * cfg.d_model * cfg.vocab_padded
+    total = sum(out.values())
+    out.update(total=total, step_total=4 * total, expert_slots=slots,
+               routed_pairs=pairs)
+    return out
+
+
+def _every_nonzero(torch, g) -> bool:
+    return bool(torch.isfinite(g).all()) and bool(
+        (g.ne(0).flatten(1).any(1)).all())
+
+
+def moe_grad_checks(torch, model, params, batch, micro: int) -> dict:
+    """``value_and_grad`` on ``batch`` with the routes recorded (RouteLog):
+    every MLA or GQA leaf of every layer, the leading dense layers' MLP, the
+    gate and the shared experts with a finite gradient that is nonzero in
+    every layer; each routed expert's wi, wg and wo gradient nonzero
+    exactly where that expert kept a pair of the call (its rows of the
+    (E, C) buffers otherwise all zero). Returns the per-leaf smallest
+    norms, the routes' dropped pairs and loads, and ``ok``."""
+    from repro_torch.models import moe
+    from repro_torch.train.train_loop import value_and_grad
+    cfg = model.cfg
+    with RouteLog() as routes:
+        _, grads = value_and_grad(model, params, batch, micro)
+    stack, n_moe = grads["stack"], cfg.n_layers - cfg.first_dense
+    tokens = batch["tokens"].numel()
+    leaves = {f"{group}.attn.{n}": g for group in ("first", "layers") if group in stack
+              for n, g in stack[group]["attn"].items()}
+    if "first" in stack:
+        leaves.update({f"first.mlp.{n}": g for n, g in stack["first"]["mlp"].items()})
+    moe_g = stack["layers"]["moe"]
+    leaves["layers.moe.gate"] = moe_g["gate"]
+    leaves.update({f"layers.moe.shared.{n}": g
+                   for n, g in moe_g.get("shared", {}).items()})
+    norms = {n: min(g.float().flatten(1).norm(dim=1).tolist()) for n, g in leaves.items()}
+    leaves_ok = all(_every_nonzero(torch, g) for g in leaves.values())
+    cap = moe._capacity(tokens, cfg)
+    kept_by = []
+    for idx in routes.idx[:n_moe]:           # the forward's calls, in layer order
+        keep = moe.slots(idx, cfg.n_experts, cap)[1]
+        kept = torch.zeros(cfg.n_experts, dtype=torch.bool, device=idx.device)
+        kept[idx[keep]] = True
+        kept_by.append(kept)
+    kept_by = torch.stack(kept_by)                                   # (L, E)
+    experts = {n: torch.isfinite(moe_g[n]).all() & torch.equal(
+        moe_g[n].ne(0).flatten(2).any(-1), kept_by) for n in ("wi", "wg", "wo")}
+    experts = {n: bool(v) for n, v in experts.items()}
+    loads = moe_loads(torch, routes.idx[:n_moe], cfg, tokens)
+    del grads, stack, leaves, moe_g
+    torch.cuda.empty_cache()
+    return {"grad_norm_min": norms, "leaves_nonzero_finite": leaves_ok,
+            "routed_experts_nonzero_exactly_where_kept": experts,
+            "experts_with_a_kept_pair": kept_by.sum(1).tolist(), "routes": loads,
+            "ok": leaves_ok and all(experts.values())}
+
+
+def qkv_grad_checks(torch, model, params, batch, micro: int) -> dict:
+    """``value_and_grad`` on ``batch``: every layer's wq, wk and wv gradient
+    nonzero. Returns each one's smallest norm over the layers, and ``ok``."""
+    from repro_torch.train.train_loop import value_and_grad
+    _, grads = value_and_grad(model, params, batch, micro)
+    attn = grads["stack"]["layers"]["attn"]
+    norms = {n: min(attn[n].float().flatten(1).norm(dim=1).tolist())
+             for n in ("wq", "wk", "wv")}
+    del grads, attn
+    torch.cuda.empty_cache()
+    return {"qkv_grad_norm_min": norms, "ok": min(norms.values()) > 0}
+
+
+def train(torch, dev, seed: int, smi: str, do_profile: bool = False,
+          arch: str = TRAIN_ARCH, layers: int | None = None,
+          batch_size: int = TRAIN_BATCH, seq: int = TRAIN_SEQ,
+          micro: int = TRAIN_MICRO, per_step: dict = TRAIN_PER_STEP,
+          grad_checks=qkv_grad_checks, tag: str = "train") -> dict:
+    """The training path at full width: ``arch`` (internlm2-1.8b; or, cut
+    to ``layers``, deepseek-v2-236b) in fp32 params, bf16 compute, remat
+    "full", the default OptConfig with bf16 moments, ``micro``
+    microbatches, on batches of ``batch_size`` x ``seq`` tokens that the
     port's AerialPipeline draws from its store on the card. One warm-up
-    step and TRAIN_TIMED timed steps (CUDA events around each train
-    step): loss, grad_norm, lr, wall, tokens/s and the share of the 6 N T
-    FLOP bound; launches by kernel against TRAIN_PER_STEP; then, fatal:
-    every loss and norm finite, every leaf changed by step 1, every layer's
-    wq, wk and wv gradient nonzero, and a second run from the seed giving
-    the same losses and params after 2 steps, bitwise."""
+    step and TRAIN_TIMED timed steps (CUDA events around each train step):
+    loss, grad_norm, lr, wall, tokens/s and the share of the FLOP bound (a
+    dense model's 6 N T; an moe model's ``train_flops``, beside AdamW's
+    bytes); peak memory of init and of step 2; launches by kernel against
+    ``per_step``; then, fatal: every loss and norm finite, every leaf
+    changed by step 1 (a sample of each leaf's elements), every backward
+    call of step 1 held to the plain version on the tensors the model
+    passed it (after the step freed its activations), ``grad_checks`` of a
+    value_and_grad after the last step (``qkv_grad_checks``, or
+    ``moe_grad_checks``), and a second run from the seed giving the same
+    losses and params after 2 steps, bitwise (step 2's params kept on the
+    host)."""
     from repro_torch.configs.base import get_config
     from repro_torch.data.pipeline import AerialPipeline, PipelineConfig
     from repro_torch.models.model import Model
     from repro_torch.train import optimizer as optlib
-    from repro_torch.train.train_loop import make_train_step, value_and_grad
+    from repro_torch.train.train_loop import make_train_step
     from repro_torch.tree import tree_leaves
 
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
+    if layers:
+        cfg = cfg.replace(n_layers=layers)
+    moe_model = cfg.n_experts > 0
     model = Model(cfg, device=dev)
     counts = _reset_counts()
     t0 = time.perf_counter()
-    pipe = AerialPipeline(PipelineConfig(vocab=cfg.vocab, batch=TRAIN_BATCH,
-                                         seq=TRAIN_SEQ), device=dev)
+    pipe = AerialPipeline(PipelineConfig(vocab=cfg.vocab, batch=batch_size,
+                                         seq=seq), device=dev)
     pipe_s, pipe_launches = time.perf_counter() - t0, counts()
     opt_cfg = optlib.OptConfig()
-    train_step = make_train_step(model, opt_cfg, n_micro=TRAIN_MICRO)
+    train_step = make_train_step(model, opt_cfg, n_micro=micro)
 
     def fresh():
         params = model.init(torch.Generator(device=dev).manual_seed(seed))
         return params, optlib.init_opt_state(opt_cfg, params)
+
+    def sample(x):              # up to 2^20 of a leaf's elements
+        return x.reshape(-1)[::max(1, x.numel() >> 20)].clone()
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -3846,14 +3992,22 @@ def train(torch, dev, seed: int, smi: str, do_profile: bool = False) -> dict:
     params, state = fresh()
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
+    init_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     leaves = tree_leaves(params)
     n_params = sum(x.numel() for x in leaves)
     state_gb = sum(x.numel() * x.element_size()
                    for x in leaves + tree_leaves(state)) / 1e9
-    before = [x.clone() for x in leaves]
-    tokens = TRAIN_BATCH * TRAIN_SEQ
-    bound_s = 6 * n_params * tokens / BF16_FLOP_PER_S
-    steps, batch_ms, snapshot = [], [], None
+    before = [sample(x) for x in leaves]
+    tokens = batch_size * seq
+    if moe_model:
+        flops = train_flops(cfg, batch_size, seq)
+        bound_s = flops["step_total"] / BF16_FLOP_PER_S
+        # AdamW reads fp32 params and grads and bf16 moments, writes params
+        # and moments: 20 bytes a parameter
+        adam_bytes = 20 * n_params
+    else:
+        bound_s = 6 * n_params * tokens / BF16_FLOP_PER_S
+    steps, batch_ms, snapshot, bwd_on_path = [], [], None, []
     counts = _reset_counts()
     for s in range(1 + TRAIN_TIMED):
         if s == 1:                 # a step's own peak: step 2, nothing held
@@ -3863,36 +4017,32 @@ def train(torch, dev, seed: int, smi: str, do_profile: bool = False) -> dict:
         torch.cuda.synchronize()
         batch_ms.append((time.perf_counter() - t0) * 1e3)
         e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        e0.record()
-        params, state, m = train_step(params, state, batch)
-        e1.record()
-        e1.synchronize()
+        held = _HeldBwdCalls(range(cfg.n_layers * micro)) if s == 0 \
+            else contextlib.nullcontext()
+        with held:
+            e0.record()
+            params, state, m = train_step(params, state, batch)
+            e1.record()
+            e1.synchronize()
         ms = e0.elapsed_time(e1)
         steps.append({"step": s + 1, "loss": float(m["loss"]),
                       "grad_norm": float(m["grad_norm"]), "lr": float(m["lr"]),
                       "ms": ms, "tokens_per_s": tokens / (ms / 1e3),
                       "flop_bound_share": bound_s / (ms / 1e3)})
         if s == 0:
-            changed = [not torch.equal(a, b_) for a, b_ in zip(before, leaves)]
+            changed = [not torch.equal(a, sample(b_)) for a, b_ in zip(before, leaves)]
             del before
+            bwd_on_path = held.errors(BWD_BF16_TOL)     # after the step freed its activations
+            torch.cuda.empty_cache()
         if s == 1:
             peak_gb = torch.cuda.max_memory_allocated() / 1e9
-            snapshot = [x.clone() for x in leaves]
+            snapshot = [x.to("cpu", copy=True) for x in leaves]
     launches = counts()
-    per_step = {k: launches[k] / (1 + TRAIN_TIMED) for k in TRAIN_PER_STEP}
-    # Every layer's wq, wk and wv gradient, on batch 0 after the last step;
-    # two of its backward calls held to the plain version on their tensors.
-    with _HeldBwdCalls(TRAIN_BWD_HELD) as held:
-        _, grads = value_and_grad(model, params, pipe.get_batch(0), TRAIN_MICRO)
-    attn = grads["stack"]["layers"]["attn"]
-    qkv_norms = {n: attn[n].float().flatten(1).norm(dim=1).tolist()
-                 for n in ("wq", "wk", "wv")}
-    del grads, attn
-    torch.cuda.empty_cache()
-    bwd_on_path = held.errors(BWD_BF16_TOL)
+    per_step_got = {k: launches[k] / (1 + TRAIN_TIMED) for k in per_step}
+    grads = grad_checks(torch, model, params, pipe.get_batch(0), micro)
     if do_profile:               # one more step, traced (after the checks' window)
         batch = pipe.get_batch(0)
-        phase("profile_train_step", **profile(
+        phase(f"profile_{tag}_step", **profile(
             torch, lambda: train_step(params, state, batch), top=16))
     del params, state, leaves, m
     torch.cuda.empty_cache()
@@ -3903,41 +4053,46 @@ def train(torch, dev, seed: int, smi: str, do_profile: bool = False) -> dict:
         params, state, m = train_step(params, state, pipe.get_batch(s))
         again.append(float(m["loss"]))
     repeat = again == [st["loss"] for st in steps[:2]] and all(
-        torch.equal(a, b_) for a, b_ in zip(tree_leaves(params), snapshot))
+        torch.equal(a, b_.to(dev)) for a, b_ in zip(tree_leaves(params), snapshot))
     del params, state, snapshot, m
     torch.cuda.empty_cache()
     timed = steps[1:]
     step_ms = float(np.median([st["ms"] for st in timed]))
-    out = {"arch": TRAIN_ARCH, "nvidia_smi": smi, "params": n_params,
+    out = {"arch": arch, "nvidia_smi": smi, "params": n_params,
            "n_layers": cfg.n_layers, "d_model": cfg.d_model,
            "n_heads": cfg.n_heads, "n_kv": cfg.n_kv, "d_head": cfg.d_head,
            "vocab": cfg.vocab, "remat": cfg.remat, "param_dtype": cfg.param_dtype_str,
            "compute_dtype": cfg.compute_dtype_str,
-           "moment_dtype": opt_cfg.moment_dtype_str, "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "n_micro": TRAIN_MICRO, "tokens_per_step": tokens,
+           "moment_dtype": opt_cfg.moment_dtype_str, "batch": batch_size,
+           "seq": seq, "n_micro": micro, "tokens_per_step": tokens,
            "pipeline_build_s": pipe_s, "pipeline_launches": pipe_launches,
-           "init_s": init_s, "state_gb": state_gb, "steps": steps,
-           "get_batch_ms": batch_ms, "step_p50_ms": step_ms,
+           "init_s": init_s, "state_gb": state_gb, "init_peak_mem_gb": init_peak_gb,
+           "steps": steps, "get_batch_ms": batch_ms, "step_p50_ms": step_ms,
            "tokens_per_s": tokens / (step_ms / 1e3),
            "flop_bound_s": bound_s, "flop_bound_share": bound_s / (step_ms / 1e3),
            "peak_mem_gb": peak_gb, "launches": launches,
-           "launches_per_step": per_step, "predicted_per_step": TRAIN_PER_STEP,
+           "launches_per_step": per_step_got, "predicted_per_step": per_step,
            "leaves_changed_by_step_1": f"{sum(changed)} of {len(changed)}",
-           "qkv_grad_norm_min": {n: min(v) for n, v in qkv_norms.items()},
-           "bwd_on_path": bwd_on_path, "bwd_on_path_tol": BWD_BF16_TOL,
+           **grads, "bwd_on_path": bwd_on_path, "bwd_on_path_tol": BWD_BF16_TOL,
            "repeat_losses": again, "repeat_bitwise": repeat}
-    phase("train", **out)
+    if moe_model:
+        out.update(mla=cfg.mla, n_experts=cfg.n_experts, top_k=cfg.top_k,
+                   n_shared=cfg.n_shared, d_ff_expert=cfg.d_ff_expert,
+                   first_dense=cfg.first_dense, train_flops=flops,
+                   adamw_bytes=adam_bytes,
+                   adamw_bound_s=adam_bytes / HBM_BYTES_PER_S,
+                   flop_and_adamw_bound_share=(bound_s + adam_bytes / HBM_BYTES_PER_S)
+                   / (step_ms / 1e3))
+    phase(tag, **out)
     finite = all(np.isfinite([st["loss"], st["grad_norm"]]).all() for st in steps)
-    held_ok = len(bwd_on_path) == len(TRAIN_BWD_HELD) and all(
-        c["ok"] for c in bwd_on_path)
-    if not finite or not all(changed) or not repeat or not held_ok \
-            or min(min(v) for v in qkv_norms.values()) <= 0 \
-            or per_step != {k: float(v) for k, v in TRAIN_PER_STEP.items()}:
-        raise SystemExit(f"train: finite={finite}, leaves changed "
+    held_ok = len(bwd_on_path) == cfg.n_layers * micro and all(c["ok"] for c in bwd_on_path)
+    if not finite or not all(changed) or not repeat or not held_ok or not grads["ok"] \
+            or per_step_got != {k: float(v) for k, v in per_step.items()}:
+        raise SystemExit(f"{tag}: finite={finite}, leaves changed "
                          f"{out['leaves_changed_by_step_1']}, repeat={repeat}, "
-                         f"qkv norms {out['qkv_grad_norm_min']}, backward on "
+                         f"gradient checks {grads}, backward on "
                          f"the path {bwd_on_path}, launches a step "
-                         f"{per_step} (predicted {TRAIN_PER_STEP})")
+                         f"{per_step_got} (predicted {per_step})")
     return launches
 
 
@@ -4067,6 +4222,129 @@ def train_vs_cpu(torch, dev, seed: int) -> dict:
                          f"{bf16['bwd_on_path_ok']}, backward launches "
                          f"{ {k: launched[k] for k in ('bwd', 'bwd_sm90', 'bwd_mma_sync')} }")
     return out["launches"]
+
+
+def moe_train_vs_cpu(torch, dev, seed: int) -> dict:
+    """deepseek-v2-236b's smoke model (its leading dense layer and 3 MoE
+    layers with a shared expert, MLA at q/k 48 and v 32) and grok-1-314b's
+    (4 MoE layers, GQA 4 heads over 1 at d 32), each in both dispatch modes
+    at its capacity factor and at MOE_CAP8_FACTOR (drops), trained on the
+    card in fp32 against the same weights and batches in float64 on one CPU
+    thread (routing in float32 on both): two steps of value_and_grad and
+    AdamW on 2 x 64 tokens, the losses within TRAIN_LOSS_F32_TOL relative
+    and each gradient leaf within TRAIN_GRAD_TOL of its largest magnitude;
+    each step's routes and kept masks equal the CPU's at every token whose
+    k-th and (k+1)-th probabilities lie more than MOE_TIE apart; every
+    backward call held to the plain version on its own tensors, all on the
+    mma_sync backward. The control, per model: step 1 again with dV zeroed
+    in every backward result the model receives (the held calls keep the
+    kernel's), which must exceed TRAIN_GRAD_TOL."""
+    from repro_torch.configs.base import get_config, reduce_for_smoke
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.train import optimizer as optlib
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.tree import tree_leaves, tree_map
+    t0 = time.perf_counter()
+    opt = optlib.OptConfig(lr=3e-3, warmup_steps=20, total_steps=200)
+    rng = np.random.default_rng(seed + 5)
+    counts = _reset_counts()
+    out, bad = {"tol": {"loss": TRAIN_LOSS_F32_TOL, "grad": TRAIN_GRAD_TOL,
+                        "bwd": BWD_F32_TOL, "tie": MOE_TIE}}, []
+
+    def grad_err(g, want):        # the largest |g - want| / max |want| of a leaf
+        return max(float((a.cpu().double() - w).abs().max())
+                   / max(float(w.abs().max()), 1e-30)
+                   for a, w in zip(tree_leaves(g), tree_leaves(want)))
+
+    for arch in (SERVE_MLA_ARCH, SERVE_MOE_ARCH):
+        base = reduce_for_smoke(get_config(arch)).replace(compute_dtype_str="float32")
+        toks = rng.integers(0, base.vocab, (2, 2, 65)).astype(np.int32)
+        batches = [{"tokens": torch.from_numpy(t[:, :-1].copy()),
+                    "labels": torch.from_numpy(t[:, 1:].copy())} for t in toks]
+        init = Model(base.replace(compute_dtype_str="float64"), device="cpu").init(
+            torch.Generator().manual_seed(seed))
+        n_moe = base.n_layers - base.first_dense
+        runs = {}
+        for mode in ("einsum", "scatter"):
+            for factor in (base.capacity_factor, MOE_CAP8_FACTOR):
+                cfg = base.replace(moe_dispatch=mode, capacity_factor=factor)
+                f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+                card = Model(cfg, device=dev)
+                p_cpu = tree_map(torch.clone, init)
+                p_card = tree_map(lambda a: a.to(dev, copy=True), init)
+                s_cpu = optlib.init_opt_state(opt, p_cpu)
+                s_card = optlib.init_opt_state(opt, p_card)
+                cap = moe._capacity(batches[0]["tokens"].numel(), cfg)
+                run = {"capacity": cap, "losses": [], "cpu_float64_losses": [],
+                       "loss_rel_err": [], "grad_rel_err": [], "dropped_pairs": 0,
+                       "near_tie_tokens": 0, "route_mismatch_tokens": 0,
+                       "keep_mismatch_tokens": 0}
+                held = []
+                for step, b in enumerate(batches):
+                    cb = {k: v.to(dev) for k, v in b.items()}
+                    with RouteLog() as rc, _HeldBwdCalls(range(cfg.n_layers)) as calls:
+                        lc, gc = value_and_grad(card, p_card, cb)
+                    held += calls.errors(BWD_F32_TOL)
+                    threads = torch.get_num_threads()
+                    torch.set_num_threads(1)
+                    try:
+                        with RouteLog(gaps=True) as rr:
+                            lr_, gr = value_and_grad(f64, p_cpu, b)
+                    finally:
+                        torch.set_num_threads(threads)
+                    for ic, ir, gap in zip(rc.idx[:n_moe], rr.idx[:n_moe], rr.gap[:n_moe]):
+                        apart = gap > MOE_TIE
+                        ic = ic.cpu()
+                        kc = moe.slots(ic, cfg.n_experts, cap)[1]
+                        kr = moe.slots(ir, cfg.n_experts, cap)[1]
+                        run["near_tie_tokens"] += int((~apart).sum())
+                        run["route_mismatch_tokens"] += int((ic != ir).any(-1)[apart].sum())
+                        run["keep_mismatch_tokens"] += int((kc != kr).any(-1)[apart].sum())
+                        run["dropped_pairs"] += int((~kr).sum())
+                    run["losses"].append(float(lc))
+                    run["cpu_float64_losses"].append(float(lr_))
+                    run["loss_rel_err"].append(abs(float(lc) - float(lr_)) / abs(float(lr_)))
+                    run["grad_rel_err"].append(grad_err(gc, gr))
+                    if step == 0 and mode == "einsum" and factor == base.capacity_factor:
+                        with _HeldBwdCalls((), fault=lambda dq, dk, dv: (
+                                dq, dk, torch.zeros_like(dv))):
+                            _, gf = value_and_grad(card, p_card, cb)
+                        out[f"control_{arch}_dv_zeroed"] = grad_err(gf, gr)
+                        del gf
+                    p_card, s_card, _ = optlib.adamw_update(opt, gc, s_card, p_card)
+                    p_cpu, s_cpu, _ = optlib.adamw_update(opt, gr, s_cpu, p_cpu)
+                run["bwd_on_path_max_rel_err"] = max(
+                    max(c["max_rel_err"].values()) for c in held)
+                run["bwd_on_path_ok"] = len(held) == 2 * cfg.n_layers and all(
+                    c["ok"] for c in held)
+                runs[f"{mode}_{'cap8' if factor == MOE_CAP8_FACTOR else 'full'}"] = run
+                if run["route_mismatch_tokens"] or run["keep_mismatch_tokens"] \
+                        or not run["bwd_on_path_ok"] \
+                        or (run["dropped_pairs"] > 0) != (factor == MOE_CAP8_FACTOR) \
+                        or max(run["loss_rel_err"]) > TRAIN_LOSS_F32_TOL \
+                        or max(run["grad_rel_err"]) > TRAIN_GRAD_TOL:
+                    bad.append((arch, mode, factor, run))
+        out[arch] = {"config": base.name, "n_layers": base.n_layers,
+                     "first_dense": base.first_dense, "mla": base.mla,
+                     "head_dims": [base.mla_nope_dim + base.mla_rope_dim, base.mla_v_dim]
+                     if base.mla else [base.d_head, base.d_head],
+                     "n_experts": base.n_experts, "top_k": base.top_k,
+                     "tokens": [2, 64], "runs": runs}
+        if not out[f"control_{arch}_dv_zeroed"] > TRAIN_GRAD_TOL:
+            bad.append((arch, "control", out[f"control_{arch}_dv_zeroed"]))
+    launched = counts()
+    out["launches"] = launched
+    # fp32: every forward (and its remat recompute) on mma_sync, and every
+    # backward call on the mma_sync backward
+    out["bwd_all_mma_sync"] = launched["bwd_sm90"] == launched["sm90"] == 0 \
+        and launched["bwd_mma_sync"] == launched["bwd"] > 0 \
+        and launched["mma_sync"] == 2 * launched["bwd"]
+    out["phase_wall_s"] = time.perf_counter() - t0
+    phase("moe_train_vs_cpu", **out)
+    if bad or not out["bwd_all_mma_sync"]:
+        raise SystemExit(f"moe_train_vs_cpu: {bad}, launches {launched}")
+    return launched
 
 
 # The examples whose card run is profiled: the two that bring a kernel a
@@ -4402,31 +4680,53 @@ BWD_KERNEL_NAMES = {"sm90": ("flash_bwd_dq_sm90", "flash_bwd_dkdv_sm90"),
                     "mma_sync": ("flash_bwd_dq_bf16", "flash_bwd_dkdv_bf16")}
 
 
-def flash_bwd_timing(torch, dev, seed: int) -> dict:
-    """Both backward kernels, forced, at one microbatch of the train phase
-    (BWD_TIMING, causal, bf16), taken in turns (sm90, mma_sync, mma_sync,
-    sm90): each one's call ms (CUDA events) and device ms (torch.profiler:
-    its dq and its dk/dv launch by their kernel names, and their sum), the
-    largest relative error against the plain version and a second call
-    bitwise; beside them the plain version's ms, SDPA's backward
-    (``torch.autograd.grad`` of ``F.scaled_dot_product_attention(...,
-    is_causal=True, enable_gqa=True)``, the yardstick only) and the bound:
-    the backward's five products, 2.5 x the causal forward's FLOP, at the
-    bf16 tensor-core rate. The sm90 kernel is the one the wrapper picks
-    here."""
+# The products of size Sq x Skv each backward kernel does, (over d_qk, over
+# d_v): sm90 forms S and dP once in each pass beside dQ, dK and dV (7);
+# mma_sync forms S a third time in its LSE pass (8).
+BWD_PRODUCTS = {"sm90": (4, 3), "mma_sync": (5, 3)}
+
+
+def flash_bwd_timing(torch, dev, seed: int, shape: tuple, turns: tuple,
+                     sdpa_backend=None) -> dict:
+    """The backward kernels in ``turns``, forced, at ``shape`` = (b, s, h,
+    kv, d_qk, d_v), causal, bf16, on inputs drawn on the card (v, where
+    d_v != d_qk, the strided half of a K/V expansion, as MLA passes it),
+    taken in the order of ``turns``, whose first is the kernel the wrapper
+    picks here. ``o`` is the forward kernel's, held first to the plain
+    forward (FLASH_BF16_TOL). For each kernel: its call ms (CUDA events)
+    and device ms (torch.profiler: its dq and its dk/dv launch by their
+    kernel names, and their sum), the largest relative error against the
+    plain version and a second call bitwise; beside them the plain
+    version's ms, SDPA's backward (``torch.autograd.grad`` of
+    ``F.scaled_dot_product_attention(..., is_causal=True)``, on the
+    backend named ``sdpa_backend`` where given, the yardstick only) and the bound: S, dQ
+    and dK over d_qk and dP and dV over d_v, 2 B H S(S+1)/2 (3 d_qk + 2 d_v)
+    FLOP (2.5 x the causal forward's at equal dims) at the bf16
+    tensor-core rate, against the bytes of q, k, v, o, dO and the three
+    gradients."""
     import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
     from repro_torch.kernels.flash_attention import ops as fops
-    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
-    rng = np.random.default_rng(seed + 31)
-    b, s, h, kv, d = BWD_TIMING
-    q, k, v, do = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
-                   .to(dev, torch.bfloat16) for sh in ((b, s, h, d), (b, s, kv, d),
-                                                       (b, s, kv, d), (b, s, h, d)))
+    from repro_torch.kernels.flash_attention.ref import (flash_attention_bwd_ref,
+                                                         flash_attention_ref)
+    b, s, h, kv, dk, dv = shape
+    gen = torch.Generator(device=dev).manual_seed(seed + 31)
+    q, k, kvb, do = (torch.randn(sh, generator=gen, device=dev).to(torch.bfloat16)
+                     for sh in ((b, s, h, dk), (b, s, kv, dk),
+                                (b, s, kv, dv if dk == dv else 2 * dv), (b, s, h, dv)))
+    v = kvb[..., -dv:]
+    fwd_variant = fops._variant(q, k, v)
     o = fops.flash_attention_cuda(q, k, v, causal=True)
-    if fops.resolve_bwd_variant(q, k, v) != "sm90":
-        raise SystemExit("flash bwd timing: the train shape is not the sm90 kernel's")
+    want = flash_attention_ref(q, k, v, causal=True).float()
+    fwd_err = (o.float() - want).abs()
+    fwd_bad = int((fwd_err > FLASH_BF16_TOL + FLASH_BF16_TOL * want.abs()).sum())
+    del want
+    if fwd_bad or fops.resolve_bwd_variant(q, k, v) != turns[0]:
+        raise SystemExit(f"flash bwd timing {shape}: the forward ({fwd_variant}) has "
+                         f"{fwd_bad} elements beyond {FLASH_BF16_TOL}, or the wrapper "
+                         f"picks another backward than {turns[0]}")
     call = {var: (lambda var=var: fops.flash_attention_bwd_cuda(
-        q, k, v, o, do, causal=True, variant=var)) for var in BWD_KERNEL_NAMES}
+        q, k, v, o, do, causal=True, variant=var)) for var in dict.fromkeys(turns)}
     want = flash_attention_bwd_ref(q, k, v, o, do, causal=True)
     res = {var: {} for var in call}
     for var, fn in call.items():
@@ -4438,36 +4738,42 @@ def flash_bwd_timing(torch, dev, seed: int) -> dict:
             repeat_bitwise=all(torch.equal(a, b_) for a, b_ in zip(got, fn())))
         del got
     del want
-    turns = {var: {"ms": [], "dq_device_ms": [], "dkdv_device_ms": []} for var in call}
-    for var in ("sm90", "mma_sync", "mma_sync", "sm90"):
-        turns[var]["ms"].append(cuda_ms(torch, call[var], 10))
+    torch.cuda.empty_cache()
+    times = {var: {"ms": [], "dq_device_ms": [], "dkdv_device_ms": []} for var in call}
+    for var in turns:
+        times[var]["ms"].append(cuda_ms(torch, call[var], 10))
         for part, name in zip(("dq", "dkdv"), BWD_KERNEL_NAMES[var]):
-            turns[var][f"{part}_device_ms"].append(device_ms(torch, call[var], 5, name))
-    for var, t in turns.items():
+            times[var][f"{part}_device_ms"].append(device_ms(torch, call[var], 5, name))
+    half = b * h * s * (s + 1) / 2            # causal (query, key) pairs
+    for var, t in times.items():
         t["device_ms"] = [a + b_ for a, b_ in zip(t["dq_device_ms"], t["dkdv_device_ms"])]
+        n_dk, n_dv = BWD_PRODUCTS[var]
         res[var].update({f"{k_}_turns": vals for k_, vals in t.items()},
                         **{k_: float(np.median(vals)) for k_, vals in t.items()},
-                        kernels=list(BWD_KERNEL_NAMES[var]))
+                        kernels=list(BWD_KERNEL_NAMES[var]),
+                        flops_done=2 * half * (n_dk * dk + n_dv * dv))
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
-    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+    with sdpa_kernel(getattr(SDPBackend, sdpa_backend)) if sdpa_backend \
+            else contextlib.nullcontext():
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                             enable_gqa=h != kv)
     sdpa_bwd = lambda: torch.autograd.grad(out, (qt, kt, vt), dot, retain_graph=True)
-    fwd_flops = 4 * b * h * d * s * (s + 1) / 2
-    flops = 2.5 * fwd_flops
-    nbytes = 2 * 4 * (q.numel() + k.numel())    # q o dO dQ, k v dK dV
-    res["sm90"]["flops_done"] = 3.5 * fwd_flops       # 7 products (PERF.md)
-    res["mma_sync"]["flops_done"] = 4 * fwd_flops     # 8 products
-    res.update({"shape": [b, s, h, kv, d, "causal", "bf16"],
+    flops = 2 * half * (3 * dk + 2 * dv)
+    nbytes = 4 * b * s * (h + kv) * (dk + dv)   # bf16 q k dQ dK at d_qk, v o dO dV at d_v
+    res.update({"shape": [b, s, h, kv, dk, dv, "causal", "bf16"],
+                "forward_variant": fwd_variant, "forward_max_abs_err": float(fwd_err.max()),
                 "plain_ms": cuda_ms(torch, lambda: flash_attention_bwd_ref(
-                    q, k, v, o, do, causal=True), 2),
+                    q, k, v, o, do, causal=True), 1),
+                "library": " ".join(("sdpa backward", sdpa_backend or "")).strip(),
                 "library_ms": cuda_ms(torch, sdpa_bwd, 10),
                 "library_device_ms": device_ms(torch, sdpa_bwd, 5),
-                "forward_flops": fwd_flops, "flops": flops, "bytes": nbytes,
+                "forward_flops": 2 * half * (dk + dv), "flops": flops, "bytes": nbytes,
                 **_bound(flops / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S)})
     bad = {var: (r["max_rel_err"], r["repeat_bitwise"]) for var, r in res.items()
            if var in call and (r["max_rel_err"] > BWD_BF16_TOL or not r["repeat_bitwise"])}
     if bad:
-        raise SystemExit(f"flash bwd at the train shape: (relative error, repeat) {bad}")
+        raise SystemExit(f"flash bwd at {shape}: (relative error, repeat) {bad}")
     return res
 
 
@@ -4887,12 +5193,22 @@ def main(argv=None) -> int:
     phase("mla_vs_cpu", **mla_small)
     trained = train(torch, dev, args.seed, smi, args.profile)
     torch.cuda.empty_cache()
+    trained_dsv2 = train(torch, dev, args.seed, smi, args.profile, arch=SERVE_MLA_ARCH,
+                         layers=TRAIN_DSV2_LAYERS, batch_size=TRAIN_DSV2_BATCH,
+                         seq=TRAIN_DSV2_SEQ, micro=1, per_step=TRAIN_DSV2_PER_STEP,
+                         grad_checks=moe_grad_checks, tag="train_dsv2")
+    torch.cuda.empty_cache()
     trained_small = train_vs_cpu(torch, dev, args.seed)
+    torch.cuda.empty_cache()
+    trained_moe_small = moe_train_vs_cpu(torch, dev, args.seed)
     torch.cuda.empty_cache()
     examples = examples_phase(torch, dev)["launches"]
     small = small_case_timings(torch, dev, args.seed)
     ft = flash_timings(torch, dev, args.seed)
-    ft["bwd"] = flash_bwd_timing(torch, dev, args.seed)
+    ft["bwd"] = flash_bwd_timing(torch, dev, args.seed, BWD_TIMING,
+                                 ("sm90", "mma_sync", "mma_sync", "sm90"))
+    ft["bwd_mla"] = flash_bwd_timing(torch, dev, args.seed, BWD_MLA_TIMING, ("mma_sync",),
+                                     "EFFICIENT_ATTENTION")
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
     for sfx, launched in (("", served), ("_d160", served_d160), ("_d64", served_d64)):
         pre, dec, long = ft["prefill" + sfx], ft["decode" + sfx], ft["decode_long" + sfx]
@@ -4995,6 +5311,26 @@ def main(argv=None) -> int:
             "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
             "library_ms": bwd["library_ms"],
             "library_device_ms": bwd["library_device_ms"]})
+    # The mma_sync backward at deepseek-v2-236b's train call, (192, 128):
+    # train_dsv2's calls (its launches) and moe_train_vs_cpu's at (48, 32)
+    # and d 32.
+    r, rv = ft["bwd_mla"], ft["bwd_mla"]["mma_sync"]
+    kernels.append({
+        "name": "flash_attention_bwd_mla", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "replaces": "src/repro/models/attention.py:52",
+        "replaces_note": "no Pallas kernel: the JAX package takes this gradient "
+                         "by autodiff of its jnp flash_attention (d_v != d_qk)",
+        "launches": trained_dsv2["bwd_mma_sync"], "kernel_launches_per_call": 2,
+        "moe_train_vs_cpu_launches": trained_moe_small["bwd_mma_sync"],
+        "max_abs_err": rv["max_abs_err"], "max_rel_err": rv["max_rel_err"],
+        "ms": rv["ms"], "device_ms": rv["device_ms"], "dq_device_ms": rv["dq_device_ms"],
+        "dkdv_device_ms": rv["dkdv_device_ms"], "plain_ms": r["plain_ms"],
+        "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+        "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
+        "library": r["library"], "shape": r["shape"]})
+    by_name = {k["name"]: k for k in kernels}
+    by_name["flash_attention_sm90_mla"]["train_dsv2_launches"] = trained_dsv2["sm90"]
     for k in kernels:               # the training paths' launches
         name = {"flash_attention": "mma_sync", "flash_attention_sm90": "sm90",
                 "flash_attention_decode": "decode",

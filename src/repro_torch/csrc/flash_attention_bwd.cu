@@ -41,15 +41,28 @@
 // Arithmetic: bf16 tiles go through mma.sync.m16n8k16 with fp32
 // accumulators (the fragment code of flash_attention.cu); P and dS are
 // rounded to bf16 before the products that take them. fp32 inputs take a
-// plain FMA loop (no TF32). Instances: d 32, 64, 128 and 160.
+// plain FMA loop (no TF32).
+//
+// Instances: templated on q/k's head dim DK and v's DV, as the forward in
+// flash_attention.cu: DK == DV at 32, 64, 128 and 160, and MLA's unequal
+// pairs (DK, DV) = (192, 128) (deepseek-v2-236b: nope 128 + rope 64, v 128)
+// and (48, 32) (its smoke config). S = Q K^T, dQ = dS K and dK = dS^T Q
+// are DK wide; dP = dO V^T contracts over DV, and D, O, dO and dV are DV
+// wide. At (192, 128) the dq block's shared memory is Q and K tiles of 64 x
+// 200, dO and V tiles of 64 x 136 and K^T of 192 x 72 (111 KB), the dk/dv
+// block's 90 KB; the dk/dv accumulators are DK/2 + DV/2 fp32 registers a
+// thread, 96 + 64 (d 160's 80 + 80). The fp32 kernels give each lane the
+// columns lane + 32 i below DK (or DV), so DK 48 takes two, the second
+// half-used.
 //
 // C entry: flash_attention_bwd_launch(q, k, v, o, dout, dq, dk, dv, lse,
-// dsum, is_bf16, d, B, H, KV, Sq, Skv, strides, causal, q_offset, scale,
-// stream); `strides` points to 24 host int64 element strides, (batch, seq,
+// dsum, is_bf16, d, dv, B, H, KV, Sq, Skv, strides, causal, q_offset,
+// scale, stream); d is q/k's head dim, dv v's (o, dout and dv are dv
+// wide); `strides` points to 24 host int64 element strides, (batch, seq,
 // head) of q, k, v, o, dout, dq, dk and dv in turn; the head dim is
 // contiguous. `lse` and `dsum` are fp32 scratch of B * H * Sq. Returns
 // cudaGetLastError() after the launches (cudaErrorInvalidValue for a dtype
-// or d it lacks).
+// or (d, dv) it lacks).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -176,22 +189,24 @@ __device__ __forceinline__ void load_tile(const __nv_bfloat16* src, long long ro
   }
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((size_t)4 * 64 * (D + 8) + (size_t)D * (DQ_KEYS + 8)) +
+  return sizeof(__nv_bfloat16) * ((size_t)(DQ_ROWS + DQ_KEYS) * (DK + 8 + DV + 8) +
+                                  (size_t)DK * (DQ_KEYS + 8)) +
          sizeof(float) * DQ_ROWS;
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
-  constexpr int LD = D + 8, LDT = DQ_KEYS + 8;
+  constexpr int LD = DK + 8, LDV = DV + 8, LDT = DQ_KEYS + 8;
+  constexpr int KW = (DK > DV ? DK : DV) / 16;  // k-steps of the wider product
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
-  __nv_bfloat16* dOs = Qs + DQ_ROWS * LD;                            // [64][LD]
-  __nv_bfloat16* Ks = dOs + DQ_ROWS * LD;                            // [64][LD]
-  __nv_bfloat16* Vs = Ks + DQ_KEYS * LD;                             // [64][LD]
-  __nv_bfloat16* Kt = Vs + DQ_KEYS * LD;                             // [D][LDT]
-  float* Drow = reinterpret_cast<float*>(Kt + D * LDT);             // [64]
+  __nv_bfloat16* dOs = Qs + DQ_ROWS * LD;                            // [64][LDV]
+  __nv_bfloat16* Ks = dOs + DQ_ROWS * LDV;                           // [64][LD]
+  __nv_bfloat16* Vs = Ks + DQ_KEYS * LD;                             // [64][LDV]
+  __nv_bfloat16* Kt = Vs + DQ_KEYS * LDV;                            // [DK][LDT]
+  float* Drow = reinterpret_cast<float*>(Kt + DK * LDT);            // [64]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -204,8 +219,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
 
-  load_tile<D>(q, a.qs[1], q0, DQ_ROWS, a.Sq, Qs, LD, nullptr, 0, tid);
-  load_tile<D>(dout, a.dos[1], q0, DQ_ROWS, a.Sq, dOs, LD, nullptr, 0, tid);
+  load_tile<DK>(q, a.qs[1], q0, DQ_ROWS, a.Sq, Qs, LD, nullptr, 0, tid);
+  load_tile<DV>(dout, a.dos[1], q0, DQ_ROWS, a.Sq, dOs, LDV, nullptr, 0, tid);
   __syncthreads();
 
   // D = rowsum(dO * O) in fp32 for this warp's 16 rows.
@@ -214,8 +229,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
     float part = 0.f;
     if (row < a.Sq) {
       const __nv_bfloat16* orow = o + (long long)row * a.os[1];
-      for (int c = lane; c < D; c += 32)
-        part = fmaf(__bfloat162float(dOs[r * LD + c]), __bfloat162float(orow[c]), part);
+      for (int c = lane; c < DV; c += 32)
+        part = fmaf(__bfloat162float(dOs[r * LDV + c]), __bfloat162float(orow[c]), part);
     }
     part = warp_sum(part);
     if (lane == 0) {
@@ -235,13 +250,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
   float m_r[2] = {NEG_INF, NEG_INF}, l_r[2] = {0.f, 0.f};
   for (int kv0 = 0; kv0 < end; kv0 += DQ_KEYS) {
     __syncthreads();
-    load_tile<D>(k, a.ks[1], kv0, DQ_KEYS, a.Skv, Ks, LD, nullptr, 0, tid);
+    load_tile<DK>(k, a.ks[1], kv0, DQ_KEYS, a.Skv, Ks, LD, nullptr, 0, tid);
     __syncthreads();
     float s[DQ_KEYS / 8][4];
 #pragma unroll
     for (int n = 0; n < DQ_KEYS / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DK / 16; ++kk) {
       uint32_t qa[4];
       load_a(qa, Qs, LD, r0, kk * 16, g, t);
 #pragma unroll
@@ -290,13 +305,13 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
   }
 
   // Pass 2: dQ = scale * sum over key tiles of dS K.
-  float acc[D / 8][4];
+  float acc[DK / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
+  for (int dn = 0; dn < DK / 8; ++dn) acc[dn][0] = acc[dn][1] = acc[dn][2] = acc[dn][3] = 0.f;
   for (int kv0 = 0; kv0 < end; kv0 += DQ_KEYS) {
     __syncthreads();
-    load_tile<D>(k, a.ks[1], kv0, DQ_KEYS, a.Skv, Ks, LD, Kt, LDT, tid);
-    load_tile<D>(v, a.vs[1], kv0, DQ_KEYS, a.Skv, Vs, LD, nullptr, 0, tid);
+    load_tile<DK>(k, a.ks[1], kv0, DQ_KEYS, a.Skv, Ks, LD, Kt, LDT, tid);
+    load_tile<DV>(v, a.vs[1], kv0, DQ_KEYS, a.Skv, Vs, LDV, nullptr, 0, tid);
     __syncthreads();
     float s[DQ_KEYS / 8][4], dp[DQ_KEYS / 8][4];
 #pragma unroll
@@ -304,17 +319,18 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
     }
+    // S over DK's k-steps and dP over DV's (both, at equal dims).
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < KW; ++kk) {
       uint32_t qa[4], da[4];
-      load_a(qa, Qs, LD, r0, kk * 16, g, t);
-      load_a(da, dOs, LD, r0, kk * 16, g, t);
+      if (kk < DK / 16) load_a(qa, Qs, LD, r0, kk * 16, g, t);
+      if (kk < DV / 16) load_a(da, dOs, LDV, r0, kk * 16, g, t);
 #pragma unroll
       for (int n = 0; n < DQ_KEYS / 8; ++n) {
         const __nv_bfloat16* kp = Ks + (n * 8 + g) * LD + kk * 16 + t * 2;
-        const __nv_bfloat16* vp = Vs + (n * 8 + g) * LD + kk * 16 + t * 2;
-        mma_bf16(s[n], qa, ld32(kp), ld32(kp + 8));
-        mma_bf16(dp[n], da, ld32(vp), ld32(vp + 8));
+        const __nv_bfloat16* vp = Vs + (n * 8 + g) * LDV + kk * 16 + t * 2;
+        if (kk < DK / 16) mma_bf16(s[n], qa, ld32(kp), ld32(kp + 8));
+        if (kk < DV / 16) mma_bf16(dp[n], da, ld32(vp), ld32(vp + 8));
       }
     }
     // dS = P * (dP - D), P = exp(s - LSE); masked entries are 0.
@@ -332,7 +348,7 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
       uint32_t pa[4];
       acc_to_a(pa, s[2 * kk], s[2 * kk + 1]);
 #pragma unroll
-      for (int dn = 0; dn < D / 8; ++dn) {
+      for (int dn = 0; dn < DK / 8; ++dn) {
         const __nv_bfloat16* kp = Kt + (dn * 8 + g) * LDT + kk * 16 + t * 2;
         mma_bf16(acc[dn], pa, ld32(kp), ld32(kp + 8));
       }
@@ -345,31 +361,33 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dq_bf16(Args a) {
     if (rows[hr] >= a.Sq) continue;
     __nv_bfloat16* drow = dq + (long long)rows[hr] * a.dqs[1] + t * 2;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
+    for (int dn = 0; dn < DK / 8; ++dn) {
       *reinterpret_cast<uint32_t*>(drow + dn * 8) =
           pack_bf16(acc[dn][2 * hr] * a.scale, acc[dn][2 * hr + 1] * a.scale);
     }
   }
 }
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t dkdv_smem_bytes() {
-  return sizeof(__nv_bfloat16) * ((size_t)2 * KV_KEYS * (D + 8) + (size_t)2 * KV_ROWS * (D + 8) +
-                                  (size_t)2 * D * (KV_ROWS + 8)) +
+  return sizeof(__nv_bfloat16) * ((size_t)(KV_KEYS + KV_ROWS) * (DK + 8 + DV + 8) +
+                                  (size_t)(DK + DV) * (KV_ROWS + 8)) +
          sizeof(float) * 2 * KV_ROWS;
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(Args a) {
-  constexpr int LD = D + 8, LDT = KV_ROWS + 8;
+  constexpr int LD = DK + 8, LDV = DV + 8, LDT = KV_ROWS + 8;
+  constexpr int KW = (DK > DV ? DK : DV) / 16;  // k-steps of the wider product
+  constexpr int NW = (DK > DV ? DK : DV) / 8;   // n-tiles of the wider gradient
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* Ks = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [64][LD]
-  __nv_bfloat16* Vs = Ks + KV_KEYS * LD;                             // [64][LD]
-  __nv_bfloat16* Qs = Vs + KV_KEYS * LD;                             // [32][LD]
-  __nv_bfloat16* dOs = Qs + KV_ROWS * LD;                            // [32][LD]
-  __nv_bfloat16* Qt = dOs + KV_ROWS * LD;                            // [D][LDT]
-  __nv_bfloat16* dOt = Qt + D * LDT;                                 // [D][LDT]
-  float* lse_s = reinterpret_cast<float*>(dOt + D * LDT);           // [32]
+  __nv_bfloat16* Vs = Ks + KV_KEYS * LD;                             // [64][LDV]
+  __nv_bfloat16* Qs = Vs + KV_KEYS * LDV;                            // [32][LD]
+  __nv_bfloat16* dOs = Qs + KV_ROWS * LD;                            // [32][LDV]
+  __nv_bfloat16* Qt = dOs + KV_ROWS * LDV;                           // [DK][LDT]
+  __nv_bfloat16* dOt = Qt + DK * LDT;                                // [DV][LDT]
+  float* lse_s = reinterpret_cast<float*>(dOt + DV * LDT);          // [32]
   float* d_s = lse_s + KV_ROWS;                                      // [32]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -380,16 +398,21 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(Args a) {
   const __nv_bfloat16* k = static_cast<const __nv_bfloat16*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const __nv_bfloat16* v = static_cast<const __nv_bfloat16*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
 
-  load_tile<D>(k, a.ks[1], k0, KV_KEYS, a.Skv, Ks, LD, nullptr, 0, tid);
-  load_tile<D>(v, a.vs[1], k0, KV_KEYS, a.Skv, Vs, LD, nullptr, 0, tid);
+  load_tile<DK>(k, a.ks[1], k0, KV_KEYS, a.Skv, Ks, LD, nullptr, 0, tid);
+  load_tile<DV>(v, a.vs[1], k0, KV_KEYS, a.Skv, Vs, LDV, nullptr, 0, tid);
 
   const int kr = warp * 16;  // this warp's 16 keys: rows kr + g and kr + g + 8
   const int keys[2] = {k0 + kr + g, k0 + kr + g + 8};
-  float dka[D / 8][4], dva[D / 8][4];
+  float dka[DK / 8][4], dva[DV / 8][4];
 #pragma unroll
-  for (int dn = 0; dn < D / 8; ++dn) {
+  for (int dn = 0; dn < DK / 8; ++dn) {
 #pragma unroll
-    for (int e = 0; e < 4; ++e) dka[dn][e] = dva[dn][e] = 0.f;
+    for (int e = 0; e < 4; ++e) dka[dn][e] = 0.f;
+  }
+#pragma unroll
+  for (int dn = 0; dn < DV / 8; ++dn) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dva[dn][e] = 0.f;
   }
   const int qb = (q_begin(a, k0) / KV_ROWS) * KV_ROWS;
 
@@ -400,8 +423,8 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(Args a) {
     const __nv_bfloat16* dout = static_cast<const __nv_bfloat16*>(a.dout) + b * a.dos[0] + h * a.dos[2];
     for (int q0 = qb; q0 < a.Sq; q0 += KV_ROWS) {
       __syncthreads();  // every warp is done with the previous tile
-      load_tile<D>(q, a.qs[1], q0, KV_ROWS, a.Sq, Qs, LD, Qt, LDT, tid);
-      load_tile<D>(dout, a.dos[1], q0, KV_ROWS, a.Sq, dOs, LD, dOt, LDT, tid);
+      load_tile<DK>(q, a.qs[1], q0, KV_ROWS, a.Sq, Qs, LD, Qt, LDT, tid);
+      load_tile<DV>(dout, a.dos[1], q0, KV_ROWS, a.Sq, dOs, LDV, dOt, LDT, tid);
       for (int i = tid; i < KV_ROWS; i += THREADS) {
         const bool in = q0 + i < a.Sq;
         lse_s[i] = in ? a.lse[bh * a.Sq + q0 + i] : 0.f;
@@ -417,16 +440,16 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(Args a) {
         for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
       }
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
+      for (int kk = 0; kk < KW; ++kk) {
         uint32_t ka[4], va[4];
-        load_a(ka, Ks, LD, kr, kk * 16, g, t);
-        load_a(va, Vs, LD, kr, kk * 16, g, t);
+        if (kk < DK / 16) load_a(ka, Ks, LD, kr, kk * 16, g, t);
+        if (kk < DV / 16) load_a(va, Vs, LDV, kr, kk * 16, g, t);
 #pragma unroll
         for (int n = 0; n < KV_ROWS / 8; ++n) {
           const __nv_bfloat16* qp = Qs + (n * 8 + g) * LD + kk * 16 + t * 2;
-          const __nv_bfloat16* dp = dOs + (n * 8 + g) * LD + kk * 16 + t * 2;
-          mma_bf16(st[n], ka, ld32(qp), ld32(qp + 8));
-          mma_bf16(dpt[n], va, ld32(dp), ld32(dp + 8));
+          const __nv_bfloat16* dp = dOs + (n * 8 + g) * LDV + kk * 16 + t * 2;
+          if (kk < DK / 16) mma_bf16(st[n], ka, ld32(qp), ld32(qp + 8));
+          if (kk < DV / 16) mma_bf16(dpt[n], va, ld32(dp), ld32(dp + 8));
         }
       }
       // P^T and dS^T; element e is key keys[e >> 1], query column
@@ -449,11 +472,11 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(Args a) {
         acc_to_a(pa, st[2 * kk], st[2 * kk + 1]);
         acc_to_a(sa, dpt[2 * kk], dpt[2 * kk + 1]);
 #pragma unroll
-        for (int dn = 0; dn < D / 8; ++dn) {
+        for (int dn = 0; dn < NW; ++dn) {
           const __nv_bfloat16* op = dOt + (dn * 8 + g) * LDT + kk * 16 + t * 2;
           const __nv_bfloat16* qp = Qt + (dn * 8 + g) * LDT + kk * 16 + t * 2;
-          mma_bf16(dva[dn], pa, ld32(op), ld32(op + 8));
-          mma_bf16(dka[dn], sa, ld32(qp), ld32(qp + 8));
+          if (dn < DV / 8) mma_bf16(dva[dn], pa, ld32(op), ld32(op + 8));
+          if (dn < DK / 8) mma_bf16(dka[dn], sa, ld32(qp), ld32(qp + 8));
         }
       }
     }
@@ -467,10 +490,12 @@ __global__ void __launch_bounds__(THREADS) flash_bwd_dkdv_bf16(Args a) {
     __nv_bfloat16* krow = dk + (long long)keys[hr] * a.dks[1] + t * 2;
     __nv_bfloat16* vrow = dv + (long long)keys[hr] * a.dvs[1] + t * 2;
 #pragma unroll
-    for (int dn = 0; dn < D / 8; ++dn) {
-      *reinterpret_cast<uint32_t*>(krow + dn * 8) =
-          pack_bf16(dka[dn][2 * hr] * a.scale, dka[dn][2 * hr + 1] * a.scale);
-      *reinterpret_cast<uint32_t*>(vrow + dn * 8) = pack_bf16(dva[dn][2 * hr], dva[dn][2 * hr + 1]);
+    for (int dn = 0; dn < NW; ++dn) {
+      if (dn < DK / 8)
+        *reinterpret_cast<uint32_t*>(krow + dn * 8) =
+            pack_bf16(dka[dn][2 * hr] * a.scale, dka[dn][2 * hr + 1] * a.scale);
+      if (dn < DV / 8)
+        *reinterpret_cast<uint32_t*>(vrow + dn * 8) = pack_bf16(dva[dn][2 * hr], dva[dn][2 * hr + 1]);
     }
   }
 }
@@ -484,19 +509,28 @@ constexpr int F_ROWS = 8;    // dq: query rows a block; dkdv: keys a block
 constexpr int F_TILE = 32;   // keys (dq) or query rows (dkdv) a tile
 constexpr int F_THREADS = 32 * F_ROWS;
 
-template <int D>
+template <int DK, int DV>
 constexpr size_t f32_smem_bytes() {
-  return sizeof(float) * ((size_t)2 * F_ROWS * D + (size_t)2 * F_TILE * (D + 1) + 2 * F_TILE);
+  return sizeof(float) * ((size_t)F_ROWS * (DK + DV) + (size_t)F_TILE * (DK + 1 + DV + 1) +
+                          2 * F_TILE);
 }
 
+// Columns lane + 32 i (i < ceil(D / 32)) of a D-wide row that lie below D:
+// all of them when 32 divides D.
 template <int D>
+__device__ __forceinline__ bool lane_col(int lane, int i) {
+  return D % 32 == 0 || lane + 32 * i < D;
+}
+
+template <int DK, int DV>
 __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32(Args a) {
-  constexpr int LDK = D + 1;  // lane j reads row j: odd stride, no conflicts
+  constexpr int LDK = DK + 1, LDV = DV + 1;  // lane j reads row j: odd strides, no conflicts
+  constexpr int NK = (DK + 31) / 32;
   extern __shared__ float fsm[];
-  float* Qs = fsm;                // [F_ROWS][D]
-  float* dOs = Qs + F_ROWS * D;   // [F_ROWS][D]
-  float* Ks = dOs + F_ROWS * D;   // [F_TILE][LDK]
-  float* Vs = Ks + F_TILE * LDK;  // [F_TILE][LDK]
+  float* Qs = fsm;                 // [F_ROWS][DK]
+  float* dOs = Qs + F_ROWS * DK;   // [F_ROWS][DV]
+  float* Ks = dOs + F_ROWS * DV;   // [F_TILE][LDK]
+  float* Vs = Ks + F_TILE * LDK;   // [F_TILE][LDV]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x, b = bh / a.H, h = bh % a.H;
@@ -508,11 +542,13 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32(Args a) {
   const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
 
-  for (int i = tid; i < F_ROWS * D; i += F_THREADS) {
-    const int r = i / D, c = i % D;
-    const bool in = q0 + r < a.Sq;
-    Qs[i] = in ? q[(long long)(q0 + r) * a.qs[1] + c] : 0.f;
-    dOs[i] = in ? dout[(long long)(q0 + r) * a.dos[1] + c] : 0.f;
+  for (int i = tid; i < F_ROWS * DK; i += F_THREADS) {
+    const int r = i / DK, c = i % DK;
+    Qs[i] = q0 + r < a.Sq ? q[(long long)(q0 + r) * a.qs[1] + c] : 0.f;
+  }
+  for (int i = tid; i < F_ROWS * DV; i += F_THREADS) {
+    const int r = i / DV, c = i % DV;
+    dOs[i] = q0 + r < a.Sq ? dout[(long long)(q0 + r) * a.dos[1] + c] : 0.f;
   }
   __syncthreads();
   const int row = q0 + warp;
@@ -520,7 +556,7 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32(Args a) {
   float dsum = 0.f;
   if (row < a.Sq) {
     const float* orow = o + (long long)row * a.os[1];
-    for (int c = lane; c < D; c += 32) dsum = fmaf(dOs[warp * D + c], orow[c], dsum);
+    for (int c = lane; c < DV; c += 32) dsum = fmaf(dOs[warp * DV + c], orow[c], dsum);
   }
   dsum = warp_sum(dsum);
   const int end = kv_end(a, q0, F_ROWS);
@@ -528,15 +564,15 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32(Args a) {
   float m = NEG_INF, l = 0.f;
   for (int kv0 = 0; kv0 < end; kv0 += F_TILE) {
     __syncthreads();
-    for (int i = tid; i < F_TILE * D; i += F_THREADS) {
-      const int r = i / D, c = i % D;
+    for (int i = tid; i < F_TILE * DK; i += F_THREADS) {
+      const int r = i / DK, c = i % DK;
       Ks[r * LDK + c] = kv0 + r < a.Skv ? k[(long long)(kv0 + r) * a.ks[1] + c] : 0.f;
     }
     __syncthreads();
     const int col = kv0 + lane;
     float sc = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) sc = fmaf(Qs[warp * D + d], Ks[lane * LDK + d], sc);
+    for (int d = 0; d < DK; ++d) sc = fmaf(Qs[warp * DK + d], Ks[lane * LDK + d], sc);
     sc *= a.scale;
     if (col >= a.Skv || (a.causal && row_abs < col)) sc = NEG_INF;
     const float m_new = fmaxf(m, warp_max(sc));
@@ -549,49 +585,53 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dq_f32(Args a) {
     a.dsum[(long long)bh * a.Sq + row] = dsum;
   }
 
-  float acc[D / 32];
+  float acc[NK];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) acc[i] = 0.f;
+  for (int i = 0; i < NK; ++i) acc[i] = 0.f;
   for (int kv0 = 0; kv0 < end; kv0 += F_TILE) {
     __syncthreads();
-    for (int i = tid; i < F_TILE * D; i += F_THREADS) {
-      const int r = i / D, c = i % D;
-      const bool in = kv0 + r < a.Skv;
-      Ks[r * LDK + c] = in ? k[(long long)(kv0 + r) * a.ks[1] + c] : 0.f;
-      Vs[r * LDK + c] = in ? v[(long long)(kv0 + r) * a.vs[1] + c] : 0.f;
+    for (int i = tid; i < F_TILE * DK; i += F_THREADS) {
+      const int r = i / DK, c = i % DK;
+      Ks[r * LDK + c] = kv0 + r < a.Skv ? k[(long long)(kv0 + r) * a.ks[1] + c] : 0.f;
+    }
+    for (int i = tid; i < F_TILE * DV; i += F_THREADS) {
+      const int r = i / DV, c = i % DV;
+      Vs[r * LDV + c] = kv0 + r < a.Skv ? v[(long long)(kv0 + r) * a.vs[1] + c] : 0.f;
     }
     __syncthreads();
     const int col = kv0 + lane;
     float sc = 0.f, dp = 0.f;
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      sc = fmaf(Qs[warp * D + d], Ks[lane * LDK + d], sc);
-      dp = fmaf(dOs[warp * D + d], Vs[lane * LDK + d], dp);
-    }
+    for (int d = 0; d < DK; ++d) sc = fmaf(Qs[warp * DK + d], Ks[lane * LDK + d], sc);
+#pragma unroll 8
+    for (int d = 0; d < DV; ++d) dp = fmaf(dOs[warp * DV + d], Vs[lane * LDV + d], dp);
     const float p = masked(a, row, col) ? 0.f : expf(sc * a.scale - lse);
     const float ds = p * (dp - dsum);
     for (int j = 0; j < F_TILE; ++j) {
       const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-      for (int i = 0; i < D / 32; ++i) acc[i] = fmaf(dsj, Ks[j * LDK + lane + 32 * i], acc[i]);
+      for (int i = 0; i < NK; ++i)
+        if (lane_col<DK>(lane, i)) acc[i] = fmaf(dsj, Ks[j * LDK + lane + 32 * i], acc[i]);
     }
   }
   if (row < a.Sq) {
     float* drow = static_cast<float*>(a.dq) + b * a.dqs[0] + h * a.dqs[2] + (long long)row * a.dqs[1];
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) drow[lane + 32 * i] = acc[i] * a.scale;
+    for (int i = 0; i < NK; ++i)
+      if (lane_col<DK>(lane, i)) drow[lane + 32 * i] = acc[i] * a.scale;
   }
 }
 
-template <int D>
+template <int DK, int DV>
 __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32(Args a) {
-  constexpr int LDQ = D + 1;  // lane i reads row i: odd stride, no conflicts
+  constexpr int LDQ = DK + 1, LDO = DV + 1;  // lane i reads row i: odd strides, no conflicts
+  constexpr int NK = (DK + 31) / 32, NV = (DV + 31) / 32;
   extern __shared__ float fsm[];
-  float* Ks = fsm;                  // [F_ROWS][D]
-  float* Vs = Ks + F_ROWS * D;      // [F_ROWS][D]
-  float* Qs = Vs + F_ROWS * D;      // [F_TILE][LDQ]
-  float* dOs = Qs + F_TILE * LDQ;   // [F_TILE][LDQ]
-  float* lse_s = dOs + F_TILE * LDQ;  // [F_TILE]
+  float* Ks = fsm;                    // [F_ROWS][DK]
+  float* Vs = Ks + F_ROWS * DK;       // [F_ROWS][DV]
+  float* Qs = Vs + F_ROWS * DV;       // [F_TILE][LDQ]
+  float* dOs = Qs + F_TILE * LDQ;     // [F_TILE][LDO]
+  float* lse_s = dOs + F_TILE * LDO;  // [F_TILE]
   float* d_s = lse_s + F_TILE;        // [F_TILE]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -601,15 +641,19 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32(Args a) {
   const int key = k0 + warp;
   const float* k = static_cast<const float*>(a.k) + b * a.ks[0] + kvh * a.ks[2];
   const float* v = static_cast<const float*>(a.v) + b * a.vs[0] + kvh * a.vs[2];
-  for (int i = tid; i < F_ROWS * D; i += F_THREADS) {
-    const int r = i / D, c = i % D;
-    const bool in = k0 + r < a.Skv;
-    Ks[i] = in ? k[(long long)(k0 + r) * a.ks[1] + c] : 0.f;
-    Vs[i] = in ? v[(long long)(k0 + r) * a.vs[1] + c] : 0.f;
+  for (int i = tid; i < F_ROWS * DK; i += F_THREADS) {
+    const int r = i / DK, c = i % DK;
+    Ks[i] = k0 + r < a.Skv ? k[(long long)(k0 + r) * a.ks[1] + c] : 0.f;
   }
-  float dka[D / 32], dva[D / 32];
+  for (int i = tid; i < F_ROWS * DV; i += F_THREADS) {
+    const int r = i / DV, c = i % DV;
+    Vs[i] = k0 + r < a.Skv ? v[(long long)(k0 + r) * a.vs[1] + c] : 0.f;
+  }
+  float dka[NK], dva[NV];
 #pragma unroll
-  for (int i = 0; i < D / 32; ++i) dka[i] = dva[i] = 0.f;
+  for (int i = 0; i < NK; ++i) dka[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NV; ++i) dva[i] = 0.f;
   const int qb = (q_begin(a, k0) / F_TILE) * F_TILE;
 
   for (int gi = 0; gi < group; ++gi) {
@@ -619,11 +663,13 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32(Args a) {
     const float* dout = static_cast<const float*>(a.dout) + b * a.dos[0] + h * a.dos[2];
     for (int q0 = qb; q0 < a.Sq; q0 += F_TILE) {
       __syncthreads();
-      for (int i = tid; i < F_TILE * D; i += F_THREADS) {
-        const int r = i / D, c = i % D;
-        const bool in = q0 + r < a.Sq;
-        Qs[r * LDQ + c] = in ? q[(long long)(q0 + r) * a.qs[1] + c] : 0.f;
-        dOs[r * LDQ + c] = in ? dout[(long long)(q0 + r) * a.dos[1] + c] : 0.f;
+      for (int i = tid; i < F_TILE * DK; i += F_THREADS) {
+        const int r = i / DK, c = i % DK;
+        Qs[r * LDQ + c] = q0 + r < a.Sq ? q[(long long)(q0 + r) * a.qs[1] + c] : 0.f;
+      }
+      for (int i = tid; i < F_TILE * DV; i += F_THREADS) {
+        const int r = i / DV, c = i % DV;
+        dOs[r * LDO + c] = q0 + r < a.Sq ? dout[(long long)(q0 + r) * a.dos[1] + c] : 0.f;
       }
       for (int i = tid; i < F_TILE; i += F_THREADS) {
         const bool in = q0 + i < a.Sq;
@@ -633,20 +679,20 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32(Args a) {
       __syncthreads();
       float sc = 0.f, dp = 0.f;
 #pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        sc = fmaf(Qs[lane * LDQ + d], Ks[warp * D + d], sc);
-        dp = fmaf(dOs[lane * LDQ + d], Vs[warp * D + d], dp);
-      }
+      for (int d = 0; d < DK; ++d) sc = fmaf(Qs[lane * LDQ + d], Ks[warp * DK + d], sc);
+#pragma unroll 8
+      for (int d = 0; d < DV; ++d) dp = fmaf(dOs[lane * LDO + d], Vs[warp * DV + d], dp);
       const float p = masked(a, q0 + lane, key) ? 0.f : expf(sc * a.scale - lse_s[lane]);
       const float ds = p * (dp - d_s[lane]);
       for (int j = 0; j < F_TILE; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
         const float dsj = __shfl_sync(0xffffffffu, ds, j);
 #pragma unroll
-        for (int i = 0; i < D / 32; ++i) {
-          dva[i] = fmaf(pj, dOs[j * LDQ + lane + 32 * i], dva[i]);
-          dka[i] = fmaf(dsj, Qs[j * LDQ + lane + 32 * i], dka[i]);
-        }
+        for (int i = 0; i < NV; ++i)
+          if (lane_col<DV>(lane, i)) dva[i] = fmaf(pj, dOs[j * LDO + lane + 32 * i], dva[i]);
+#pragma unroll
+        for (int i = 0; i < NK; ++i)
+          if (lane_col<DK>(lane, i)) dka[i] = fmaf(dsj, Qs[j * LDQ + lane + 32 * i], dka[i]);
       }
     }
   }
@@ -654,10 +700,11 @@ __global__ void __launch_bounds__(F_THREADS) flash_bwd_dkdv_f32(Args a) {
     float* krow = static_cast<float*>(a.dk) + b * a.dks[0] + kvh * a.dks[2] + (long long)key * a.dks[1];
     float* vrow = static_cast<float*>(a.dv) + b * a.dvs[0] + kvh * a.dvs[2] + (long long)key * a.dvs[1];
 #pragma unroll
-    for (int i = 0; i < D / 32; ++i) {
-      krow[lane + 32 * i] = dka[i] * a.scale;
-      vrow[lane + 32 * i] = dva[i];
-    }
+    for (int i = 0; i < NK; ++i)
+      if (lane_col<DK>(lane, i)) krow[lane + 32 * i] = dka[i] * a.scale;
+#pragma unroll
+    for (int i = 0; i < NV; ++i)
+      if (lane_col<DV>(lane, i)) vrow[lane + 32 * i] = dva[i];
   }
 }
 
@@ -676,21 +723,21 @@ int launch(Kernel kernel, bool& smem_set, size_t smem, dim3 grid, int threads,
   return (int)cudaGetLastError();
 }
 
-template <int D>
+template <int DK, int DV>
 int launch_d(bool is_bf16, int B, const Args& a, cudaStream_t stream) {
   static bool dq_set = false, kv_set = false, fdq_set = false, fkv_set = false;
   int err;
   if (is_bf16) {
-    err = launch(flash_bwd_dq_bf16<D>, dq_set, dq_smem_bytes<D>(),
+    err = launch(flash_bwd_dq_bf16<DK, DV>, dq_set, dq_smem_bytes<DK, DV>(),
                  dim3(B * a.H, (a.Sq + DQ_ROWS - 1) / DQ_ROWS), THREADS, stream, a);
     if (err != 0) return err;
-    return launch(flash_bwd_dkdv_bf16<D>, kv_set, dkdv_smem_bytes<D>(),
+    return launch(flash_bwd_dkdv_bf16<DK, DV>, kv_set, dkdv_smem_bytes<DK, DV>(),
                   dim3(B * a.KVH, (a.Skv + KV_KEYS - 1) / KV_KEYS), THREADS, stream, a);
   }
-  err = launch(flash_bwd_dq_f32<D>, fdq_set, f32_smem_bytes<D>(),
+  err = launch(flash_bwd_dq_f32<DK, DV>, fdq_set, f32_smem_bytes<DK, DV>(),
                dim3(B * a.H, (a.Sq + F_ROWS - 1) / F_ROWS), F_THREADS, stream, a);
   if (err != 0) return err;
-  return launch(flash_bwd_dkdv_f32<D>, fkv_set, f32_smem_bytes<D>(),
+  return launch(flash_bwd_dkdv_f32<DK, DV>, fkv_set, f32_smem_bytes<DK, DV>(),
                 dim3(B * a.KVH, (a.Skv + F_ROWS - 1) / F_ROWS), F_THREADS, stream, a);
 }
 
@@ -699,8 +746,8 @@ int launch_d(bool is_bf16, int B, const Args& a, cudaStream_t stream) {
 extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const void* v,
                                           const void* o, const void* dout, void* dq,
                                           void* dk, void* dv, float* lse, float* dsum,
-                                          int is_bf16, int d, int B, int H, int KVH,
-                                          int Sq, int Skv, const long long* strides,
+                                          int is_bf16, int d, int dv_dim, int B, int H,
+                                          int KVH, int Sq, int Skv, const long long* strides,
                                           int causal, int q_offset, float scale,
                                           void* stream) {
   Args a;
@@ -732,11 +779,17 @@ extern "C" int flash_attention_bwd_launch(const void* q, const void* k, const vo
     a.dvs[i] = strides[21 + i];
   }
   cudaStream_t st = (cudaStream_t)stream;
-  switch (d) {
-    case 32: return launch_d<32>(is_bf16 != 0, B, a, st);
-    case 64: return launch_d<64>(is_bf16 != 0, B, a, st);
-    case 128: return launch_d<128>(is_bf16 != 0, B, a, st);
-    case 160: return launch_d<160>(is_bf16 != 0, B, a, st);
-    default: return (int)cudaErrorInvalidValue;
+  const bool bf = is_bf16 != 0;
+  if (d == dv_dim) {
+    switch (d) {
+      case 32: return launch_d<32, 32>(bf, B, a, st);
+      case 64: return launch_d<64, 64>(bf, B, a, st);
+      case 128: return launch_d<128, 128>(bf, B, a, st);
+      case 160: return launch_d<160, 160>(bf, B, a, st);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
+  if (d == 192 && dv_dim == 128) return launch_d<192, 128>(bf, B, a, st);
+  if (d == 48 && dv_dim == 32) return launch_d<48, 32>(bf, B, a, st);
+  return (int)cudaErrorInvalidValue;
 }

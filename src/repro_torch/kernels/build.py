@@ -107,12 +107,14 @@ def build_all(names: Iterable[str] = KERNELS) -> float:
 
 
 def ptxas_report(name: str) -> str:
-    """``ptxas -v`` lines (registers, shared memory, spills) of a build."""
+    """``ptxas -v`` lines (each kernel's mangled name, then its registers,
+    shared memory and spills) of a build."""
     log = lib_path(name).with_suffix(".log")
     if not log.exists():
         return ""
     return "\n".join(l for l in log.read_text().splitlines()
-                     if "registers" in l or "spill" in l)
+                     if "registers" in l or "spill" in l
+                     or "Function properties" in l)
 
 
 def load(name: str) -> ctypes.CDLL:

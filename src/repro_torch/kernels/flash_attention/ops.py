@@ -47,14 +47,14 @@ Two backward kernels, each two launches a call (the dq pass, then the
 dk/dv pass), chosen by shape and dtype alone (``_bwd_variant``):
 
 - ``"sm90"`` (``csrc/flash_attention_bwd_sm90.cu``): wgmma fed by TMA, for
-  bf16 with d == ``SM90_BWD_HEAD_DIM`` (128) and at least
+  bf16 with d_qk == d_v == ``SM90_BWD_HEAD_DIM`` (128) and at least
   ``SM90_BWD_MIN_LEN`` (64) query rows and keys (every training call of
   internlm2-1.8b);
 - ``"mma_sync"`` (``csrc/flash_attention_bwd.cu``): every other shape
-  (fp32, d 32, 64 and 160, shorter calls).
-
-Neither backward takes an MLA pair (d_qk != d_v): the call raises (MLA
-training on the card is not ported).
+  (fp32, d 32, 64 and 160, shorter calls), and every MLA pair of
+  ``MLA_HEAD_DIMS`` in fp32 and bf16 (deepseek-v2-236b's training calls at
+  (192, 128), its smoke config's at (48, 32)): dq is d_qk wide, dk d_qk
+  and dv d_v, o and do d_v.
 
 ``flash_attention_bwd_cuda(..., variant=...)`` forces one, for tests and
 timing only; forcing ``"sm90"`` on a shape it lacks raises. A call adds one
@@ -155,7 +155,7 @@ def decode_splits(b: int, kv: int, n_keys: int) -> int:
 @functools.cache
 def _bwd_fn():
     fn = build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 7 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [
         ctypes.POINTER(ctypes.c_longlong), ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -251,10 +251,11 @@ def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The backward kernel for these inputs, from their shapes and dtype
-    only: ``"sm90"`` for bf16 with d == ``SM90_BWD_HEAD_DIM`` and Sq, Skv
-    >= ``SM90_BWD_MIN_LEN``; else ``"mma_sync"``."""
+    only: ``"sm90"`` for bf16 with d_qk == d_v == ``SM90_BWD_HEAD_DIM`` and
+    Sq, Skv >= ``SM90_BWD_MIN_LEN``; else ``"mma_sync"`` (every MLA pair
+    among them)."""
     if q.dtype == k.dtype == v.dtype == torch.bfloat16 \
-            and q.shape[-1] == SM90_BWD_HEAD_DIM \
+            and q.shape[-1] == v.shape[-1] == SM90_BWD_HEAD_DIM \
             and q.shape[1] >= SM90_BWD_MIN_LEN and k.shape[1] >= SM90_BWD_MIN_LEN:
         return "sm90"
     return "mma_sync"
@@ -271,9 +272,10 @@ def resolve_bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"backward variant {variant!r} not in {BWD_VARIANTS}")
     if variant == "sm90" and chosen != "sm90":
         raise ValueError(
-            f"the sm90 backward takes bf16 with d {SM90_BWD_HEAD_DIM} and Sq, "
-            f"Skv >= {SM90_BWD_MIN_LEN}; got {q.dtype}, q {tuple(q.shape)}, "
-            f"k {tuple(k.shape)}")
+            f"the sm90 backward takes bf16 with d_qk == d_v == "
+            f"{SM90_BWD_HEAD_DIM} and Sq, Skv >= {SM90_BWD_MIN_LEN}; got "
+            f"{q.dtype}, q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}")
     return variant
 
 
@@ -393,27 +395,24 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
                              ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The backward kernel ``_bwd_variant`` names, or the forced
     ``variant`` (CUDA tensors only): (dq, dk, dv) of the forward's output
-    ``o`` given its gradient ``do``, in the inputs' dtype. Two launches on
-    the current stream, the dq pass (which also writes the row statistics)
-    and then the dk/dv pass; ``launches_by_variant["bwd"]`` and
-    ``bwd_launches_by_variant[variant]`` grow by one."""
+    ``o`` (B, Sq, H, d_v) given its gradient ``do``, in the inputs' dtype;
+    dv has v's head dim. Two launches on the current stream, the dq pass
+    (which also writes the row statistics) and then the dk/dv pass;
+    ``launches_by_variant["bwd"]`` and ``bwd_launches_by_variant[variant]``
+    grow by one."""
     q_offset = int(q_offset)
     _check(q, k, v, q_offset)
-    if v.shape[3] != q.shape[3]:
-        raise ValueError(f"the backward kernels take one head dim for q, k and "
-                         f"v; got q/k {q.shape[3]}, v {v.shape[3]} (MLA "
-                         "training on the card is not ported)")
-    if o.shape != q.shape or do.shape != q.shape or o.device != q.device \
-            or do.device != q.device:
+    b, sq, h, dh = q.shape
+    skv, kv, d_v = k.shape[1], k.shape[2], v.shape[3]
+    if o.shape != (b, sq, h, d_v) or do.shape != o.shape \
+            or o.device != q.device or do.device != q.device:
         raise ValueError(f"o {tuple(o.shape)} and do {tuple(do.shape)} must "
-                         f"have q's shape {tuple(q.shape)} and device")
+                         f"be (B, Sq, H, d_v) = {(b, sq, h, d_v)} on q's device")
     variant = resolve_bwd_variant(q, k, v, variant)
     o, do = _aligned(o.to(q.dtype)), _aligned(do.to(q.dtype))
-    b, sq, h, dh = q.shape
-    skv, kv = k.shape[1], k.shape[2]
     dq = torch.empty_like(q, memory_format=torch.contiguous_format)
     dk = torch.empty((b, skv, kv, dh), dtype=q.dtype, device=q.device)
-    dv = torch.empty((b, skv, kv, dh), dtype=q.dtype, device=q.device)
+    dv = torch.empty((b, skv, kv, d_v), dtype=q.dtype, device=q.device)
     # Scratch for the row statistics (LSE, D); the sm90 kernel's rows are
     # padded to whole dq blocks.
     rows = -(-sq // SM90_BWD_BLOCK_ROWS) * SM90_BWD_BLOCK_ROWS if variant == "sm90" else sq
@@ -436,7 +435,7 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor,
         err = _bwd_fn()(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                         do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
                         lse.data_ptr(), dsum.data_ptr(),
-                        int(q.dtype == torch.bfloat16), dh, b, h, kv, sq, skv,
+                        int(q.dtype == torch.bfloat16), dh, d_v, b, h, kv, sq, skv,
                         strides, int(causal), q_offset, dh ** -0.5, stream)
         build.check("flash_attention_bwd", err)
     launches_by_variant["bwd"] += 1

@@ -121,14 +121,16 @@ def adamw_update(cfg: OptConfig, grads, state: OptState, params):
             pm.copy_(p32)
 
     def upd(p, g, m, v, pm):
-        # Elementwise, so a leaf goes in slices of its leading axis: the
-        # float32 temporaries stay a slice's size, not a stacked leaf's.
-        rows = max(1, _CHUNK_ELEMS // max(1, p[0].numel())) if p.dim() else 1
-        parts = [x.split(rows) if x is not None and p.dim() else (x,)
-                 for x in (p, g, m, v, pm)]
-        if pm is None:
-            parts[4] = [None] * len(parts[0])
-        for chunk in zip(*parts):
+        # Elementwise, so a leaf goes in slices of _CHUNK_ELEMS elements of
+        # its flattened view: the float32 temporaries stay a slice's size,
+        # not a leaf's (a routed-expert leaf of deepseek-v2-236b is 1.26e9
+        # elements, 5 GB in float32). The tensors written in place are
+        # flattened by ``view``, which raises where a copy would lose the
+        # writes.
+        ps, ms, vs = (x.view(-1).split(_CHUNK_ELEMS) for x in (p, m, v))
+        gs = g.reshape(-1).split(_CHUNK_ELEMS)
+        pms = pm.view(-1).split(_CHUNK_ELEMS) if pm is not None else [None] * len(ps)
+        for chunk in zip(ps, gs, ms, vs, pms):
             upd_chunk(*chunk, decay=p.dim() >= 2)
 
     masters = state.master if state.master is not None else \

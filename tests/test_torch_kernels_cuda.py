@@ -56,7 +56,11 @@ a strided view as MLA passes it, each against the plain version and
 bitwise the same on a second call; the sm90 layout probe at (192, 128);
 the smoke model in fp32 on the card against float64 on the CPU; and a
 bf16 model at deepseek's head dims whose prefill goes to the sm90 kernel
-and whose decode launches no flash kernel.
+and whose decode launches no flash kernel; the mma_sync backward at
+both MLA pairs in fp32 and bf16 against the plain version (a strided v, a
+repeat bitwise, the sm90 backward refused), and one value_and_grad of
+deepseek-v2's and grok-1's smoke models in fp32 against float64 on the
+CPU.
 """
 
 import numpy as np
@@ -1926,6 +1930,112 @@ def test_flash_bwd_forced_sm90_refuses_a_shape_it_lacks(cuda):
     with pytest.raises(ValueError, match="sm90 backward"):
         fops.flash_attention_bwd_cuda(q, q, q, q, q, causal=True, variant="sm90")
     assert fops.bwd_launches_by_variant == before
+
+
+# The mma_sync backward at MLA's unequal pairs (d_qk, d_v), v the strided
+# half of a K/V expansion as mla_attend passes it:
+# (b, sq, skv, h, kv, causal, q_offset). Ragged lengths with q_offset,
+# bidirectional, GQA group 2, and 1024 rows and keys over 16 heads.
+MLA_BWD_CASES = [(2, 77, 131, 4, 2, True, 54), (2, 200, 200, 8, 8, False, 0),
+                 (2, 200, 200, 8, 4, True, 0), (1, 1024, 1024, 16, 16, True, 0)]
+
+
+def _mla_bwd_inputs(cuda, dtype, case, dk, dv, seed):
+    b, sq, skv, h, kv, causal, off = case
+    rng = np.random.default_rng(seed)
+    q, k, kvb, do = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                     .to(cuda, dtype) for s in ((b, sq, h, dk), (b, skv, kv, dk),
+                                                (b, skv, kv, 2 * dv), (b, sq, h, dv)))
+    v = kvb[..., dv:]
+    return q, k, v, fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off), do
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dk,dv", [(192, 128), (48, 32)])
+@pytest.mark.parametrize("case", MLA_BWD_CASES, ids=str)
+def test_flash_bwd_mla_matches_plain(cuda, dtype, dk, dv, case):
+    """The mma_sync backward at an MLA pair against the plain version, each
+    gradient within BWD_TOL of its largest magnitude and of its input's
+    shape (dv d_v wide); one call counted; a second call bitwise equal."""
+    from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
+    *_, causal, off = case
+    q, k, v, o, do = _mla_bwd_inputs(cuda, dtype, case, dk, dv, seed=dk + case[1])
+    assert fops.resolve_bwd_variant(q, k, v) == "mma_sync"
+    before = dict(fops.bwd_launches_by_variant)
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
+    assert fops.bwd_launches_by_variant == dict(before, mma_sync=before["mma_sync"] + 1)
+    want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, q_offset=off)
+    for name, g, w, x in zip("qkv", got, want, (q, k, v)):
+        assert g.dtype == dtype and g.shape == x.shape == w.shape, name
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
+    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
+    assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
+
+
+def test_flash_bwd_mla_forced_sm90_raises(cuda):
+    """The sm90 backward takes no MLA pair: forcing it raises and launches
+    nothing; so does a pair outside MLA_HEAD_DIMS."""
+    q, k, v, o, do = _mla_bwd_inputs(cuda, torch.bfloat16, (1, 128, 128, 2, 2, True, 0),
+                                     192, 128, seed=1)
+    before = dict(fops.bwd_launches_by_variant)
+    with pytest.raises(ValueError, match="sm90 backward"):
+        fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True, variant="sm90")
+    with pytest.raises(ValueError, match="head dims"):
+        fops.flash_attention_bwd_cuda(q, k, q[..., :64], o[..., :64], do[..., :64],
+                                      causal=True)
+    with pytest.raises(ValueError, match="d_v"):
+        fops.flash_attention_bwd_cuda(q, k, v, q, q, causal=True)
+    assert fops.bwd_launches_by_variant == before
+
+
+@pytest.mark.parametrize("dk,dv", [(192, 128), (48, 32)])
+def test_flash_bwd_mla_reads_a_strided_v(cuda, dk, dv):
+    """v as the strided half of a K/V expansion and a non-contiguous dO:
+    the same gradients, bitwise, as contiguous copies."""
+    q, k, v, o, _ = _mla_bwd_inputs(cuda, torch.bfloat16, (2, 96, 96, 4, 4, True, 0),
+                                    dk, dv, seed=2)
+    do = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (2, 4, 96, dv)).astype(np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
+    assert not v.is_contiguous() and not do.is_contiguous()
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
+    want = fops.flash_attention_bwd_cuda(*(x.contiguous() for x in (q, k, v, o, do)),
+                                         causal=True)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-236b", "grok-1-314b"])
+def test_moe_smoke_train_step_on_card_matches_cpu(cuda, arch):
+    """value_and_grad of the smoke model (deepseek-v2's: MLA at (48, 32))
+    in fp32 on the card against float64 on one CPU thread, at 8 slots an
+    expert (drops): the loss within 1e-5 relative and each gradient leaf
+    within 1e-4 of its largest magnitude; every backward call on the
+    mma_sync backward."""
+    from repro_torch.train.train_loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # 128 tokens at factor 0.01: int(128 * 2 / 4 * 0.01) = 0, 8 slots an expert
+    cfg = reduce_for_smoke(get_config(arch)).replace(compute_dtype_str="float32",
+                                                     capacity_factor=0.01)
+    f64 = Model(cfg.replace(compute_dtype_str="float64"), device="cpu")
+    params = f64.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab, (2, 65)).astype(np.int32)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()),
+             "labels": torch.from_numpy(toks[:, 1:].copy())}
+    before = dict(fops.bwd_launches_by_variant)
+    lc, gc = value_and_grad(card, tree_map(lambda a: a.to(cuda), params),
+                            {k: v.to(cuda) for k, v in batch.items()})
+    assert fops.bwd_launches_by_variant == dict(
+        before, mma_sync=before["mma_sync"] + cfg.n_layers)
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        lr_, gr = value_and_grad(f64, params, batch)
+    finally:
+        torch.set_num_threads(threads)
+    assert abs(float(lc) - float(lr_)) <= 1e-5 * abs(float(lr_))
+    for a, b in zip(tree_leaves(gc), tree_leaves(gr)):
+        assert float((a.cpu().double() - b).abs().max()) <= 1e-4 * float(b.abs().max())
 
 
 @pytest.mark.parametrize("name", EXAMPLES)

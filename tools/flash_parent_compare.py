@@ -27,6 +27,12 @@ on the same inputs. Their gradients are held to the plain version within
 (the two kernels round P and dS in different places); device time is the
 sum of each one's two launches by their kernel names. Exits 1 unless every
 forward pair is bitwise equal and both backwards are within tolerance.
+
+And the mma_sync backward's equal-dim instances (d 32, 64, 128 and 160, fp32
+and bf16, forced, over ``chip_smoke.BWD_CASES``) against the other
+checkout's, bitwise (``bwd_equal_dims``). Exits 1 unless those are
+bitwise equal too. The other checkout's backward must have this tree's C
+entry, which takes v's head dim (``dv_dim``) beside q/k's.
 """
 
 from __future__ import annotations
@@ -89,7 +95,6 @@ def main(argv=None) -> int:
                          text=True, check=True).stdout.strip()
     libs = {"this": {n: build.load(n) for n in KERNELS + (BWD,)},
             "parent": build_parent(args.parent)}
-
     def use(side: str) -> None:
         for name in KERNELS + (BWD,):
             build._LIBS[name] = libs[side][name]
@@ -188,10 +193,39 @@ def main(argv=None) -> int:
                 **{f"{side}_median_device_ms": med[side] for side in calls},
                 "this_faster": med["this"] < med["parent"]}
 
+    def equal_dims() -> dict:
+        """The mma_sync backward at every equal head dim, fp32 and bf16,
+        over chip_smoke.BWD_CASES: this tree's gradients against the
+        parent's on the same inputs, bitwise."""
+        from chip_smoke import BWD_CASES
+        differ = []
+        n = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for d in fops.HEAD_DIMS:
+                for bb, sq, skv, hh, kvh, causal, off in BWD_CASES:
+                    x = [torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+                         .to(dev, dtype) for sh in ((bb, sq, hh, d), (bb, skv, kvh, d),
+                                                    (bb, skv, kvh, d), (bb, sq, hh, d))]
+                    use("this")
+                    o = fops.flash_attention_cuda(*x[:3], causal=causal, q_offset=off)
+                    got = {}
+                    for side in ("parent", "this"):
+                        use(side)
+                        got[side] = fops.flash_attention_bwd_cuda(
+                            *x[:3], o, x[3], causal=causal, q_offset=off,
+                            variant="mma_sync")
+                    n += 1
+                    if not all(torch.equal(a, b_) for a, b_ in zip(got["parent"],
+                                                                   got["this"])):
+                        differ.append([str(dtype), d, bb, sq, skv, hh, kvh, causal, off])
+        return {"calls": n, "differ": differ, "bitwise_equal": not differ}
+
     out["bwd_train"] = backward()
+    out["bwd_equal_dims"] = equal_dims()
     use("this")
     print(json.dumps(out), flush=True)
-    ok = all(out[k]["bitwise_equal"] for k in cases) and out["bwd_train"]["within_tol"]
+    ok = all(out[k]["bitwise_equal"] for k in cases) and out["bwd_train"]["within_tol"] \
+        and out["bwd_equal_dims"]["bitwise_equal"]
     return 0 if ok else 1
 
 
