@@ -125,7 +125,9 @@ Phases, one line each:
      heads over 8, causal and not, Sq != Skv with a q_offset, ragged
      lengths; at bf16 d 128 also the sm90 and the mma_sync backward forced,
      with 1024-row cases of groups 1 and 8 and a q_offset of 1024 over
-     1536 keys; a second call bitwise);
+     1536 keys; at MLA's pairs, v a strided view, the one the wrapper
+     picks (bf16 (192, 128): the sm90 backward) and at bf16 (192, 128)
+     both kernels forced; a second call bitwise);
   6. the LM serving path at full width, five times: internlm2-1.8b
      (d_model 2048, 16 query heads over 8 KV heads, d_head 128, vocab
      92544, the depth cut to 6 of its 24 layers; weights drawn in fp32,
@@ -204,7 +206,7 @@ Phases, one line each:
      (its dense first layer and one MoE layer of 160 experts top-6 + 2
      shared; 5.52e9 parameters), 1 x 4096 tokens a step in one
      microbatch: launches against ``TRAIN_DSV2_PER_STEP`` (the sm90
-     forward at (192, 128) 4, the mma_sync backward 2 calls), the FLOP
+     forward at (192, 128) 4, the sm90 backward 2 calls), the FLOP
      bound by part (``train_flops``) beside AdamW's bytes, peak memory;
      fatal: step 1's two backward calls held to the plain version on the
      model's tensors, every MLA, dense-MLP, gate and shared-expert leaf's
@@ -260,11 +262,12 @@ Phases, one line each:
      causal, bf16), each by its own kernels' names, beside SDPA's backward,
      the plain version and the FLOP bound (``flash_timings.bwd``, the
      ``flash_attention_bwd_sm90`` and ``flash_attention_bwd`` entries of
-     the kernels line); and the mma_sync backward at train_dsv2's call
-     (1 x 4096, 128 heads, q/k 192 and v 128, causal, bf16) beside SDPA's
-     memory-efficient backward, the plain version and the FLOP bound
-     (``flash_timings.bwd_mla``, the kernels line's
-     ``flash_attention_bwd_mla``).
+     the kernels line); and both backward kernels, forced and in turns, at
+     train_dsv2's call (1 x 4096, 128 heads, q/k 192 and v 128, causal,
+     bf16) beside SDPA's memory-efficient backward, the plain version and
+     the FLOP bound (``flash_timings.bwd_mla``, the kernels line's
+     ``flash_attention_bwd_mla``: the sm90 backward, which takes that
+     call, with the mma_sync one's times beside it).
 The last line is {"ok": true, "device": {...}}; any failure exits non-zero
 before it. Imports only torch, numpy and the port (``src/repro_torch``).
 """
@@ -477,12 +480,13 @@ MLA_F32_CUT_LAYERS = 1
 # batches of 1 x 4096 tokens (train_4k's sequence, its 256 sequences cut to
 # 1 for one card) in one microbatch. A step launches the sm90 forward at
 # (192, 128) twice a layer (the forward and the remat recompute) and the
-# mma_sync backward once a layer.
+# sm90 backward at (192, 128) once a layer (the mma_sync backward not at
+# all: it keeps fp32, (48, 32) and calls under 64 rows or keys).
 TRAIN_DSV2_LAYERS = 2
 TRAIN_DSV2_BATCH, TRAIN_DSV2_SEQ = 1, 4096
 TRAIN_DSV2_PER_STEP = {"sm90": 2 * TRAIN_DSV2_LAYERS, "decode": 0, "mma_sync": 0,
-                       "bwd": TRAIN_DSV2_LAYERS, "bwd_sm90": 0,
-                       "bwd_mma_sync": TRAIN_DSV2_LAYERS, "st_scan": 1, "hash64": 2,
+                       "bwd": TRAIN_DSV2_LAYERS, "bwd_sm90": TRAIN_DSV2_LAYERS,
+                       "bwd_mma_sync": 0, "st_scan": 1, "hash64": 2,
                        "voronoi_assign": 1}
 # flash_bwd_vs_plain's one long case at (192, 128): 1 x 1024, 16 heads over
 # 16, causal; and the MLA backward's timing shape, train_dsv2's call:
@@ -3728,14 +3732,16 @@ def flash_bwd_vs_plain(torch, dev, seed: int) -> dict:
     """Both backward kernels against ``flash_attention_bwd_ref``: the one
     the wrapper picks at every head dim in fp32 and bf16 over BWD_CASES,
     and at bf16 d 128 also the sm90 and the mma_sync kernels forced, over
-    BWD_CASES and BWD_SM90_CASES; and the mma_sync kernel at each MLA pair
-    of ``MLA_HEAD_DIMS`` in fp32 and bf16 over BWD_CASES (plus
-    BWD_MLA_LONG at (192, 128)), v the strided half of a K/V expansion as
-    the model passes it and dv of v's shape; each gradient to its
-    tolerance relative to its largest magnitude, and a second call bitwise
-    equal. The forward's output it takes is the forward kernel's. Exits
-    non-zero on any failure; returns the largest relative errors by dtype,
-    head dims and forced kernel, and the calls each kernel took."""
+    BWD_CASES and BWD_SM90_CASES; and at each MLA pair of
+    ``MLA_HEAD_DIMS`` in fp32 and bf16 over BWD_CASES (plus BWD_MLA_LONG
+    at (192, 128)), v the strided half of a K/V expansion as the model
+    passes it and dv of v's shape, the one the wrapper picks (the sm90
+    kernel at bf16 (192, 128), the mma_sync one at fp32 and (48, 32)) and
+    at bf16 (192, 128) both forced; each gradient to its tolerance
+    relative to its largest magnitude, and a second call bitwise equal.
+    The forward's output it takes is the forward kernel's. Exits non-zero
+    on any failure; returns the largest relative errors by dtype, head dims
+    and forced kernel, and the calls each kernel took."""
     from repro_torch.kernels.flash_attention import ops as fops
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     rng = np.random.default_rng(seed + 29)
@@ -3751,9 +3757,11 @@ def flash_bwd_vs_plain(torch, dev, seed: int) -> dict:
         o = fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off)
         want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, q_offset=off)
         forced = both and fops.resolve_bwd_variant(q, k, v) == "sm90"
+        # MLA's calls: bf16 (192, 128) to the sm90 backward, the rest to mma_sync
+        mla_pick = "sm90" if (dk, dtype) == (192, torch.bfloat16) else "mma_sync"
         for variant in (None, "sm90", "mma_sync") if forced else (None,):
             ran = fops.resolve_bwd_variant(q, k, v, variant)
-            if dk != dv and ran != "mma_sync":
+            if dk != dv and variant is None and ran != mla_pick:
                 raise SystemExit(f"flash bwd ({dk}, {dv}) {case}: sent to {ran}")
             before = fops.launches_by_variant["bwd"], fops.bwd_launches_by_variant[ran]
             got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal,
@@ -3779,12 +3787,13 @@ def flash_bwd_vs_plain(torch, dev, seed: int) -> dict:
     for dtype, tol in ((torch.float32, BWD_F32_TOL), (torch.bfloat16, BWD_BF16_TOL)):
         dt = str(dtype).removeprefix('torch.')
         for dh in fops.HEAD_DIMS:
-            both = dtype == torch.bfloat16 and dh == fops.SM90_BWD_HEAD_DIM
+            both = dtype == torch.bfloat16 and (dh, dh) in fops.SM90_BWD_HEAD_DIMS
             for case in BWD_CASES + (BWD_SM90_CASES if both else []):
                 hold(f"{dt}_d{dh}", case, dtype, tol, dh, dh, both)
         for dk, dv in fops.MLA_HEAD_DIMS:
+            both = dtype == torch.bfloat16 and (dk, dv) in fops.SM90_BWD_HEAD_DIMS
             for case in BWD_CASES + ([BWD_MLA_LONG] if dk == 192 else []):
-                hold(f"{dt}_mla{dk}", case, dtype, tol, dk, dv, False)
+                hold(f"{dt}_mla{dk}", case, dtype, tol, dk, dv, both)
     return {"cases": len(BWD_CASES), "sm90_cases": len(BWD_SM90_CASES),
             "mla_long_case": list(BWD_MLA_LONG),
             "head_dims": list(fops.HEAD_DIMS), "mla_head_dims": list(fops.MLA_HEAD_DIMS),
@@ -4043,7 +4052,8 @@ def train(torch, dev, seed: int, smi: str, do_profile: bool = False,
     if do_profile:               # one more step, traced (after the checks' window)
         batch = pipe.get_batch(0)
         phase(f"profile_{tag}_step", **profile(
-            torch, lambda: train_step(params, state, batch), top=16))
+            torch, lambda: train_step(params, state, batch), top=16,
+            kernels=[n for names in BWD_KERNEL_NAMES.values() for n in names]))
     del params, state, leaves, m
     torch.cuda.empty_cache()
     # A second run from the same seed: 2 steps, bitwise.
@@ -4694,8 +4704,11 @@ def flash_bwd_timing(torch, dev, seed: int, shape: tuple, turns: tuple,
     taken in the order of ``turns``, whose first is the kernel the wrapper
     picks here. ``o`` is the forward kernel's, held first to the plain
     forward (FLASH_BF16_TOL). For each kernel: its call ms (CUDA events)
-    and device ms (torch.profiler: its dq and its dk/dv launch by their
-    kernel names, and their sum), the largest relative error against the
+    and device ms (torch.profiler: the call's device time, both launches,
+    from one profile; and its dq and its dk/dv launch by their kernel
+    names, each from a profile of its own: where a profile records no
+    device time, device_ms times the whole call, so a part may then read
+    as the call), the largest relative error against the
     plain version and a second call bitwise; beside them the plain
     version's ms, SDPA's backward (``torch.autograd.grad`` of
     ``F.scaled_dot_product_attention(..., is_causal=True)``, on the
@@ -4739,14 +4752,15 @@ def flash_bwd_timing(torch, dev, seed: int, shape: tuple, turns: tuple,
         del got
     del want
     torch.cuda.empty_cache()
-    times = {var: {"ms": [], "dq_device_ms": [], "dkdv_device_ms": []} for var in call}
+    times = {var: {"ms": [], "device_ms": [], "dq_device_ms": [], "dkdv_device_ms": []}
+             for var in call}
     for var in turns:
         times[var]["ms"].append(cuda_ms(torch, call[var], 10))
+        times[var]["device_ms"].append(device_ms(torch, call[var], 5))
         for part, name in zip(("dq", "dkdv"), BWD_KERNEL_NAMES[var]):
             times[var][f"{part}_device_ms"].append(device_ms(torch, call[var], 5, name))
     half = b * h * s * (s + 1) / 2            # causal (query, key) pairs
     for var, t in times.items():
-        t["device_ms"] = [a + b_ for a, b_ in zip(t["dq_device_ms"], t["dkdv_device_ms"])]
         n_dk, n_dv = BWD_PRODUCTS[var]
         res[var].update({f"{k_}_turns": vals for k_, vals in t.items()},
                         **{k_: float(np.median(vals)) for k_, vals in t.items()},
@@ -5207,7 +5221,8 @@ def main(argv=None) -> int:
     ft = flash_timings(torch, dev, args.seed)
     ft["bwd"] = flash_bwd_timing(torch, dev, args.seed, BWD_TIMING,
                                  ("sm90", "mma_sync", "mma_sync", "sm90"))
-    ft["bwd_mla"] = flash_bwd_timing(torch, dev, args.seed, BWD_MLA_TIMING, ("mma_sync",),
+    ft["bwd_mla"] = flash_bwd_timing(torch, dev, args.seed, BWD_MLA_TIMING,
+                                     ("sm90", "mma_sync", "mma_sync", "sm90"),
                                      "EFFICIENT_ATTENTION")
     flash = "src/repro/kernels/flash_attention/flash_attention.py:66"
     for sfx, launched in (("", served), ("_d160", served_d160), ("_d64", served_d64)):
@@ -5311,24 +5326,32 @@ def main(argv=None) -> int:
             "bound_ms": bwd["bound_ms"], "bound_by": bwd["bound_by"],
             "library_ms": bwd["library_ms"],
             "library_device_ms": bwd["library_device_ms"]})
-    # The mma_sync backward at deepseek-v2-236b's train call, (192, 128):
-    # train_dsv2's calls (its launches) and moe_train_vs_cpu's at (48, 32)
-    # and d 32.
-    r, rv = ft["bwd_mla"], ft["bwd_mla"]["mma_sync"]
+    # The sm90 backward at deepseek-v2-236b's train call, (192, 128):
+    # train_dsv2's calls (its launches); beside it the mma_sync backward
+    # forced at that call (the kernel that took it before the sm90 one was
+    # templated on (d_qk, d_v)), which keeps moe_train_vs_cpu's calls at
+    # (48, 32) and d 32.
+    r, rs, rv = ft["bwd_mla"], ft["bwd_mla"]["sm90"], ft["bwd_mla"]["mma_sync"]
     kernels.append({
         "name": "flash_attention_bwd_mla", "route": "cuda",
-        "source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "source": "src/repro_torch/csrc/flash_attention_bwd_sm90.cu",
         "replaces": "src/repro/models/attention.py:52",
         "replaces_note": "no Pallas kernel: the JAX package takes this gradient "
                          "by autodiff of its jnp flash_attention (d_v != d_qk)",
-        "launches": trained_dsv2["bwd_mma_sync"], "kernel_launches_per_call": 2,
-        "moe_train_vs_cpu_launches": trained_moe_small["bwd_mma_sync"],
-        "max_abs_err": rv["max_abs_err"], "max_rel_err": rv["max_rel_err"],
-        "ms": rv["ms"], "device_ms": rv["device_ms"], "dq_device_ms": rv["dq_device_ms"],
-        "dkdv_device_ms": rv["dkdv_device_ms"], "plain_ms": r["plain_ms"],
+        "launches": trained_dsv2["bwd_sm90"], "kernel_launches_per_call": 2,
+        "max_abs_err": rs["max_abs_err"], "max_rel_err": rs["max_rel_err"],
+        "ms": rs["ms"], "device_ms": rs["device_ms"], "dq_device_ms": rs["dq_device_ms"],
+        "dkdv_device_ms": rs["dkdv_device_ms"], "plain_ms": r["plain_ms"],
         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
         "library_ms": r["library_ms"], "library_device_ms": r["library_device_ms"],
-        "library": r["library"], "shape": r["shape"]})
+        "library": r["library"], "shape": r["shape"],
+        "mma_sync_source": "src/repro_torch/csrc/flash_attention_bwd.cu",
+        "mma_sync_launches": trained_dsv2["bwd_mma_sync"],
+        "mma_sync_moe_train_vs_cpu_launches": trained_moe_small["bwd_mma_sync"],
+        "mma_sync_max_abs_err": rv["max_abs_err"], "mma_sync_ms": rv["ms"],
+        "mma_sync_device_ms": rv["device_ms"],
+        "mma_sync_dq_device_ms": rv["dq_device_ms"],
+        "mma_sync_dkdv_device_ms": rv["dkdv_device_ms"]})
     by_name = {k["name"]: k for k in kernels}
     by_name["flash_attention_sm90_mla"]["train_dsv2_launches"] = trained_dsv2["sm90"]
     for k in kernels:               # the training paths' launches

@@ -47,14 +47,17 @@ Two backward kernels, each two launches a call (the dq pass, then the
 dk/dv pass), chosen by shape and dtype alone (``_bwd_variant``):
 
 - ``"sm90"`` (``csrc/flash_attention_bwd_sm90.cu``): wgmma fed by TMA, for
-  bf16 with d_qk == d_v == ``SM90_BWD_HEAD_DIM`` (128) and at least
-  ``SM90_BWD_MIN_LEN`` (64) query rows and keys (every training call of
-  internlm2-1.8b);
+  bf16 with (d_qk, d_v) in ``SM90_BWD_HEAD_DIMS`` and at least
+  ``SM90_BWD_MIN_LEN`` (64) query rows and keys: (128, 128), every
+  training call of internlm2-1.8b, and MLA's (192, 128), every training
+  call of deepseek-v2-236b;
 - ``"mma_sync"`` (``csrc/flash_attention_bwd.cu``): every other shape
-  (fp32, d 32, 64 and 160, shorter calls), and every MLA pair of
-  ``MLA_HEAD_DIMS`` in fp32 and bf16 (deepseek-v2-236b's training calls at
-  (192, 128), its smoke config's at (48, 32)): dq is d_qk wide, dk d_qk
-  and dv d_v, o and do d_v.
+  (fp32, d 32, 64 and 160, shorter calls), and MLA's pairs of
+  ``MLA_HEAD_DIMS`` the sm90 kernel does not take: (192, 128) in fp32 or
+  with fewer than 64 query rows or keys, and (48, 32) (deepseek-v2's smoke
+  config).
+
+At an MLA pair dq is d_qk wide, dk d_qk and dv d_v, o and do d_v.
 
 ``flash_attention_bwd_cuda(..., variant=...)`` forces one, for tests and
 timing only; forcing ``"sm90"`` on a shape it lacks raises. A call adds one
@@ -102,7 +105,8 @@ DECODE_MAX_SPLITS = 8        # blocks of a cluster (the portable limit)
 DECODE_TARGET_BLOCKS = 256
 BWD_VARIANTS = ("sm90", "mma_sync")
 bwd_launches_by_variant = dict.fromkeys(BWD_VARIANTS, 0)
-SM90_BWD_HEAD_DIM = 128
+# The (d_qk, d_v) pairs of the sm90 backward: d 128 and MLA's (192, 128).
+SM90_BWD_HEAD_DIMS = ((128, 128), (192, 128))
 # The sm90 backward's least query rows and keys: one warpgroup's 64 rows
 # and one streamed 64-key tile. Shorter calls would be mostly TMA's zero
 # fill, so they stay on the mma_sync kernel.
@@ -251,11 +255,10 @@ def resolve_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The backward kernel for these inputs, from their shapes and dtype
-    only: ``"sm90"`` for bf16 with d_qk == d_v == ``SM90_BWD_HEAD_DIM`` and
-    Sq, Skv >= ``SM90_BWD_MIN_LEN``; else ``"mma_sync"`` (every MLA pair
-    among them)."""
+    only: ``"sm90"`` for bf16 with (d_qk, d_v) in ``SM90_BWD_HEAD_DIMS``
+    and Sq, Skv >= ``SM90_BWD_MIN_LEN``; else ``"mma_sync"``."""
     if q.dtype == k.dtype == v.dtype == torch.bfloat16 \
-            and q.shape[-1] == v.shape[-1] == SM90_BWD_HEAD_DIM \
+            and (q.shape[-1], v.shape[-1]) in SM90_BWD_HEAD_DIMS \
             and q.shape[1] >= SM90_BWD_MIN_LEN and k.shape[1] >= SM90_BWD_MIN_LEN:
         return "sm90"
     return "mma_sync"
@@ -272,8 +275,8 @@ def resolve_bwd_variant(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"backward variant {variant!r} not in {BWD_VARIANTS}")
     if variant == "sm90" and chosen != "sm90":
         raise ValueError(
-            f"the sm90 backward takes bf16 with d_qk == d_v == "
-            f"{SM90_BWD_HEAD_DIM} and Sq, Skv >= {SM90_BWD_MIN_LEN}; got "
+            f"the sm90 backward takes bf16 with (d_qk, d_v) in "
+            f"{SM90_BWD_HEAD_DIMS} and Sq, Skv >= {SM90_BWD_MIN_LEN}; got "
             f"{q.dtype}, q {tuple(q.shape)}, k {tuple(k.shape)}, v "
             f"{tuple(v.shape)}")
     return variant

@@ -296,6 +296,50 @@ def test_bwd_variant_boundaries(sq, skv, dh, dtype, want):
     assert fops.resolve_bwd_variant(*qkv) == want
 
 
+def _mla_bwd_qkv(sq, skv, dk, dv, dtype=torch.bfloat16, h=128, kv=128):
+    """q, k and v at an MLA pair, v the strided half of a K/V expansion as
+    ``mla_attend`` passes it."""
+    q = torch.zeros((1, sq, h, dk), dtype=dtype)
+    k = torch.zeros((1, skv, kv, dk), dtype=dtype)
+    return q, k, torch.zeros((1, skv, kv, 2 * dv), dtype=dtype)[..., dv:]
+
+
+@pytest.mark.parametrize("sq,skv,dk,dv,dtype,want", [
+    (4096, 4096, 192, 128, torch.bfloat16, "sm90"),     # deepseek-v2-236b's train call
+    (64, 64, 192, 128, torch.bfloat16, "sm90"),         # the least rows and keys
+    (63, 64, 192, 128, torch.bfloat16, "mma_sync"),     # fewer rows than a warpgroup
+    (64, 63, 192, 128, torch.bfloat16, "mma_sync"),     # fewer keys than a tile
+    (77, 131, 192, 128, torch.bfloat16, "sm90"),        # ragged, Sq < Skv
+    (4096, 4096, 192, 128, torch.float32, "mma_sync"),
+    (64, 64, 192, 128, torch.float32, "mma_sync"),
+    (4096, 4096, 48, 32, torch.bfloat16, "mma_sync"),   # the smoke config's pair
+    (64, 64, 48, 32, torch.float32, "mma_sync"),
+    (4096, 4096, 128, 128, torch.bfloat16, "sm90"),     # d 128 as before
+    (63, 4096, 128, 128, torch.bfloat16, "mma_sync"),
+])
+def test_bwd_variant_boundaries_mla(sq, skv, dk, dv, dtype, want):
+    """The backward's kernel at MLA's pairs: bf16 (192, 128) with Sq, Skv
+    >= 64 goes to the sm90 backward, fp32, shorter calls and (48, 32) to
+    mma_sync; forcing sm90 takes exactly the shapes it would pick, and
+    mma_sync may be forced on any of them."""
+    qkv = _mla_bwd_qkv(sq, skv, dk, dv, dtype)
+    assert fops._bwd_variant(*qkv) == want
+    assert fops.resolve_bwd_variant(*qkv) == want
+    assert fops.resolve_bwd_variant(*qkv, variant="mma_sync") == "mma_sync"
+    if want == "sm90":
+        assert fops.resolve_bwd_variant(*qkv, variant="sm90") == "sm90"
+    else:
+        with pytest.raises(ValueError, match="sm90 backward"):
+            fops.resolve_bwd_variant(*qkv, variant="sm90")
+
+
+def test_sm90_bwd_head_dims_are_forward_pairs():
+    """Every pair the sm90 backward takes is one the sm90 forward takes, so
+    a call under grad has its forward on the same family of kernel."""
+    for dk, dv in fops.SM90_BWD_HEAD_DIMS:
+        assert dk in fops.SM90_HEAD_DIMS if dk == dv else (dk, dv) in fops.SM90_MLA_KEYS
+
+
 def test_bwd_variant_ignores_the_group():
     for h, kv in ((16, 16), (16, 8), (16, 2), (16, 1), (40, 8)):
         assert fops._bwd_variant(*_bwd_qkv(256, 256, 128, h=h, kv=kv)) == "sm90"

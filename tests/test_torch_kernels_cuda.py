@@ -1932,12 +1932,14 @@ def test_flash_bwd_forced_sm90_refuses_a_shape_it_lacks(cuda):
     assert fops.bwd_launches_by_variant == before
 
 
-# The mma_sync backward at MLA's unequal pairs (d_qk, d_v), v the strided
-# half of a K/V expansion as mla_attend passes it:
+# The backwards at MLA's unequal pairs (d_qk, d_v), v the strided half of
+# a K/V expansion as mla_attend passes it:
 # (b, sq, skv, h, kv, causal, q_offset). Ragged lengths with q_offset,
-# bidirectional, GQA group 2, and 1024 rows and keys over 16 heads.
+# bidirectional, GQA group 2, 1024 rows and keys over 16 heads, and
+# train_dsv2's 128 heads over 128 at a short length.
 MLA_BWD_CASES = [(2, 77, 131, 4, 2, True, 54), (2, 200, 200, 8, 8, False, 0),
-                 (2, 200, 200, 8, 4, True, 0), (1, 1024, 1024, 16, 16, True, 0)]
+                 (2, 200, 200, 8, 4, True, 0), (1, 1024, 1024, 16, 16, True, 0),
+                 (1, 256, 256, 128, 128, True, 0)]
 
 
 def _mla_bwd_inputs(cuda, dtype, case, dk, dv, seed):
@@ -1950,37 +1952,52 @@ def _mla_bwd_inputs(cuda, dtype, case, dk, dv, seed):
     return q, k, v, fops.flash_attention_cuda(q, k, v, causal=causal, q_offset=off), do
 
 
+@pytest.mark.parametrize("variant", [None, "mma_sync"], ids=["picked", "mma_sync"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dk,dv", [(192, 128), (48, 32)])
 @pytest.mark.parametrize("case", MLA_BWD_CASES, ids=str)
-def test_flash_bwd_mla_matches_plain(cuda, dtype, dk, dv, case):
-    """The mma_sync backward at an MLA pair against the plain version, each
-    gradient within BWD_TOL of its largest magnitude and of its input's
-    shape (dv d_v wide); one call counted; a second call bitwise equal."""
+def test_flash_bwd_mla_matches_plain(cuda, dtype, dk, dv, case, variant):
+    """The backward at an MLA pair against the plain version: the kernel
+    the wrapper picks (bf16 (192, 128): the sm90 one; the rest: mma_sync)
+    or the mma_sync one forced; each gradient within BWD_TOL of its largest
+    magnitude and of its input's shape (dv d_v wide); one call counted on
+    the kernel that ran; a second call bitwise equal."""
     from repro_torch.kernels.flash_attention.ref import flash_attention_bwd_ref
     *_, causal, off = case
     q, k, v, o, do = _mla_bwd_inputs(cuda, dtype, case, dk, dv, seed=dk + case[1])
-    assert fops.resolve_bwd_variant(q, k, v) == "mma_sync"
+    ran = fops.resolve_bwd_variant(q, k, v, variant)
+    picked = "sm90" if (dk, dtype) == (192, torch.bfloat16) else "mma_sync"
+    assert ran == (variant or picked)
     before = dict(fops.bwd_launches_by_variant)
-    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
-    assert fops.bwd_launches_by_variant == dict(before, mma_sync=before["mma_sync"] + 1)
+    got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off,
+                                        variant=variant)
+    assert fops.bwd_launches_by_variant == dict(before, **{ran: before[ran] + 1})
     want = flash_attention_bwd_ref(q, k, v, o, do, causal=causal, q_offset=off)
     for name, g, w, x in zip("qkv", got, want, (q, k, v)):
         assert g.dtype == dtype and g.shape == x.shape == w.shape, name
         err = float((g.float() - w.float()).abs().max())
         assert err <= BWD_TOL[dtype] * float(w.float().abs().max()), (name, err)
-    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off)
+    again = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=causal, q_offset=off,
+                                          variant=variant)
     assert all(torch.equal(a, b_) for a, b_ in zip(got, again))
 
 
 def test_flash_bwd_mla_forced_sm90_raises(cuda):
-    """The sm90 backward takes no MLA pair: forcing it raises and launches
-    nothing; so does a pair outside MLA_HEAD_DIMS."""
-    q, k, v, o, do = _mla_bwd_inputs(cuda, torch.bfloat16, (1, 128, 128, 2, 2, True, 0),
-                                     192, 128, seed=1)
+    """Forcing the sm90 backward raises, and launches nothing, at (48, 32),
+    in fp32 at (192, 128) and at bf16 (192, 128) with fewer than 64 rows;
+    bf16 (192, 128) with 64 rows or more resolves to it. A pair outside
+    MLA_HEAD_DIMS, and o and dO not d_v wide, are refused."""
+    case = (1, 128, 128, 2, 2, True, 0)
+    lacks = [(case, 48, 32, torch.bfloat16), (case, 192, 128, torch.float32),
+             ((1, 63, 128, 2, 2, True, 0), 192, 128, torch.bfloat16)]
+    inputs = [_mla_bwd_inputs(cuda, dtype, c, dk, dv, seed=1) for c, dk, dv, dtype in lacks]
+    q, k, v, o, do = _mla_bwd_inputs(cuda, torch.bfloat16, case, 192, 128, seed=1)
     before = dict(fops.bwd_launches_by_variant)
-    with pytest.raises(ValueError, match="sm90 backward"):
-        fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True, variant="sm90")
+    for x in inputs:
+        with pytest.raises(ValueError, match="sm90 backward"):
+            fops.flash_attention_bwd_cuda(*x, causal=True, variant="sm90")
+    assert fops.resolve_bwd_variant(q, k, v) == "sm90"
+    assert fops.resolve_bwd_variant(q, k, v, "sm90") == "sm90"
     with pytest.raises(ValueError, match="head dims"):
         fops.flash_attention_bwd_cuda(q, k, q[..., :64], o[..., :64], do[..., :64],
                                       causal=True)
@@ -1992,15 +2009,20 @@ def test_flash_bwd_mla_forced_sm90_raises(cuda):
 @pytest.mark.parametrize("dk,dv", [(192, 128), (48, 32)])
 def test_flash_bwd_mla_reads_a_strided_v(cuda, dk, dv):
     """v as the strided half of a K/V expansion and a non-contiguous dO:
-    the same gradients, bitwise, as contiguous copies."""
+    the same gradients, bitwise, as contiguous copies; (192, 128) through
+    the sm90 backward (its TMA maps take v's and dO's strides), (48, 32)
+    through the mma_sync one."""
     q, k, v, o, _ = _mla_bwd_inputs(cuda, torch.bfloat16, (2, 96, 96, 4, 4, True, 0),
                                     dk, dv, seed=2)
     do = torch.from_numpy(np.random.default_rng(3).standard_normal(
         (2, 4, 96, dv)).astype(np.float32)).to(cuda, torch.bfloat16).transpose(1, 2)
     assert not v.is_contiguous() and not do.is_contiguous()
+    ran = "sm90" if dk == 192 else "mma_sync"
+    before = fops.bwd_launches_by_variant[ran]
     got = fops.flash_attention_bwd_cuda(q, k, v, o, do, causal=True)
     want = fops.flash_attention_bwd_cuda(*(x.contiguous() for x in (q, k, v, o, do)),
                                          causal=True)
+    assert fops.bwd_launches_by_variant[ran] == before + 2
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 

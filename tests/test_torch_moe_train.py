@@ -148,17 +148,64 @@ def test_autograd_function_at_mla_dims_matches_naive(case):
 @pytest.mark.parametrize("dk,dv", fops.MLA_HEAD_DIMS)
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_bwd_variant_of_an_mla_pair_is_mma_sync(dk, dv, dtype):
-    """Every MLA pair's backward goes to the mma_sync kernel, at the train
-    shape too (bf16, 4096 rows); forcing the sm90 backward on it raises; a
-    pair outside MLA_HEAD_DIMS is not taken."""
+    """An MLA pair's backward at the train shape (4096 rows) goes to the
+    mma_sync kernel, but for bf16 (192, 128), deepseek-v2-236b's training
+    call, which the sm90 backward takes; forcing the sm90 backward on any
+    other raises; mma_sync may be forced on each; a pair outside
+    MLA_HEAD_DIMS is not taken."""
     q = torch.empty((1, 4096, 2, dk), dtype=dtype)
     v = torch.empty((1, 4096, 2, dv), dtype=dtype)
-    assert fops._bwd_variant(q, q, v) == "mma_sync"
+    sm90 = (dk, dv, dtype) == (192, 128, torch.bfloat16)
+    assert fops._bwd_variant(q, q, v) == ("sm90" if sm90 else "mma_sync")
     assert fops.resolve_bwd_variant(q, q, v, "mma_sync") == "mma_sync"
-    with pytest.raises(ValueError, match="sm90 backward"):
-        fops.resolve_bwd_variant(q, q, v, "sm90")
+    if sm90:
+        assert fops.resolve_bwd_variant(q, q, v, "sm90") == "sm90"
+    else:
+        with pytest.raises(ValueError, match="sm90 backward"):
+            fops.resolve_bwd_variant(q, q, v, "sm90")
     assert fops.head_dims_supported(dk, dv)
     assert not fops.head_dims_supported(dk, 64)
+
+
+# The sm90 backward's boundary shapes at (192, 128), bf16: (b, sq, skv, h,
+# kv, causal, q_offset): the least rows and keys; 77 rows over 131 keys
+# with a q_offset (ragged, Sq < Skv); GQA group 2.
+SM90_MLA_BF16_CASES = [(1, 64, 64, 2, 2, True, 0), (1, 77, 131, 4, 2, True, 54),
+                       (1, 96, 96, 4, 2, False, 0)]
+
+
+@pytest.mark.parametrize("case", SM90_MLA_BF16_CASES, ids=str)
+def test_bf16_bwd_ref_at_the_sm90_mla_pair_matches_jax_grad(case):
+    """flash_attention_bwd_ref in bf16 at (d_qk, d_v) = (192, 128), v the
+    strided half of a K/V expansion, against jax.grad of the JAX package's
+    chunked flash_attention on the same bf16 inputs, each gradient within
+    3e-2 of its largest magnitude (the bf16 attention tolerance of
+    tests/test_torch_model.py: the two round P, the accumulator and the
+    gradients to bf16 in different places)."""
+    b, sq, skv, h, kv, causal, off = case
+    dk, dv = 192, 128
+    rng = np.random.default_rng(sum(case[:5]))
+    n = lambda *s: rng.standard_normal(s).astype(np.float32)
+    q, k, v, do = n(b, sq, h, dk), n(b, skv, kv, dk), n(b, skv, kv, dv), n(b, sq, h, dv)
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jdo = jnp.asarray(do, jnp.bfloat16).astype(jnp.float32)
+
+    def loss(a, b_, c):
+        o = jattn.flash_attention(a, b_, c, causal=causal, q_offset=off)
+        return jnp.sum(o.astype(jnp.float32) * jdo)
+
+    want = jax.grad(loss, argnums=(0, 1, 2))(jq, jk, jv)
+    tq, tk, tdo = (torch.from_numpy(x).to(torch.bfloat16) for x in (q, k, do))
+    kvb = torch.cat([torch.zeros_like(torch.from_numpy(v)), torch.from_numpy(v)],
+                    dim=-1).to(torch.bfloat16)
+    tv = kvb[..., dv:]
+    o = tattn.flash_attention(tq, tk, tv, causal=causal, q_offset=off)
+    got = flash_attention_bwd_ref(tq, tk, tv, o, tdo, causal=causal, q_offset=off)
+    for name, g, w, x in zip("qkv", got, want, (tq, tk, tv)):
+        assert g.dtype == torch.bfloat16 and g.shape == x.shape, name
+        w = np.asarray(w.astype(jnp.float32))
+        err = float(np.abs(g.float().numpy() - w).max())
+        assert err <= 3e-2 * float(np.abs(w).max()), (name, err, float(np.abs(w).max()))
 
 
 # ---------------------------------------------------------------------------
